@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources under ``ragmeup_tpu_torch/csrc/`` compile with ``nvcc`` into
-one shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), which ``ctypes`` loads. The library is built at first use
+The sources under ``ragmeup_tpu_torch/csrc/`` compile with ``nvcc`` (one
+process per source, all started together) and link into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+which ``ctypes`` loads. The library is built at first use
 into ``build/`` at the repository root, named by a hash of the sources and
 flags so an edited source never loads a stale build. Nothing here runs when
 the module is imported: machines without ``nvcc`` or a card import the
@@ -26,11 +27,13 @@ from typing import Dict, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ragmeup_tpu_torch")
-SOURCES = ("topk.cu", "quant_matmul.cu", "flash_attention.cu")
+SOURCES = ("topk.cu", "quant_matmul.cu", "quant_matmul_int4.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
-KERNELS = ("topk", "int8_matmul", "flash_gqa")
+KERNELS = ("topk", "int8_matmul", "flash_gqa", "topk_int8", "int4_matmul",
+           "int4_matmul_a8")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -78,14 +81,30 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    tmp = f"{path}.{os.getpid()}"
+    objs = [f"{tmp}.{name}.o" for name in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                               os.path.join(CSRC, name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for name, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    build_log = "".join(logs)
+    failed = [(name, proc.returncode, log) for name, proc, log
+              in zip(SOURCES, procs, logs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", f"{tmp}.so", *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            failed = [("link", link.returncode, link.stdout + link.stderr)]
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+    os.replace(f"{tmp}.so", path)
     return path
 
 
@@ -99,9 +118,18 @@ def lib() -> ctypes.CDLL:
             so.rk_topk.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                    vp, vp, vp, vp, vp]
             so.rk_topk.restype = i32
+            so.rk_topk_int8.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                        vp, vp, vp, vp, vp]
+            so.rk_topk_int8.restype = i32
             so.rk_int8_matmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                           vp, vp, vp]
             so.rk_int8_matmul.restype = i32
+            so.rk_int4_matmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                          i32, i32, vp, vp, vp]
+            so.rk_int4_matmul.restype = i32
+            so.rk_int4_matmul_a8.argtypes = [vp, vp, vp, i32, i32, i32, i32,
+                                             i32, i32, vp, vp, vp, vp, vp]
+            so.rk_int4_matmul_a8.restype = i32
             so.rk_flash_gqa.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32,
                                         i32, vp, vp]
             so.rk_flash_gqa.restype = i32

@@ -2,17 +2,18 @@
 
 Counterpart of ``ragmeup_tpu/models/decoder.py`` for the dense-cache
 generate path: RMSNorm → GQA attention with RoPE (llama3/linear frequency
-scaling) → SwiGLU, weight-only int8 projections (``QuantDense``), a KV cache
-of shape (b, cache_len, nkv, hd) updated in place, prefill through the
-causal flash kernel and decode through a grouped einsum with the additive
-mask. ``LocalLLM.generate`` samples at T > 0 (an explicit
-``torch.Generator``) and decodes greedily at T = 0.
+scaling) → SwiGLU, weight-only int8 or packed-int4 projections
+(``QuantDense``), a KV cache of shape (b, cache_len, nkv, hd) updated in
+place, prefill through the causal flash kernel and decode through a grouped
+einsum with the additive mask. ``LocalLLM.generate`` samples at T > 0 (an
+explicit ``torch.Generator``) and decodes greedily at T = 0.
 
 Parameters keep the JAX package's names and layouts (kernels are
-``(in, out)``; int8 kernels ``kernel_q (in, out)`` with ``scale (out,)``),
-so ``models/convert.py`` loads flax trees as they are. Paged serving, MoE,
-int4, tensor parallelism, speculative decoding and ``qk_forward`` are not
-ported yet.
+``(in, out)``; int8 kernels ``kernel_q (in, out)`` with ``scale (out,)``;
+int4 kernels ``kernel_p (in/2, out)`` with ``gscale (in/group, out)``), so
+``models/convert.py`` loads flax trees as they are. Paged serving, MoE,
+tensor parallelism, speculative decoding and ``qk_forward`` are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -27,9 +28,14 @@ from torch import nn
 
 from ragmeup_tpu_torch.models.layers import RMSNorm
 from ragmeup_tpu_torch.ops.attention import flash_attention, flash_attention_gqa
-from ragmeup_tpu_torch.ops.quant_matmul import MAX_ROWS, int8_matmul
+from ragmeup_tpu_torch.ops.quant_matmul import (MAX_ROWS, int4_group_for,
+                                                int4_matmul, int4_tiling,
+                                                int8_matmul,
+                                                quantize_int4_groupwise)
+from ragmeup_tpu_torch.ops.topk import divide_exactly
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+QUANTIZATIONS = ("none", "int8", "int4")
 FLASH_BLOCK = 128  # prefill takes the flash kernel when s and kv_len are multiples
 
 
@@ -45,7 +51,13 @@ class LlamaConfig:
     max_seq_len: int = 8192
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
-    quantization: str = "none"  # none | int8
+    quantization: str = "none"  # none | int8 | int4
+    # int4 scale group along the input dim (0 = int4_tiling's 128-class);
+    # the k-tile (512) takes the output-scaled kernel route
+    int4_group: int = 0
+    # W4A8: int8 activations against the int4 weights; needs
+    # int4_group == 512 (hf_loader.select_kernels sets it)
+    int4_w4a8: bool = False
     tie_embeddings: bool = True  # Llama-3.1-8B uses an untied lm_head
     # the int8 decode kernel for QuantDense with at most 8 rows
     quant_kernel: bool = False
@@ -58,10 +70,9 @@ class LlamaConfig:
     rope_scaling_original_max_position: int = 8192
 
     def __post_init__(self):
-        if self.quantization not in ("none", "int8"):
-            raise NotImplementedError(
-                f"quantization={self.quantization!r}: only none and int8 are "
-                "ported (ROADMAP queue 1: int4)")
+        if self.quantization not in QUANTIZATIONS:
+            raise ValueError(f"quantization={self.quantization!r}: expected "
+                             f"one of {QUANTIZATIONS}")
 
     @property
     def head_dim(self) -> int:
@@ -135,24 +146,38 @@ def quantize_kernel_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric int8 of an (in, out) kernel →
     (kernel_q int8 (in, out), scale f32 (out,)); runs where w lives."""
     w = w.float()
-    scale = torch.clamp_min(w.abs().amax(dim=0, keepdim=True), 1e-8) / 127
+    scale = divide_exactly(torch.clamp_min(w.abs().amax(dim=0, keepdim=True), 1e-8), 127.0)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale[0]
 
 
 class QuantDense(nn.Module):
-    """Weight-only int8 linear (per-output-channel scale), or a plain f32
-    kernel when quantization is off. Rows ≤ 8 with 512-multiple dims take
-    the int8 kernel (``use_kernel``); other shapes dequantize and multiply."""
+    """Weight-only linear: int8 (per-output-channel scale), packed int4
+    (group-wise scales), or a plain f32 kernel when quantization is off.
+    int8: rows ≤ 8 with 512-multiple dims take the int8 kernel
+    (``use_kernel``), other shapes dequantize and multiply. int4: every
+    shape goes through ``int4_matmul``, which routes by shape (W4A8 with
+    ``a8``)."""
 
     def __init__(self, in_features: int, features: int, quantize: bool,
-                 dtype: torch.dtype, use_kernel: bool = False, device=None):
+                 dtype: torch.dtype, use_kernel: bool = False, device=None,
+                 bits: int = 8, q_group: int = 0, a8: bool = False):
         super().__init__()
         self.features = features
         self.quantize = quantize
         self.dtype = dtype
         self.use_kernel = use_kernel
-        if quantize:
+        self.bits = bits
+        self.a8 = a8
+        if quantize and bits == 4:
+            tile_k, group = int4_tiling(in_features)
+            if q_group:
+                group = int4_group_for(tile_k, q_group)
+            self.register_buffer("kernel_p", torch.zeros(
+                in_features // 2, features, dtype=torch.int8, device=device))
+            self.register_buffer("gscale", torch.ones(
+                in_features // group, features, device=device))
+        elif quantize:
             self.register_buffer("kernel_q", torch.zeros(
                 in_features, features, dtype=torch.int8, device=device))
             self.register_buffer("scale", torch.ones(features, device=device))
@@ -166,6 +191,9 @@ class QuantDense(nn.Module):
         x2 = x.reshape(-1, d_in)
         if not self.quantize:
             out = x2 @ self.kernel.to(self.dtype)
+        elif self.bits == 4:
+            out = int4_matmul(x2.to(self.dtype), self.kernel_p, self.gscale,
+                              a8=self.a8)
         elif (self.use_kernel and x2.shape[0] <= MAX_ROWS
               and d_in % 512 == 0 and self.features % 512 == 0):
             # decode: the int8 weights are read once, dequant in the epilogue
@@ -176,17 +204,24 @@ class QuantDense(nn.Module):
         return out.reshape(*lead, self.features)
 
 
+def quant_dense(cfg: LlamaConfig, in_features: int, features: int,
+                device=None) -> QuantDense:
+    """A projection of the decoder with the config's quantization."""
+    return QuantDense(in_features, features, cfg.quantization != "none",
+                      cfg.torch_dtype, cfg.quant_kernel, device,
+                      bits=4 if cfg.quantization == "int4" else 8,
+                      q_group=cfg.int4_group, a8=cfg.int4_w4a8)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.cfg = cfg
         c = cfg
         hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
-        quant = c.quantization == "int8"
-        dt = c.torch_dtype
 
         def dense(i, o):
-            return QuantDense(i, o, quant, dt, c.quant_kernel, device)
+            return quant_dense(c, i, o, device)
         self.q_proj = dense(c.hidden_size, nh * hd)
         self.k_proj = dense(c.hidden_size, nkv * hd)
         self.v_proj = dense(c.hidden_size, nkv * hd)
@@ -241,12 +276,10 @@ class LlamaAttention(nn.Module):
 class LlamaMlp(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        quant = cfg.quantization == "int8"
-        dt = cfg.torch_dtype
         h, f = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = QuantDense(h, f, quant, dt, cfg.quant_kernel, device)
-        self.up_proj = QuantDense(h, f, quant, dt, cfg.quant_kernel, device)
-        self.down_proj = QuantDense(f, h, quant, dt, cfg.quant_kernel, device)
+        self.gate_proj = quant_dense(cfg, h, f, device)
+        self.up_proj = quant_dense(cfg, h, f, device)
+        self.down_proj = quant_dense(cfg, f, h, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -329,13 +362,13 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
                         device=None, std: float = 0.02
                         ) -> Dict[str, torch.Tensor]:
     """Random weights drawn on ``device``: N(0, std) kernels and embeddings,
-    unit norms. With ``cfg.quantization == "int8"`` every kernel is
-    quantized right after it is drawn and the embeddings/lm_head stored in
-    bf16 (the int8 branch of ``quantize_decoder_params``), so an 8B model
-    never exists in f32 at once."""
+    unit norms. With int8 or int4 quantization every kernel is quantized
+    right after it is drawn, where it was drawn, and the embeddings/lm_head
+    are stored in bf16 (``quantize_decoder_params``), so an 8B model never
+    exists in f32 at once."""
     c = cfg
     hd = c.head_dim
-    quant = c.quantization == "int8"
+    quant = c.quantization != "none"
     out: Dict[str, torch.Tensor] = {}
 
     def draw(*shape):
@@ -344,7 +377,10 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
 
     def kernel(name, i, o):
         w = draw(i, o)
-        if quant:
+        if c.quantization == "int4":
+            out[f"{name}.kernel_p"], out[f"{name}.gscale"] = \
+                quantize_int4_groupwise(w, group=c.int4_group or None)
+        elif quant:
             out[f"{name}.kernel_q"], out[f"{name}.scale"] = quantize_kernel_int8(w)
         else:
             out[f"{name}.kernel"] = w

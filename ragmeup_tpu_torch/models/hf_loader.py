@@ -8,7 +8,8 @@ checkpoints is not ported yet and raises.
 
 ``select_kernels`` is the JAX loader's kernel selection as a function of
 the config (flash prefill when head_dim % 128 == 0, the int8 decode kernel
-for int8 weights); ``quantize_decoder_params`` its int8 branch.
+for int8 weights, the 512-row scale group that W4A8 needs);
+``quantize_decoder_params`` its int8 and int4 branches for dense decoders.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ragmeup_tpu_torch.models.decoder import (LlamaConfig, LocalLLM,
                                               quantize_kernel_int8)
 from ragmeup_tpu_torch.models.encoder import BertConfig, SentenceEncoder
 from ragmeup_tpu_torch.models.tokenizer import load_tokenizer
+from ragmeup_tpu_torch.ops.quant_matmul import quantize_int4_groupwise
 
 
 def _no_checkpoints(checkpoint_dir: Optional[str]) -> None:
@@ -35,29 +37,37 @@ def _no_checkpoints(checkpoint_dir: Optional[str]) -> None:
 
 def select_kernels(cfg: LlamaConfig) -> LlamaConfig:
     """Turn on the flash prefill when the head dim is a multiple of 128 and
-    the int8 decode kernel for int8 weights."""
+    the int8 decode kernel for int8 weights; W4A8 int4 weights take the
+    output-scaled layout it needs (``int4_group`` = the 512-row k-tile)."""
     if cfg.head_dim % 128 == 0:
         cfg = dataclasses.replace(cfg, use_flash=True)
     if cfg.quantization == "int8":
         cfg = dataclasses.replace(cfg, quant_kernel=True)
+    if cfg.quantization == "int4" and cfg.int4_w4a8:
+        cfg = dataclasses.replace(cfg, int4_group=512)
     return cfg
 
 
 def quantize_decoder_params(params: Dict[str, torch.Tensor], bits: int = 8,
-                            embeddings_bf16: bool = True
+                            embeddings_bf16: bool = True, int4_group: int = 0
                             ) -> Dict[str, torch.Tensor]:
-    """Post-load weight-only int8: every 2-D ``*.kernel`` becomes
-    ``*.kernel_q`` (int8, same (in, out) layout) + ``*.scale`` (f32
-    per-output-channel), computed where the tensor lives; token_embedding
-    and lm_head are stored in bf16."""
-    if bits != 8:
-        raise NotImplementedError(f"{bits}-bit quantization is not ported "
-                                  "yet (ROADMAP queue 1: int4)")
+    """Post-load weight-only quantization, computed where each tensor lives.
+    int8: every 2-D ``*.kernel`` becomes ``*.kernel_q`` (int8, same (in, out)
+    layout) + ``*.scale`` (f32 per-output-channel). int4: ``*.kernel_p``
+    (packed (in/2, out)) + ``*.gscale`` (f32 (in/group, out); ``int4_group``
+    0 = the default group). token_embedding and lm_head are stored in bf16."""
+    if bits not in (4, 8):
+        raise NotImplementedError(f"{bits}-bit quantization is not ported")
     out: Dict[str, torch.Tensor] = {}
     for name, w in params.items():
         if name.endswith(".kernel") and w.ndim == 2:
             base = name[:-len(".kernel")]
-            out[f"{base}.kernel_q"], out[f"{base}.scale"] = quantize_kernel_int8(w)
+            if bits == 4:
+                out[f"{base}.kernel_p"], out[f"{base}.gscale"] = \
+                    quantize_int4_groupwise(w, group=int4_group or None)
+            else:
+                out[f"{base}.kernel_q"], out[f"{base}.scale"] = \
+                    quantize_kernel_int8(w)
         elif embeddings_bf16 and name in ("token_embedding", "lm_head"):
             out[name] = w.to(torch.bfloat16)
         else:
@@ -94,10 +104,13 @@ def load_cross_encoder(checkpoint_dir: Optional[str], seed: int = 1,
     return CrossEncoder(cfg, tok, seed=seed, batch_size=batch_size, device=device)
 
 
-def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None):
+def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None,
+                   quantization: str = "none", int4_w4a8: bool = False,
+                   int4_group: int = 0, max_seq_len: int = 0):
     """The local chat LLM without a checkpoint: the tiny deterministic
-    random-init model of the JAX package (which ignores its quantization
-    settings without a checkpoint as well)."""
+    random-init model of the JAX package, which ignores the checkpoint
+    settings (``quantization``, ``int4_w4a8``, ``int4_group``,
+    ``max_seq_len``) without a checkpoint as well."""
     _no_checkpoints(checkpoint_dir)
     cfg = LlamaConfig.tiny()
     tok = load_tokenizer(None, cfg.vocab_size)

@@ -1,11 +1,13 @@
-"""Fused dense scoring + top-k: the CUDA kernel and its plain version.
+"""Fused dense scoring + top-k: the CUDA kernels and their plain versions.
 
 Counterpart of ``ragmeup_tpu/ops/topk.py``. ``dense_topk`` scores
 ``queries (b, d) @ corpus_t (d, N) + mask`` and returns the k best
 ``(score, index)`` pairs per query, ties to the lowest index, without
 writing the (b, N) score matrix to device memory (csrc/topk.cu). Queries
 are cast to the corpus dtype before the dot, as the TPU kernel does, so
-near-tie ids agree with it.
+near-tie ids agree with it. ``dense_topk_int8`` does the same over an int8
+corpus with per-column scales: queries are quantized per row on the device
+and scored ``float(int32 dot) * q_scale * c_scale + mask``.
 
 Slots that no live column fills (k larger than the live rows) come out as
 ``(NEG_INF, -1)``: dead and padding columns carry the additive mask value
@@ -35,6 +37,15 @@ def rank_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
     return s[..., :k], i[..., :k]
 
 
+def _rank_scores(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of materialized scores, unfilled slots as (NEG_INF, -1)."""
+    s, i = rank_topk(s, k)
+    unfilled = s <= NEG_INF
+    s = torch.where(unfilled, torch.full_like(s, NEG_INF), s)
+    i = torch.where(unfilled, torch.full_like(i, -1), i)
+    return s, i.to(torch.int32)
+
+
 def dense_topk_plain(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
                      mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -43,11 +54,7 @@ def dense_topk_plain(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
     s = q @ corpus_t.float()
     if mask is not None:
         s = s + mask.reshape(1, -1).float()
-    s, i = rank_topk(s, k)
-    unfilled = s <= NEG_INF
-    s = torch.where(unfilled, torch.full_like(s, NEG_INF), s)
-    i = torch.where(unfilled, torch.full_like(i, -1), i)
-    return s, i.to(torch.int32)
+    return _rank_scores(s, k)
 
 
 def _dense_topk_cuda(queries, corpus_t, k, mask):
@@ -77,6 +84,16 @@ def _dense_topk_cuda(queries, corpus_t, k, mask):
     return out_s, out_i
 
 
+def _check_topk_args(corpus_t: torch.Tensor, k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside 1..{MAX_K} for the fused top-k")
+    n = corpus_t.shape[1]
+    if n % _CHUNK:
+        raise ValueError(f"corpus columns ({n}) must be a multiple of {_CHUNK}")
+    if k > n:
+        raise ValueError(f"k={k} larger than the corpus ({n})")
+
+
 def dense_topk(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
                mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,27 +104,95 @@ def dense_topk(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
     1024-column chunk; mask (1, N) additive f32 (0 live / NEG_INF dead and
     padding). CUDA tensors launch the kernel; CPU tensors take the plain
     version."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside 1..{MAX_K} for the fused top-k")
-    d, n = corpus_t.shape
-    if n % _CHUNK:
-        raise ValueError(f"corpus columns ({n}) must be a multiple of {_CHUNK}")
-    if k > n:
-        raise ValueError(f"k={k} larger than the corpus ({n})")
+    _check_topk_args(corpus_t, k)
     if mask is None:
-        mask = torch.zeros((1, n), dtype=torch.float32, device=corpus_t.device)
+        mask = torch.zeros((1, corpus_t.shape[1]), dtype=torch.float32,
+                           device=corpus_t.device)
     if corpus_t.is_cuda:
         return _dense_topk_cuda(queries, corpus_t, k, mask)
     return dense_topk_plain(queries, corpus_t, k, mask)
+
+
+def divide_exactly(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c correctly rounded on every device. PyTorch's CUDA division by
+    a Python scalar multiplies by the scalar's reciprocal, which can land
+    one ulp away from the division that the JAX and numpy quantizers (and
+    the CUDA kernels) do; a divisor tensor on x's device keeps the true
+    division."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
 def quantize_int8(x: torch.Tensor, axis: int = -1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-vector int8 quantization along ``axis``."""
     amax = x.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    scale = divide_exactly(torch.clamp_min(amax, 1e-8), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.float()
+
+
+def dense_topk_int8_plain(queries: torch.Tensor, corpus_i8: torch.Tensor,
+                          c_scale: torch.Tensor, k: int,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the int8 kernel. The f32 product of int8
+    values is exact (|sum| <= d * 127^2 < 2^24 for d <= 1024), so the scores
+    equal the kernel's int32 sum scaled in the same order."""
+    q_i8, q_scale = quantize_int8(queries.float(), axis=1)
+    s = q_i8.float() @ corpus_i8.float()
+    s = s * q_scale * c_scale.reshape(1, -1).float()
+    if mask is not None:
+        s = s + mask.reshape(1, -1).float()
+    return _rank_scores(s, k)
+
+
+def _dense_topk_int8_cuda(queries, corpus_i8, c_scale, k, mask):
+    d, n = corpus_i8.shape
+    b = queries.shape[0]
+    if corpus_i8.dtype != torch.int8 or d > 1024:
+        raise ValueError(f"dense_topk_int8 kernel: corpus int8 with d <= 1024 "
+                         f"(got {corpus_i8.dtype}, d={d})")
+    q_i8, q_scale = quantize_int8(queries.float(), axis=1)
+    q_i8 = q_i8.contiguous()
+    q_scale = q_scale.reshape(-1).contiguous()
+    c_scale = c_scale.reshape(-1).float().contiguous()
+    mask = mask.reshape(-1).float().contiguous()
+    if mask.numel() != n or c_scale.numel() != n:
+        raise ValueError(f"mask ({mask.numel()}) and scales ({c_scale.numel()}) "
+                         f"must have the corpus's {n} columns")
+    kernels.require_cuda("dense_topk_int8", q_i8, q_scale, corpus_i8, c_scale, mask)
+    nchunks = n // _CHUNK
+    ws_s = torch.empty(2 * b * nchunks * k, dtype=torch.float32, device=q_i8.device)
+    ws_i = torch.empty(2 * b * nchunks * k, dtype=torch.int32, device=q_i8.device)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=q_i8.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=q_i8.device)
+    err = kernels.lib().rk_topk_int8(
+        q_i8.data_ptr(), q_scale.data_ptr(), corpus_i8.data_ptr(),
+        c_scale.data_ptr(), mask.data_ptr(), b, d, n, k, ws_s.data_ptr(),
+        ws_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        kernels.stream_handle(q_i8.device))
+    kernels.check(err, "dense_topk_int8")
+    kernels.count("topk_int8")
+    return out_s, out_i
+
+
+def dense_topk_int8(queries: torch.Tensor, corpus_i8: torch.Tensor,
+                    c_scale: torch.Tensor, k: int,
+                    mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 fused top-k: corpus_i8 (d, N) int8 with per-column dequant
+    scales c_scale (1, N) f32. Queries (b, d) float are quantized per row
+    on their device (``quantize_int8``); scores are
+    ``float(q_i8 @ corpus_i8) * q_scale * c_scale + mask``. Same contract as
+    ``dense_topk`` otherwise. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    _check_topk_args(corpus_i8, k)
+    if mask is None:
+        mask = torch.zeros((1, corpus_i8.shape[1]), dtype=torch.float32,
+                           device=corpus_i8.device)
+    if corpus_i8.is_cuda:
+        return _dense_topk_int8_cuda(queries, corpus_i8, c_scale, k, mask)
+    return dense_topk_int8_plain(queries, corpus_i8, c_scale, k, mask)
 
 
 def topk_oracle(queries: np.ndarray, corpus: np.ndarray, k: int,

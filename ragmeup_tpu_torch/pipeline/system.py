@@ -78,8 +78,11 @@ class RagSystem:
                         "the batched paged serving engine is not ported yet "
                         "(ROADMAP queue 1: paged serving)")
                 if self.llm is None:
-                    self.llm = load_local_llm(cfg.model.llm_checkpoint,
-                                              device=self.device)
+                    m = cfg.model
+                    self.llm = load_local_llm(
+                        m.llm_checkpoint, device=self.device,
+                        quantization=m.quantization, int4_w4a8=m.int4_w4a8,
+                        int4_group=m.int4_group, max_seq_len=m.llm_max_seq_len)
                 backend = LocalChatBackend(
                     self.llm,
                     template=resolve_chat_template(cfg.model.llm_checkpoint),

@@ -2,9 +2,10 @@
 
 Counterpart of ``ragmeup_tpu/retrieval/hybrid.py`` for one device and the
 exact dense engine. ``hybrid_fused_search`` runs, as one function on
-tensors: dense top-k (the fused kernel) → MMR over the top-fetch_k
-candidates when ``search_type="mmr"`` → BM25 → weighted RRF, and brings one
-small result back to the host. The corpus-sharded mesh path and the IVF
+tensors: dense top-k (the fused kernel; for an int8 index the query is
+quantized on the device and scored by the int8 kernel) → MMR over the
+top-fetch_k candidates when ``search_type="mmr"`` → BM25 → weighted RRF,
+and brings one small result back to the host. The corpus-sharded mesh path and the IVF
 engine are not ported yet.
 """
 
@@ -19,7 +20,7 @@ from ragmeup_tpu.data.documents import Chunk
 from ragmeup_tpu.data.store import ChunkStore
 from ragmeup_tpu_torch.ops.fusion import (mmr_select_device, rrf_fuse,
                                           rrf_fuse_device)
-from ragmeup_tpu_torch.ops.topk import NEG_INF, dense_topk
+from ragmeup_tpu_torch.ops.topk import NEG_INF, dense_topk, dense_topk_int8
 from ragmeup_tpu_torch.retrieval.dense import DenseIndex
 from ragmeup_tpu_torch.retrieval.sparse import BM25Index
 
@@ -88,13 +89,19 @@ def _hybrid_fused(qv: torch.Tensor, dense: DenseIndex, sparse: BM25Index,
     """Dense top-k → optional MMR → BM25 → RRF, all on the index device.
     qv: (nq, d) normalized f32 queries. Returns (scores, ids) (nq, k)."""
     corpus_t = dense._corpus_t
+    quantized = dense.dtype == "int8"
     kd = fetch_k if mmr else k
-    ds, di = dense_topk(qv, corpus_t, kd, mask=dense._mask)
+    if quantized:
+        ds, di = dense_topk_int8(qv, corpus_t, dense._scales, kd, mask=dense._mask)
+    else:
+        ds, di = dense_topk(qv, corpus_t, kd, mask=dense._mask)
     valid = ds > NEG_INF / 2
     di = torch.where(valid, di, torch.full_like(di, -1))
     if mmr:
         safe = torch.clamp_min(di, 0).long()
         cand = corpus_t.T[safe].float()                    # (nq, kd, d)
+        if quantized:  # dequantized with the stored scales; the query stays f32
+            cand = cand * dense._scales[0][safe][..., None]
         order = torch.stack([
             mmr_select_device(qv[i], cand[i], valid[i], k, mmr_lambda)
             for i in range(nq)])                           # (nq, k)

@@ -1,10 +1,14 @@
-"""Prefill and decode of the Llama-3.1-8B-shaped int8 decoder on one card,
-with the CUDA kernels and with their plain PyTorch versions.
+"""Prefill and decode of the Llama-3.1-8B-shaped decoder on one card.
 
-    python3 -m ragmeup_tpu_torch.tools.decode_profile
+    python3 -m ragmeup_tpu_torch.tools.decode_profile [--quantization int4 [--w4a8]]
 
-Random weights are drawn on the card as chip_smoke.py draws them at its
-default seed; both runs share them. For each run it prints one JSON line:
+int8 weights (the default) run twice, with the CUDA kernels and with their
+plain PyTorch versions (``quant_kernel`` and ``use_flash`` off). int4
+weights (W4A16 with 128-row scale groups, or W4A8 with 512-row groups) run
+once: their matmul kernels have no switch, since a CUDA tensor of a
+routable shape always launches its kernel. Random weights are drawn on the
+card as chip_smoke.py draws them at its default seed. For each run it
+prints one JSON line:
 
 - ``prefill_ms``: one prefill of a 1000-token prompt (bucket 1024, cache
   2048), host clock around a synchronised call, second of two calls;
@@ -15,9 +19,10 @@ default seed; both runs share them. For each run it prints one JSON line:
 - ``device_busy_share``: that over ``decode_ms_per_token``. The profiler's
   own host work stretches the profiled steps (``profiled_wall_ms_per_token``)
   and not the device's, so the share is taken against the unprofiled time;
-- ``int8_matmul_ms_per_token`` / ``int8_TBps``: device time of the int8
-  kernels per token (partial + split-K reduce) and the int8 weight bytes
-  read per token over it;
+- ``matmul_ms_per_token`` / ``weight_TBps``: device time per token of the
+  quantized matmul kernels (int8: partial + split-K reduce; int4 also the
+  W4A8 row quantization) and the weight bytes they read per token (codes
+  and scales) over it;
 - ``top``: the device's largest kernels per token.
 
 The card's name and power limit come first, as nvidia-smi reports them.
@@ -25,6 +30,7 @@ The card's name and power limit come first, as nvidia-smi reports them.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -64,7 +70,7 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile(llm, label: str, int8_bytes: int) -> dict:
+def profile(llm, label: str, weight_bytes: int) -> dict:
     gen = torch.Generator().manual_seed(1)
     prompt = torch.randint(4, 120000, (PROMPT_TOKENS,), generator=gen).tolist()
     n = len(prompt)
@@ -104,8 +110,9 @@ def profile(llm, label: str, int8_bytes: int) -> dict:
     per_kernel: dict = {}
     for name, s, e in dev:
         per_kernel[name] = per_kernel.get(name, 0.0) + (e - s)
-    int8_us = sum(t for k, t in per_kernel.items() if "rk_int8_matmul" in k)
-    int8_ms = int8_us / PROFILED_TOKENS / 1e3
+    mm_us = sum(t for k, t in per_kernel.items()
+                if "rk_int8_matmul" in k or "rk_int4" in k or "rk_quantize_rows" in k)
+    mm_ms = mm_us / PROFILED_TOKENS / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     device_ms = _union_us(dev) / PROFILED_TOKENS / 1e3
     return {
@@ -115,13 +122,20 @@ def profile(llm, label: str, int8_bytes: int) -> dict:
         "device_ms_per_token": device_ms,
         "device_busy_share": device_ms / (decode_s * 1e3),
         "profiled_wall_ms_per_token": wall_us / PROFILED_TOKENS / 1e3,
-        "int8_matmul_ms_per_token": int8_ms,
-        "int8_TBps": int8_bytes / (int8_ms * 1e-3) / 1e12 if int8_us else None,
+        "matmul_ms_per_token": mm_ms,
+        "weight_TBps": weight_bytes / (mm_ms * 1e-3) / 1e12 if mm_us else None,
         "top": [(k[:80], t / PROFILED_TOKENS / 1e3) for k, t in top],
     }
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quantization", choices=("int8", "int4"), default="int8")
+    ap.add_argument("--w4a8", action="store_true",
+                    help="int4 with int8 activations (512-row scale groups)")
+    args = ap.parse_args()
+    if args.w4a8 and args.quantization != "int4":
+        ap.error("--w4a8 needs --quantization int4")
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile: no CUDA device")
     from ragmeup_tpu_torch import kernels
@@ -133,17 +147,24 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build()
-    cfg = select_kernels(LlamaConfig.llama31_8b())
+    cfg = select_kernels(LlamaConfig.llama31_8b(quantization=args.quantization,
+                                                int4_w4a8=args.w4a8))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_decoder_params(cfg, gen, "cuda")
-    int8_bytes = sum(t.numel() for k, t in params.items() if k.endswith("kernel_q"))
-    plain_cfg = dataclasses.replace(cfg, quant_kernel=False, use_flash=False)
-    for label, c in (("kernels", cfg), ("plain", plain_cfg)):
+    weight_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
+                       if k.rsplit(".", 1)[-1] in ("kernel_q", "scale", "kernel_p",
+                                                    "gscale"))
+    variant = "W4A8" if args.w4a8 else "W4A16" if args.quantization == "int4" else "int8"
+    runs = [(f"{variant} kernels", cfg)]
+    if args.quantization == "int8":
+        runs.append(("int8 plain", dataclasses.replace(cfg, quant_kernel=False,
+                                                       use_flash=False)))
+    for label, c in runs:
         llm = LocalLLM(c, None, params=params, device="cuda")
         kernels.reset_counts()
-        print(json.dumps(profile(llm, label, int8_bytes)), flush=True)
+        print(json.dumps(profile(llm, label, weight_bytes)), flush=True)
         counts = kernels.launch_counts()
-        if any(counts.values()) != (label == "kernels"):
+        if any(counts.values()) != label.endswith("kernels"):
             raise AssertionError(f"{label} run launched {counts}")
         del llm
     return 0

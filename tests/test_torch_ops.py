@@ -106,6 +106,49 @@ def test_dense_topk_rejects_bad_shapes():
         topk.dense_topk(torch.zeros(1, 8), torch.zeros(8, 1024), 129)
 
 
+def _int8_corpus(c):
+    """(d, n) int8 codes and (1, n) scales of the JAX quantizer."""
+    ci8, cs = jtopk.quantize_int8(jnp.asarray(c), axis=1)
+    return np.asarray(ci8).T.copy(), np.asarray(cs).T.copy()
+
+
+@pytest.mark.parametrize("k", [5, 20])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dense_topk_int8_matches_jax(k, seed, no_kernel_library):
+    """Ids exact and scores equal (the int8 dot is exact in f32), with dead
+    columns and exact ties."""
+    q, c, mask, dead = _topk_case(seed)
+    ci8, cs = _int8_corpus(c)
+    js, ji = jtopk.dense_topk_int8(jnp.asarray(q), jnp.asarray(ci8), jnp.asarray(cs),
+                                   k, mask=jnp.asarray(mask))
+    ts, ti = topk.dense_topk_int8(torch.from_numpy(q), torch.from_numpy(ci8),
+                                  torch.from_numpy(cs), k, mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert not set(ti.numpy().ravel().tolist()) & set(dead.tolist())
+
+
+def test_dense_topk_int8_ties_and_unfilled_slots(no_kernel_library):
+    """Exact duplicates rank by lowest index; slots no live column fills
+    come out as (NEG_INF, -1), as from the TPU merge."""
+    q, c, _, _ = _topk_case(2)
+    ci8, cs = _int8_corpus(c)
+    mask = np.zeros((1, 2048), np.float32)
+    _, ti = topk.dense_topk_int8(torch.from_numpy(c[5:6].copy()),
+                                 torch.from_numpy(ci8), torch.from_numpy(cs), 5,
+                                 mask=torch.from_numpy(mask))
+    assert ti[0, :5].tolist() == [5, 700, 701, 702, 703]
+    mask[:] = topk.NEG_INF
+    mask[0, [3, 1500, 77]] = 0.0
+    js, ji = jtopk.dense_topk_int8(jnp.asarray(q), jnp.asarray(ci8), jnp.asarray(cs),
+                                   6, mask=jnp.asarray(mask))
+    ts, ti = topk.dense_topk_int8(torch.from_numpy(q), torch.from_numpy(ci8),
+                                  torch.from_numpy(cs), 6, mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (ti.numpy()[:, 3:] == -1).all() and (ts.numpy()[:, 3:] == topk.NEG_INF).all()
+
+
 def test_quantize_int8_matches_jax():
     x = np.random.default_rng(0).standard_normal((6, 40)).astype(np.float32)
     jq, js = jtopk.quantize_int8(jnp.asarray(x), axis=1)
@@ -126,6 +169,92 @@ def test_int8_matmul_matches_jax(m, no_kernel_library):
                                   torch.from_numpy(s)).numpy()
     assert ty.dtype == np.float32 and ty.shape == (m, n)
     np.testing.assert_allclose(ty, jy, rtol=1e-5, atol=1e-5 * np.abs(jy).max())
+
+
+@pytest.mark.parametrize("k,n,group", [(1024, 512, None), (1024, 512, 512),
+                                       (1536, 256, 256), (768, 64, 512),
+                                       (96, 64, None)])
+def test_int4_packing_matches_jax(k, n, group):
+    """Packed bytes and group scales byte-identical to the numpy quantizer,
+    at groups 128 and 512, a walked-down group (512 on a 768 tile) and
+    inputs whose k does not divide by 512 (tile_k = k)."""
+    w = np.random.default_rng(k + n).standard_normal((k, n)).astype(np.float32)
+    jp, js = jqm.quantize_int4_groupwise(w, group=group)
+    tp, ts = quant_matmul.quantize_int4_groupwise(torch.from_numpy(w), group=group)
+    assert tp.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tp.numpy(), jp)
+    np.testing.assert_array_equal(ts.numpy(), js)
+    tile_k = quant_matmul.int4_tiling(k)[0]
+    assert tile_k == jqm.int4_tiling(k)[0]
+    np.testing.assert_array_equal(quant_matmul.unpack_int4(tp, tile_k).numpy(),
+                                  np.asarray(jqm.unpack_int4(jnp.asarray(jp), tile_k)))
+    q = torch.from_numpy(np.random.default_rng(1).integers(-8, 8, (k, n)).astype(np.int8))
+    assert torch.equal(quant_matmul.unpack_int4(quant_matmul.pack_int4(q, tile_k), tile_k), q)
+
+
+INT4_ROUTES = {  # (m, k, n, group, a8): which route int4_matmul takes
+    "quality": (3, 1024, 512, None, False),
+    "output_scaled": (8, 1024, 1024, 512, False),
+    "w4a8": (20, 1024, 512, 512, True),
+    "fallback_n": (3, 1024, 640, None, False),
+    "fallback_m": (300, 512, 512, None, False),
+}
+
+
+@pytest.mark.parametrize("route", list(INT4_ROUTES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int4_matmul_matches_jax(route, dtype, no_kernel_library):
+    """Every route against JAX's (the Pallas kernels in interpret mode):
+    f32 to rtol 1e-5 (the sums' order differs), bf16 within one bf16 ulp
+    of the largest output (both round once from an f32 sum)."""
+    m, k, n, group, a8 = INT4_ROUTES[route]
+    rng = np.random.default_rng(m + k + n)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jp, js = jqm.quantize_int4_groupwise(w, group=group)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if dtype == "bfloat16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    jy = np.asarray(jqm.int4_matmul(jx, jnp.asarray(jp), jnp.asarray(js), a8=a8),
+                    np.float32)
+    ty = quant_matmul.int4_matmul(tx, torch.from_numpy(jp), torch.from_numpy(js), a8=a8)
+    assert ty.dtype == tx.dtype and ty.shape == (m, n)
+    ty = ty.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(ty, jy, rtol=1e-5, atol=1e-5 * np.abs(jy).max())
+    else:
+        assert np.abs(ty - jy).max() <= 2.0 ** -7 * np.abs(jy).max()
+
+
+def test_int4_matmul_plain_versions_follow_their_rounding():
+    """The quality route rounds each dequantized weight to x's dtype before
+    the dot; W4A8 equals its integer definition exactly."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 1024)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1024, 512)).astype(np.float32))
+    wp, gs = quant_matmul.quantize_int4_groupwise(w)
+    xb = x.to(torch.bfloat16)
+    wd = (quant_matmul.unpack_int4(wp, 512).float()
+          * gs.repeat_interleave(128, 0)).to(torch.bfloat16).float()
+    assert torch.equal(quant_matmul.int4_matmul_plain(xb, wp, gs),
+                       (xb.float() @ wd).to(torch.bfloat16))
+    wp, gs = quant_matmul.quantize_int4_groupwise(w, group=512)
+    xq, xs = topk.quantize_int8(x, axis=1)
+    q = quant_matmul.unpack_int4(wp, 512).long()
+    p = [(xq.long()[:, t * 512:(t + 1) * 512] @ q[t * 512:(t + 1) * 512]).float()
+         for t in range(2)]
+    want = (p[0] * xs * gs[0]) + (p[1] * xs * gs[1])
+    assert torch.equal(quant_matmul.int4_matmul_a8_plain(x, wp, gs), want)
+
+
+@pytest.mark.parametrize("k,n,m,expect", [(4096, 1024, 1, 16), (4096, 4096, 1, 32),
+                                          (4096, 14336, 1, 128), (14336, 4096, 1, 128),
+                                          (4096, 4096, 256, 256), (1536, 512, 8, 16),
+                                          (96, 512, 1, 16)])
+def test_int4_split_k_slices_stay_in_a_tile(k, n, m, expect):
+    tile_k = quant_matmul.int4_tiling(k)[0]
+    ks = quant_matmul.int4_slice_for(k, tile_k, n, -(-m // 8), target_blocks=264)
+    assert ks == expect and (tile_k // 2) % ks == 0
 
 
 @pytest.mark.parametrize("k,n,expect", [(4096, 4096, 64), (4096, 1024, 16),

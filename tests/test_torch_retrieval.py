@@ -1,7 +1,9 @@
 """The port's retrieval engines against the JAX package's and the oracles.
 
-Dense indexes are float32 in both packages here: the point is the
-algorithm, and bf16 rounds at other places in the two frameworks.
+Dense indexes are float32 or int8 in both packages here: the point is the
+algorithm, and bf16 rounds at other places in the two frameworks. int8
+codes and scores are exact in both, so int8 results must be equal. Vectors
+come from seeded numpy tables, never from Python's per-process ``hash``.
 """
 
 import numpy as np
@@ -97,10 +99,10 @@ def test_bm25_save_load_across_packages(tmp_path):
     assert t.search(QUERIES, k=8) == j.search(QUERIES, k=8)
 
 
-def _dense_pair(seed, n=300):
+def _dense_pair(seed, n=300, dtype="float32"):
     v = _vectors(seed, n)
-    t = dense.DenseIndex(32, dtype="float32")
-    j = jdense.DenseIndex(32, dtype="float32")
+    t = dense.DenseIndex(32, dtype=dtype)
+    j = jdense.DenseIndex(32, dtype=dtype)
     for ix in (t, j):
         ix.add(v[:200])
         ix.add(v[200:])
@@ -146,10 +148,10 @@ def test_dense_index_artifact_loads_in_the_other_package(tmp_path, writer):
     assert got == want
 
 
-def _hybrid_pair(seed):
+def _hybrid_pair(seed, dtype="float32"):
     corpus = _corpus(seed, n=120)
     vecs = _vectors(seed, len(corpus))
-    t_d, j_d = dense.DenseIndex(32, dtype="float32"), jdense.DenseIndex(32, dtype="float32")
+    t_d, j_d = dense.DenseIndex(32, dtype=dtype), jdense.DenseIndex(32, dtype=dtype)
     t_s, j_s = sparse.BM25Index(), jsparse.BM25Index()
     for d_, s_ in ((t_d, t_s), (j_d, j_s)):
         d_.add(vecs)
@@ -179,6 +181,65 @@ def test_hybrid_fused_search_matches_jax(search_type, seed):
         np.testing.assert_allclose([s for _, s in ht], [s for _, s in hj], rtol=1e-6)
 
 
+def _int8_state(ix):
+    """(codes, scales) of the live columns of a port or JAX int8 index."""
+    return (np.asarray(ix._corpus_t)[:, :ix.n], np.asarray(ix._scales)[:, :ix.n])
+
+
+@pytest.mark.parametrize("search_type", ["similarity", "mmr"])
+def test_int8_dense_index_matches_jax(search_type):
+    """Same codes and scales after add/delete, the same search (ids and
+    scores equal), and after compact the same codes, rows and searches."""
+    t, j, v = _dense_pair(3, dtype="int8")
+    for a, b in zip(_int8_state(t), _int8_state(j)):
+        np.testing.assert_array_equal(a, b)
+    q = _vectors(9, 4)
+    q[0] = v[4]
+    kw = dict(search_type=search_type, fetch_k=20)
+    assert t.search(q, 10, **kw) == j.search(q, 10, **kw)
+    np.testing.assert_array_equal(t.gather_rows([0, 4, 123]), j.gather_rows([0, 4, 123]))
+    mapping = [-1 if i in (1, 50, 299) else i - sum(i > d for d in (1, 50)) for i in range(300)]
+    t.compact(mapping)
+    j.compact(mapping)
+    assert t.n == j.n == 297
+    for a, b in zip(_int8_state(t), _int8_state(j)):
+        np.testing.assert_array_equal(a, b)
+    assert t.search(q, 7, **kw) == j.search(q, 7, **kw)
+    np.testing.assert_array_equal(t.host_vectors(), j.host_vectors())
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_int8_artifact_loads_in_the_other_package(tmp_path, writer):
+    """The exact codes and scales travel (no re-quantization): the other
+    package's index holds the same state and searches identically."""
+    t, j, _ = _dense_pair(4, dtype="int8")
+    src = j if writer == "jax" else t
+    src.save(str(tmp_path))
+    assert (tmp_path / "codes_int8.npy").exists() and (tmp_path / "scales.npy").exists()
+    other = (dense.DenseIndex if writer == "jax" else jdense.DenseIndex).load(str(tmp_path))
+    assert other.dtype == "int8" and other.n == src.n and other.dead == src.dead
+    for a, b in zip(_int8_state(other), _int8_state(src)):
+        np.testing.assert_array_equal(a, b)
+    q = _vectors(7, 3)
+    for st in ("similarity", "mmr"):
+        assert other.search(q, 10, search_type=st) == src.search(q, 10, search_type=st)
+
+
+@pytest.mark.parametrize("search_type", ["similarity", "mmr"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_int8_hybrid_fused_search_matches_jax(search_type, seed):
+    """The quantized branch of the fused hybrid search: query quantized on
+    the device, int8 top-k, MMR over candidates dequantized with their
+    stored scales. Ids and fused scores equal."""
+    (t_d, t_s), (j_d, j_s), _ = _hybrid_pair(seed, dtype="int8")
+    qv = _vectors(seed + 50, len(QUERIES))
+    kw = dict(weights=(0.5, 0.5), rrf_c=60, re2_prompt="Read the question again: ",
+              search_type=search_type, fetch_k=20, mmr_lambda=0.5)
+    rt = hybrid.hybrid_fused_search(t_d, t_s, QUERIES, qv, 10, **kw)
+    rj = jhybrid.hybrid_fused_search(j_d, j_s, QUERIES, qv, 10, **kw)
+    assert rt == rj and all(rt)
+
+
 def test_hybrid_fused_search_unknown_terms_falls_back_to_dense():
     (t_d, t_s), (j_d, j_s), _ = _hybrid_pair(0)
     qv = _vectors(3, 1)
@@ -194,8 +255,8 @@ def test_hybrid_retriever_refuses_unported_engines():
     with pytest.raises(NotImplementedError):
         hybrid.HybridRetriever(store, dense.DenseIndex(8), sparse.BM25Index(),
                                lambda t: np.zeros((len(t), 8)), ann="ivf")
-    with pytest.raises(NotImplementedError):
-        dense.DenseIndex(8, dtype="int8")
+    with pytest.raises(ValueError):
+        dense.DenseIndex(8, dtype="float16")
 
 
 def test_hybrid_retriever_reranks(tmp_path):
