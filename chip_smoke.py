@@ -9,7 +9,9 @@ Phases (any failure raises and exits non-zero):
    (one process per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the main paths give it, with the stated tolerance; median times of
-   both, from CUDA events.
+   both, and of one PyTorch library call computing the same function where
+   there is one, from CUDA events; the least time the card could take
+   (bytes over 3.35 TB/s or operations over the peak rate of their type).
 4. system, default path: full-width models with random weights drawn on
    the card from --seed (GIST-small-shaped encoder, MiniLM-L-6-shaped
    cross-encoder, Llama-3.1-8B-shaped int8 decoder), a generated corpus of
@@ -22,8 +24,15 @@ Phases (any failure raises and exits non-zero):
    an int8 dense index over the same corpus answer three chat() requests;
    then an int4 W4A8 decoder (512-row groups) on a second RagSystem, which
    loads the saved int8 index artifact, answers one.
+6. system, batched path (run right after phase 4, on its int8 decoder and
+   index artifact): a RagSystem with server.batched_llm serves /chat
+   through the paged engine (512 pages of 128 tokens per layer, 8-step
+   waves, prefix cache, temperature 0.2): four first turns sent at once
+   from four threads, then a follow-up with history. Prints the backend's
+   TTFT and tok/s percentiles and the engine's wave timings; checks the
+   prefix-cache hits and that every page is free or registered after stop.
 
-Each LLM call of a request is timed on its own. Each of the three runs of
+Each LLM call of phases 4-5 is timed on its own. Each of the four runs of
 requests resets the kernels' launch counts just before its requests and
 reads them just after; every kernel of that run's path must have launched.
 
@@ -43,10 +52,15 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 N_DOCS = 16384          # 16 top-k tiles of 1024 columns
 MAX_NEW_TOKENS = 32     # generation.max_new_tokens of the answer
+
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -75,6 +89,20 @@ def median_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take for work that must move `nbytes`
+    (each input read once, each output written once) and do `ops`
+    operations of type `kind`: the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +147,14 @@ def check_topk(gen, n_cols: int) -> dict:
     if err > 1e-5:
         raise AssertionError(f"topk scores differ by {err}")
     q = torch.randn(1, d, generator=gen, device="cuda")
+    qb = q.to(torch.bfloat16)
     return {"max_abs_err": err,
             "ms": median_ms(lambda: topk.dense_topk(q, corpus_t, 20, mask=mask)),
             "plain_ms": median_ms(lambda: topk.dense_topk_plain(q, corpus_t, 20, mask=mask)),
+            # the library yardstick: torch.topk after the matmul
+            "library_ms": median_ms(lambda: torch.topk(
+                (qb @ corpus_t).float() + mask, 20)),
+            **bound(nbytes(q, corpus_t, mask) + 20 * 8, 2 * d * n_cols, "bf16"),
             "shape": f"b=1 d={d} N={n_cols} k=20 bf16"}
 
 
@@ -154,6 +187,8 @@ def check_topk_int8(gen, n_cols: int) -> dict:
             "ms": median_ms(lambda: topk.dense_topk_int8(q, corpus, c_scale, 20, mask=mask)),
             "plain_ms": median_ms(lambda: topk.dense_topk_int8_plain(
                 q, corpus, c_scale, 20, mask=mask)),
+            "library_ms": None,  # no one PyTorch call scores int8 codes and ranks
+            **bound(nbytes(q, corpus, c_scale, mask) + 20 * 8, 2 * d * n_cols, "int8"),
             "shape": f"b=1 d={d} N={n_cols} k=20 int8"}
 
 
@@ -195,8 +230,13 @@ def check_int8_matmul(gen) -> dict:
         return lambda: [fn(xs[w.shape[0]], w, s) for w, s in weights.values()]
     per_shape = {name: round(median_ms(lambda w=w, s=s: qm.int8_matmul(
         xs[w.shape[0]], w, s)), 4) for name, (w, s) in weights.items()}
+    moved = sum(nbytes(w, s) + 2 * (w.shape[0] + w.shape[1])
+                for w, s in weights.values())
+    ops = sum(2 * w.shape[0] * w.shape[1] for w, _ in weights.values())
     return {"max_abs_err": err, "ms": median_ms(layer(qm.int8_matmul), reps=10),
             "plain_ms": median_ms(layer(qm.int8_matmul_plain), reps=10),
+            "library_ms": None,  # PyTorch has no int8-weight bf16 matmul on CUDA
+            **bound(moved, ops, "bf16"),
             "shape": "one decode layer: 7 projections at m=1, bf16",
             "per_shape_ms_l2_warm": per_shape}
 
@@ -215,7 +255,7 @@ def check_int4(gen, a8: bool) -> dict:
 
     def kernel(x, w, s):
         return qm.int4_matmul(x, w, s, a8=a8)
-    err, times = 0.0, {}
+    err, times, moved = 0.0, {}, {}
     for group in (512,) if a8 else (128, 512):
         weights = {}
         for name, (k, n) in DECODE_SHAPES.items():
@@ -236,6 +276,8 @@ def check_int4(gen, a8: bool) -> dict:
                     raise AssertionError(f"int4 a8={a8} group={group} {name} m={m}: "
                                          f"{diff} > {tol}")
                 err = max(err, diff)
+        moved[group] = sum(nbytes(w, s) + 2 * (2 * w.shape[0] + w.shape[1])
+                           for w, s in weights.values())
         for m in (1, 256):
             xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                   for k in (4096, 14336)}
@@ -246,7 +288,11 @@ def check_int4(gen, a8: bool) -> dict:
             times[f"group{group}_m{m}"] = (median_ms(layer(kernel), reps=reps),
                                            median_ms(layer(plain), reps=reps))
     ms, plain_ms = times["group512_m1" if a8 else "group128_m1"]
+    ops = sum(2 * (2 * k) * n for k, n in
+              ((w.shape[0], w.shape[1]) for w, _ in weights.values()))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None,  # PyTorch has no packed-int4 matmul on CUDA
+            **bound(moved[512 if a8 else 128], ops, "int8" if a8 else "bf16"),
             "shape": f"one decode layer: 7 projections at m=1, bf16, group "
                      f"{512 if a8 else 128}",
             "layer_ms_kernel_plain": {k: [round(a, 4), round(b, 4)]
@@ -269,10 +315,107 @@ def check_flash(gen) -> dict:
     err = (o0.float() - o1.float()).abs().max().item()
     if not err <= 2e-2:
         raise AssertionError(f"flash_attention_gqa differs by {err}")
+    s = q.shape[2]
+    # causal: the function reads keys 0..s-1 only; 4 flops per (query, key)
+    # pair and head dim (two products)
+    pairs = q.shape[0] * q.shape[1] * s * (s + 1) // 2
+    kq, vq = k[:, None, :s], v[:, None, :s]
     return {"max_abs_err": err,
             "ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
             "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v), reps=5),
+            "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kq, vq, is_causal=True, enable_gqa=True), reps=5),
+            **bound(2 * nbytes(q) + nbytes(kq, vq), 4 * pairs * 128, "bf16"),
             "shape": "bkv=8 g=4 s=1024 kv_len=2048 hd=128 bf16"}
+
+
+def paged_inputs(gen, b: int, lengths, q_len: int, nh: int = 32, nkv: int = 8,
+                 P: int = 512, ps: int = 128, mp: int = 16):
+    """q (b, q_len, nh, 128) and a bf16 pool (nkv, P, ps, 128) at the 8B
+    serving shapes; each sequence's 16-page table holds distinct pages
+    scattered over the pool (entries past its length too, which the kernel
+    must not read)."""
+    import torch
+    q = torch.randn(b, q_len, nh, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(nkv, P, ps, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(nkv, P, ps, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    idx = torch.randperm(P, generator=gen, device="cuda")[:b * mp].reshape(b, mp)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, idx.to(torch.int32), lens
+
+
+def check_paged(gen) -> dict:
+    """#9 in both modes at the 8B serving shapes (nh 32, nkv 8, hd 128, 128-
+    token pages, 16-page tables over a 512-page pool, bf16). Decode: 8
+    sequences of 1 to 2048 tokens. Chunk-append: a 128-token chunk for 1 and
+    for 4 sequences after prefixes of 0 to 1920 tokens. Tolerance, element by
+    element: two bf16 ulps of the largest |output| of the element's own
+    (sequence, query, head) row (both versions sum in f32 and round once to
+    bf16, in another order). Per row, because a one-key row outputs a raw V
+    row several times larger than a 2048-key row's average: a tolerance set
+    by it would pass a long row with its tail page dropped; the decode check
+    shows that this one does not. Returns the decode and the chunk entries."""
+    import torch
+    from ragmeup_tpu_torch.ops import paged_attention as pa
+
+    def off(out, ref):
+        """|out - ref| and where it exceeds two bf16 ulps of the row's
+        largest |ref| (0 for an all-zero row) or is not finite."""
+        out, ref = out.float(), ref.float()
+        err = (out - ref).abs()
+        big = ref.abs().amax(-1, keepdim=True)
+        tol = 2.0 * torch.exp2(torch.floor(torch.log2(big)) - 7)
+        return err, (err > tol) | ~torch.isfinite(out)
+
+    def compare(name, out, ref):
+        torch.cuda.synchronize()
+        err, bad = off(out, ref)
+        if bad.any():
+            at = tuple(bad.nonzero()[0].tolist())
+            raise AssertionError(
+                f"{name} differs from its plain version at {at} by "
+                f"{err[at].item()}, beyond two bf16 ulps of its row's largest output")
+        return err.max().item()
+
+    lengths = [1, 2048, 777, 128, 129, 1500, 64, 1024]
+    q, k, v, idx, lens = paged_inputs(gen, 8, lengths, 1)
+    qd = q[:, 0].contiguous()
+    ref = pa.paged_attention_plain(qd, k, v, idx, lens)
+    err = compare("paged_attention", pa.paged_attention(qd, k, v, idx, lens), ref)
+    # the tolerance must catch a kernel that drops each long sequence's tail page
+    cut = torch.tensor([n - ((n - 1) % 128 + 1) if n > 128 else n for n in lengths],
+                       dtype=torch.int32, device="cuda")
+    caught = off(pa.paged_attention_plain(qd, k, v, idx, cut), ref)[1].flatten(1).any(1)
+    if not caught[lens > 128].all():
+        raise AssertionError("the paged_attention tolerance passes a dropped tail page")
+    rows = sum(lengths)
+    decode = {"max_abs_err": err,
+              "ms": median_ms(lambda: pa.paged_attention(qd, k, v, idx, lens)),
+              "plain_ms": median_ms(lambda: pa.paged_attention_plain(qd, k, v, idx, lens)),
+              "library_ms": None,  # no one PyTorch call reads a paged pool
+              **bound(2 * rows * 8 * 128 * 2 + 2 * nbytes(qd) + nbytes(idx, lens),
+                      4 * rows * 32 * 128, "bf16"),
+              "shape": f"b=8 nh=32 nkv=8 hd=128 ps=128 lengths={lengths} bf16"}
+    chunk, chunk_err = {}, 0.0
+    for prefixes in ([1920], [0, 640, 1333, 1920]):
+        b = len(prefixes)
+        lengths = [p + 128 for p in prefixes]
+        q, k, v, idx, lens = paged_inputs(gen, b, lengths, 128)
+        chunk_err = max(chunk_err, compare(
+            "paged_attention_chunk", pa.paged_attention_chunk(q, k, v, idx, lens),
+            pa.paged_attention_chunk_plain(q, k, v, idx, lens)))
+        pairs = sum(128 * p + 128 * 129 // 2 for p in prefixes)
+        chunk[b] = {"ms": median_ms(lambda: pa.paged_attention_chunk(q, k, v, idx, lens),
+                                    reps=5),
+                    "plain_ms": median_ms(lambda: pa.paged_attention_chunk_plain(
+                        q, k, v, idx, lens), reps=5),
+                    **bound(2 * sum(lengths) * 8 * 128 * 2 + 2 * nbytes(q)
+                            + nbytes(idx, lens), 4 * pairs * 32 * 128, "bf16"),
+                    "prefixes": prefixes}
+    chunk_entry = dict(chunk[4], max_abs_err=chunk_err, library_ms=None,
+                       shape="q_len=128 b=4 nh=32 nkv=8 hd=128 ps=128 bf16",
+                       b1=chunk[1])
+    return {"decode": decode, "chunk": chunk_entry}
 
 
 # ---------------------------------------------------------------------------
@@ -390,11 +533,13 @@ def time_llm_calls(llm) -> list:
 # the kernels each run of requests must launch
 PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "int4 W4A16": ("topk_int8", "int4_matmul", "flash_gqa"),
-                "int4 W4A8": ("topk_int8", "int4_matmul_a8", "flash_gqa")}
+                "int4 W4A8": ("topk_int8", "int4_matmul_a8", "flash_gqa"),
+                "batched": ("topk", "int8_matmul", "paged_attention",
+                            "paged_attention_chunk")}
 
 
 def rag_config(data_dir: str, index_dir: str, **model):
-    from ragmeup_tpu.config import RagConfig
+    from ragmeup_tpu_torch import RagConfig
     cfg = RagConfig()
     cfg.data.data_directory = data_dir
     cfg.data.index_directory = index_dir
@@ -455,25 +600,101 @@ def drive(label: str, system, llm, queries) -> dict:
     log(f"{label}: launch counts over its {len(queries)} requests: {counts}")
 
     for i, out in enumerate(outs):
-        if not out["reply"]:
-            raise AssertionError(f"{label} request {i + 1}: empty reply")
-        if out["fetched_new_documents"]:
-            docs = out["documents"]
-            if not docs:
-                raise AssertionError(f"{label} request {i + 1}: no documents")
-            for d in docs:
-                if not 0 <= d["pk"] < N_DOCS or not math.isfinite(d["provenance"]):
-                    raise AssertionError(f"{label} request {i + 1}: bad document {d}")
-        elif i != 2:
-            raise AssertionError(f"{label} request {i + 1}: a first turn must fetch")
-        elif out["documents"]:
-            # a follow-up whose fetch decision says no answers from its
-            # history and carries no documents (the pipeline's contract)
-            raise AssertionError(f"{label} request {i + 1}: documents without a fetch")
+        check_reply(label, i, out, first_turn=i != 2)
     missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
     return {"counts": counts, "latency_s": latencies}
+
+
+def check_reply(label: str, i: int, out: dict, first_turn: bool) -> None:
+    """A reply is non-empty; a fetch brings valid documents; a first turn
+    must fetch, and a follow-up that does not fetch carries no documents."""
+    if not out["reply"]:
+        raise AssertionError(f"{label} request {i + 1}: empty reply")
+    if out["fetched_new_documents"]:
+        docs = out["documents"]
+        if not docs:
+            raise AssertionError(f"{label} request {i + 1}: no documents")
+        for d in docs:
+            if not 0 <= d["pk"] < N_DOCS or not math.isfinite(d["provenance"]):
+                raise AssertionError(f"{label} request {i + 1}: bad document {d}")
+    elif first_turn:
+        raise AssertionError(f"{label} request {i + 1}: a first turn must fetch")
+    elif out["documents"]:
+        raise AssertionError(f"{label} request {i + 1}: documents without a fetch")
+
+
+def drive_batched(system, queries) -> dict:
+    """Phase 6: four first turns at once from four threads, then a follow-up
+    with the first one's history, through the paged serving engine. Launch
+    counts are reset just before and read just after."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    backend = system.backend
+    engine = backend.engine
+    engine.wave_timings = []
+    label = "batched"
+    outs, latencies = [None] * 4, [0.0] * 4
+    errors = []
+
+    def one(i):
+        try:
+            t0 = time.perf_counter()
+            outs[i] = system.chat(queries[i])
+            latencies[i] = time.perf_counter() - t0
+        except Exception as exc:  # re-raised below, in the main thread
+            errors.append(exc)
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    follow = system.chat("Tell me more about that.", outs[0]["history"])
+    torch.cuda.synchronize()
+    latencies.append(time.perf_counter() - t1)
+    counts = kernels.launch_counts()
+    outs.append(follow)
+    for i, out in enumerate(outs):
+        log(f"{label} request {i + 1}: {latencies[i] * 1e3:.1f} ms, "
+            f"fetched={out['fetched_new_documents']} rewritten={out['rewritten']} "
+            f"docs={len(out['documents'])} reply={out['reply'][:60]!r} timings="
+            + json.dumps({k: round(v, 1) for k, v in out["timings"].items()}))
+        check_reply(label, i, out, first_turn=i < 4)
+    stats = backend.latency_stats()
+    waves = engine.wave_timings
+    summary = {key: {"n": len(vals), "median_ms": round(statistics.median(vals) * 1e3, 3),
+                     "max_ms": round(max(vals) * 1e3, 3)}
+               for key in ("prep", "dispatch", "fetch")
+               for vals in [[w[key] for w in waves if key in w]] if vals}
+    cache = engine.cache
+    log(f"{label}: 4 concurrent first turns in {wall:.2f} s, follow-up "
+        f"{latencies[-1]:.2f} s; LLM calls {stats}")
+    log(f"{label}: wave timings {json.dumps(summary)}; prefix hits "
+        f"{cache.prefix_hits} of {cache.prefix_lookups} lookups")
+    log(f"{label}: launch counts over its 5 requests: {counts}")
+    missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+    if cache.prefix_hits <= 0:
+        raise AssertionError(f"{label}: no prefix-cache hit over the phase")
+    backend.stop()
+    if backend._worker.is_alive():
+        raise AssertionError(f"{label}: the serving worker did not stop")
+    held = {p for pages in cache.seq_pages.values() for p in pages}
+    if held != {engine._trash} or any(cache.refs[p] for p in cache.page_digest) \
+            or len(cache._free) + len(cache.page_digest) != cache.num_pages - 1:
+        raise AssertionError(f"{label}: pages leaked after stop: {len(cache._free)} "
+                             f"free, {len(cache.page_digest)} registered")
+    return {"counts": counts, "latency_s": latencies, "llm_calls": stats,
+            "waves": summary, "prefix_hits": cache.prefix_hits}
 
 
 def free_card() -> None:
@@ -483,7 +704,7 @@ def free_card() -> None:
 
 
 def run_system(seed: int) -> dict:
-    """The three runs of requests; returns each run's counts and latencies."""
+    """The four runs of requests; returns each run's counts and latencies."""
     import torch
     encoder, cross = build_encoders(seed)
     runs = {}
@@ -500,7 +721,13 @@ def run_system(seed: int) -> dict:
         system = open_system(rag_config(data_dir, os.path.join(tmp, "index")),
                              encoder, cross, llm)
         runs["default"] = drive("default", system, llm, queries)
-        del system, llm
+        cfg = rag_config(data_dir, os.path.join(tmp, "index"))
+        cfg.server.batched_llm = True
+        batched = open_system(cfg, encoder, cross, llm)
+        runs["batched"] = drive_batched(batched, queries[:2] + [
+            f"What is {' '.join(texts[99].split()[:2])}?",
+            f"Summarize the notes on {' '.join(texts[12000].split()[:3])}."])
+        del system, batched, llm
         free_card()
 
         index_q = os.path.join(tmp, "index_int8")
@@ -565,6 +792,10 @@ def main() -> int:
                            "ragmeup_tpu_torch/csrc/quant_matmul_int4.cu",
                            "ragmeup_tpu/ops/quant_matmul.py:257"),
     }
+    paged = check_paged(gen)
+    for name, mode in (("paged_attention", "decode"), ("paged_attention_chunk", "chunk")):
+        results[name] = (paged[mode], "ragmeup_tpu_torch/csrc/paged_attention.cu",
+                         "ragmeup_tpu/ops/paged_attention.py:487")
     for name, (r, _, _) in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
     free_card()
@@ -576,7 +807,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(run["counts"][name] for run in runs.values()),
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
+         **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")}}
         for name, (r, src, rep) in results.items()]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

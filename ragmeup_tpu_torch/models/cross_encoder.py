@@ -14,7 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ragmeup_tpu.data.documents import Chunk
+from ragmeup_tpu_torch.data.documents import Chunk
+from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.encoder import (BertConfig, BertEncoder,
                                               _bucket_len, _device_of)
 from ragmeup_tpu_torch.models.layers import xavier_uniform_
@@ -63,7 +64,7 @@ class CrossEncoder:
         self.max_len = min(max_len, cfg.max_position)
         self.apply_sigmoid = apply_sigmoid
         if model is None:
-            model = CrossEncoderModel(cfg, device=device)
+            model = CrossEncoderModel(cfg, device=resolve_device(device))
             gen = torch.Generator(device=model.pooler_bias.device)
             model.init_weights(gen.manual_seed(seed))
         self.model = model.eval()

@@ -11,9 +11,12 @@ explicit ``torch.Generator``) and decodes greedily at T = 0.
 Parameters keep the JAX package's names and layouts (kernels are
 ``(in, out)``; int8 kernels ``kernel_q (in, out)`` with ``scale (out,)``;
 int4 kernels ``kernel_p (in/2, out)`` with ``gscale (in/group, out)``), so
-``models/convert.py`` loads flax trees as they are. Paged serving, MoE,
-tensor parallelism, speculative decoding and ``qk_forward`` are not ported
-yet.
+``models/convert.py`` loads flax trees as they are. With ``paged_caches``
+the model attends a paged KV pool instead (``ops/paged_attention.py``): one
+token per sequence (batched decode) or a chunk per sequence (chunked
+prefill), written into the pool in place; ``pipeline/serving.py`` drives
+it. MoE, tensor parallelism, speculative decoding and ``qk_forward`` are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -26,8 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.layers import RMSNorm
 from ragmeup_tpu_torch.ops.attention import flash_attention, flash_attention_gqa
+from ragmeup_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_attention_chunk,
+                                                   paged_update_chunk,
+                                                   paged_update_token)
 from ragmeup_tpu_torch.ops.quant_matmul import (MAX_ROWS, int4_group_for,
                                                 int4_matmul, int4_tiling,
                                                 int8_matmul,
@@ -135,10 +143,13 @@ def rope_inv_freq(head_dim: int, theta: float,
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: (b, s, h, hd); cos/sin: (s, hd/2). Computes in f32."""
+    """x: (b, s, h, hd); cos/sin: (s, hd/2), or (b, s, hd/2) for per-row
+    positions. Computes in f32."""
     x1, x2 = x.chunk(2, dim=-1)
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
@@ -227,7 +238,8 @@ class LlamaAttention(nn.Module):
         self.v_proj = dense(c.hidden_size, nkv * hd)
         self.o_proj = dense(nh * hd, c.hidden_size)
 
-    def forward(self, x, cos, sin, attn_bias=None, cache=None, cache_pos=0):
+    def forward(self, x, cos, sin, attn_bias=None, cache=None, cache_pos=0,
+                paged_state=None):
         c = self.cfg
         b, s, _ = x.shape
         hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
@@ -238,6 +250,8 @@ class LlamaAttention(nn.Module):
         # rope rotates in f32, then back to the model dtype
         q = apply_rope(q, cos, sin).to(dt)
         k = apply_rope(k, cos, sin).to(dt)
+        if paged_state is not None:
+            return self.o_proj(self._paged(q, k, v, paged_state))
         if cache is not None:
             ck, cv = cache  # (b, L, nkv, hd), updated in place
             ck[:, cache_pos:cache_pos + s] = k
@@ -272,6 +286,32 @@ class LlamaAttention(nn.Module):
             out = torch.einsum("bnrqk,bknd->bqnrd", weights.to(dt), v)
         return self.o_proj(out.reshape(b, s, nh * hd))
 
+    def _paged(self, q, k, v, paged_state):
+        """Write this step's K/V into the pool in place and attend it.
+        s == 1: batched decode. s > 1: chunk-append (chunked prefill),
+        batched when ``pages`` is 2-D (b, s), else one sequence. Padded
+        tail tokens point at a trash page and sit past every real row's
+        causal limit."""
+        k_pages, v_pages, page_idx, lengths, pages, slots = paged_state
+        b, s, nh, hd = q.shape
+        if s == 1:
+            paged_update_token(k_pages, k[:, 0].transpose(0, 1), pages, slots)
+            paged_update_token(v_pages, v[:, 0].transpose(0, 1), pages, slots)
+            out = paged_attention(q[:, 0], k_pages, v_pages, page_idx, lengths)
+        elif pages.dim() == 2:
+            paged_update_chunk(k_pages, k.permute(2, 0, 1, 3), pages, slots)
+            paged_update_chunk(v_pages, v.permute(2, 0, 1, 3), pages, slots)
+            out = paged_attention_chunk(q, k_pages, v_pages, page_idx, lengths)
+        else:
+            # 1-D pages/slots address ONE sequence's rows; a b > 1 chunk
+            # would attend unwritten K/V
+            if b != 1:
+                raise ValueError("paged chunk-append with 1-D pages needs batch 1")
+            paged_update_token(k_pages, k[0].transpose(0, 1), pages, slots)
+            paged_update_token(v_pages, v[0].transpose(0, 1), pages, slots)
+            out = paged_attention_chunk(q, k_pages, v_pages, page_idx, lengths)
+        return out.reshape(b, s, nh * hd).to(self.cfg.torch_dtype)
+
 
 class LlamaMlp(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
@@ -294,9 +334,9 @@ class LlamaBlock(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device)
         self.mlp = LlamaMlp(cfg, device)
 
-    def forward(self, x, cos, sin, attn_bias, cache, cache_pos):
+    def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None):
         x = x + self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
-                               cache_pos)
+                               cache_pos, paged_state)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -333,21 +373,43 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
                 caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
-                cache_pos: int = 0, head_at: Optional[int] = None
-                ) -> torch.Tensor:
-        """→ f32 logits (b, s, vocab), or (b, 1, vocab) at ``head_at``."""
+                cache_pos: int = 0, head_at=None,
+                paged_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                paged_meta: Optional[tuple] = None, skip_head: bool = False
+                ) -> Optional[torch.Tensor]:
+        """→ f32 logits (b, s, vocab), or (b, 1, vocab) at ``head_at`` (an
+        int, or a (b,) tensor of per-row offsets). positions: (s,) or (b, s).
+
+        ``paged_caches`` (per layer (k_pages, v_pages)) with ``paged_meta``
+        (page_idx, lengths, pages, slots) attends the paged pool and writes
+        this call's K/V into it in place. ``skip_head`` returns None after
+        the layers (a chunked-prefill chunk whose logits nobody reads)."""
         c = self.cfg
         x = self.token_embedding[input_ids].to(c.torch_dtype)
         ang = positions.float()[..., None] * self.inv_freq
         cos, sin = torch.cos(ang), torch.sin(ang)
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
-            x = layer(x, cos, sin, attn_bias, cache, cache_pos)
+            pstate = None
+            if paged_caches is not None:
+                pstate = tuple(paged_caches[i]) + tuple(paged_meta)
+            x = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate)
+        if skip_head:
+            return None
         x = self.final_norm(x)
-        if head_at is not None:
+        if isinstance(head_at, torch.Tensor):
+            x = x[torch.arange(x.shape[0], device=x.device), head_at.long()][:, None]
+        elif head_at is not None:
             x = x[:, head_at:head_at + 1]
         head, head_dtype = self.head()
         return x.to(head_dtype).float() @ head
+
+
+def _next_pow2_int(x: int) -> int:
+    n = 1
+    while n < x:
+        n *= 2
+    return n
 
 
 def causal_bias(q_len: int, kv_len: int, device=None) -> torch.Tensor:
@@ -423,7 +485,7 @@ class LocalLLM:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.eos_ids = set(int(e) for e in eos_ids)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_decoder_params(cfg, gen, self.device)

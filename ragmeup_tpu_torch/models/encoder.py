@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.layers import (LayerNorm, Mlp, MultiHeadAttention,
                                              normal_)
 
@@ -137,7 +138,7 @@ class SentenceEncoder:
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         if model is None:
-            model = BertEncoder(cfg, device=device)
+            model = BertEncoder(cfg, device=resolve_device(device))
             gen = torch.Generator(device=model.token_embedding.device)
             model.init_weights(gen.manual_seed(seed))
         self.model = model.eval()

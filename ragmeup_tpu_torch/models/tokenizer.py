@@ -202,7 +202,7 @@ class SimpleTokenizer:
         # text, 16x faster than the per-char Python loop + per-token md5
         # (the hashing fallback was the fast-reranker wave bottleneck —
         # BENCH_NOTES "fast reranker"); non-ASCII falls back here
-        from ragmeup_tpu.native import simpletok_encode
+        from ragmeup_tpu_torch.native import simpletok_encode
         ids = simpletok_encode(text, self._vocab_size, self.n_special)
         if ids is not None:
             return ids

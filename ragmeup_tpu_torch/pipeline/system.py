@@ -6,11 +6,12 @@ the HTTP server drives: startup (load the on-disk index artifact, or ingest
 the data directory, embed and persist), ``add_document``,
 ``delete_document`` and ``chat``. The RAG state machine
 (``RAGPipeline``), the chat backends, the chunk store, loaders and
-splitters are the JAX package's, reused as they are (none imports jax).
+splitters are the port's own copies of the JAX package's modules.
+``server.batched_llm`` serves concurrent /chat generations through the
+paged continuous-batching engine (``pipeline/serving.py``).
 
 Not ported yet, and refused with NotImplementedError: mesh layouts
-(``parallel.*_axis > 1``), the batched paged serving engine
-(``server.batched_llm``) and the GraphRAG wiring (``graph.enabled``).
+(``parallel.*_axis > 1``) and the GraphRAG wiring (``graph.enabled``).
 """
 
 from __future__ import annotations
@@ -23,18 +24,21 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ragmeup_tpu.config import RagConfig
-from ragmeup_tpu.data.documents import filter_metadata
-from ragmeup_tpu.data.loaders import load_directory, load_file
-from ragmeup_tpu.data.splitters import make_splitter
-from ragmeup_tpu.data.store import ChunkStore
-from ragmeup_tpu.pipeline.llm_backends import (ChatBackend, CloudChatBackend,
-                                               LocalChatBackend,
-                                               resolve_chat_template)
-from ragmeup_tpu.pipeline.rag import RAGPipeline
+from ragmeup_tpu_torch.config import RagConfig
+from ragmeup_tpu_torch.data.documents import filter_metadata
+from ragmeup_tpu_torch.data.loaders import load_directory, load_file
+from ragmeup_tpu_torch.data.splitters import make_splitter
+from ragmeup_tpu_torch.data.store import ChunkStore
+from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.hf_loader import (load_cross_encoder,
                                                 load_local_llm,
                                                 load_sentence_encoder)
+from ragmeup_tpu_torch.pipeline.llm_backends import (ChatBackend,
+                                                     CloudChatBackend,
+                                                     LocalChatBackend,
+                                                     resolve_chat_template)
+from ragmeup_tpu_torch.pipeline.rag import RAGPipeline
+from ragmeup_tpu_torch.pipeline.serving import BatchedChatBackend
 from ragmeup_tpu_torch.retrieval.dense import DenseIndex
 from ragmeup_tpu_torch.retrieval.hybrid import HybridRetriever
 from ragmeup_tpu_torch.retrieval.sparse import BM25Index
@@ -47,8 +51,8 @@ class RagSystem:
                  llm=None, backend: Optional[ChatBackend] = None,
                  extra_retrievers=(), eager_load: bool = True, device=None):
         """``device``: where the indexes and any model this constructor
-        builds live (default: CUDA when present, else the CPU). Injected
-        models keep their own device."""
+        builds live: CUDA unless given another (``"cpu"``); raises without
+        a card. Injected models keep their own device."""
         self.cfg = cfg
         p = cfg.parallel
         if p.corpus_axis > 1 or p.model_axis > 1 or p.data_axis > 1:
@@ -57,9 +61,7 @@ class RagSystem:
         if cfg.graph.enabled:
             raise NotImplementedError(
                 "GraphRAG wiring is not ported yet (ROADMAP queue 1: HTTP layer)")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.encoder = encoder or load_sentence_encoder(
             cfg.model.embedding_checkpoint, dim=cfg.model.embedding_dim,
             device=self.device)
@@ -73,20 +75,28 @@ class RagSystem:
             if cfg.model.use_cloud:
                 backend = CloudChatBackend.from_config(cfg.model)
             else:
-                if cfg.server.batched_llm:
-                    raise NotImplementedError(
-                        "the batched paged serving engine is not ported yet "
-                        "(ROADMAP queue 1: paged serving)")
                 if self.llm is None:
                     m = cfg.model
                     self.llm = load_local_llm(
                         m.llm_checkpoint, device=self.device,
                         quantization=m.quantization, int4_w4a8=m.int4_w4a8,
                         int4_group=m.int4_group, max_seq_len=m.llm_max_seq_len)
-                backend = LocalChatBackend(
-                    self.llm,
-                    template=resolve_chat_template(cfg.model.llm_checkpoint),
-                    assistant_token=cfg.model.llm_assistant_token)
+                template = resolve_chat_template(cfg.model.llm_checkpoint)
+                s = cfg.server
+                if s.batched_llm:
+                    ekw = dict(num_pages=s.kv_pages, page_size=s.kv_page_size,
+                               prefix_cache=s.kv_prefix_cache)
+                    if s.kv_max_pages_per_seq > 0:
+                        ekw["max_pages_per_seq"] = s.kv_max_pages_per_seq
+                    backend = BatchedChatBackend(
+                        self.llm, template=template,
+                        assistant_token=cfg.model.llm_assistant_token,
+                        wave_steps=s.llm_wave_steps,
+                        spec_draft=s.llm_spec_draft, **ekw)
+                else:
+                    backend = LocalChatBackend(
+                        self.llm, template=template,
+                        assistant_token=cfg.model.llm_assistant_token)
         self.backend = backend
         self.extra_retrievers = list(extra_retrievers)
 

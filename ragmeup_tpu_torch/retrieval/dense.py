@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.ops.fusion import mmr_select
 from ragmeup_tpu_torch.ops.topk import (NEG_INF, dense_topk, dense_topk_int8,
                                         quantize_int8)
@@ -49,7 +50,7 @@ class DenseIndex:
         self.dtype = dtype
         self.tile_n = tile_n
         self.normalize = normalize
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.n = 0  # rows ever added (device columns in use)
         self.capacity = 0
         self.dead: set = set()

@@ -16,8 +16,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ragmeup_tpu.data.documents import Chunk
-from ragmeup_tpu.data.store import ChunkStore
+from ragmeup_tpu_torch.data.documents import Chunk
+from ragmeup_tpu_torch.data.store import ChunkStore
 from ragmeup_tpu_torch.ops.fusion import (mmr_select_device, rrf_fuse,
                                           rrf_fuse_device)
 from ragmeup_tpu_torch.ops.topk import NEG_INF, dense_topk, dense_topk_int8

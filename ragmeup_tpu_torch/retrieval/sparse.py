@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.ops.topk import NEG_INF, rank_topk
 
 _TOKEN_RE = re.compile(r"[a-z0-9]+")
@@ -127,7 +128,7 @@ class BM25Index:
         # cap * dense_df_ratio)
         self.dense_df_ratio = dense_df_ratio
         self.dense_min_df = dense_min_df
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.vocab: Dict[str, int] = {}
         self._tri: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._doc_len: List[int] = []
@@ -144,7 +145,7 @@ class BM25Index:
             return None
         if self._native is None:
             try:
-                from ragmeup_tpu import native
+                from ragmeup_tpu_torch import native
                 if native.available():
                     self._native = native.NativeAnalyzer(
                         vocab=list(self.vocab))

@@ -69,10 +69,14 @@ def test_cross_encoder_matches_jax():
         model=convert.cross_encoder_from_flax(tcfg, _numpy_tree(j.params)))
     pairs = [("fox dog", x) for x in TEXTS]
     np.testing.assert_allclose(t.score(pairs), j.score(pairs), rtol=1e-5, atol=1e-6)
-    from ragmeup_tpu.data.documents import Chunk
-    chunks = [Chunk(content=x, metadata={"source": str(i)}) for i, x in enumerate(TEXTS)]
-    got = t.rerank("fox dog", chunks, top_n=3)
-    want = j.rerank("fox dog", chunks, top_n=3)
+    from ragmeup_tpu.data import documents as jdocs
+    from ragmeup_tpu_torch.data import documents
+
+    def chunks(pkg):
+        return [pkg.Chunk(content=x, metadata={"source": str(i)})
+                for i, x in enumerate(TEXTS)]
+    got = t.rerank("fox dog", chunks(documents), top_n=3)
+    want = j.rerank("fox dog", chunks(jdocs), top_n=3)
     assert [c.content for c in got] == [c.content for c in want]
     assert got[0].metadata["relevance_score"] == pytest.approx(
         want[0].metadata["relevance_score"], rel=1e-5)
@@ -97,7 +101,7 @@ def decoders():
     tcfg = hf_loader.select_kernels(decoder.LlamaConfig(**dict(DEC, quantization="int8")))
     assert tcfg.use_flash and tcfg.quant_kernel
     t = decoder.LocalLLM(tcfg, tokenizer.SimpleTokenizer(DEC["vocab_size"]),
-                         params=convert.flax_to_state_dict(qparams))
+                         params=convert.flax_to_state_dict(qparams), device="cpu")
     return j, t, base, qparams
 
 
@@ -152,7 +156,7 @@ def int4_decoders(request):
         **dict(DEC, quantization="int4", int4_w4a8=a8)))
     assert tcfg.use_flash and tcfg.int4_group == group
     t = decoder.LocalLLM(tcfg, tokenizer.SimpleTokenizer(DEC["vocab_size"]),
-                         params=convert.flax_to_state_dict(qparams))
+                         params=convert.flax_to_state_dict(qparams), device="cpu")
     return j, t, base, qparams, group
 
 
@@ -240,12 +244,13 @@ def test_init_decoder_params_quantizes_and_loads(quant, kernel):
     params = decoder.init_decoder_params(cfg, gen)
     assert params[f"layers.0.attention.q_proj.{kernel}"].dtype == torch.int8
     assert params["lm_head"].dtype == torch.bfloat16
-    llm = decoder.LocalLLM(cfg, tokenizer.SimpleTokenizer(cfg.vocab_size), params=params)
+    llm = decoder.LocalLLM(cfg, tokenizer.SimpleTokenizer(cfg.vocab_size), params=params,
+                           device="cpu")
     out = llm.generate([1, 2, 3], max_new_tokens=4, temperature=0.0)
     assert len(out) == 4
     with pytest.raises(RuntimeError):
         decoder.LocalLLM(cfg, None, params={k: v for k, v in params.items()
-                                            if k != "lm_head"})
+                                            if k != "lm_head"}, device="cpu")
 
 
 def test_init_decoder_params_int4_groups():
@@ -257,18 +262,18 @@ def test_init_decoder_params_int4_groups():
     assert params["layers.0.mlp.gate_proj.kernel_p"].shape == (256, 1024)
     assert params["layers.0.mlp.gate_proj.gscale"].shape == (1, 1024)
     assert params["layers.0.mlp.down_proj.gscale"].shape == (2, 512)
-    decoder.LocalLLM(cfg, None, params=params)
+    decoder.LocalLLM(cfg, None, params=params, device="cpu")
 
 
 def test_loaders_without_checkpoint(tmp_path):
-    enc = hf_loader.load_sentence_encoder(None, dim=64)
+    enc = hf_loader.load_sentence_encoder(None, dim=64, device="cpu")
     assert enc.encode(["hello"]).shape == (1, 64)
-    ce = hf_loader.load_cross_encoder(None, kind="flashrank")
+    ce = hf_loader.load_cross_encoder(None, kind="flashrank", device="cpu")
     assert ce.cfg.hidden_size == 128 and ce.score([("a", "b")]).shape == (1,)
-    llm = hf_loader.load_local_llm(None)
+    llm = hf_loader.load_local_llm(None, device="cpu")
     assert llm.cfg == decoder.LlamaConfig.tiny()
     assert hf_loader.load_local_llm(None, quantization="int4", int4_w4a8=True,
-                                    max_seq_len=999).cfg == decoder.LlamaConfig.tiny()
+                                    max_seq_len=999, device="cpu").cfg == decoder.LlamaConfig.tiny()
     with pytest.raises(NotImplementedError):
         hf_loader.load_local_llm(str(tmp_path))
     assert decoder.LlamaConfig(quantization="int4").int4_group == 0

@@ -9,11 +9,11 @@ come from seeded numpy tables, never from Python's per-process ``hash``.
 import numpy as np
 import pytest
 
-from ragmeup_tpu.data.documents import Chunk
-from ragmeup_tpu.data.store import ChunkStore
 from ragmeup_tpu.retrieval import dense as jdense
 from ragmeup_tpu.retrieval import hybrid as jhybrid
 from ragmeup_tpu.retrieval import sparse as jsparse
+from ragmeup_tpu_torch.data.documents import Chunk
+from ragmeup_tpu_torch.data.store import ChunkStore
 from ragmeup_tpu_torch.retrieval import dense, hybrid, sparse
 from ragmeup_tpu_torch.retrieval.sparse import _tail_layers
 
@@ -48,7 +48,7 @@ QUERIES = ["the fox dog", "tech earnings rally", "quantum bits qubits",
 def test_bm25_matches_oracle(head):
     corpus = _corpus(0)
     kw = dict(dense_min_df=3, dense_df_ratio=0.0) if head else {}
-    idx = sparse.BM25Index(**kw)
+    idx = sparse.BM25Index(**kw, device="cpu")
     idx.add(corpus)
     idx.delete_rows([7, 30])
     assert (len(idx._flush()["head_terms"]) > 0) == head
@@ -65,7 +65,7 @@ def test_bm25_matches_oracle(head):
 def test_bm25_matches_jax_bitwise(head):
     corpus = _corpus(1)
     kw = dict(dense_min_df=3, dense_df_ratio=0.0) if head else {}
-    t, j = sparse.BM25Index(**kw), jsparse.BM25Index(**kw)
+    t, j = sparse.BM25Index(**kw, device="cpu"), jsparse.BM25Index(**kw)
     for ix in (t, j):
         ix.add(corpus[:50])
         ix.add(corpus[50:])
@@ -75,7 +75,7 @@ def test_bm25_matches_jax_bitwise(head):
 
 def test_bm25_ties_share_one_score():
     corpus = _corpus(2)
-    idx = sparse.BM25Index()
+    idx = sparse.BM25Index(device="cpu")
     idx.add(corpus)
     scores = dict(idx.search([corpus[3]], k=len(corpus))[0])
     assert scores[3] == scores[10]
@@ -95,13 +95,20 @@ def test_bm25_save_load_across_packages(tmp_path):
     j.add(corpus)
     j.delete_rows([4])
     j.save(str(tmp_path))
-    t = sparse.BM25Index.load(str(tmp_path))
+    t = sparse.BM25Index.load(str(tmp_path), device="cpu")
     assert t.search(QUERIES, k=8) == j.search(QUERIES, k=8)
+
+
+def _load_dense(writer, path):
+    """The other package's DenseIndex loaded from ``writer``'s artifact."""
+    if writer == "jax":
+        return dense.DenseIndex.load(str(path), device="cpu")
+    return jdense.DenseIndex.load(str(path))
 
 
 def _dense_pair(seed, n=300, dtype="float32"):
     v = _vectors(seed, n)
-    t = dense.DenseIndex(32, dtype=dtype)
+    t = dense.DenseIndex(32, dtype=dtype, device="cpu")
     j = jdense.DenseIndex(32, dtype=dtype)
     for ix in (t, j):
         ix.add(v[:200])
@@ -139,7 +146,7 @@ def test_dense_index_compact_matches_jax():
 def test_dense_index_artifact_loads_in_the_other_package(tmp_path, writer):
     t, j, _ = _dense_pair(2)
     (j if writer == "jax" else t).save(str(tmp_path))
-    other = (dense.DenseIndex if writer == "jax" else jdense.DenseIndex).load(str(tmp_path))
+    other = _load_dense(writer, tmp_path)
     src = j if writer == "jax" else t
     assert other.n == src.n and other.dead == src.dead
     q = _vectors(7, 3)
@@ -151,8 +158,8 @@ def test_dense_index_artifact_loads_in_the_other_package(tmp_path, writer):
 def _hybrid_pair(seed, dtype="float32"):
     corpus = _corpus(seed, n=120)
     vecs = _vectors(seed, len(corpus))
-    t_d, j_d = dense.DenseIndex(32, dtype=dtype), jdense.DenseIndex(32, dtype=dtype)
-    t_s, j_s = sparse.BM25Index(), jsparse.BM25Index()
+    t_d, j_d = dense.DenseIndex(32, dtype=dtype, device="cpu"), jdense.DenseIndex(32, dtype=dtype)
+    t_s, j_s = sparse.BM25Index(device="cpu"), jsparse.BM25Index()
     for d_, s_ in ((t_d, t_s), (j_d, j_s)):
         d_.add(vecs)
         s_.add(corpus)
@@ -216,7 +223,7 @@ def test_int8_artifact_loads_in_the_other_package(tmp_path, writer):
     src = j if writer == "jax" else t
     src.save(str(tmp_path))
     assert (tmp_path / "codes_int8.npy").exists() and (tmp_path / "scales.npy").exists()
-    other = (dense.DenseIndex if writer == "jax" else jdense.DenseIndex).load(str(tmp_path))
+    other = _load_dense(writer, tmp_path)
     assert other.dtype == "int8" and other.n == src.n and other.dead == src.dead
     for a, b in zip(_int8_state(other), _int8_state(src)):
         np.testing.assert_array_equal(a, b)
@@ -253,10 +260,10 @@ def test_hybrid_fused_search_unknown_terms_falls_back_to_dense():
 def test_hybrid_retriever_refuses_unported_engines():
     store = ChunkStore()
     with pytest.raises(NotImplementedError):
-        hybrid.HybridRetriever(store, dense.DenseIndex(8), sparse.BM25Index(),
+        hybrid.HybridRetriever(store, dense.DenseIndex(8, device="cpu"), sparse.BM25Index(device="cpu"),
                                lambda t: np.zeros((len(t), 8)), ann="ivf")
     with pytest.raises(ValueError):
-        dense.DenseIndex(8, dtype="float16")
+        dense.DenseIndex(8, dtype="float16", device="cpu")
 
 
 def test_hybrid_retriever_reranks(tmp_path):
@@ -265,9 +272,9 @@ def test_hybrid_retriever_reranks(tmp_path):
     store.add([Chunk(content=t, metadata={"source": f"d{i}.txt"})
                for i, t in enumerate(corpus)])
     vecs = _vectors(4, len(corpus))
-    d_ = dense.DenseIndex(32, dtype="float32")
+    d_ = dense.DenseIndex(32, dtype="float32", device="cpu")
     d_.add(vecs)
-    s_ = sparse.BM25Index()
+    s_ = sparse.BM25Index(device="cpu")
     s_.add(corpus)
 
     class LengthReranker:

@@ -4,10 +4,11 @@ Both systems ingest the same data directory with the same weights (the
 JAX models' params converted into the port's modules) and greedy decoding,
 on the default pipeline (hybrid search with MMR, cross-encoder rerank,
 rewrite loop, Re2, rerank provenance); their chat() results must agree
-over two turns, on a float32 index with a float32 decoder and on an int8
+over two turns, on a float32 index with a float32 decoder, on an int8
 index with an int4 (W4A16) decoder whose projections reach the int4
-kernels. Also: the package imports with jax and flax blocked, and
-chip_smoke.py refuses to run without a GPU.
+kernels, and through the paged serving engine (``server.batched_llm``).
+Also: the package imports with jax and flax blocked, and chip_smoke.py
+refuses to run without a GPU.
 """
 
 import dataclasses
@@ -20,13 +21,14 @@ import numpy as np
 import pytest
 from flax import linen as nn
 
-from ragmeup_tpu.config import RagConfig
+from ragmeup_tpu.config import RagConfig as JaxRagConfig
 from ragmeup_tpu.models import cross_encoder as jce
 from ragmeup_tpu.models import decoder as jdec
 from ragmeup_tpu.models import encoder as jenc
 from ragmeup_tpu.models import hf_loader as jloader
 from ragmeup_tpu.models import tokenizer as jtok
 from ragmeup_tpu.pipeline.system import RagSystem as JaxRagSystem
+from ragmeup_tpu_torch import RagConfig
 from ragmeup_tpu_torch.models import (convert, cross_encoder, decoder, encoder,
                                       hf_loader, tokenizer)
 from ragmeup_tpu_torch.ops import quant_matmul
@@ -48,8 +50,8 @@ def _numpy_tree(params):
     return jax.tree_util.tree_map(np.asarray, nn.meta.unbox(params))
 
 
-def _config(data_dir, index_dir):
-    cfg = RagConfig()
+def _config(data_dir, index_dir, config_cls=RagConfig, batched=False):
+    cfg = config_cls()
     cfg.data.data_directory = data_dir
     cfg.data.index_directory = index_dir
     cfg.data.chunk_size = 96
@@ -58,6 +60,14 @@ def _config(data_dir, index_dir):
     cfg.retrieval.vector_store_k = 6
     cfg.generation.temperature = 0.0
     cfg.generation.max_new_tokens = 6
+    if batched:
+        # paged serving; 16-token pages keep the JAX pool at one token per
+        # row (hd 16), so both engines prefill in chunks with prefix reuse.
+        # The port refuses speculative waves, so the JAX side runs without.
+        cfg.server.batched_llm = True
+        cfg.server.llm_spec_draft = 0
+        cfg.server.kv_page_size = 16
+        cfg.server.kv_max_pages_per_seq = 128
     return cfg
 
 
@@ -73,7 +83,7 @@ LLM_CFG_INT4 = dict(LLM_CFG, hidden_size=512, intermediate_size=1024,
                     quantization="int4")
 
 
-def _build_systems(root, llm_cfg, dense_dtype):
+def _build_systems(root, llm_cfg, dense_dtype, batched=False):
     """(JAX RagSystem, port RagSystem) over one data directory with the same
     weights; ``llm_cfg`` with quantization="int4" quantizes the JAX
     decoder's weights and hands the same int4 tree to both."""
@@ -97,7 +107,7 @@ def _build_systems(root, llm_cfg, dense_dtype):
                               jtok.SimpleTokenizer(llm_cfg["vocab_size"]),
                               params=params)
         t_cfg = hf_loader.select_kernels(t_cfg)
-    j_cfg = _config(str(data), str(root / "index_jax"))
+    j_cfg = _config(str(data), str(root / "index_jax"), JaxRagConfig, batched)
     j_cfg.retrieval.dense_dtype = dense_dtype
     j_sys = JaxRagSystem(j_cfg, encoder=j_enc, cross_encoder=j_ce, llm=j_llm)
 
@@ -109,8 +119,8 @@ def _build_systems(root, llm_cfg, dense_dtype):
         tb, tokenizer.SimpleTokenizer(tb.vocab_size),
         model=convert.cross_encoder_from_flax(tb, _numpy_tree(j_ce.params)))
     t_llm = decoder.LocalLLM(t_cfg, tokenizer.SimpleTokenizer(llm_cfg["vocab_size"]),
-                             params=convert.flax_to_state_dict(params))
-    t_cfg = _config(str(data), str(root / "index_torch"))
+                             params=convert.flax_to_state_dict(params), device="cpu")
+    t_cfg = _config(str(data), str(root / "index_torch"), batched=batched)
     t_cfg.retrieval.dense_dtype = dense_dtype
     t_sys = RagSystem(t_cfg, encoder=t_enc, cross_encoder=t_ce, llm=t_llm,
                       device="cpu")
@@ -126,6 +136,15 @@ def systems(tmp_path_factory):
 @pytest.fixture(scope="module")
 def quantized_systems(tmp_path_factory):
     return _build_systems(tmp_path_factory.mktemp("rag_q"), LLM_CFG_INT4, "int8")
+
+
+@pytest.fixture(scope="module")
+def batched_systems(tmp_path_factory):
+    j_sys, t_sys = _build_systems(tmp_path_factory.mktemp("rag_b"), LLM_CFG,
+                                  "float32", batched=True)
+    yield j_sys, t_sys
+    j_sys.backend.stop()
+    t_sys.backend.stop()
 
 
 def _summary(out):
@@ -168,6 +187,19 @@ def test_quantized_chat_matches_jax_over_two_turns(quantized_systems, monkeypatc
     assert (1, 512) in calls
 
 
+def test_batched_chat_matches_jax_over_two_turns(batched_systems):
+    """server.batched_llm: both systems serve /chat through their paged
+    engines (chunked prefill, prefix cache, waves); replies, documents and
+    histories agree over two turns, and so do the prefix-cache hits."""
+    j_sys, t_sys = batched_systems
+    from ragmeup_tpu_torch.pipeline.serving import BatchedChatBackend
+    assert isinstance(t_sys.backend, BatchedChatBackend)
+    _two_turns_match(j_sys, t_sys)
+    hits = t_sys.backend.engine.cache.prefix_hits
+    assert hits == j_sys.backend.engine.cache.prefix_hits > 0
+    assert t_sys.backend.latency_stats()["completed"] >= 4
+
+
 def test_index_artifact_reloads_and_crud(systems, tmp_path):
     _, t_sys, root = systems
     cfg = t_sys.cfg
@@ -189,7 +221,6 @@ def test_refuses_unported_deployments(systems):
     _, t_sys, _ = systems
     cfg = t_sys.cfg
     for section, field, value in (("parallel", "corpus_axis", 2),
-                                  ("server", "batched_llm", True),
                                   ("graph", "enabled", True)):
         bad = _config(cfg.data.data_directory, cfg.data.index_directory)
         setattr(getattr(bad, section), field, value)
