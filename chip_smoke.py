@@ -31,10 +31,20 @@ Phases (any failure raises and exits non-zero):
    from four threads, then a follow-up with history. Prints the backend's
    TTFT and tok/s percentiles and the engine's wave timings; checks the
    prefix-cache hits and that every page is free or registered after stop.
+7. system, sparse-MoE path: the int4 decoders are freed; a
+   Mixtral-8x7B-shaped int8 decoder (8 experts, top-2; 47.5 GB) with the
+   bf16 index of phase 4 answers three chat() requests ("moe": decode
+   through #10, prefill through the all-experts einsum); a second decoder
+   over the same weights with moe_grouped="on" answers one ("moe
+   grouped": prefill through #12); then the paged engine on the first
+   serves eight first turns at once and a follow-up ("moe batched": waves
+   of 8 rows, 16 (token, expert) slots, through #11). Decode against
+   prefill compares the last token's routed experts layer by layer.
 
-Each LLM call of phases 4-5 is timed on its own. Each of the four runs of
-requests resets the kernels' launch counts just before its requests and
-reads them just after; every kernel of that run's path must have launched.
+Each LLM call of phases 4-5 and 7 is timed on its own. Each of the seven
+runs of requests resets the kernels' launch counts just before its
+requests and reads them just after; every kernel of that run's path must
+have launched.
 
 Prints a JSON line with the kernels' results, then the card's name and
 power limit, and last {"ok": true, "device": {...}}.
@@ -418,6 +428,159 @@ def check_paged(gen) -> dict:
     return {"decode": decode, "chunk": chunk_entry}
 
 
+# Mixtral-8x7B's expert projections: (k, n) of gate, up and down
+MOE_E = 8
+MOE_SHAPES = {"gate": (4096, 14336), "up": (4096, 14336), "down": (14336, 4096)}
+
+
+def moe_experts(gen, e: int, k: int, n: int, kind: str):
+    """(w, scale): int8 codes with per-expert per-column scales, or float
+    experts (bf16 or f32) with no scale."""
+    import torch
+    if kind == "int8":
+        return (torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(e, n, generator=gen, device="cuda") * 2e-4 + 1e-4)
+    w = torch.randn(e, k, n, generator=gen, device="cuda") * 0.02
+    return w.to(getattr(torch, kind)), None
+
+
+def moe_compare(name: str, got, ref) -> float:
+    """|got - ref| within one bf16 ulp of the largest |ref| (bf16: both
+    sides sum in f32 and round once, in another order) or 1e-5 of it (f32
+    activations: only the sum order differs)."""
+    import torch
+    torch.cuda.synchronize()
+    diff = (got.float() - ref.float()).abs().max().item()
+    big = ref.float().abs().max().item()
+    tol = (2.0 ** -7 if ref.dtype == torch.bfloat16 else 1e-5) * big
+    if not (diff <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"{name} differs from its plain version by {diff} > {tol}")
+    return diff
+
+
+def check_moe_gather(gen) -> dict:
+    """#10 at Mixtral's int8 expert shapes (E 8; gate/up 4096 x 14336, down
+    14336 x 4096), S in {2, 16} slots, bf16; float experts at a smaller
+    shape (bf16 experts with bf16 x, f32 experts with f32 x). Tolerance:
+    moe_compare. Times: one decode layer's three projections at S = 2 (two
+    routed experts, 352 MB of int8: beyond the 50 MB L2)."""
+    import torch
+    from ragmeup_tpu_torch.ops import moe_matmul as mm
+    weights = {name: moe_experts(gen, MOE_E, k, n, "int8")
+               for name, (k, n) in MOE_SHAPES.items()}
+    err = 0.0
+    for slots in (2, 16):
+        ids = torch.randint(0, MOE_E, (slots,), generator=gen, device="cuda")
+        ids[:2] = torch.tensor([5, 2])
+        for name in ("gate", "down"):
+            w, s = weights[name]
+            x = torch.randn(slots, w.shape[1], generator=gen, device="cuda").to(torch.bfloat16)
+            err = max(err, moe_compare(f"moe_gather {name} S={slots}",
+                                       mm.moe_gather_matmul(x, w, ids, s),
+                                       mm.moe_gather_matmul_plain(x, w, ids, s)))
+    for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        w, _ = moe_experts(gen, MOE_E, 1024, 2048, kind)
+        x = torch.randn(16, 1024, generator=gen, device="cuda").to(dtype)
+        ids = torch.randint(0, MOE_E, (16,), generator=gen, device="cuda")
+        moe_compare(f"moe_gather {kind} experts", mm.moe_gather_matmul(x, w, ids),
+                    mm.moe_gather_matmul_plain(x, w, ids))
+    ids = torch.tensor([5, 2], device="cuda")
+    xs = {k: torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
+          for k in (4096, 14336)}
+
+    def layer(fn):
+        return lambda: [fn(xs[w.shape[1]], w, ids, s) for w, s in weights.values()]
+    moved = sum(2 * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
+                + nbytes(xs[w.shape[1]]) + 2 * 2 * w.shape[2] for w, _ in weights.values())
+    ops = sum(2 * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
+    return {"max_abs_err": err, "ms": median_ms(layer(mm.moe_gather_matmul), reps=10),
+            "plain_ms": median_ms(layer(mm.moe_gather_matmul_plain), reps=2),
+            "library_ms": None,  # PyTorch has no int8-weight bf16 matmul on CUDA
+            **bound(moved, ops, "bf16"),
+            "shape": "one Mixtral decode layer: gate, up, down at S=2 slots (experts 5, 2), "
+                     "int8 experts, bf16"}
+
+
+def grouped_mm_ms(xs, weights, gsz):
+    """torch._grouped_mm on the bf16-dequantized stacks, where the card's
+    torch has it (a yardstick, not the same function: int8 codes are
+    widened to bf16 first, outside the timing); None otherwise."""
+    import torch
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    offs = torch.cumsum(gsz, 0).to(torch.int32)
+    stacks = [((w.to(torch.bfloat16) * (1 if s is None else s[:, None, :].to(torch.bfloat16)))
+               .transpose(1, 2).contiguous().transpose(1, 2)) for w, s in weights]
+    try:
+        def run():
+            return [torch._grouped_mm(xs[w.shape[1]], w, offs=offs) for w in stacks]
+        run()
+        return median_ms(run, reps=5)
+    except Exception as exc:  # the yardstick is optional; its refusal is logged
+        log(f"  torch._grouped_mm refused: {str(exc).splitlines()[0][:120]}")
+        return None
+
+
+def check_moe_grouped(gen) -> dict:
+    """#11 on the dedup route (16 slots sorted by expert, expert 2 with no
+    rows, 16-row tiles, no_stack) and #12 on the full-stack route (a
+    prefill chunk of 1032 rows over all 8 experts, 128-row tiles), at
+    Mixtral's int8 expert shapes, bf16; both routes also with bf16 experts
+    and with f32 experts and activations at a smaller shape. Held to the
+    plain version of the whole grouped product (no padded layout) with
+    moe_compare. Times: one layer's three projections on each route.
+    Bounds count the experts this data routes to and its real rows."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import moe_matmul as mm
+    weights = {name: moe_experts(gen, MOE_E, k, n, "int8")
+               for name, (k, n) in MOE_SHAPES.items()}
+    routes = {"moe_grouped": (torch.tensor([3, 2, 0, 4, 1, 2, 3, 1]),
+                              dict(tm=16, tile_k=2048, tile_n=1024, no_stack=True)),
+              "moe_grouped_stack": (torch.tensor([100, 180, 90, 150, 120, 132, 160, 100]),
+                                    {})}
+    out = {}
+    for name, (gsz, kw) in routes.items():
+        gsz = gsz.cuda()
+        m = int(gsz.sum())
+        xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k in (4096, 14336)}
+        err = 0.0
+        for proj in ("gate", "down"):
+            w, s = weights[proj]
+            before = kernels.launch_counts()[name]
+            got = mm.moe_grouped_matmul(xs[w.shape[1]], w, gsz, s, **kw)
+            if kernels.launch_counts()[name] == before:
+                raise AssertionError(f"{name}: the {proj} call took another route")
+            err = max(err, moe_compare(f"{name} {proj}", got,
+                                       mm.moe_grouped_matmul_plain(xs[w.shape[1]], w, gsz, s)))
+        for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            w, _ = moe_experts(gen, MOE_E, 1024, 2048, kind)
+            x = torch.randn(m, 1024, generator=gen, device="cuda").to(dtype)
+            fkw = dict(kw, tm=8) if kw and dtype == torch.float32 else kw
+            moe_compare(f"{name} {kind} experts", mm.moe_grouped_matmul(x, w, gsz, **fkw),
+                        mm.moe_grouped_matmul_plain(x, w, gsz))
+
+        def layer(fn, kw=kw):
+            return lambda: [fn(xs[w.shape[1]], w, gsz, s, **kw) for w, s in weights.values()]
+        used = int((gsz > 0).sum())
+        moved = sum(used * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
+                    + nbytes(xs[w.shape[1]]) + 2 * m * w.shape[2] for w, _ in weights.values())
+        ops = sum(2 * m * w.shape[1] * w.shape[2] for w, _ in weights.values())
+        out[name] = {
+            "max_abs_err": err,
+            "ms": median_ms(layer(mm.moe_grouped_matmul), reps=5),
+            "plain_ms": median_ms(layer(lambda x, w, g, s, **_: mm.moe_grouped_matmul_plain(
+                x, w, g, s)), reps=2),
+            "library_ms": None,  # PyTorch has no int8-weight grouped matmul
+            "grouped_mm_bf16_ms": grouped_mm_ms(xs, weights.values(), gsz),
+            **bound(moved, ops, "bf16"),
+            "shape": f"one Mixtral layer: gate, up, down over {m} rows sorted by expert, "
+                     f"group sizes {gsz.tolist()}, int8 experts, bf16"}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the system
 # ---------------------------------------------------------------------------
@@ -462,26 +625,35 @@ def build_encoders(seed: int):
     return encoder, cross
 
 
-def build_llm(seed: int, **quant):
-    """The Llama-3.1-8B-shaped decoder, weights drawn and quantized on the
-    card (int8 by default; ``quantization="int4"``, ``int4_w4a8``)."""
+def build_llm(seed: int, cfg=None, **quant):
+    """The Llama-3.1-8B-shaped decoder (int8 by default;
+    ``quantization="int4"``, ``int4_w4a8``), or the decoder of ``cfg``
+    (Mixtral-8x7B's), weights drawn and quantized on the card."""
     import torch
     from ragmeup_tpu_torch.models.decoder import (LlamaConfig, LocalLLM,
                                                   init_decoder_params)
     from ragmeup_tpu_torch.models.hf_loader import select_kernels
     from ragmeup_tpu_torch.models.tokenizer import SimpleTokenizer
     t0 = time.perf_counter()
-    llm_cfg = select_kernels(LlamaConfig.llama31_8b(**quant))
+    llm_cfg = select_kernels(cfg or LlamaConfig.llama31_8b(**quant))
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     params = init_decoder_params(llm_cfg, gen, "cuda")
+    eos = (2,) if llm_cfg.num_experts else (128001, 128009)
     llm = LocalLLM(llm_cfg, SimpleTokenizer(llm_cfg.vocab_size), params=params,
-                   eos_ids=(128001, 128009), device="cuda")
+                   eos_ids=eos, device="cuda")
     torch.cuda.synchronize()
-    log(f"decoder {llm_cfg.quantization}{' W4A8' if llm_cfg.int4_w4a8 else ''} "
+    log(f"decoder {'Mixtral-8x7B-shaped ' if llm_cfg.num_experts else ''}"
+        f"{llm_cfg.quantization}{' W4A8' if llm_cfg.int4_w4a8 else ''} "
         f"built on the card in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
-    cos = check_decoder(llm)
-    log(f"  decode step vs prefill logits cosine {cos:.5f}")
+    if llm_cfg.num_experts:
+        cos, flips, note = check_moe_decoder(llm)
+        log(f"  decode step vs prefill logits cosine {cos:.5f}; the last token's "
+            f"experts differ in {len(flips)} of {llm_cfg.num_layers} layers {flips}"
+            + (f"; {note}" if note else ""))
+    else:
+        cos = check_decoder(llm)
+        log(f"  decode step vs prefill logits cosine {cos:.5f}")
     return llm
 
 
@@ -511,6 +683,73 @@ def check_decoder(llm) -> float:
     return cos
 
 
+def check_moe_decoder(llm):
+    """check_decoder for the MoE decoder. The decode step runs #10 (each
+    expert product summed in f32, scaled, rounded once), the prefill the
+    bf16 einsum over experts dequantized to bf16, so a near-tie in a router
+    can send the last token to another expert in the two paths, which is no
+    kernel error; from there on the two hidden states differ by a whole
+    expert's output and later layers route apart too. The last token's
+    routed experts are compared layer by layer. Where they agree in every
+    layer, the logits must agree to cosine >= 0.99. At the first layer that
+    routes apart, the flip must be a near-tie: the top_k-th router logit
+    leads the next by at most twice the largest difference between the two
+    paths' router logits there. Returns (cosine, flipped layers, a note on
+    the first flip)."""
+    import torch
+    from ragmeup_tpu_torch.models.decoder import LlamaMoeMlp
+    seen = []
+
+    def hook(mod, args, out):
+        x = args[0].reshape(-1, args[0].shape[-1])
+        seen.append((x.float(), x.float() @ mod.router.float(), mod.route(x)[1]))
+    handles = [layer.mlp.register_forward_hook(hook) for layer in llm.model.layers
+               if isinstance(layer.mlp, LlamaMoeMlp)]
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(4, 30000, (200,), generator=gen).tolist()
+    n = len(ids) - 1
+    try:
+        with torch.inference_mode():
+            cache_len = llm._bucket(len(ids))
+            _, caches = llm._prefill(llm._padded(ids[:n], llm._bucket(n)), n, cache_len)
+            seen.clear()
+            step = llm._decode(ids[n], n, caches).float()
+            at_step = [(x[0], lg[0], i[0]) for x, lg, i in seen]
+            seen.clear()
+            full, _ = llm._prefill(llm._padded(ids, cache_len), len(ids), cache_len)
+            full = full.float()
+            at_full = [(x[n], lg[n], i[n]) for x, lg, i in seen]
+    finally:
+        for h in handles:
+            h.remove()
+    if not (torch.isfinite(step).all() and torch.isfinite(full).all()):
+        raise AssertionError("non-finite decoder logits")
+    if len(at_step) != len(handles) or len(at_full) != len(handles):
+        raise AssertionError("an MoE layer was not run")
+    flips = [i for i, (a, b) in enumerate(zip(at_step, at_full))
+             if not torch.equal(a[2].sort().values, b[2].sort().values)]
+    cos = torch.nn.functional.cosine_similarity(step, full, dim=0).item()
+    if not flips:
+        if cos < 0.99:
+            raise AssertionError(f"decode/prefill logits disagree with the same routing: "
+                                 f"cosine {cos}")
+        return cos, flips, ""
+    f = flips[0]
+    (xs, ls, _), (xf, lf, _) = at_step[f], at_full[f]
+    k = llm.cfg.num_experts_per_tok
+    margin = min((lg.sort(descending=True).values[k - 1]
+                  - lg.sort(descending=True).values[k]).item() for lg in (ls, lf))
+    diff = (ls - lf).abs().max().item()
+    drift = ((xs - xf).norm() / xf.norm()).item()
+    note = (f"first flip at layer {f}: router-logit margin {margin:.5f}, the paths' "
+            f"router logits differ by up to {diff:.5f}, its input by {drift:.5f} "
+            f"(relative norm)")
+    if margin > 2 * diff:
+        raise AssertionError(f"the last token routes apart at layer {f} without a "
+                             f"near-tie: {note}")
+    return cos, flips, note
+
+
 def time_llm_calls(llm) -> list:
     """Wrap ``llm.generate`` so that each call appends (prompt tokens, new
     tokens, ms) to the returned list, timed on the host around a
@@ -535,7 +774,11 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "int4 W4A16": ("topk_int8", "int4_matmul", "flash_gqa"),
                 "int4 W4A8": ("topk_int8", "int4_matmul_a8", "flash_gqa"),
                 "batched": ("topk", "int8_matmul", "paged_attention",
-                            "paged_attention_chunk")}
+                            "paged_attention_chunk"),
+                "moe": ("topk", "int8_matmul", "flash_gqa", "moe_gather"),
+                "moe grouped": ("moe_grouped_stack", "moe_gather"),
+                "moe batched": ("paged_attention", "paged_attention_chunk",
+                                "moe_grouped")}
 
 
 def rag_config(data_dir: str, index_dir: str, **model):
@@ -625,17 +868,19 @@ def check_reply(label: str, i: int, out: dict, first_turn: bool) -> None:
         raise AssertionError(f"{label} request {i + 1}: documents without a fetch")
 
 
-def drive_batched(system, queries) -> dict:
-    """Phase 6: four first turns at once from four threads, then a follow-up
+def drive_batched(system, queries, label: str = "batched") -> dict:
+    """Phase 6: the first turns at once, one thread each, then a follow-up
     with the first one's history, through the paged serving engine. Launch
-    counts are reset just before and read just after."""
+    counts are reset just before and read just after. The engine's wave
+    batch must have reached the next power of two above the number of
+    first turns (pad rows included, as the engine runs it)."""
     import torch
     from ragmeup_tpu_torch import kernels
     backend = system.backend
     engine = backend.engine
     engine.wave_timings = []
-    label = "batched"
-    outs, latencies = [None] * 4, [0.0] * 4
+    n = len(queries)
+    outs, latencies = [None] * n, [0.0] * n
     errors = []
 
     def one(i):
@@ -648,7 +893,7 @@ def drive_batched(system, queries) -> dict:
 
     kernels.reset_counts()
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
     for th in threads:
         th.start()
     for th in threads:
@@ -667,7 +912,7 @@ def drive_batched(system, queries) -> dict:
             f"fetched={out['fetched_new_documents']} rewritten={out['rewritten']} "
             f"docs={len(out['documents'])} reply={out['reply'][:60]!r} timings="
             + json.dumps({k: round(v, 1) for k, v in out["timings"].items()}))
-        check_reply(label, i, out, first_turn=i < 4)
+        check_reply(label, i, out, first_turn=i < n)
     stats = backend.latency_stats()
     waves = engine.wave_timings
     summary = {key: {"n": len(vals), "median_ms": round(statistics.median(vals) * 1e3, 3),
@@ -675,11 +920,16 @@ def drive_batched(system, queries) -> dict:
                for key in ("prep", "dispatch", "fetch")
                for vals in [[w[key] for w in waves if key in w]] if vals}
     cache = engine.cache
-    log(f"{label}: 4 concurrent first turns in {wall:.2f} s, follow-up "
+    log(f"{label}: {n} concurrent first turns in {wall:.2f} s, follow-up "
         f"{latencies[-1]:.2f} s; LLM calls {stats}")
     log(f"{label}: wave timings {json.dumps(summary)}; prefix hits "
-        f"{cache.prefix_hits} of {cache.prefix_lookups} lookups")
-    log(f"{label}: launch counts over its 5 requests: {counts}")
+        f"{cache.prefix_hits} of {cache.prefix_lookups} lookups; wave batch "
+        f"reached {engine._B_hwm} rows")
+    log(f"{label}: launch counts over its {n + 1} requests: {counts}")
+    if engine._B_hwm < 1 << (n - 1).bit_length():
+        raise AssertionError(f"{label}: the wave batch reached {engine._B_hwm} rows, "
+                             f"not {1 << (n - 1).bit_length()}: the first turns did not "
+                             f"overlap")
     missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
@@ -694,7 +944,7 @@ def drive_batched(system, queries) -> dict:
         raise AssertionError(f"{label}: pages leaked after stop: {len(cache._free)} "
                              f"free, {len(cache.page_digest)} registered")
     return {"counts": counts, "latency_s": latencies, "llm_calls": stats,
-            "waves": summary, "prefix_hits": cache.prefix_hits}
+            "waves": summary, "prefix_hits": cache.prefix_hits, "rows": engine._B_hwm}
 
 
 def free_card() -> None:
@@ -704,7 +954,7 @@ def free_card() -> None:
 
 
 def run_system(seed: int) -> dict:
-    """The four runs of requests; returns each run's counts and latencies."""
+    """The seven runs of requests; returns each run's counts and latencies."""
     import torch
     encoder, cross = build_encoders(seed)
     runs = {}
@@ -749,6 +999,40 @@ def run_system(seed: int) -> dict:
         runs["int4 W4A8"] = drive("int4 W4A8", system, llm, queries[1:2])
         del system, llm
         free_card()
+
+        runs.update(run_moe(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
+                            texts, queries))
+    return runs
+
+
+def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
+            queries) -> dict:
+    """Phase 7 on the Mixtral-8x7B-shaped int8 decoder (47.5 GB), with the
+    bf16 index of phase 4: three requests on the default config; one on a
+    second decoder over the same weights (shared storage) with
+    moe_grouped="on"; eight first turns at once through the paged engine,
+    then a follow-up."""
+    import dataclasses
+    from ragmeup_tpu_torch.models.decoder import LlamaConfig, LocalLLM
+    runs = {}
+    llm = build_llm(seed, LlamaConfig.mixtral_8x7b())
+    system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
+    runs["moe"] = drive("moe", system, llm, queries)
+    grouped = LocalLLM(dataclasses.replace(llm.cfg, moe_grouped="on"), llm.tokenizer,
+                       params=llm.model.state_dict(), eos_ids=llm.eos_ids, device="cuda")
+    system = open_system(rag_config(data_dir, index_dir), encoder, cross, grouped)
+    runs["moe grouped"] = drive("moe grouped", system, grouped, queries[:1])
+    del system, grouped
+    free_card()
+    cfg = rag_config(data_dir, index_dir)
+    cfg.server.batched_llm = True
+    batched = open_system(cfg, encoder, cross, llm)
+    runs["moe batched"] = drive_batched(batched, queries[:2] + [
+        f"What is {' '.join(texts[i].split()[:2])}?" for i in (99, 555, 2024, 7777)] + [
+        f"Summarize the notes on {' '.join(texts[i].split()[:3])}."
+        for i in (12000, 15000)], label="moe batched")
+    del batched, llm
+    free_card()
     return runs
 
 
@@ -796,6 +1080,14 @@ def main() -> int:
     for name, mode in (("paged_attention", "decode"), ("paged_attention_chunk", "chunk")):
         results[name] = (paged[mode], "ragmeup_tpu_torch/csrc/paged_attention.cu",
                          "ragmeup_tpu/ops/paged_attention.py:487")
+    free_card()
+    results["moe_gather"] = (check_moe_gather(gen), "ragmeup_tpu_torch/csrc/moe_matmul.cu",
+                             "ragmeup_tpu/ops/moe_matmul.py:47")
+    free_card()
+    grouped = check_moe_grouped(gen)
+    for name, rep in (("moe_grouped", 123), ("moe_grouped_stack", 220)):
+        results[name] = (grouped[name], "ragmeup_tpu_torch/csrc/moe_matmul.cu",
+                         f"ragmeup_tpu/ops/moe_matmul.py:{rep}")
     for name, (r, _, _) in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
     free_card()

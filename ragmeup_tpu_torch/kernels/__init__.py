@@ -28,12 +28,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ragmeup_tpu_torch")
 SOURCES = ("topk.cu", "quant_matmul.cu", "quant_matmul_int4.cu",
-           "flash_attention.cu", "paged_attention.cu")
+           "flash_attention.cu", "paged_attention.cu", "moe_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 KERNELS = ("topk", "int8_matmul", "flash_gqa", "topk_int8", "int4_matmul",
-           "int4_matmul_a8", "paged_attention", "paged_attention_chunk")
+           "int4_matmul_a8", "paged_attention", "paged_attention_chunk",
+           "moe_gather", "moe_grouped", "moe_grouped_stack")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -137,6 +138,12 @@ def lib() -> ctypes.CDLL:
                                               i32, i32, i32, i32, f32, i32, f32,
                                               i32, vp, vp]
             so.rk_paged_attention.restype = i32
+            so.rk_moe_gather.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                         i32, vp, vp, vp]
+            so.rk_moe_gather.restype = i32
+            so.rk_moe_grouped.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                          i32, i32, vp, vp]
+            so.rk_moe_grouped.restype = i32
             so.rk_error_string.argtypes = [i32]
             so.rk_error_string.restype = ctypes.c_char_p
             _lib = so

@@ -15,8 +15,10 @@ int4 kernels ``kernel_p (in/2, out)`` with ``gscale (in/group, out)``), so
 the model attends a paged KV pool instead (``ops/paged_attention.py``): one
 token per sequence (batched decode) or a chunk per sequence (chunked
 prefill), written into the pool in place; ``pipeline/serving.py`` drives
-it. MoE, tensor parallelism, speculative decoding and ``qk_forward`` are
-not ported yet.
+it. With ``num_experts`` > 0 the MLP is a top-k routed sparse MoE
+(``LlamaMoeMlp``, Mixtral / Qwen3-MoE class) over stacked int8 or float
+experts (``ops/moe_matmul.py``). int4 experts, tensor and expert
+parallelism, speculative decoding and ``qk_forward`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch import nn
 from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.layers import RMSNorm
 from ragmeup_tpu_torch.ops.attention import flash_attention, flash_attention_gqa
+from ragmeup_tpu_torch.ops.moe_matmul import moe_gather_matmul, moe_grouped_matmul
 from ragmeup_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_chunk,
                                                    paged_update_chunk,
@@ -40,7 +43,7 @@ from ragmeup_tpu_torch.ops.quant_matmul import (MAX_ROWS, int4_group_for,
                                                 int4_matmul, int4_tiling,
                                                 int8_matmul,
                                                 quantize_int4_groupwise)
-from ragmeup_tpu_torch.ops.topk import divide_exactly
+from ragmeup_tpu_torch.ops.topk import divide_exactly, rank_topk
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANTIZATIONS = ("none", "int8", "int4")
@@ -76,11 +79,30 @@ class LlamaConfig:
     rope_scaling_low_freq_factor: float = 1.0
     rope_scaling_high_freq_factor: float = 4.0
     rope_scaling_original_max_position: int = 8192
+    # Sparse MoE (Mixtral / Qwen3-MoE family): num_experts > 0 swaps the
+    # dense MLP for top-k routed experts (LlamaMoeMlp) over stacked (E, h, f)
+    # expert tensors
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: int = 0  # 0 = intermediate_size
+    # renormalize the kept top-k routing weights to sum 1 (Mixtral always
+    # does; Qwen-MoE gates it behind config norm_topk_prob)
+    norm_topk_prob: bool = True
+    # per-layer MoE flags (Qwen3-MoE keeps some layers dense); empty = every
+    # layer MoE when num_experts > 0
+    moe_layers: tuple = ()
+    # "auto": the all-experts einsum past the batched-decode gates; "on":
+    # grouped matmuls (ops/moe_matmul.moe_grouped_matmul) for every t
+    moe_grouped: str = "auto"
 
     def __post_init__(self):
         if self.quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization={self.quantization!r}: expected "
                              f"one of {QUANTIZATIONS}")
+        if self.num_experts and self.quantization == "int4":
+            raise NotImplementedError(
+                "int4 MoE experts are not ported yet (ROADMAP queue 1: MoE, "
+                "int4 experts)")
 
     @property
     def head_dim(self) -> int:
@@ -109,6 +131,24 @@ class LlamaConfig:
                     rope_scaling_original_max_position=8192)
         base.update(kw)
         return LlamaConfig(**base)
+
+    @staticmethod
+    def mixtral_8x7b(**kw) -> "LlamaConfig":
+        """mistralai/Mixtral-8x7B-v0.1's config.json as the JAX package's
+        ``llama_config_from_hf`` maps ``model_type: mixtral``: 8 experts,
+        top-2 renormalized, rope theta 1e6, 32768 positions, an untied
+        lm_head, int8 weights."""
+        base = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
+                    num_heads=32, num_kv_heads=8, intermediate_size=14336,
+                    num_experts=8, num_experts_per_tok=2, norm_topk_prob=True,
+                    rope_theta=1e6, rms_eps=1e-5, max_seq_len=32768,
+                    tie_embeddings=False, quantization="int8")
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    def is_moe_layer(self, i: int) -> bool:
+        return bool(self.num_experts) and (
+            bool(self.moe_layers[i]) if self.moe_layers else True)
 
 
 def scale_inv_freq_llama3(inv: np.ndarray, factor: float,
@@ -160,6 +200,17 @@ def quantize_kernel_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale = divide_exactly(torch.clamp_min(w.abs().amax(dim=0, keepdim=True), 1e-8), 127.0)
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale[0]
+
+
+def quantize_experts_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked experts (E, in, out) → (int8 (E, in, out), f32 scales (E, out)):
+    each expert per output channel, as ``quantize_kernel_int8``; one expert
+    at a time, where w lives, so the f32 transient stays one expert."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32, device=w.device)
+    for e in range(w.shape[0]):
+        q[e], s[e] = quantize_kernel_int8(w[e])
+    return q, s
 
 
 class QuantDense(nn.Module):
@@ -325,14 +376,128 @@ class LlamaMlp(nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaBlock(nn.Module):
+class LlamaMoeMlp(nn.Module):
+    """Top-k routed sparse-MoE MLP (Mixtral / Qwen3-MoE family), the JAX
+    package's LlamaMoeMlp on one device.
+
+    Routing stays f32: router logits, softmax over all experts, top-k with
+    ties to the lowest index, renormalized when ``norm_topk_prob``. With
+    t tokens and S = t·top_k (token, slot) rows:
+
+    - S ≤ E (decode): per-slot expert-gathered matmuls (#10), reading only
+      the routed experts' weights;
+    - E < S ≤ 4E under ``moe_grouped="auto"`` (batched decode), or any S
+      under ``"on"``: the rows sorted by expert (a stable sort) through
+      grouped matmuls; the dedup route (#11, 16- or 8-row tiles) reads each
+      unique routed expert once, ``"on"`` prefill takes the full-stack
+      route (#12);
+    - otherwise (prefill under "auto"): every expert on every token in the
+      model dtype, combined with f32 one-hot routing weights.
+
+    Slot outputs are combined in f32 times their routing weight, summed
+    over top_k in slot order. Parameters keep the flax names: ``router``
+    (h, E) f32; int8 ``gate_q``/``up_q``/``down_q`` (E, in, out) with
+    ``gate_s``/``up_s``/``down_s`` (E, out); float ``gate``/``up``/``down``.
+    Nothing here reads a device value on the host."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e, h = cfg.num_experts, cfg.hidden_size
+        f = cfg.moe_intermediate_size or cfg.intermediate_size
+        self.router = nn.Parameter(torch.zeros(h, e, device=device))
+        shapes = {"gate": (h, f), "up": (h, f), "down": (f, h)}
+        for name, (i, o) in shapes.items():
+            if cfg.quantization == "int8":
+                self.register_buffer(f"{name}_q", torch.zeros(
+                    e, i, o, dtype=torch.int8, device=device))
+                self.register_buffer(f"{name}_s", torch.ones(e, o, device=device))
+            else:
+                setattr(self, name, nn.Parameter(torch.zeros(e, i, o, device=device)))
+
+    def experts(self, name: str):
+        """(stacked weights, scales or None) of projection ``name``."""
+        if self.cfg.quantization == "int8":
+            return getattr(self, f"{name}_q"), getattr(self, f"{name}_s")
+        return getattr(self, name), None
+
+    def route(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xf (t, h) → (top-k weights (t, k) f32, expert ids (t, k))."""
+        probs = torch.softmax(xf.float() @ self.router.float(), dim=-1)
+        topw, topi = rank_topk(probs, self.cfg.num_experts_per_tok)
+        if self.cfg.norm_topk_prob:
+            topw = topw / topw.sum(dim=-1, keepdim=True)
+        return topw, topi
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        e, top_k, h = c.num_experts, c.num_experts_per_tok, c.hidden_size
+        dt = c.torch_dtype
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, h)
+        t = xf.shape[0]
+        s_tot = t * top_k
+        topw, topi = self.route(xf)
+        (wg, sg), (wu, su), (wn, sn) = (self.experts(p) for p in ("gate", "up", "down"))
+
+        def combine(y):
+            y = y.float() * topw.reshape(s_tot, 1)
+            return y.reshape(t, top_k, h).sum(dim=1).to(dt).reshape(*lead, h)
+
+        if s_tot <= e:
+            # decode: row s = token s // top_k, expert slot s % top_k
+            xs = xf.to(dt).repeat_interleave(top_k, dim=0)
+            ids = topi.reshape(s_tot)
+            a = (F.silu(moe_gather_matmul(xs, wg, ids, sg))
+                 * moe_gather_matmul(xs, wu, ids, su)).to(dt)
+            return combine(moe_gather_matmul(a, wn, ids, sn))
+
+        dedup = c.moe_grouped == "auto" and e < s_tot <= 4 * e
+        if c.moe_grouped == "on" or dedup:
+            ids = topi.reshape(s_tot)
+            order = torch.argsort(ids, stable=True)   # slot order within a group
+            inv = torch.argsort(order)
+            xs = xf.to(dt).repeat_interleave(top_k, dim=0)[order]
+            # group sizes without a host read (bincount reads its max)
+            gsz = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+                0, ids, torch.ones_like(ids))
+            # dedup: a decode-sized m-tile, the largest k/n tiles that
+            # divide (the JAX package's sweep); "on" keeps the defaults
+            tm = (16 if dt == torch.bfloat16 else 8) if dedup else 0
+
+            def tiles(k, n):
+                if not dedup or e * (tm - 1) > 1024:
+                    return 0, 0
+                return (next((v for v in (2048, 1024, 512) if k % v == 0), 0),
+                        next((v for v in (1024, 512) if n % v == 0), 0))
+            (tk_up, tn_up), (tk_dn, tn_dn) = tiles(h, wg.shape[2]), tiles(wg.shape[2], h)
+            a = (F.silu(moe_grouped_matmul(xs, wg, gsz, sg, tm, tk_up, tn_up, dedup))
+                 * moe_grouped_matmul(xs, wu, gsz, su, tm, tk_up, tn_up, dedup)).to(dt)
+            y = moe_grouped_matmul(a, wn, gsz, sn, tm, tk_dn, tn_dn, dedup)
+            return combine(y[inv])
+
+        # every expert on every token, then the f32 one-hot combine (a plain
+        # product outside any kernel, as in the JAX package)
+        def dequant(w, s):
+            w = w.to(dt)
+            return w if s is None else w * s[:, None, :].to(dt)
+        xb = xf.to(dt)
+        cw = torch.zeros(t, e, device=x.device).scatter_add_(1, topi, topw)
+        g = torch.einsum("th,ehf->etf", xb, dequant(wg, sg))
+        u = torch.einsum("th,ehf->etf", xb, dequant(wu, su))
+        y = torch.einsum("etf,efh->eth", F.silu(g) * u, dequant(wn, sn))
+        out = torch.einsum("te,eth->th", cw, y.float())
+        return out.to(dt).reshape(*lead, h)
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, moe: bool = False):
         super().__init__()
         dt = cfg.torch_dtype
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device)
         self.attention = LlamaAttention(cfg, device)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device)
-        self.mlp = LlamaMlp(cfg, device)
+        self.mlp = LlamaMoeMlp(cfg, device) if moe else LlamaMlp(cfg, device)
 
     def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None):
         x = x + self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
@@ -350,8 +515,8 @@ class LlamaModel(nn.Module):
         c = cfg
         self.token_embedding = nn.Parameter(
             torch.zeros(c.vocab_size, c.hidden_size, device=device))
-        self.layers = nn.ModuleList(LlamaBlock(c, device)
-                                    for _ in range(c.num_layers))
+        self.layers = nn.ModuleList(LlamaBlock(c, device, c.is_moe_layer(i))
+                                    for i in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, c.torch_dtype, device)
         if not c.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -423,11 +588,12 @@ def causal_bias(q_len: int, kv_len: int, device=None) -> torch.Tensor:
 def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
                         device=None, std: float = 0.02
                         ) -> Dict[str, torch.Tensor]:
-    """Random weights drawn on ``device``: N(0, std) kernels and embeddings,
-    unit norms. With int8 or int4 quantization every kernel is quantized
-    right after it is drawn, where it was drawn, and the embeddings/lm_head
-    are stored in bf16 (``quantize_decoder_params``), so an 8B model never
-    exists in f32 at once."""
+    """Random weights drawn on ``device``: N(0, std) kernels, embeddings,
+    routers and expert stacks, unit norms. With int8 or int4 quantization
+    every kernel (int8: every (E, in, out) expert stack, one expert at a
+    time) is quantized right after it is drawn, where it was drawn, and the
+    embeddings/lm_head are stored in bf16 (``quantize_decoder_params``), so
+    an 8B model never exists in f32 at once; routers stay f32."""
     c = cfg
     hd = c.head_dim
     quant = c.quantization != "none"
@@ -460,6 +626,19 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
         kernel(f"{p}.attention.v_proj", c.hidden_size, c.num_kv_heads * hd)
         kernel(f"{p}.attention.o_proj", c.num_heads * hd, c.hidden_size)
         ones(f"{p}.post_attn_norm.scale", c.hidden_size)
+        if c.is_moe_layer(i):
+            out[f"{p}.mlp.router"] = draw(c.hidden_size, c.num_experts)
+            f = c.moe_intermediate_size or c.intermediate_size
+            for name, (fi, fo) in (("gate", (c.hidden_size, f)), ("up", (c.hidden_size, f)),
+                                   ("down", (f, c.hidden_size))):
+                w = draw(c.num_experts, fi, fo)
+                if quant:
+                    out[f"{p}.mlp.{name}_q"], out[f"{p}.mlp.{name}_s"] = \
+                        quantize_experts_int8(w)
+                else:
+                    out[f"{p}.mlp.{name}"] = w
+                del w
+            continue
         kernel(f"{p}.mlp.gate_proj", c.hidden_size, c.intermediate_size)
         kernel(f"{p}.mlp.up_proj", c.hidden_size, c.intermediate_size)
         kernel(f"{p}.mlp.down_proj", c.intermediate_size, c.hidden_size)

@@ -1,14 +1,17 @@
-"""Prefill and decode of the Llama-3.1-8B-shaped decoder on one card.
+"""Prefill and decode of the Llama-3.1-8B-shaped (or, with ``--moe``, the
+Mixtral-8x7B-shaped int8) decoder on one card.
 
     python3 -m ragmeup_tpu_torch.tools.decode_profile [--quantization int4 [--w4a8]]
+    python3 -m ragmeup_tpu_torch.tools.decode_profile --moe
 
 int8 weights (the default) run twice, with the CUDA kernels and with their
 plain PyTorch versions (``quant_kernel`` and ``use_flash`` off). int4
-weights (W4A16 with 128-row scale groups, or W4A8 with 512-row groups) run
-once: their matmul kernels have no switch, since a CUDA tensor of a
-routable shape always launches its kernel. Random weights are drawn on the
-card as chip_smoke.py draws them at its default seed. For each run it
-prints one JSON line:
+weights (W4A16 with 128-row scale groups, or W4A8 with 512-row groups) and
+the MoE decoder run once: their matmul kernels have no switch, since a
+CUDA tensor of a routable shape always launches its kernel (the MoE
+prefill takes the all-experts einsum, its decode the expert gather #10).
+Random weights are drawn on the card as chip_smoke.py draws them at its
+default seed. For each run it prints one JSON line:
 
 - ``prefill_ms``: one prefill of a 1000-token prompt (bucket 1024, cache
   2048), host clock around a synchronised call, second of two calls;
@@ -22,7 +25,10 @@ prints one JSON line:
 - ``matmul_ms_per_token`` / ``weight_TBps``: device time per token of the
   quantized matmul kernels (int8: partial + split-K reduce; int4 also the
   W4A8 row quantization) and the weight bytes they read per token (codes
-  and scales) over it;
+  and scales) over it; for the MoE decoder these are the attention
+  projections', and ``expert_ms_per_token`` / ``expert_weight_TBps`` the
+  expert gather's (partials and reduce) over the routed experts' codes
+  and scales (top_k experts per layer per token);
 - ``top``: the device's largest kernels per token.
 
 The card's name and power limit come first, as nvidia-smi reports them.
@@ -70,9 +76,10 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile(llm, label: str, weight_bytes: int) -> dict:
+def profile(llm, label: str, weight_bytes: int, expert_bytes: int = 0) -> dict:
     gen = torch.Generator().manual_seed(1)
-    prompt = torch.randint(4, 120000, (PROMPT_TOKENS,), generator=gen).tolist()
+    prompt = torch.randint(4, min(120000, llm.cfg.vocab_size), (PROMPT_TOKENS,),
+                           generator=gen).tolist()
     n = len(prompt)
     cache_len = llm._bucket(n + 64)
     ids = llm._padded(prompt, llm._bucket(n))
@@ -115,6 +122,12 @@ def profile(llm, label: str, weight_bytes: int) -> dict:
     mm_ms = mm_us / PROFILED_TOKENS / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     device_ms = _union_us(dev) / PROFILED_TOKENS / 1e3
+    moe = {}
+    if expert_bytes:
+        ex_ms = sum(t for k, t in per_kernel.items()
+                    if "rk_moe_gather" in k) / PROFILED_TOKENS / 1e3
+        moe = {"expert_ms_per_token": ex_ms,
+               "expert_weight_TBps": expert_bytes / (ex_ms * 1e-3) / 1e12 if ex_ms else None}
     return {
         "label": label,
         "prefill_ms": prefill_s * 1e3,
@@ -124,6 +137,7 @@ def profile(llm, label: str, weight_bytes: int) -> dict:
         "profiled_wall_ms_per_token": wall_us / PROFILED_TOKENS / 1e3,
         "matmul_ms_per_token": mm_ms,
         "weight_TBps": weight_bytes / (mm_ms * 1e-3) / 1e12 if mm_us else None,
+        **moe,
         "top": [(k[:80], t / PROFILED_TOKENS / 1e3) for k, t in top],
     }
 
@@ -133,9 +147,13 @@ def main() -> int:
     ap.add_argument("--quantization", choices=("int8", "int4"), default="int8")
     ap.add_argument("--w4a8", action="store_true",
                     help="int4 with int8 activations (512-row scale groups)")
+    ap.add_argument("--moe", action="store_true",
+                    help="the Mixtral-8x7B-shaped int8 decoder")
     args = ap.parse_args()
     if args.w4a8 and args.quantization != "int4":
         ap.error("--w4a8 needs --quantization int4")
+    if args.moe and args.quantization != "int8":
+        ap.error("--moe takes int8 experts only")
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile: no CUDA device")
     from ragmeup_tpu_torch import kernels
@@ -147,22 +165,31 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build()
-    cfg = select_kernels(LlamaConfig.llama31_8b(quantization=args.quantization,
-                                                int4_w4a8=args.w4a8))
+    if args.moe:
+        cfg = select_kernels(LlamaConfig.mixtral_8x7b())
+    else:
+        cfg = select_kernels(LlamaConfig.llama31_8b(quantization=args.quantization,
+                                                    int4_w4a8=args.w4a8))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_decoder_params(cfg, gen, "cuda")
     weight_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
                        if k.rsplit(".", 1)[-1] in ("kernel_q", "scale", "kernel_p",
                                                     "gscale"))
-    variant = "W4A8" if args.w4a8 else "W4A16" if args.quantization == "int4" else "int8"
+    # routed experts per token: top_k of each MoE layer's E experts
+    expert_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
+                       if k.rsplit(".", 1)[-1] in ("gate_q", "gate_s", "up_q", "up_s",
+                                                    "down_q", "down_s"))
+    expert_bytes = expert_bytes * cfg.num_experts_per_tok // max(cfg.num_experts, 1)
+    variant = ("Mixtral int8" if args.moe else "W4A8" if args.w4a8
+               else "W4A16" if args.quantization == "int4" else "int8")
     runs = [(f"{variant} kernels", cfg)]
-    if args.quantization == "int8":
+    if args.quantization == "int8" and not args.moe:
         runs.append(("int8 plain", dataclasses.replace(cfg, quant_kernel=False,
                                                        use_flash=False)))
     for label, c in runs:
         llm = LocalLLM(c, None, params=params, device="cuda")
         kernels.reset_counts()
-        print(json.dumps(profile(llm, label, weight_bytes)), flush=True)
+        print(json.dumps(profile(llm, label, weight_bytes, expert_bytes)), flush=True)
         counts = kernels.launch_counts()
         if any(counts.values()) != label.endswith("kernels"):
             raise AssertionError(f"{label} run launched {counts}")
