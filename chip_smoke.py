@@ -40,8 +40,16 @@ Phases (any failure raises and exits non-zero):
    serves eight first turns at once and a follow-up ("moe batched": waves
    of 8 rows, 16 (token, expert) slots, through #11). Decode against
    prefill compares the last token's routed experts layer by layer.
+8. system, int4 sparse-MoE path: the int8 Mixtral decoder is freed; the
+   same shape with packed int4 experts (group 128; about 25 GB) answers
+   three chat() requests ("moe int4": decode through #13, prefill through
+   the stacks dequantized in bf16), then serves eight first turns at once
+   and a follow-up through the paged engine ("moe int4 batched": 8-row
+   waves through #14); a W4A8 int4 decoder (512-row groups) answers one
+   ("moe int4 W4A8": #5 and #13's output-scaled route). #6 (the fused int4
+   MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
-Each LLM call of phases 4-5 and 7 is timed on its own. Each of the seven
+Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the ten
 runs of requests resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path must
 have launched.
@@ -581,6 +589,181 @@ def check_moe_grouped(gen) -> dict:
     return out
 
 
+def int4_experts(gen, e: int, k: int, n: int, group: int):
+    """Packed int4 experts (E, k/2, n) of random bytes (every byte is two
+    valid nibbles) with group scales (E, k/group, n) of 1e-3 to 3e-3."""
+    import torch
+    return (torch.randint(-128, 128, (e, k // 2, n), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.rand(e, k // group, n, generator=gen, device="cuda") * 2e-3 + 1e-3)
+
+
+def check_moe_gather_int4(gen) -> dict:
+    """#13 at Mixtral's expert shapes (E 8; gate/up 4096 x 14336, down
+    14336 x 4096), 2 slots (experts 5 and 2), bf16, for group 128 (weights
+    dequantized and rounded) and group 512 (the k-tile: the output-scaled
+    route), and with f32 activations at a smaller shape. Tolerance:
+    moe_compare; on the output-scaled route the kernel scales each split-K
+    slice's partial before the slices are added, one more f32 rounding than
+    the plain version's per-tile sums, far inside one bf16 ulp. Times: one
+    decode layer's three projections at group 128 (187 MB routed: beyond
+    the 50 MB L2); the bound counts the two routed experts' bytes. Each
+    checked call must take the kernel route."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import moe_matmul as mm
+
+    def launched(what, *args):
+        before = kernels.launch_counts()["moe_gather_int4"]
+        got = mm.moe_gather_matmul_int4(*args)
+        if kernels.launch_counts()["moe_gather_int4"] == before:
+            raise AssertionError(f"moe_gather_int4 {what}: the call took another route")
+        return got
+    ids = torch.tensor([5, 2], device="cuda")
+    xs = {k: torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
+          for k in (4096, 14336)}
+    err, times = 0.0, {}
+    for group in (128, 512):
+        weights = {name: int4_experts(gen, MOE_E, k, n, group)
+                   for name, (k, n) in MOE_SHAPES.items()}
+
+        def call(fn, w, s):
+            return fn(xs[2 * w.shape[1]], w, s, ids, 512, group)
+        for name, (w, s) in weights.items():
+            what = f"{name} group {group}"
+            err = max(err, moe_compare(f"moe_gather_int4 {what}",
+                                       launched(what, xs[2 * w.shape[1]], w, s, ids, 512, group),
+                                       call(mm.moe_gather_matmul_int4_plain, w, s)))
+
+        def layer(fn, weights=weights, call=call):
+            return lambda: [call(fn, w, s) for w, s in weights.values()]
+        times[group] = (median_ms(layer(mm.moe_gather_matmul_int4), reps=10),
+                        median_ms(layer(mm.moe_gather_matmul_int4_plain), reps=2))
+        if group == 128:
+            moved = sum(2 * nbytes(w[0], s[0]) + nbytes(xs[2 * w.shape[1]])
+                        + 2 * 2 * w.shape[2] for w, s in weights.values())
+            ops = sum(2 * 2 * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
+    for group in (128, 512):
+        w, s = int4_experts(gen, MOE_E, 1024, 2048, group)
+        x = torch.randn(16, 1024, generator=gen, device="cuda")
+        sid = torch.randint(0, MOE_E, (16,), generator=gen, device="cuda")
+        moe_compare(f"moe_gather_int4 f32 group {group}",
+                    launched(f"f32 group {group}", x, w, s, sid, 512, group),
+                    mm.moe_gather_matmul_int4_plain(x, w, s, sid, 512, group))
+    return {"max_abs_err": err, "ms": times[128][0], "plain_ms": times[128][1],
+            "library_ms": None,  # PyTorch has no packed-int4 matmul
+            **bound(moved, ops, "bf16"),
+            "shape": "one Mixtral decode layer: gate, up, down at S=2 slots (experts 5, 2), "
+                     "packed int4 experts, group 128, bf16",
+            "group512_ms_plain_ms": [round(t, 4) for t in times[512]]}
+
+
+def seeded_groups(gen, tokens: int = 8, e: int = MOE_E, top_k: int = 2):
+    """Group sizes of `tokens` tokens routed top-k over e experts by a
+    random router (distinct experts per token), as the decoder sorts them."""
+    import torch
+    ids = torch.stack([torch.randperm(e, generator=gen, device="cuda")[:top_k]
+                       for _ in range(tokens)]).flatten()
+    return torch.bincount(ids, minlength=e)
+
+
+def check_moe_grouped_int4(gen) -> dict:
+    """#14 at Mixtral's expert shapes: 16 rows (8 tokens, top-2) sorted by
+    expert over the experts a seeded routing gives, bf16, 16-row tiles, for
+    group 128 and group 512, and with f32 activations (8-row tiles) at a
+    smaller shape; each call must take the kernel route. Held to the plain
+    version of the whole grouped product with moe_compare. Times: one
+    layer's three projections at group 128; the bound counts the experts
+    this routing uses."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import moe_matmul as mm
+    gsz = seeded_groups(gen)
+    m = int(gsz.sum())
+    xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+          for k in (4096, 14336)}
+    err, times = 0.0, {}
+    for group in (128, 512):
+        weights = {name: int4_experts(gen, MOE_E, k, n, group)
+                   for name, (k, n) in MOE_SHAPES.items()}
+
+        def call(fn, w, s):
+            return fn(xs[2 * w.shape[1]], w, s, gsz, 512, group)
+        for name, (w, s) in weights.items():
+            before = kernels.launch_counts()["moe_grouped_int4"]
+            got = call(mm.moe_grouped_matmul_int4, w, s)
+            if kernels.launch_counts()["moe_grouped_int4"] == before:
+                raise AssertionError(f"moe_grouped_int4 {name}: the call took another route")
+            err = max(err, moe_compare(f"moe_grouped_int4 {name} group {group}", got,
+                                       call(mm.moe_grouped_matmul_int4_plain, w, s)))
+
+        def layer(fn, weights=weights, call=call):
+            return lambda: [call(fn, w, s) for w, s in weights.values()]
+        times[group] = (median_ms(layer(mm.moe_grouped_matmul_int4), reps=5),
+                        median_ms(layer(mm.moe_grouped_matmul_int4_plain), reps=2))
+        if group == 128:
+            used = int((gsz > 0).sum())
+            moved = sum(used * nbytes(w[0], s[0]) + nbytes(xs[2 * w.shape[1]])
+                        + 2 * m * w.shape[2] for w, s in weights.values())
+            ops = sum(2 * m * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
+            stacks = [(mm.dequant_int4_stack(w, s, 512, group, torch.bfloat16), None)
+                      for w, s in weights.values()]
+            library = grouped_mm_ms(xs, stacks, gsz)
+            del stacks
+    for group in (128, 512):
+        w, s = int4_experts(gen, MOE_E, 1024, 2048, group)
+        x = torch.randn(m, 1024, generator=gen, device="cuda")
+        moe_compare(f"moe_grouped_int4 f32 group {group}",
+                    mm.moe_grouped_matmul_int4(x, w, s, gsz, 512, group),
+                    mm.moe_grouped_matmul_int4_plain(x, w, s, gsz, 512, group))
+    return {"max_abs_err": err, "ms": times[128][0], "plain_ms": times[128][1],
+            "library_ms": None,  # PyTorch has no packed-int4 grouped matmul
+            "grouped_mm_bf16_ms": library,
+            **bound(moved, ops, "bf16"),
+            "shape": f"one Mixtral layer: gate, up, down over {m} rows sorted by expert, "
+                     f"group sizes {gsz.tolist()}, packed int4 experts, group 128, bf16",
+            "group512_ms_plain_ms": [round(t, 4) for t in times[512]]}
+
+
+def check_fused_mlp_int4(gen) -> dict:
+    """#6 at the Llama-3.1-8B MLP shape (h 4096, I 14336, group 128), m in
+    {1, 8}, bf16, and with f32 activations (m = 3, h 512, I 1024), on random
+    packed bytes and scales. Tolerance: one bf16 ulp of the largest output
+    (both versions sum in f32 and round once at the same three places; a
+    normalised input or act value may round the other way, far inside
+    it); f32 1e-5 of it. Times at m = 1 (93.5 MB of packed weights and
+    scales, beyond the 50 MB L2)."""
+    import torch
+    from ragmeup_tpu_torch.ops import quant_matmul as qm
+
+    def weights(h, inter):
+        out = []
+        for k, n in ((h, inter), (h, inter), (inter, h)):
+            w, s = int4_experts(gen, 1, k, n, 128)
+            out += [w[0], s[0]]
+        return out
+    err = 0.0
+    h, inter = 4096, 14336
+    ws = weights(h, inter)
+    nw = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    for m in (1, 8):
+        x = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+        err = max(err, moe_compare(f"fused_mlp_int4 m={m}", qm.fused_mlp_int4(x, nw, *ws),
+                                   qm.fused_mlp_int4_plain(x, nw, *ws)))
+    small = weights(512, 1024)
+    x3 = torch.randn(3, 512, generator=gen, device="cuda")
+    nw3 = 1.0 + 0.1 * torch.randn(512, generator=gen, device="cuda")
+    moe_compare("fused_mlp_int4 f32", qm.fused_mlp_int4(x3, nw3, *small),
+                qm.fused_mlp_int4_plain(x3, nw3, *small))
+    x = torch.randn(1, h, generator=gen, device="cuda").to(torch.bfloat16)
+    return {"max_abs_err": err,
+            "ms": median_ms(lambda: qm.fused_mlp_int4(x, nw, *ws), reps=10),
+            "plain_ms": median_ms(lambda: qm.fused_mlp_int4_plain(x, nw, *ws), reps=2),
+            "library_ms": None,  # PyTorch has no packed-int4 matmul
+            **bound(nbytes(*ws, nw) + 2 * nbytes(x), 2 * 3 * h * inter, "bf16"),
+            "shape": "Llama-3.1-8B MLP at m=1: h 4096, I 14336, group 128, bf16"}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the system
 # ---------------------------------------------------------------------------
@@ -691,7 +874,10 @@ def check_moe_decoder(llm):
     kernel error; from there on the two hidden states differ by a whole
     expert's output and later layers route apart too. The last token's
     routed experts are compared layer by layer. Where they agree in every
-    layer, the logits must agree to cosine >= 0.99. At the first layer that
+    layer, the logits must agree to cosine >= 0.99, W4A8 too: no W4A8 run
+    without a flip has been read yet. int4 experts: decode gathers through #13 (each weight
+    f32(q) * f32(s) rounded to bf16), prefill dequantizes the stacks in bf16
+    (bf16(q) * bf16(s)), so near-ties flip the same way. At the first layer that
     routes apart, the flip must be a near-tie: the top_k-th router logit
     leads the next by at most twice the largest difference between the two
     paths' router logits there. Returns (cosine, flipped layers, a note on
@@ -778,7 +964,11 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "moe": ("topk", "int8_matmul", "flash_gqa", "moe_gather"),
                 "moe grouped": ("moe_grouped_stack", "moe_gather"),
                 "moe batched": ("paged_attention", "paged_attention_chunk",
-                                "moe_grouped")}
+                                "moe_grouped"),
+                "moe int4": ("topk", "int4_matmul", "flash_gqa", "moe_gather_int4"),
+                "moe int4 batched": ("paged_attention", "paged_attention_chunk",
+                                     "moe_grouped_int4"),
+                "moe int4 W4A8": ("topk", "int4_matmul_a8", "moe_gather_int4")}
 
 
 def rag_config(data_dir: str, index_dir: str, **model):
@@ -954,7 +1144,7 @@ def free_card() -> None:
 
 
 def run_system(seed: int) -> dict:
-    """The seven runs of requests; returns each run's counts and latencies."""
+    """The ten runs of requests; returns each run's counts and latencies."""
     import torch
     encoder, cross = build_encoders(seed)
     runs = {}
@@ -1000,9 +1190,18 @@ def run_system(seed: int) -> dict:
         del system, llm
         free_card()
 
-        runs.update(run_moe(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
-                            texts, queries))
+        for phase in (run_moe, run_moe_int4):
+            runs.update(phase(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
+                              texts, queries))
     return runs
+
+
+def eight_first_turns(texts, queries) -> list:
+    """The batched MoE runs' eight concurrent first turns."""
+    return queries[:2] + [
+        f"What is {' '.join(texts[i].split()[:2])}?" for i in (99, 555, 2024, 7777)] + [
+        f"Summarize the notes on {' '.join(texts[i].split()[:3])}."
+        for i in (12000, 15000)]
 
 
 def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
@@ -1027,11 +1226,39 @@ def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
     cfg = rag_config(data_dir, index_dir)
     cfg.server.batched_llm = True
     batched = open_system(cfg, encoder, cross, llm)
-    runs["moe batched"] = drive_batched(batched, queries[:2] + [
-        f"What is {' '.join(texts[i].split()[:2])}?" for i in (99, 555, 2024, 7777)] + [
-        f"Summarize the notes on {' '.join(texts[i].split()[:3])}."
-        for i in (12000, 15000)], label="moe batched")
+    runs["moe batched"] = drive_batched(batched, eight_first_turns(texts, queries),
+                                        label="moe batched")
     del batched, llm
+    free_card()
+    return runs
+
+
+def run_moe_int4(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
+                 queries) -> dict:
+    """Phase 8 on the Mixtral-8x7B-shaped decoder with packed int4 experts
+    (group 128; about 25 GB), with the bf16 index of phase 4: three
+    requests on the default config ("moe int4": decode through #13); the
+    paged engine on the same decoder with eight first turns at once and a
+    follow-up ("moe int4 batched": 8-row waves through #14); then a W4A8
+    decoder (512-row groups: #5 and the output-scaled route of #13) answers
+    one ("moe int4 W4A8")."""
+    from ragmeup_tpu_torch.models.decoder import LlamaConfig
+    runs = {}
+    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(quantization="int4"))
+    system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
+    runs["moe int4"] = drive("moe int4", system, llm, queries)
+    del system
+    cfg = rag_config(data_dir, index_dir)
+    cfg.server.batched_llm = True
+    batched = open_system(cfg, encoder, cross, llm)
+    runs["moe int4 batched"] = drive_batched(batched, eight_first_turns(texts, queries),
+                                             label="moe int4 batched")
+    del batched, llm
+    free_card()
+    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(quantization="int4", int4_w4a8=True))
+    system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
+    runs["moe int4 W4A8"] = drive("moe int4 W4A8", system, llm, queries[1:2])
+    del system, llm
     free_card()
     return runs
 
@@ -1088,6 +1315,19 @@ def main() -> int:
     for name, rep in (("moe_grouped", 123), ("moe_grouped_stack", 220)):
         results[name] = (grouped[name], "ragmeup_tpu_torch/csrc/moe_matmul.cu",
                          f"ragmeup_tpu/ops/moe_matmul.py:{rep}")
+    free_card()
+    results["moe_gather_int4"] = (check_moe_gather_int4(gen),
+                                  "ragmeup_tpu_torch/csrc/quant_matmul_int4.cu",
+                                  "ragmeup_tpu/ops/moe_matmul.py:483")
+    free_card()
+    results["moe_grouped_int4"] = (check_moe_grouped_int4(gen),
+                                   "ragmeup_tpu_torch/csrc/moe_matmul_int4.cu",
+                                   "ragmeup_tpu/ops/moe_matmul.py:611")
+    free_card()
+    # no path runs #6 (as in the JAX package): its launches stay 0
+    results["fused_mlp_int4"] = (check_fused_mlp_int4(gen),
+                                 "ragmeup_tpu_torch/csrc/fused_mlp_int4.cu",
+                                 "ragmeup_tpu/ops/quant_matmul.py:414")
     for name, (r, _, _) in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
     free_card()

@@ -19,8 +19,7 @@
 // (l == 0 -> 1, as the TPU kernel). Products are scalar FMAs on f32 copies
 // of the tiles in shared memory; wgmma and TMA are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -38,13 +37,6 @@ constexpr size_t kSmemFloats = (size_t)kRows * kQkStride   // q
                              + 3 * kRows;                  // m, l, alpha
 constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) rk_flash_gqa_kernel(

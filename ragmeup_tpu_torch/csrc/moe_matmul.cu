@@ -39,10 +39,9 @@
 //     both routes launch the same grid: 128-column strips fastest.
 // No asynchronous copies (cp.async/TMA) and no wgmma yet: a later PR's work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -58,21 +57,6 @@ constexpr int kGroupedBK = 64;   // k per step
 constexpr int kGroupedWarps = 8;
 constexpr int kGroupedThreads = 32 * kGroupedWarps;  // bf16 route
 constexpr int kPad = 8;          // bf16 row padding of the shared tiles
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// A weight cast to the activation type T, as a float.
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Four adjacent weights w[0..3] (16-byte-aligned rows, 4-aligned column)
 // in one vector load, cast to T. int8 and bf16 values are exact in bf16.

@@ -29,8 +29,7 @@
 // f32. Products are scalar FMAs as in flash_attention.cu; wgmma, TMA and
 // double-buffered page loads are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -50,13 +49,6 @@ constexpr size_t smem_bytes() {
          + (size_t)(kKeys + kRows) * sizeof(int);  // key rows, row limits
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads) rk_paged_kernel(

@@ -16,9 +16,7 @@
 //     applies the per-channel scale in the epilogue, as the TPU kernel did.
 //     No atomics: a greedy decode repeats bit for bit from run to run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -27,13 +25,6 @@ constexpr int kColsPerThread = 4;
 constexpr int kColsPerBlock = kThreads * kColsPerThread;  // 512
 constexpr int kMaxSlice = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads) rk_int8_matmul_partial_kernel(

@@ -1,9 +1,13 @@
 // Packed-int4 weight matmuls for Hopper (sm_90a):
 //   out (m, n) = x (m, k) @ dequant(w_p (k/2, n), gscale (k/group, n))
-// with 1 <= m <= 256 and n % 512 == 0.
+// with 1 <= m <= 256 and n % 512 == 0, and the per-slot expert gather
+//   out[s] = x[s] @ dequant(w_p[ids[s]] (k/2, n), gscale[ids[s]] (k/group, n))
+// over stacked experts w_p (E, k/2, n), gscale (E, k/group, n), at most 64
+// slots, n % 256 == 0.
 //
 // Replaces the Pallas kernels ragmeup_tpu/ops/quant_matmul.py::_kernel4
-// (W4A16) and ::_kernel4_a8 (W4A8). Packing is per k-tile of tile_k rows:
+// (W4A16) and ::_kernel4_a8 (W4A8), and ragmeup_tpu/ops/moe_matmul.py::
+// _kernel4 (the gather, rk_moe_gather_int4). Packing is per k-tile of tile_k rows:
 // byte j of a tile holds row j in its low nibble and row j + tile_k/2 in its
 // high nibble, so one byte feeds two x values of the same tile.
 //
@@ -21,6 +25,14 @@
 //   * m > 8 walks 8-row groups of x (grid.z); each group re-reads the
 //     weights, from L2 where they fit. A decode-shaped design: the 128- and
 //     256-row prefill buckets reach it too, at scalar-FMA speed.
+//   * The gather runs the W4A16 kernel's body with one slot a block along
+//     grid.z (its own kernel names, so a trace tells the two apart): the
+//     block reads its slot's expert id from device memory (the TPU kernel's
+//     scalar prefetch, no host sync) and offsets the packed weights and the
+//     scales by it. At Mixtral decode (2 slots) one layer's gate, up and down
+//     are 176 MB of packed experts and 11 MB of group-128 scales: 0.056 ms
+//     at 3.35 TB/s, bound by those bytes; the design streams each routed
+//     expert's bytes once per slot, 16-byte rows a warp at a time.
 //
 // Rounding is each route's own, as in the TPU kernel:
 //   W4A16 quality (group < tile_k): each weight is dequantized in f32 and
@@ -33,9 +45,7 @@
 //     integer slices, then acc + float(p) * x_scale * tile_scale over the
 //     tiles in order, one f32 rounding per step, as the plain version does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -44,30 +54,6 @@ constexpr int kCols = 8;                         // columns per thread
 constexpr int kColsPerBlock = kThreads * kCols;  // 512
 constexpr int kRowGroup = 8;                     // rows of x per block
 constexpr int kMaxSlice = 256;                   // packed rows per block
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// v rounded to T and back (the quality route's dequantized weight)
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Signed nibbles of column c (0..7) of an 8-byte word: the low nibble is the
-// tile's row j, the high nibble row j + tile_k/2.
-__device__ __forceinline__ uint32_t byte_word(uint2 w, int c) { return c < 4 ? w.x : w.y; }
-__device__ __forceinline__ int nib_lo(uint2 w, int c) {
-  return ((int)(byte_word(w, c) << (28 - 8 * (c & 3)))) >> 28;
-}
-__device__ __forceinline__ int nib_hi(uint2 w, int c) {
-  return ((int)(byte_word(w, c) << (24 - 8 * (c & 3)))) >> 28;
-}
 
 // Where a block's slice lies: packed rows [p0, p0 + k_slice) of tile `tile`;
 // its low-nibble rows start at x column klo, its high-nibble rows at khi.
@@ -82,14 +68,15 @@ struct Slice {
   }
 };
 
+// The W4A16 split-K partial of rows [row0, row0 + M) of x (those below m)
+// against w / gs, for the block's column strip and slice.
 template <typename T, int M, bool kOutScaled>
-__global__ void __launch_bounds__(kThreads) rk_int4_partial_kernel(
+__device__ __forceinline__ void int4_partial(
     const T* __restrict__ x, const uint2* __restrict__ w,
-    const float* __restrict__ gs, int m, int k, int n, int tile_k, int group,
-    int k_slice, float* __restrict__ partial) {
+    const float* __restrict__ gs, int row0, int m, int k, int n, int tile_k,
+    int group, int k_slice, float* __restrict__ partial) {
   __shared__ float xs[2][M][kMaxSlice];
   const Slice sl(k_slice, tile_k);
-  const int row0 = blockIdx.z * kRowGroup;
   const int rows = min(M, m - row0);
   for (int i = threadIdx.x; i < M * k_slice; i += kThreads) {
     const int r = i / k_slice;
@@ -172,14 +159,50 @@ __global__ void __launch_bounds__(kThreads) rk_int4_partial_kernel(
   }
 }
 
+// x's rows in 8-row groups (grid.z) against one weight matrix
+template <typename T, int M, bool kOutScaled>
+__global__ void __launch_bounds__(kThreads) rk_int4_partial_kernel(
+    const T* __restrict__ x, const uint2* __restrict__ w,
+    const float* __restrict__ gs, int m, int k, int n, int tile_k, int group,
+    int k_slice, float* __restrict__ partial) {
+  int4_partial<T, M, kOutScaled>(x, w, gs, blockIdx.z * kRowGroup, m, k, n, tile_k,
+                                 group, k_slice, partial);
+}
+
+// the gather: slot z (grid.z) against expert ids[z] of the stacks
+template <typename T, bool kOutScaled>
+__global__ void __launch_bounds__(kThreads) rk_moe_gather_int4_partial_kernel(
+    const T* __restrict__ x, const uint2* __restrict__ w,
+    const float* __restrict__ gs, const int* __restrict__ ids, int slots, int k,
+    int n, int tile_k, int group, int k_slice, float* __restrict__ partial) {
+  const size_t e = (size_t)ids[blockIdx.z];
+  int4_partial<T, 1, kOutScaled>(x, w + e * (size_t)(k / 2) * (n / kCols),
+                                 gs + e * (size_t)(k / group) * n, blockIdx.z, slots, k,
+                                 n, tile_k, group, k_slice, partial);
+}
+
 template <typename T>
-__global__ void rk_int4_reduce_kernel(const float* __restrict__ partial, int m,
-                                      int n, int splits, T* __restrict__ out) {
+__device__ __forceinline__ void reduce_partials(const float* __restrict__ partial,
+                                                int m, int n, int splits,
+                                                T* __restrict__ out) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= m * n) return;
   float s = 0.f;
   for (int p = 0; p < splits; ++p) s += partial[(size_t)p * m * n + idx];
   out[idx] = from_f32<T>(s);
+}
+
+template <typename T>
+__global__ void rk_int4_reduce_kernel(const float* __restrict__ partial, int m,
+                                      int n, int splits, T* __restrict__ out) {
+  reduce_partials<T>(partial, m, n, splits, out);
+}
+
+template <typename T>
+__global__ void rk_moe_gather_int4_reduce_kernel(const float* __restrict__ partial,
+                                                 int slots, int n, int splits,
+                                                 T* __restrict__ out) {
+  reduce_partials<T>(partial, slots, n, splits, out);
 }
 
 // One block per row of x: xq = clamp(rint(x / sc), -127, 127) with
@@ -290,7 +313,8 @@ __global__ void rk_int4_a8_reduce_kernel(
 }
 
 dim3 partial_grid(int m, int k, int n, int k_slice) {
-  return dim3(n / kColsPerBlock, k / 2 / k_slice, (m + kRowGroup - 1) / kRowGroup);
+  return dim3((n + kColsPerBlock - 1) / kColsPerBlock, k / 2 / k_slice,
+              (m + kRowGroup - 1) / kRowGroup);
 }
 
 bool bad_shape(int m, int k, int n, int tile_k, int k_slice) {
@@ -331,6 +355,28 @@ int launch_w4a16(const void* xv, const int8_t* w_p, const float* gs, int m,
   const int total = m * n;
   rk_int4_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(
       partial, m, n, k / 2 / k_slice, static_cast<T*>(outv));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gather(const void* xv, const int8_t* w_p, const float* gs, const int* ids,
+                  int slots, int k, int n, int tile_k, int group, int k_slice,
+                  float* partial, void* outv, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  const uint2* w = reinterpret_cast<const uint2*>(w_p);
+  dim3 grid = partial_grid(slots, k, n, k_slice);
+  grid.z = slots;  // one slot a block
+  if (group == tile_k)
+    rk_moe_gather_int4_partial_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        x, w, gs, ids, slots, k, n, tile_k, group, k_slice, partial);
+  else
+    rk_moe_gather_int4_partial_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        x, w, gs, ids, slots, k, n, tile_k, group, k_slice, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = slots * n;
+  rk_moe_gather_int4_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(
+      partial, slots, n, k / 2 / k_slice, static_cast<T*>(outv));
   return (int)cudaGetLastError();
 }
 
@@ -384,6 +430,26 @@ int rk_int4_matmul(const void* x, const int8_t* w_p, const float* gscale,
                                        k_slice, partial, out, s);
   return launch_w4a16<float>(x, w_p, gscale, m, k, n, tile_k, group, k_slice,
                              partial, out, s);
+}
+
+// Gather (#13): x (slots, k) in dtype; w_p (E, k/2, n) packed int8; gscale
+// (E, k/group, n) f32 with group dividing tile_k; ids (slots,) int32; out
+// (slots, n) in x's dtype. 1 <= slots <= 64, n % 256 == 0, k % tile_k == 0,
+// k_slice <= 256 divides tile_k/2; partial holds (k/2/k_slice) * slots * n
+// floats. Returns a cudaError_t.
+int rk_moe_gather_int4(const void* x, const int8_t* w_p, const float* gscale,
+                       const int* ids, int slots, int k, int n, int tile_k,
+                       int group, int k_slice, int dtype, float* partial,
+                       void* out, void* stream) {
+  if (slots < 1 || slots > 64 || n % 256 || tile_k % 2 || k % tile_k || k_slice < 1 ||
+      k_slice > kMaxSlice || (tile_k / 2) % k_slice || group < 1 || tile_k % group)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_gather<__nv_bfloat16>(x, w_p, gscale, ids, slots, k, n, tile_k, group,
+                                        k_slice, partial, out, s);
+  return launch_gather<float>(x, w_p, gscale, ids, slots, k, n, tile_k, group,
+                              k_slice, partial, out, s);
 }
 
 // W4A8 (group == tile_k: gscale (k/tile_k, n)). Shapes as rk_int4_matmul;

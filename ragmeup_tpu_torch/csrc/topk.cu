@@ -33,9 +33,7 @@
 // and padding columns carry the additive mask value -1e30, and a slot that
 // no live column fills comes out as (-1e30, -1).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -46,8 +44,6 @@ constexpr int kRowsPerBlock = 8;
 constexpr float kNegInf = -1e30f;  // ragmeup_tpu.ops.topk.NEG_INF
 constexpr int kIntMax = 0x7fffffff;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // (sa, ia) ranks before (sb, ib): higher score first, then lower index.
 __device__ __forceinline__ bool ranks_before(float sa, int ia, float sb, int ib) {

@@ -4,8 +4,9 @@ The sources under ``ragmeup_tpu_torch/csrc/`` compile with ``nvcc`` (one
 process per source, all started together) and link into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
 which ``ctypes`` loads. The library is built at first use
-into ``build/`` at the repository root, named by a hash of the sources and
-flags so an edited source never loads a stale build. Nothing here runs when
+into ``build/`` at the repository root, named by a hash of every file under
+``csrc/`` (sources and the headers they include) and the flags, so an edited
+source or header never loads a stale build. Nothing here runs when
 the module is imported: machines without ``nvcc`` or a card import the
 package and use the plain PyTorch versions for CPU tensors.
 
@@ -28,13 +29,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ragmeup_tpu_torch")
 SOURCES = ("topk.cu", "quant_matmul.cu", "quant_matmul_int4.cu",
-           "flash_attention.cu", "paged_attention.cu", "moe_matmul.cu")
+           "flash_attention.cu", "paged_attention.cu", "moe_matmul.cu",
+           "moe_matmul_int4.cu", "fused_mlp_int4.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 KERNELS = ("topk", "int8_matmul", "flash_gqa", "topk_int8", "int4_matmul",
            "int4_matmul_a8", "paged_attention", "paged_attention_chunk",
-           "moe_gather", "moe_grouped", "moe_grouped_stack")
+           "moe_gather", "moe_grouped", "moe_grouped_stack", "moe_gather_int4",
+           "moe_grouped_int4", "fused_mlp_int4")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -68,9 +71,10 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + f.read())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh", ".h")):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + f.read())
     return os.path.join(BUILD_DIR, f"librk_kernels-{h.hexdigest()[:16]}.so")
 
 
@@ -144,6 +148,16 @@ def lib() -> ctypes.CDLL:
             so.rk_moe_grouped.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                           i32, i32, vp, vp]
             so.rk_moe_grouped.restype = i32
+            so.rk_moe_gather_int4.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                              i32, i32, i32, vp, vp, vp]
+            so.rk_moe_gather_int4.restype = i32
+            so.rk_moe_grouped_int4.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                               i32, i32, i32, vp, vp]
+            so.rk_moe_grouped_int4.restype = i32
+            so.rk_fused_mlp_int4.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                             i32, i32, i32, i32, i32, i32, f32,
+                                             i32, vp, vp, vp]
+            so.rk_fused_mlp_int4.restype = i32
             so.rk_error_string.argtypes = [i32]
             so.rk_error_string.restype = ctypes.c_char_p
             _lib = so

@@ -16,15 +16,15 @@ the model attends a paged KV pool instead (``ops/paged_attention.py``): one
 token per sequence (batched decode) or a chunk per sequence (chunked
 prefill), written into the pool in place; ``pipeline/serving.py`` drives
 it. With ``num_experts`` > 0 the MLP is a top-k routed sparse MoE
-(``LlamaMoeMlp``, Mixtral / Qwen3-MoE class) over stacked int8 or float
-experts (``ops/moe_matmul.py``). int4 experts, tensor and expert
-parallelism, speculative decoding and ``qk_forward`` are not ported yet.
+(``LlamaMoeMlp``, Mixtral / Qwen3-MoE class) over stacked int8, packed int4
+or float experts (``ops/moe_matmul.py``). Tensor and expert parallelism,
+speculative decoding and ``qk_forward`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +34,11 @@ from torch import nn
 from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.layers import RMSNorm
 from ragmeup_tpu_torch.ops.attention import flash_attention, flash_attention_gqa
-from ragmeup_tpu_torch.ops.moe_matmul import moe_gather_matmul, moe_grouped_matmul
+from ragmeup_tpu_torch.ops.moe_matmul import (GATHER_MAX_SLOTS, dequant_int4_stack,
+                                              grouped_int4_viable, moe_gather_matmul,
+                                              moe_gather_matmul_int4,
+                                              moe_grouped_matmul,
+                                              moe_grouped_matmul_int4)
 from ragmeup_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_chunk,
                                                    paged_update_chunk,
@@ -99,10 +103,6 @@ class LlamaConfig:
         if self.quantization not in QUANTIZATIONS:
             raise ValueError(f"quantization={self.quantization!r}: expected "
                              f"one of {QUANTIZATIONS}")
-        if self.num_experts and self.quantization == "int4":
-            raise NotImplementedError(
-                "int4 MoE experts are not ported yet (ROADMAP queue 1: MoE, "
-                "int4 experts)")
 
     @property
     def head_dim(self) -> int:
@@ -137,7 +137,7 @@ class LlamaConfig:
         """mistralai/Mixtral-8x7B-v0.1's config.json as the JAX package's
         ``llama_config_from_hf`` maps ``model_type: mixtral``: 8 experts,
         top-2 renormalized, rope theta 1e6, 32768 positions, an untied
-        lm_head, int8 weights."""
+        lm_head, int8 weights (``quantization="int4"``: packed int4)."""
         base = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
                     num_heads=32, num_kv_heads=8, intermediate_size=14336,
                     num_experts=8, num_experts_per_tok=2, norm_topk_prob=True,
@@ -149,6 +149,14 @@ class LlamaConfig:
     def is_moe_layer(self, i: int) -> bool:
         return bool(self.num_experts) and (
             bool(self.moe_layers[i]) if self.moe_layers else True)
+
+
+def int4_tiles(k: int, group: int = 0) -> Tuple[int, int]:
+    """(packing tile, scale group) of an int4 weight with input dim k:
+    ``int4_tiling``'s, the group walked down from ``group`` when it is set
+    (``LlamaConfig.int4_group``)."""
+    tile_k, auto = int4_tiling(k)
+    return tile_k, int4_group_for(tile_k, group) if group else auto
 
 
 def scale_inv_freq_llama3(inv: np.ndarray, factor: float,
@@ -213,6 +221,17 @@ def quantize_experts_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+def quantize_experts_int4(experts: Iterable[torch.Tensor], group: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Experts, each (in, out) (a stacked (E, in, out) tensor iterates so; a
+    generator can draw them one at a time) → (packed (E, in/2, out) int8,
+    f32 group scales (E, in/group, out)): each expert
+    ``quantize_int4_groupwise``'d where it lives (``group`` 0:
+    int4_tiling's)."""
+    parts = [quantize_int4_groupwise(w, group=group or None) for w in experts]
+    return torch.stack([p for p, _ in parts]), torch.stack([s for _, s in parts])
+
+
 class QuantDense(nn.Module):
     """Weight-only linear: int8 (per-output-channel scale), packed int4
     (group-wise scales), or a plain f32 kernel when quantization is off.
@@ -232,9 +251,7 @@ class QuantDense(nn.Module):
         self.bits = bits
         self.a8 = a8
         if quantize and bits == 4:
-            tile_k, group = int4_tiling(in_features)
-            if q_group:
-                group = int4_group_for(tile_k, q_group)
+            group = int4_tiles(in_features, q_group)[1]
             self.register_buffer("kernel_p", torch.zeros(
                 in_features // 2, features, dtype=torch.int8, device=device))
             self.register_buffer("gscale", torch.ones(
@@ -394,11 +411,20 @@ class LlamaMoeMlp(nn.Module):
     - otherwise (prefill under "auto"): every expert on every token in the
       model dtype, combined with f32 one-hot routing weights.
 
+    Packed-int4 experts take the JAX package's int4 routes, in its order:
+    (a) E < S ≤ 4E under "auto" where ``grouped_int4_viable`` holds for the
+    up and the down shapes: the sorted rows through the dedup-grouped int4
+    kernel (#14); (b) else S ≤ E or S ≤ min(64, 4E): the per-slot int4
+    gather (#13); (c) else every stack dequantized in the model dtype and
+    the einsum above. ``"on"`` reaches no grouped kernel with int4 experts.
+
     Slot outputs are combined in f32 times their routing weight, summed
     over top_k in slot order. Parameters keep the flax names: ``router``
     (h, E) f32; int8 ``gate_q``/``up_q``/``down_q`` (E, in, out) with
-    ``gate_s``/``up_s``/``down_s`` (E, out); float ``gate``/``up``/``down``.
-    Nothing here reads a device value on the host."""
+    ``gate_s``/``up_s``/``down_s`` (E, out); int4 ``gate_p``/``up_p``/
+    ``down_p`` (E, in/2, out) with ``gate_gs``/``up_gs``/``down_gs``
+    (E, in/group, out); float ``gate``/``up``/``down``. Nothing here reads a
+    device value on the host."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -408,7 +434,13 @@ class LlamaMoeMlp(nn.Module):
         self.router = nn.Parameter(torch.zeros(h, e, device=device))
         shapes = {"gate": (h, f), "up": (h, f), "down": (f, h)}
         for name, (i, o) in shapes.items():
-            if cfg.quantization == "int8":
+            if cfg.quantization == "int4":
+                group = int4_tiles(i, cfg.int4_group)[1]
+                self.register_buffer(f"{name}_p", torch.zeros(
+                    e, i // 2, o, dtype=torch.int8, device=device))
+                self.register_buffer(f"{name}_gs", torch.ones(
+                    e, i // group, o, device=device))
+            elif cfg.quantization == "int8":
                 self.register_buffer(f"{name}_q", torch.zeros(
                     e, i, o, dtype=torch.int8, device=device))
                 self.register_buffer(f"{name}_s", torch.ones(e, o, device=device))
@@ -417,6 +449,8 @@ class LlamaMoeMlp(nn.Module):
 
     def experts(self, name: str):
         """(stacked weights, scales or None) of projection ``name``."""
+        if self.cfg.quantization == "int4":
+            return getattr(self, f"{name}_p"), getattr(self, f"{name}_gs")
         if self.cfg.quantization == "int8":
             return getattr(self, f"{name}_q"), getattr(self, f"{name}_s")
         return getattr(self, name), None
@@ -444,23 +478,46 @@ class LlamaMoeMlp(nn.Module):
             y = y.float() * topw.reshape(s_tot, 1)
             return y.reshape(t, top_k, h).sum(dim=1).to(dt).reshape(*lead, h)
 
-        if s_tot <= e:
-            # decode: row s = token s // top_k, expert slot s % top_k
+        # decode rows: row s = token s // top_k, expert slot s % top_k
+        ids = topi.reshape(s_tot)
+
+        def sorted_rows():
+            """(slot rows sorted by expert, stably: slot order within a group;
+            group sizes; the inverse order)"""
+            order = torch.argsort(ids, stable=True)
+            # group sizes without a host read (bincount reads its max)
+            gsz = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+                0, ids, torch.ones_like(ids))
+            return (xf.to(dt).repeat_interleave(top_k, dim=0)[order], gsz,
+                    torch.argsort(order))
+
+        quant4 = c.quantization == "int4"
+        if quant4:
+            f = wg.shape[2]
+            (tk_h, g_h), (tk_f, g_f) = int4_tiles(h, c.int4_group), int4_tiles(f, c.int4_group)
+            if (c.moe_grouped == "auto" and e < s_tot <= 4 * e
+                    and grouped_int4_viable(s_tot, e, h, f, tk_h, g_h, dt)
+                    and grouped_int4_viable(s_tot, e, f, h, tk_f, g_f, dt)):
+                # (a) batched decode: each unique routed expert read once (#14)
+                xs, gsz, inv = sorted_rows()
+                a = (F.silu(moe_grouped_matmul_int4(xs, wg, sg, gsz, tk_h, g_h))
+                     * moe_grouped_matmul_int4(xs, wu, su, gsz, tk_h, g_h)).to(dt)
+                return combine(moe_grouped_matmul_int4(a, wn, sn, gsz, tk_f, g_f)[inv])
+            if s_tot <= e or s_tot <= min(GATHER_MAX_SLOTS, 4 * e):
+                # (b) decode: the routed slots' packed bytes only (#13)
+                xs = xf.to(dt).repeat_interleave(top_k, dim=0)
+                a = (F.silu(moe_gather_matmul_int4(xs, wg, sg, ids, tk_h, g_h))
+                     * moe_gather_matmul_int4(xs, wu, su, ids, tk_h, g_h)).to(dt)
+                return combine(moe_gather_matmul_int4(a, wn, sn, ids, tk_f, g_f))
+        elif s_tot <= e:
             xs = xf.to(dt).repeat_interleave(top_k, dim=0)
-            ids = topi.reshape(s_tot)
             a = (F.silu(moe_gather_matmul(xs, wg, ids, sg))
                  * moe_gather_matmul(xs, wu, ids, su)).to(dt)
             return combine(moe_gather_matmul(a, wn, ids, sn))
 
         dedup = c.moe_grouped == "auto" and e < s_tot <= 4 * e
-        if c.moe_grouped == "on" or dedup:
-            ids = topi.reshape(s_tot)
-            order = torch.argsort(ids, stable=True)   # slot order within a group
-            inv = torch.argsort(order)
-            xs = xf.to(dt).repeat_interleave(top_k, dim=0)[order]
-            # group sizes without a host read (bincount reads its max)
-            gsz = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
-                0, ids, torch.ones_like(ids))
+        if not quant4 and (c.moe_grouped == "on" or dedup):
+            xs, gsz, inv = sorted_rows()
             # dedup: a decode-sized m-tile, the largest k/n tiles that
             # divide (the JAX package's sweep); "on" keeps the defaults
             tm = (16 if dt == torch.bfloat16 else 8) if dedup else 0
@@ -477,8 +534,11 @@ class LlamaMoeMlp(nn.Module):
             return combine(y[inv])
 
         # every expert on every token, then the f32 one-hot combine (a plain
-        # product outside any kernel, as in the JAX package)
+        # product outside any kernel, as in the JAX package); int4 stacks
+        # dequantize in the model dtype first (prefill)
         def dequant(w, s):
+            if quant4:
+                return dequant_int4_stack(w, s, *int4_tiles(2 * w.shape[1], c.int4_group), dt)
             w = w.to(dt)
             return w if s is None else w * s[:, None, :].to(dt)
         xb = xf.to(dt)
@@ -590,10 +650,11 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
                         ) -> Dict[str, torch.Tensor]:
     """Random weights drawn on ``device``: N(0, std) kernels, embeddings,
     routers and expert stacks, unit norms. With int8 or int4 quantization
-    every kernel (int8: every (E, in, out) expert stack, one expert at a
-    time) is quantized right after it is drawn, where it was drawn, and the
-    embeddings/lm_head are stored in bf16 (``quantize_decoder_params``), so
-    an 8B model never exists in f32 at once; routers stay f32."""
+    every kernel is quantized right after it is drawn, where it was drawn
+    (an int8 expert stack one expert at a time; int4 experts are drawn one
+    at a time), and the embeddings/lm_head are stored in bf16
+    (``quantize_decoder_params``), so a model never exists in f32 at once;
+    routers stay f32."""
     c = cfg
     hd = c.head_dim
     quant = c.quantization != "none"
@@ -631,6 +692,10 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
             f = c.moe_intermediate_size or c.intermediate_size
             for name, (fi, fo) in (("gate", (c.hidden_size, f)), ("up", (c.hidden_size, f)),
                                    ("down", (f, c.hidden_size))):
+                if c.quantization == "int4":
+                    out[f"{p}.mlp.{name}_p"], out[f"{p}.mlp.{name}_gs"] = quantize_experts_int4(
+                        (draw(fi, fo) for _ in range(c.num_experts)), c.int4_group)
+                    continue
                 w = draw(c.num_experts, fi, fo)
                 if quant:
                     out[f"{p}.mlp.{name}_q"], out[f"{p}.mlp.{name}_s"] = \

@@ -9,9 +9,8 @@ checkpoints is not ported yet and raises.
 ``select_kernels`` is the JAX loader's kernel selection as a function of
 the config (flash prefill when head_dim % 128 == 0, the int8 decode kernel
 for int8 weights, the 512-row scale group that W4A8 needs);
-``quantize_decoder_params`` its int8 and int4 branches for dense decoders
-and its stacked-expert int8 branch for MoE layers (int4 experts are not
-ported yet).
+``quantize_decoder_params`` its int8 and int4 branches, for dense kernels
+and for the stacked experts of MoE layers.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import torch
 
 from ragmeup_tpu_torch.models.cross_encoder import CrossEncoder
 from ragmeup_tpu_torch.models.decoder import (LlamaConfig, LocalLLM,
+                                              quantize_experts_int4,
                                               quantize_experts_int8,
                                               quantize_kernel_int8)
 from ragmeup_tpu_torch.models.encoder import BertConfig, SentenceEncoder
@@ -59,8 +59,10 @@ def quantize_decoder_params(params: Dict[str, torch.Tensor], bits: int = 8,
     layout) + ``*.scale`` (f32 per-output-channel). int4: ``*.kernel_p``
     (packed (in/2, out)) + ``*.gscale`` (f32 (in/group, out); ``int4_group``
     0 = the default group). MoE layers: each stacked expert tensor
-    ``*.mlp.{gate,up,down}`` (E, in, out) becomes ``*_q`` (int8) + ``*_s``
-    (f32 (E, out), per expert per output channel); the router stays f32.
+    ``*.mlp.{gate,up,down}`` (E, in, out) becomes, int8, ``*_q`` (int8) +
+    ``*_s`` (f32 (E, out), per expert per output channel), or, int4, ``*_p``
+    (packed (E, in/2, out)) + ``*_gs`` (f32 (E, in/group, out)), each expert
+    quantized as a dense kernel is; the router stays f32.
     token_embedding and lm_head are stored in bf16."""
     if bits not in (4, 8):
         raise NotImplementedError(f"{bits}-bit quantization is not ported")
@@ -68,10 +70,9 @@ def quantize_decoder_params(params: Dict[str, torch.Tensor], bits: int = 8,
     for name, w in params.items():
         if name.endswith((".mlp.gate", ".mlp.up", ".mlp.down")) and w.ndim == 3:
             if bits == 4:
-                raise NotImplementedError(
-                    "int4 MoE experts are not ported yet (ROADMAP queue 1: MoE, "
-                    "int4 experts)")
-            out[f"{name}_q"], out[f"{name}_s"] = quantize_experts_int8(w)
+                out[f"{name}_p"], out[f"{name}_gs"] = quantize_experts_int4(w, int4_group)
+            else:
+                out[f"{name}_q"], out[f"{name}_s"] = quantize_experts_int8(w)
         elif name.endswith(".kernel") and w.ndim == 2:
             base = name[:-len(".kernel")]
             if bits == 4:

@@ -1,8 +1,8 @@
 """Expert-gathered and grouped matmuls for sparse-MoE models: the CUDA
 kernels and their plain versions.
 
-Counterpart of ``ragmeup_tpu/ops/moe_matmul.py`` for int8 and float
-experts. Both read the stacked ``(E, k, n)`` expert tensors: int8 with
+Counterpart of ``ragmeup_tpu/ops/moe_matmul.py``. For int8 and float
+experts, both read the stacked ``(E, k, n)`` expert tensors: int8 with
 per-expert per-output-channel scales ``(E, n)``, or float with
 ``scale=None``. Each weight is cast to x's dtype before the product (the
 TPU kernels' ``w.astype(x.dtype)``), products and sums are f32, the scale
@@ -23,10 +23,26 @@ multiplies the sum, and the result rounds once to x's dtype.
   shapes and short row sets take a grouped product that dequantizes in x's
   dtype first (the JAX ``ragged_dot`` fallback).
 
+Packed-int4 experts ``w_p (E, k/2, n)`` (``pack_int4`` per expert) with
+group scales ``gscale (E, k/group, n)``, each route with the TPU kernels'
+two arithmetics: group < tile dequantizes each weight in f32 and rounds it
+to x's dtype; group == tile (the output-scaled route) sums x against the
+integers per k-tile and adds the tiles times their scales in f32.
+
+- ``moe_gather_matmul_int4`` (decode, at most 64 slots; #13, counted as
+  ``moe_gather_int4``, csrc/quant_matmul_int4.cu): the routed slots'
+  packed bytes only. Shapes the JAX gate refuses take a gather, unpack and
+  dequantize in x's dtype + einsum.
+- ``moe_grouped_matmul_int4`` (batched decode, E < S ≤ 4E; #14,
+  ``moe_grouped_int4``, csrc/moe_matmul_int4.cu): rows sorted by expert
+  in the padded layout, each unique routed expert's packed bytes read once
+  a tile. Callers gate on ``grouped_int4_viable``: its fallback dequantizes
+  every stack in x's dtype.
+
 On a kernel route a CUDA tensor launches the kernel (or raises) and a CPU
 tensor takes the kernel's plain version. Nothing on the CUDA routes reads
-a device value on the host. The packed-int4 variants and the grouped
-kernel's backward are not ported (ROADMAP).
+a device value on the host. The grouped kernel's backward is not ported
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -37,6 +53,8 @@ from typing import Optional, Tuple
 import torch
 
 from ragmeup_tpu_torch import kernels
+from ragmeup_tpu_torch.ops.quant_matmul import (_add_in_tile_order, int4_slice_for,
+                                                unpack_int4)
 
 GATHER_MAX_SLOTS = 64      # the JAX gate of the gather kernel
 _COLS_PER_BLOCK = 512      # csrc/moe_matmul.cu gather: 128 threads x 4 columns
@@ -357,3 +375,232 @@ def moe_grouped_matmul(xs: torch.Tensor, w: torch.Tensor, gsz: torch.Tensor,
     if not (tile_k and tile_n) or m < tm // 2:
         return _grouped_fallback(xs, w, gsz, scale)
     return _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack)
+
+
+# ---------------------------------------------------------------------------
+# Packed-int4 experts: per-slot gather (#13), dedup-grouped GEMM (#14)
+# ---------------------------------------------------------------------------
+
+def _int4_tile_n(n: int) -> int:
+    """The JAX package's n tile for the int4 expert kernels (0: none)."""
+    return next((t for t in (1024, 512, 256) if n % t == 0), 0)
+
+
+def _unpack_int4_stack(w_p: torch.Tensor, tile_k: int) -> torch.Tensor:
+    """(B, k/2, n) packed experts → (B, k, n) int8 codes."""
+    b, k2, n = w_p.shape
+    return unpack_int4(w_p.reshape(b * k2, n), tile_k).reshape(b, 2 * k2, n)
+
+
+def _int4_products(xf: torch.Tensor, q: torch.Tensor, gs: torch.Tensor, tile_k: int,
+                   group: int, dtype: torch.dtype) -> torch.Tensor:
+    """f32 (B, m, n) products of xf (B, m, k) f32 with the codes q (B, k, n)
+    and scales gs (B, k/group, n), with the kernels' arithmetic: group <
+    tile_k rounds each f32-dequantized weight to ``dtype`` and sums in f32;
+    group == tile_k sums each k-tile against the integers and adds the tiles
+    times their scales in tile order."""
+    b, m, k = xf.shape
+    n = q.shape[2]
+    if group == tile_k:
+        t = k // tile_k
+        part = torch.einsum("bmtk,btkn->tbmn", xf.reshape(b, m, t, tile_k),
+                            q.float().reshape(b, t, tile_k, n))
+        return _add_in_tile_order(part * gs.float().transpose(0, 1)[:, :, None, :])
+    wd = q.float() * gs.float().repeat_interleave(group, dim=1)
+    return torch.bmm(xf, wd.to(dtype).float())
+
+
+def dequant_int4_stack(w_p: torch.Tensor, gscale: torch.Tensor, tile_k: int, group: int,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Packed experts (B, k/2, n) with scales (B, k/group, n) → (B, k, n) in
+    ``dtype``: codes and scales cast to ``dtype`` first, then multiplied
+    there (the JAX package's ``dq4`` and its int4 fallbacks)."""
+    return (_unpack_int4_stack(w_p, tile_k).to(dtype)
+            * gscale.repeat_interleave(group, dim=1).to(dtype))
+
+
+def _check_int4(name: str, k: int, w_p: torch.Tensor, gscale: torch.Tensor, group: int):
+    e, k2, n = w_p.shape
+    if w_p.dtype != torch.int8 or k2 * 2 != k or gscale.shape != (e, k // group, n):
+        raise ValueError(f"{name}: packed experts {tuple(w_p.shape)} {w_p.dtype} and "
+                         f"scales {tuple(gscale.shape)} for k={k}, group={group}")
+
+
+def moe_gather_matmul_int4_plain(x: torch.Tensor, w_p: torch.Tensor,
+                                 gscale: torch.Tensor, ids: torch.Tensor,
+                                 tile_k: int, group: int) -> torch.Tensor:
+    """Plain PyTorch version of the int4 gather kernel: each slot's expert
+    unpacked, the route's f32 arithmetic (``_int4_products``), one
+    rounding to x's dtype."""
+    idx = ids.long()
+    q = _unpack_int4_stack(w_p.index_select(0, idx), tile_k)
+    acc = _int4_products(x.float()[:, None, :], q, gscale.index_select(0, idx),
+                         tile_k, group, x.dtype)
+    return acc[:, 0].to(x.dtype)
+
+
+def _gather_int4_fallback(x, w_p, gscale, ids, tile_k, group):
+    """The route for shapes the kernel does not take: gather the slots'
+    experts, unpack, dequantize in x's dtype and multiply."""
+    idx = ids.long()
+    wd = dequant_int4_stack(w_p.index_select(0, idx), gscale.index_select(0, idx),
+                            tile_k, group, x.dtype)
+    return torch.einsum("sk,skn->sn", x, wd)
+
+
+def _gather_int4_cuda(x, w_p, gscale, ids, tile_k, group):
+    s_slots, k = x.shape
+    n = w_p.shape[2]
+    if n % 256:
+        raise ValueError(f"moe_gather_int4 kernel: n % 256 == 0 (got n={n})")
+    x = x.contiguous()
+    ids = ids.to(torch.int32).contiguous()
+    gscale = gscale.float().contiguous()
+    kernels.require_cuda("moe_gather_int4", x, w_p, gscale, ids)
+    ks = int4_slice_for(k, tile_k, n, s_slots, _target_blocks(x.device.index))
+    partial = torch.empty((k // 2 // ks, s_slots, n), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty((s_slots, n), dtype=x.dtype, device=x.device)
+    err = kernels.lib().rk_moe_gather_int4(
+        x.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), ids.data_ptr(), s_slots, k,
+        n, tile_k, group, ks, kernels.dtype_code(x.dtype), partial.data_ptr(),
+        out.data_ptr(), kernels.stream_handle(x.device))
+    kernels.check(err, "moe_gather_int4")
+    kernels.count("moe_gather_int4")
+    return out
+
+
+def moe_gather_matmul_int4(x: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor,
+                           ids: torch.Tensor, tile_k: int, group: int) -> torch.Tensor:
+    """Per-slot matmul over packed-int4 experts:
+    ``out[s] = x[s] @ dequant4(w_p[ids[s]], gscale[ids[s]])``.
+
+    x (S, k) bf16/f32; w_p (E, k/2, n) packed per ``tile_k`` rows; gscale
+    (E, k/group, n); ids (S,). Returns (S, n) in x's dtype. The kernel route
+    under the JAX gate (an n tile of 1024/512/256, k % tile_k == 0, group
+    dividing tile_k at most 8 times, S ≤ 64); the gather fallback
+    otherwise. (The JAX function's ``tile_n`` argument, which no caller
+    sets, is not carried over: the gate takes the default tile and the CUDA
+    kernel's strip is fixed.)"""
+    s_slots, k = x.shape
+    if ids.shape != (s_slots,):
+        raise ValueError(f"moe_gather_matmul_int4: ids {tuple(ids.shape)} for "
+                         f"x {tuple(x.shape)}")
+    _check_int4("moe_gather_matmul_int4", k, w_p, gscale, group)
+    ok = (_int4_tile_n(w_p.shape[2]) and k % tile_k == 0 and tile_k % group == 0
+          and tile_k // group <= 8 and (tile_k // 2) % 8 == 0)
+    if ok and s_slots <= GATHER_MAX_SLOTS:
+        if x.is_cuda:
+            return _gather_int4_cuda(x, w_p, gscale, ids, tile_k, group)
+        return moe_gather_matmul_int4_plain(x, w_p, gscale, ids, tile_k, group)
+    return _gather_int4_fallback(x, w_p, gscale, ids, tile_k, group)
+
+
+def _int4_tm(dtype: torch.dtype) -> int:
+    """m-tile of the int4 grouped kernel: 16 rows for bf16, 8 for f32."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def grouped_int4_viable(m: int, e: int, k: int, n: int, pack_tile: int, group: int,
+                        dtype: torch.dtype) -> bool:
+    """True when ``moe_grouped_matmul_int4`` takes the kernel route (the
+    JAX package's gate): callers check it, since the fallback dequantizes
+    every expert stack."""
+    tm = _int4_tm(dtype)
+    gpt = pack_tile // max(group, 1)
+    mp = -(-(m + e * (tm - 1)) // tm) * tm
+    return bool(_int4_tile_n(n) and k % pack_tile == 0 and pack_tile % group == 0
+                and gpt <= 8 and (pack_tile // 2) % 8 == 0
+                and e * (tm - 1) <= 1024 and mp <= 512)
+
+
+def grouped_int4_padded_plain(xp: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor,
+                              texp: torch.Tensor, pack_tile: int,
+                              group: int) -> torch.Tensor:
+    """Plain PyTorch version of the int4 grouped kernel on the padded
+    layout: each m-tile times its expert with the route's f32 arithmetic,
+    one rounding."""
+    mp, k = xp.shape
+    tm = _int4_tm(xp.dtype)
+    idx = texp.long()
+    q = _unpack_int4_stack(w_p.index_select(0, idx), pack_tile)
+    acc = _int4_products(xp.float().reshape(mp // tm, tm, k), q,
+                         gscale.index_select(0, idx), pack_tile, group, xp.dtype)
+    return acc.reshape(mp, -1).to(xp.dtype)
+
+
+def moe_grouped_matmul_int4_plain(xs: torch.Tensor, w_p: torch.Tensor,
+                                  gscale: torch.Tensor, gsz: torch.Tensor,
+                                  pack_tile: int, group: int) -> torch.Tensor:
+    """Plain PyTorch version of the whole int4 grouped product, with the
+    kernel's arithmetic and without the padded layout (the group sizes are
+    read on the host)."""
+    out = torch.empty((xs.shape[0], w_p.shape[2]), dtype=xs.dtype, device=xs.device)
+    lo = 0
+    for ex, g in enumerate(gsz.tolist()):
+        if g:
+            acc = _int4_products(xs[lo:lo + g].float()[None],
+                                 _unpack_int4_stack(w_p[ex:ex + 1], pack_tile),
+                                 gscale[ex:ex + 1], pack_tile, group, xs.dtype)
+            out[lo:lo + g] = acc[0].to(xs.dtype)
+        lo += g
+    return out
+
+
+def _grouped_int4_cuda(xp, w_p, gscale, texp, used, pack_tile, group):
+    mp, k = xp.shape
+    n = w_p.shape[2]
+    if pack_tile % 64 or n % 128:
+        raise ValueError(f"moe_grouped_int4 kernel: pack_tile % 64 == 0 and "
+                         f"n % 128 == 0 (got pack_tile={pack_tile}, n={n})")
+    texp = texp.to(torch.int32).contiguous()
+    used = used.to(torch.int32).contiguous()
+    gscale = gscale.float().contiguous()
+    kernels.require_cuda("moe_grouped_int4", xp, w_p, gscale, texp, used)
+    out = torch.empty((mp, n), dtype=xp.dtype, device=xp.device)
+    err = kernels.lib().rk_moe_grouped_int4(
+        xp.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), texp.data_ptr(),
+        used.data_ptr(), mp, k, n, pack_tile, group, kernels.dtype_code(xp.dtype),
+        out.data_ptr(), kernels.stream_handle(xp.device))
+    kernels.check(err, "moe_grouped_int4")
+    kernels.count("moe_grouped_int4")
+    return out
+
+
+def grouped_int4_padded(xp: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor,
+                        texp: torch.Tensor, used: torch.Tensor, pack_tile: int,
+                        group: int) -> torch.Tensor:
+    """The int4 grouped kernel on the padded layout: (mp, k) rows, tile i of
+    ``_int4_tm`` rows times expert ``texp[i]``; rows of tiles from ``used``
+    on are padding."""
+    if xp.is_cuda:
+        return _grouped_int4_cuda(xp, w_p, gscale, texp, used, pack_tile, group)
+    return grouped_int4_padded_plain(xp, w_p, gscale, texp, pack_tile, group)
+
+
+def moe_grouped_matmul_int4(xs: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor,
+                            gsz: torch.Tensor, pack_tile: int, group: int) -> torch.Tensor:
+    """Dedup-grouped GEMM over packed-int4 experts: rows of ``xs`` sorted by
+    expert, ``gsz[e]`` rows for expert e, ``out[i] = xs[i] @
+    dequant4(w_p[expert_of(i)])``.
+
+    xs (M, k); w_p (E, k/2, n) packed per ``pack_tile`` rows; gscale
+    (E, k/group, n); gsz (E,) summing to M. Where ``grouped_int4_viable``
+    holds, the kernel over the padded layout of 16-row tiles (bf16) or
+    8-row ones (f32); otherwise every stack dequantized in x's dtype and the
+    grouped product, as the JAX package falls back. (The JAX function's
+    ``tm`` and ``tile_n`` arguments, which no caller sets, are not carried
+    over: the gate assumes the default ``tm`` and the CUDA kernel's strip is
+    fixed.)"""
+    m, k = xs.shape
+    e, _, n = w_p.shape
+    if gsz.shape != (e,):
+        raise ValueError(f"moe_grouped_matmul_int4: gsz {tuple(gsz.shape)} for "
+                         f"{e} experts")
+    _check_int4("moe_grouped_matmul_int4", k, w_p, gscale, group)
+    if not grouped_int4_viable(m, e, k, n, pack_tile, group, xs.dtype):
+        wd = dequant_int4_stack(w_p, gscale, pack_tile, group, xs.dtype)
+        return _grouped_fallback(xs, wd, gsz, None)
+    xp, dst, texp, used = scatter_layout(xs, gsz, _int4_tm(xs.dtype), e)
+    return grouped_int4_padded(xp, w_p, gscale, texp, used, pack_tile,
+                               group).index_select(0, dst)

@@ -23,6 +23,10 @@ rounding (csrc/quant_matmul_int4.cu):
   rounded to x's dtype, then an f32 dot;
 - shapes that do not tile (n % 512, m > 256): unpack, dequantize in x's
   dtype and ``torch.matmul``, outside any kernel as in the JAX package.
+
+``fused_mlp_int4``: ``x + down(silu(gate(rms(x))) * up(rms(x)))`` over packed
+int4 weights for at most 8 rows (csrc/fused_mlp_int4.cu), the JAX package's
+fused MLP. Like there, nothing in the port calls it: it is a building block.
 """
 
 from __future__ import annotations
@@ -242,7 +246,7 @@ def int4_slice_for(k: int, tile_k: int, n: int, row_groups: int,
     half = tile_k // 2
     divisors = [s for s in range(min(half, 256), 0, -1) if half % s == 0]
     usable = [s for s in divisors if s >= 16] or divisors[:1]
-    col_blocks = n // INT4_TILE_N
+    col_blocks = -(-n // INT4_TILE_N)
     for s in usable:
         if col_blocks * row_groups * (k // 2 // s) >= target_blocks:
             return s
@@ -306,3 +310,92 @@ def int4_matmul(x: torch.Tensor, w_p: torch.Tensor, gscale: torch.Tensor,
             return _int4_cuda(x, w_p, gscale, a8=False)
         return int4_matmul_plain(x, w_p, gscale)
     return _int4_matmul_dequant(x, w_p, gscale)
+
+
+# ---------------------------------------------------------------------------
+# Fused int4 MLP (#6)
+# ---------------------------------------------------------------------------
+
+def _mlp_int4_shapes(x, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, tile_i):
+    """(m, h, inter, tile_k, group_h, group_i): the groups come from
+    ``int4_tiling`` alone, as the JAX function takes them."""
+    m, h = x.shape
+    inter = wg_p.shape[1]
+    tile_k, group_h = int4_tiling(h)
+    group_i = int4_tiling(inter)[1]
+    want = {"wg_p": (h // 2, inter), "wu_p": (h // 2, inter), "wd_p": (inter // 2, h),
+            "gs_g": (h // group_h, inter), "gs_u": (h // group_h, inter),
+            "gs_d": (inter // group_i, h)}
+    got = {"wg_p": wg_p, "wu_p": wu_p, "wd_p": wd_p, "gs_g": gs_g, "gs_u": gs_u,
+           "gs_d": gs_d}
+    bad = {k: tuple(t.shape) for k, t in got.items() if tuple(t.shape) != want[k]}
+    if bad or h % tile_k or inter % tile_i or tile_i % group_i:
+        raise ValueError(f"fused_mlp_int4 shapes: x {tuple(x.shape)}, tile_i {tile_i}, "
+                         f"expected {want}, got {bad}")
+    return m, h, inter, tile_k, group_h, group_i
+
+
+def fused_mlp_int4_plain(x: torch.Tensor, norm_w: torch.Tensor, wg_p: torch.Tensor,
+                         gs_g: torch.Tensor, wu_p: torch.Tensor, gs_u: torch.Tensor,
+                         wd_p: torch.Tensor, gs_d: torch.Tensor, rms_eps: float = 1e-5,
+                         tile_i: int = 512) -> torch.Tensor:
+    """Plain PyTorch version of the fused MLP kernel: RMSNorm in f32 rounded
+    to x's dtype; gate and up as f32 sums over weights dequantized in f32
+    and rounded to x's dtype (at every group size); ``silu(g) * u`` rounded
+    to x's dtype; down as an f32 sum; ``x + down`` in f32, rounded once."""
+    m, h, inter, tile_k, group_h, group_i = _mlp_int4_shapes(
+        x, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, tile_i)
+    dt = x.dtype
+
+    def dequant(w_p, gs, tile, group):
+        w = unpack_int4(w_p, tile).float() * gs.float().repeat_interleave(group, dim=0)
+        return w.to(dt).float()
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    xn = (xf * torch.rsqrt(var + rms_eps) * norm_w.float()).to(dt).float()
+    g = xn @ dequant(wg_p, gs_g, tile_k, group_h)
+    u = xn @ dequant(wu_p, gs_u, tile_k, group_h)
+    act = (torch.nn.functional.silu(g) * u).to(dt).float()
+    return (xf + act @ dequant(wd_p, gs_d, tile_i, group_i)).to(dt)
+
+
+def _fused_mlp_int4_cuda(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, rms_eps, tile_i):
+    m, h, inter, tile_k, group_h, group_i = _mlp_int4_shapes(
+        x, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, tile_i)
+    if m > MAX_ROWS or h % 64 or inter % 128:
+        raise ValueError(f"fused_mlp_int4 kernel: m <= {MAX_ROWS}, h % 64 == 0 and "
+                         f"inter % 128 == 0 (got m={m}, h={h}, inter={inter})")
+    x = x.contiguous()
+    nw = norm_w.float().contiguous()
+    scales = [t.float().contiguous() for t in (gs_g, gs_u, gs_d)]
+    packed = (wg_p, wu_p, wd_p)
+    if any(t.dtype != torch.int8 for t in packed):
+        raise ValueError("fused_mlp_int4 kernel: packed weights must be int8")
+    kernels.require_cuda("fused_mlp_int4", x, nw, *packed, *scales)
+    act = torch.empty((m, inter), dtype=x.dtype, device=x.device)
+    out = torch.empty((m, h), dtype=x.dtype, device=x.device)
+    err = kernels.lib().rk_fused_mlp_int4(
+        x.data_ptr(), nw.data_ptr(), wg_p.data_ptr(), scales[0].data_ptr(),
+        wu_p.data_ptr(), scales[1].data_ptr(), wd_p.data_ptr(), scales[2].data_ptr(),
+        m, h, inter, tile_k, group_h, tile_i, group_i, rms_eps,
+        kernels.dtype_code(x.dtype), act.data_ptr(), out.data_ptr(),
+        kernels.stream_handle(x.device))
+    kernels.check(err, "fused_mlp_int4")
+    kernels.count("fused_mlp_int4")
+    return out
+
+
+def fused_mlp_int4(x: torch.Tensor, norm_w: torch.Tensor, wg_p: torch.Tensor,
+                   gs_g: torch.Tensor, wu_p: torch.Tensor, gs_u: torch.Tensor,
+                   wd_p: torch.Tensor, gs_d: torch.Tensor, rms_eps: float = 1e-5,
+                   tile_i: int = 512) -> torch.Tensor:
+    """x (m, h) → ``x + down(silu(gate(rms(x))) * up(rms(x)))`` with packed
+    int4 weights: gate/up (h/2, inter) with scales (h/group_h, inter), down
+    (inter/2, h) packed per ``tile_i`` rows with scales (inter/group_i, h),
+    the groups ``int4_tiling``'s. CUDA tensors launch the kernel (m ≤ 8);
+    CPU tensors take its plain version."""
+    if x.is_cuda:
+        return _fused_mlp_int4_cuda(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d,
+                                    rms_eps, tile_i)
+    return fused_mlp_int4_plain(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d,
+                                rms_eps, tile_i)

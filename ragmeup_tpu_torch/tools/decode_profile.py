@@ -1,15 +1,16 @@
 """Prefill and decode of the Llama-3.1-8B-shaped (or, with ``--moe``, the
-Mixtral-8x7B-shaped int8) decoder on one card.
+Mixtral-8x7B-shaped) decoder on one card.
 
     python3 -m ragmeup_tpu_torch.tools.decode_profile [--quantization int4 [--w4a8]]
-    python3 -m ragmeup_tpu_torch.tools.decode_profile --moe
+    python3 -m ragmeup_tpu_torch.tools.decode_profile --moe [--quantization int4 [--w4a8]]
 
 int8 weights (the default) run twice, with the CUDA kernels and with their
 plain PyTorch versions (``quant_kernel`` and ``use_flash`` off). int4
 weights (W4A16 with 128-row scale groups, or W4A8 with 512-row groups) and
-the MoE decoder run once: their matmul kernels have no switch, since a
+the MoE decoders run once: their matmul kernels have no switch, since a
 CUDA tensor of a routable shape always launches its kernel (the MoE
-prefill takes the all-experts einsum, its decode the expert gather #10).
+prefill takes the all-experts einsum over stacks dequantized in bf16, its
+decode the expert gather: #10 for int8 experts, #13 for int4 ones).
 Random weights are drawn on the card as chip_smoke.py draws them at its
 default seed. For each run it prints one JSON line:
 
@@ -28,7 +29,8 @@ default seed. For each run it prints one JSON line:
   and scales) over it; for the MoE decoder these are the attention
   projections', and ``expert_ms_per_token`` / ``expert_weight_TBps`` the
   expert gather's (partials and reduce) over the routed experts' codes
-  and scales (top_k experts per layer per token);
+  and scales (top_k experts per layer per token; packed int4 with their
+  group scales for int4 experts);
 - ``top``: the device's largest kernels per token.
 
 The card's name and power limit come first, as nvidia-smi reports them.
@@ -148,12 +150,10 @@ def main() -> int:
     ap.add_argument("--w4a8", action="store_true",
                     help="int4 with int8 activations (512-row scale groups)")
     ap.add_argument("--moe", action="store_true",
-                    help="the Mixtral-8x7B-shaped int8 decoder")
+                    help="the Mixtral-8x7B-shaped decoder")
     args = ap.parse_args()
     if args.w4a8 and args.quantization != "int4":
         ap.error("--w4a8 needs --quantization int4")
-    if args.moe and args.quantization != "int8":
-        ap.error("--moe takes int8 experts only")
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile: no CUDA device")
     from ragmeup_tpu_torch import kernels
@@ -165,11 +165,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build()
-    if args.moe:
-        cfg = select_kernels(LlamaConfig.mixtral_8x7b())
-    else:
-        cfg = select_kernels(LlamaConfig.llama31_8b(quantization=args.quantization,
-                                                    int4_w4a8=args.w4a8))
+    shape = LlamaConfig.mixtral_8x7b if args.moe else LlamaConfig.llama31_8b
+    cfg = select_kernels(shape(quantization=args.quantization, int4_w4a8=args.w4a8))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_decoder_params(cfg, gen, "cuda")
     weight_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
@@ -177,11 +174,12 @@ def main() -> int:
                                                     "gscale"))
     # routed experts per token: top_k of each MoE layer's E experts
     expert_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
-                       if k.rsplit(".", 1)[-1] in ("gate_q", "gate_s", "up_q", "up_s",
-                                                    "down_q", "down_s"))
+                       if k.rsplit(".", 1)[-1].split("_")[0] in ("gate", "up", "down"))
     expert_bytes = expert_bytes * cfg.num_experts_per_tok // max(cfg.num_experts, 1)
-    variant = ("Mixtral int8" if args.moe else "W4A8" if args.w4a8
-               else "W4A16" if args.quantization == "int4" else "int8")
+    variant = ("W4A8" if args.w4a8 else "W4A16" if args.quantization == "int4"
+               else "int8")
+    if args.moe:
+        variant = f"Mixtral {variant}"
     runs = [(f"{variant} kernels", cfg)]
     if args.quantization == "int8" and not args.moe:
         runs.append(("int8 plain", dataclasses.replace(cfg, quant_kernel=False,

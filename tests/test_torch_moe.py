@@ -270,15 +270,6 @@ def test_moe_quantizer_matches_jax(mlp_params):
     assert torch.equal(s, torch.from_numpy(qparams["gate_s"]))
 
 
-def test_int4_experts_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoder.LlamaConfig.tiny(num_experts=4, quantization="int4")
-    sd = {f"layers.0.mlp.{p}": torch.zeros(4, 64, 64) for p in ("gate", "up", "down")}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hf_loader.quantize_decoder_params(sd, bits=4)
-    assert decoder.LlamaConfig.tiny(quantization="int4").num_experts == 0
-
-
 MIXTRAL_HF = {  # mistralai/Mixtral-8x7B-v0.1 config.json
     "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0,
     "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096,
