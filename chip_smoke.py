@@ -10,8 +10,10 @@ Phases (any failure raises and exits non-zero):
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the main paths give it, with the stated tolerance; median times of
    both, and of one PyTorch library call computing the same function where
-   there is one, from CUDA events; the least time the card could take
-   (bytes over 3.35 TB/s or operations over the peak rate of their type).
+   there is one, from CUDA events, each after warm-up rounds until two
+   agree within 5 %; the least time the card could take (bytes over 3.35
+   TB/s or operations over the peak rate of their type); the card's SM and
+   memory clocks before the checks and after each.
 4. system, default path: full-width models with random weights drawn on
    the card from --seed (GIST-small-shaped encoder, MiniLM-L-6-shaped
    cross-encoder, Llama-3.1-8B-shaped int8 decoder), a generated corpus of
@@ -54,8 +56,9 @@ runs of requests resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path must
 have launched.
 
-Prints a JSON line with the kernels' results, then the card's name and
-power limit, and last {"ok": true, "device": {...}}.
+Prints a JSON line with the kernels' results and the clocks read before
+and after phase 3, then the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -91,13 +95,15 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 20, rounds: int = 5) -> float:
-    """Median over `rounds` of the mean time of `reps` calls (CUDA events)."""
+def median_ms(fn, reps: int = 20, rounds: int = 5, warm_rounds: int = 10) -> float:
+    """Median over `rounds` of the mean time of `reps` calls (CUDA events),
+    after warm-up rounds until two in a row agree within 5 % (at most
+    `warm_rounds`), so a card still raising its clocks is not timed."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
+
+    def one_round() -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -105,8 +111,26 @@ def median_ms(fn, reps: int = 20, rounds: int = 5) -> float:
             fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+        return start.elapsed_time(end) / reps
+    last = one_round()
+    for _ in range(warm_rounds - 1):
+        now = one_round()
+        if abs(now - last) <= 0.05 * last:
+            break
+        last = now
+    return statistics.median(one_round() for _ in range(rounds))
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks now, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def stamped(result: dict) -> dict:
+    """A kernel check's result with the clocks read just after its timings."""
+    return dict(result, clocks_sm_mem_after=clocks())
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -121,6 +145,19 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def log_ptxas(build_log: str) -> None:
+    """Each kernel's registers and shared memory from nvcc's -Xptxas -v
+    report, and any spill: a line per kernel, named."""
+    fn = "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "registers" in line:
+            log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+        elif re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
+            log(f"  ptxas {fn} SPILLS: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -318,33 +355,63 @@ def check_int4(gen, a8: bool) -> dict:
 
 
 def check_flash(gen) -> dict:
-    """#7/#8 at an 8B prefill: nkv = 8, g = 4, hd = 128, s = 1024, kv_len = 2048,
-    bf16. Tolerance 2e-2 absolute: two bf16 ulps at |out| < 2 (the plain
-    version keeps f32 throughout, the kernel too; only the final rounding
-    and the sum order differ)."""
+    """#8 at an 8B prefill (nkv 8, g 4, hd 128, s 1024, kv_len 2048, bf16)
+    and #7, its g = 1 case, at a multi-head one (32 heads); a ragged shape
+    (s 200, kv_len 256, g 4 and g 1); f32 inputs (the scalar kernel) at a
+    small shape. Each call must launch the kernel. Tolerance 2e-2 absolute:
+    the bf16 kernel rounds the unnormalized P (each p <= 1) to bf16 before
+    P V, as the JAX kernel does (p.astype(v.dtype)), while the plain
+    version keeps f32 throughout; that costs at most about 2^-9 * max |v|
+    (|v| < 5 here), plus the output's final rounding, one bf16 ulp at
+    |out| < 2. Times at both prefill buckets the paths use (s 1024 and s 256,
+    kv_len 2048), each beside its bound and scaled_dot_product_attention."""
     import torch
+    from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import attention
-    q = torch.randn(8, 4, 1024, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn(8, 2048, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn(8, 2048, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    o1 = attention.flash_attention_gqa(q, k, v)
-    o0 = attention.flash_attention_gqa_plain(q, k, v)
-    torch.cuda.synchronize()
-    err = (o0.float() - o1.float()).abs().max().item()
-    if not err <= 2e-2:
-        raise AssertionError(f"flash_attention_gqa differs by {err}")
-    s = q.shape[2]
-    # causal: the function reads keys 0..s-1 only; 4 flops per (query, key)
-    # pair and head dim (two products)
-    pairs = q.shape[0] * q.shape[1] * s * (s + 1) // 2
-    kq, vq = k[:, None, :s], v[:, None, :s]
-    return {"max_abs_err": err,
-            "ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
-            "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v), reps=5),
-            "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, kq, vq, is_causal=True, enable_gqa=True), reps=5),
-            **bound(2 * nbytes(q) + nbytes(kq, vq), 4 * pairs * 128, "bf16"),
-            "shape": "bkv=8 g=4 s=1024 kv_len=2048 hd=128 bf16"}
+
+    def inputs(bkv, g, s, kv_len, dtype=torch.bfloat16):
+        q = torch.randn(bkv, g, s, 128, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(bkv, kv_len, 128, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(bkv, kv_len, 128, generator=gen, device="cuda").to(dtype)
+        return q, k, v
+
+    def held(what, q, k, v):
+        before = kernels.launch_counts()["flash_gqa"]
+        o1 = attention.flash_attention_gqa(q, k, v)
+        if kernels.launch_counts()["flash_gqa"] == before:
+            raise AssertionError(f"flash_attention_gqa {what}: the kernel did not launch")
+        o0 = attention.flash_attention_gqa_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (o0.float() - o1.float()).abs().max().item()
+        if not (err <= 2e-2 and torch.isfinite(o1).all()):
+            raise AssertionError(f"flash_attention_gqa {what} differs by {err}")
+        return err
+
+    def timed(q, k, v):
+        # causal: the function reads keys 0..s-1 only; 4 flops per (query,
+        # key) pair and head dim (two products)
+        bkv, g, s, _ = q.shape
+        pairs = bkv * g * s * (s + 1) // 2
+        kq, vq = k[:, None, :s], v[:, None, :s]
+        return {"ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
+                "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v),
+                                      reps=5),
+                "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kq, vq, is_causal=True, enable_gqa=True), reps=5),
+                **bound(2 * nbytes(q) + nbytes(kq, vq), 4 * pairs * 128, "bf16")}
+
+    main = inputs(8, 4, 1024, 2048)
+    err = held("g=4 s=1024", *main)
+    g1 = inputs(32, 1, 1024, 2048)
+    err = max(err, held("g=1 s=1024", *g1))
+    for g, bkv in ((4, 2), (1, 8)):
+        err = max(err, held(f"ragged g={g} s=200 kv_len=256", *inputs(bkv, g, 200, 256)))
+    f32_err = held("f32 g=4 s=200", *inputs(2, 4, 200, 256, torch.float32))
+    s256 = inputs(8, 4, 256, 2048)
+    err = max(err, held("g=4 s=256", *s256))
+    return {"max_abs_err": err, **timed(*main),
+            "shape": "bkv=8 g=4 s=1024 kv_len=2048 hd=128 bf16",
+            "g1_bkv32_s1024": timed(*g1), "g4_s256": timed(*s256), "f32_err": f32_err}
 
 
 def paged_inputs(gen, b: int, lengths, q_len: int, nh: int = 32, nkv: int = 8,
@@ -670,59 +737,99 @@ def seeded_groups(gen, tokens: int = 8, e: int = MOE_E, top_k: int = 2):
 def check_moe_grouped_int4(gen) -> dict:
     """#14 at Mixtral's expert shapes: 16 rows (8 tokens, top-2) sorted by
     expert over the experts a seeded routing gives, bf16, 16-row tiles, for
-    group 128 and group 512, and with f32 activations (8-row tiles) at a
-    smaller shape; each call must take the kernel route. Held to the plain
-    version of the whole grouped product with moe_compare. Times: one
-    layer's three projections at group 128; the bound counts the experts
-    this routing uses."""
+    group 128 and group 512; a ragged routing (experts with 1, 16 and 17
+    rows: the last crosses a tile) on both routes; f32 activations (8-row
+    tiles) at a smaller shape. Each call must take the kernel route. Held
+    to the plain version of the whole grouped product with moe_compare
+    (bf16: the split-K slices' f32 partials are added in slice order, one
+    more f32 rounding per slice, far inside one bf16 ulp). Times: the
+    kernel on the padded layout (scatter_layout's output, as the function
+    hands it over) and its plain version there, for one layer's three
+    projections, then the gate/up pair and the down projection apart (the
+    long-k projection is where split-K acts); the whole function too, whose
+    host work (the scatter's some 20 small tensor ops a call) takes longer
+    than the kernel. Each bound counts the experts this routing uses."""
     import torch
     from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
+
+    def launched(what, *args):
+        before = kernels.launch_counts()["moe_grouped_int4"]
+        got = mm.moe_grouped_matmul_int4(*args)
+        if kernels.launch_counts()["moe_grouped_int4"] == before:
+            raise AssertionError(f"moe_grouped_int4 {what}: the call took another route")
+        return got
     gsz = seeded_groups(gen)
     m = int(gsz.sum())
     xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
           for k in (4096, 14336)}
-    err, times = 0.0, {}
+    padded = {k: mm.scatter_layout(x, gsz, 16, MOE_E) for k, x in xs.items()}
+    ragged = torch.tensor([1, 0, 16, 0, 17, 0, 0, 0], device="cuda")
+    xr = {k: torch.randn(int(ragged.sum()), k, generator=gen, device="cuda").to(torch.bfloat16)
+          for k in (4096, 14336)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    used = int((gsz > 0).sum())
+
+    def moved(weights, names):
+        return sum(used * nbytes(weights[p][0][0], weights[p][1][0])
+                   + nbytes(xs[MOE_SHAPES[p][0]]) + 2 * m * MOE_SHAPES[p][1] for p in names)
+
+    def ops(names):
+        return sum(2 * m * k * n for k, n in (MOE_SHAPES[p] for p in names))
+    err, out = 0.0, {}
     for group in (128, 512):
         weights = {name: int4_experts(gen, MOE_E, k, n, group)
                    for name, (k, n) in MOE_SHAPES.items()}
-
-        def call(fn, w, s):
-            return fn(xs[2 * w.shape[1]], w, s, gsz, 512, group)
         for name, (w, s) in weights.items():
-            before = kernels.launch_counts()["moe_grouped_int4"]
-            got = call(mm.moe_grouped_matmul_int4, w, s)
-            if kernels.launch_counts()["moe_grouped_int4"] == before:
-                raise AssertionError(f"moe_grouped_int4 {name}: the call took another route")
-            err = max(err, moe_compare(f"moe_grouped_int4 {name} group {group}", got,
-                                       call(mm.moe_grouped_matmul_int4_plain, w, s)))
+            for x, g, what in ((xs, gsz, "seeded"), (xr, ragged, "ragged 1/16/17")):
+                k = 2 * w.shape[1]
+                got = launched(f"{name} {what}", x[k], w, s, g, 512, group)
+                err = max(err, moe_compare(f"moe_grouped_int4 {name} {what} group {group}", got,
+                                           mm.moe_grouped_matmul_int4_plain(x[k], w, s, g, 512,
+                                                                            group)))
 
-        def layer(fn, weights=weights, call=call):
-            return lambda: [call(fn, w, s) for w, s in weights.values()]
-        times[group] = (median_ms(layer(mm.moe_grouped_matmul_int4), reps=5),
-                        median_ms(layer(mm.moe_grouped_matmul_int4_plain), reps=2))
+        def on_padded(fn, names=tuple(MOE_SHAPES), weights=weights, group=group):
+            def run():
+                for p in names:
+                    xp, _, texp, used_rows = padded[MOE_SHAPES[p][0]]
+                    if fn is mm.grouped_int4_padded:
+                        fn(xp, *weights[p], texp, used_rows, 512, group)
+                    else:
+                        fn(xp, *weights[p], texp, 512, group)
+            return run
+        res = {"ms": median_ms(on_padded(mm.grouped_int4_padded), reps=10),
+               "plain_ms": median_ms(on_padded(mm.grouped_int4_padded_plain), reps=2),
+               "function_ms": median_ms(lambda weights=weights, group=group: [
+                   mm.moe_grouped_matmul_int4(xs[k], *weights[p], gsz, 512, group)
+                   for p, (k, _) in MOE_SHAPES.items()], reps=5),
+               **bound(moved(weights, MOE_SHAPES), ops(MOE_SHAPES), "bf16")}
+        for names in (("gate", "up"), ("down",)):
+            res["/".join(names)] = {
+                "ms": median_ms(on_padded(mm.grouped_int4_padded, names), reps=10),
+                **bound(moved(weights, names), ops(names), "bf16")}
+        out[group] = res
         if group == 128:
-            used = int((gsz > 0).sum())
-            moved = sum(used * nbytes(w[0], s[0]) + nbytes(xs[2 * w.shape[1]])
-                        + 2 * m * w.shape[2] for w, s in weights.values())
-            ops = sum(2 * m * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
             stacks = [(mm.dequant_int4_stack(w, s, 512, group, torch.bfloat16), None)
                       for w, s in weights.values()]
             library = grouped_mm_ms(xs, stacks, gsz)
             del stacks
+    mp = padded[4096][0].shape[0]
+    slices = {name: len(mm.grouped_int4_slices(k, 512, mm.grouped_int4_plan(
+        mp, k, n, 512, sms))) for name, (k, n) in MOE_SHAPES.items()}
+    log(f"  moe_grouped_int4 split-K slices ({mp} padded rows, {sms} SMs): {slices}")
     for group in (128, 512):
         w, s = int4_experts(gen, MOE_E, 1024, 2048, group)
         x = torch.randn(m, 1024, generator=gen, device="cuda")
         moe_compare(f"moe_grouped_int4 f32 group {group}",
-                    mm.moe_grouped_matmul_int4(x, w, s, gsz, 512, group),
+                    launched(f"f32 group {group}", x, w, s, gsz, 512, group),
                     mm.moe_grouped_matmul_int4_plain(x, w, s, gsz, 512, group))
-    return {"max_abs_err": err, "ms": times[128][0], "plain_ms": times[128][1],
+    return {"max_abs_err": err, **out[128],
             "library_ms": None,  # PyTorch has no packed-int4 grouped matmul
             "grouped_mm_bf16_ms": library,
-            **bound(moved, ops, "bf16"),
-            "shape": f"one Mixtral layer: gate, up, down over {m} rows sorted by expert, "
-                     f"group sizes {gsz.tolist()}, packed int4 experts, group 128, bf16",
-            "group512_ms_plain_ms": [round(t, 4) for t in times[512]]}
+            "shape": f"one Mixtral layer: gate, up, down over {m} rows sorted by expert "
+                     f"({mp} padded), group sizes {gsz.tolist()}, packed int4 experts, "
+                     f"group 128, bf16",
+            "slices": slices, "group512": out[512]}
 
 
 def check_fused_mlp_int4(gen) -> dict:
@@ -1281,53 +1388,55 @@ def main() -> int:
     path = kernels.build()
     kernels.lib()
     log(f"build: {path} in {time.perf_counter() - t0:.1f} s")
-    for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log_ptxas(kernels.build_log)
 
+    clock_before = clocks()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = {  # N_DOCS rows fill the dense index's capacity exactly
-        "topk": (check_topk(gen, N_DOCS), "ragmeup_tpu_torch/csrc/topk.cu",
+        "topk": (stamped(check_topk(gen, N_DOCS)), "ragmeup_tpu_torch/csrc/topk.cu",
                  "ragmeup_tpu/ops/topk.py:63"),
-        "int8_matmul": (check_int8_matmul(gen),
+        "int8_matmul": (stamped(check_int8_matmul(gen)),
                         "ragmeup_tpu_torch/csrc/quant_matmul.cu",
                         "ragmeup_tpu/ops/quant_matmul.py:27"),
-        "flash_gqa": (check_flash(gen), "ragmeup_tpu_torch/csrc/flash_attention.cu",
+        "flash_gqa": (stamped(check_flash(gen)),
+                      "ragmeup_tpu_torch/csrc/flash_attention.cu",
                       "ragmeup_tpu/ops/attention.py:156"),
-        "topk_int8": (check_topk_int8(gen, N_DOCS), "ragmeup_tpu_torch/csrc/topk.cu",
-                      "ragmeup_tpu/ops/topk.py:88"),
-        "int4_matmul": (check_int4(gen, a8=False),
+        "topk_int8": (stamped(check_topk_int8(gen, N_DOCS)),
+                      "ragmeup_tpu_torch/csrc/topk.cu", "ragmeup_tpu/ops/topk.py:88"),
+        "int4_matmul": (stamped(check_int4(gen, a8=False)),
                         "ragmeup_tpu_torch/csrc/quant_matmul_int4.cu",
                         "ragmeup_tpu/ops/quant_matmul.py:174"),
-        "int4_matmul_a8": (check_int4(gen, a8=True),
+        "int4_matmul_a8": (stamped(check_int4(gen, a8=True)),
                            "ragmeup_tpu_torch/csrc/quant_matmul_int4.cu",
                            "ragmeup_tpu/ops/quant_matmul.py:257"),
     }
-    paged = check_paged(gen)
+    paged = {mode: stamped(r) for mode, r in check_paged(gen).items()}
     for name, mode in (("paged_attention", "decode"), ("paged_attention_chunk", "chunk")):
         results[name] = (paged[mode], "ragmeup_tpu_torch/csrc/paged_attention.cu",
                          "ragmeup_tpu/ops/paged_attention.py:487")
     free_card()
-    results["moe_gather"] = (check_moe_gather(gen), "ragmeup_tpu_torch/csrc/moe_matmul.cu",
+    results["moe_gather"] = (stamped(check_moe_gather(gen)),
+                             "ragmeup_tpu_torch/csrc/moe_matmul.cu",
                              "ragmeup_tpu/ops/moe_matmul.py:47")
     free_card()
-    grouped = check_moe_grouped(gen)
+    grouped = {name: stamped(r) for name, r in check_moe_grouped(gen).items()}
     for name, rep in (("moe_grouped", 123), ("moe_grouped_stack", 220)):
         results[name] = (grouped[name], "ragmeup_tpu_torch/csrc/moe_matmul.cu",
                          f"ragmeup_tpu/ops/moe_matmul.py:{rep}")
     free_card()
-    results["moe_gather_int4"] = (check_moe_gather_int4(gen),
+    results["moe_gather_int4"] = (stamped(check_moe_gather_int4(gen)),
                                   "ragmeup_tpu_torch/csrc/quant_matmul_int4.cu",
                                   "ragmeup_tpu/ops/moe_matmul.py:483")
     free_card()
-    results["moe_grouped_int4"] = (check_moe_grouped_int4(gen),
+    results["moe_grouped_int4"] = (stamped(check_moe_grouped_int4(gen)),
                                    "ragmeup_tpu_torch/csrc/moe_matmul_int4.cu",
                                    "ragmeup_tpu/ops/moe_matmul.py:611")
     free_card()
     # no path runs #6 (as in the JAX package): its launches stay 0
-    results["fused_mlp_int4"] = (check_fused_mlp_int4(gen),
+    results["fused_mlp_int4"] = (stamped(check_fused_mlp_int4(gen)),
                                  "ragmeup_tpu_torch/csrc/fused_mlp_int4.cu",
                                  "ragmeup_tpu/ops/quant_matmul.py:414")
+    clock_after = clocks()
     for name, (r, _, _) in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
     free_card()
@@ -1341,7 +1450,9 @@ def main() -> int:
          "launches": sum(run["counts"][name] for run in runs.values()),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")}}
-        for name, (r, src, rep) in results.items()]}), flush=True)
+        for name, (r, src, rep) in results.items()],
+        "clocks_sm_mem": {"before_kernel_checks": clock_before,
+                          "after_kernel_checks": clock_after}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

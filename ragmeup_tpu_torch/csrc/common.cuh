@@ -1,6 +1,8 @@
 // Helpers shared by the kernels under csrc/: conversions between the
 // activation types (float, bf16) and f32, the rounding of a dequantized
-// weight to the activation type, and the signed nibbles of packed int4.
+// weight to the activation type, the signed nibbles of packed int4, and
+// the sm_80+ instructions the tensor-core kernels are built from (16-byte
+// cp.async into shared memory, ldmatrix, mma.sync m16n8k16 bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,6 +35,58 @@ __device__ __forceinline__ int nib_lo(uint2 w, int c) {
 }
 __device__ __forceinline__ int nib_hi(uint2 w, int c) {
   return ((int)(byte_word(w, c) << (24 - 8 * (c & 3)))) >> 28;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously (L2 only); !valid fills zeros
+// and reads nothing (src must still be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8,
+// row l % 8, and receives row lane / 4, columns 2 (lane % 4) and + 1 of
+// each (.trans: the transposed matrix's)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulation.
+// Lane l = 4 g + c holds a: rows g, g + 8 x columns 2c, 2c + 1, 2c + 8,
+// 2c + 9; b: rows 2c, 2c + 1 (b0) and 2c + 8, 2c + 9 (b1) of column g;
+// d: rows g (d0, d1) and g + 8 (d2, d3), columns 2c and 2c + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 }  // namespace

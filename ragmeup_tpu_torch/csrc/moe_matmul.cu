@@ -172,11 +172,6 @@ struct WarpLayout {
   static constexpr int kNF = kGroupedBN / kWN / 16;     // fragments a warp, n
 };
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // 16 bytes of weights → bf16 in shared memory at dst (8, 16 or 4 values)
 __device__ __forceinline__ void store_bf16(const uint4& v, const int8_t*,
                                            __nv_bfloat16* dst) {

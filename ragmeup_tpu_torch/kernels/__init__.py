@@ -152,7 +152,7 @@ def lib() -> ctypes.CDLL:
                                               i32, i32, i32, vp, vp, vp]
             so.rk_moe_gather_int4.restype = i32
             so.rk_moe_grouped_int4.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                               i32, i32, i32, vp, vp]
+                                               i32, i32, i32, i32, vp, vp, vp]
             so.rk_moe_grouped_int4.restype = i32
             so.rk_fused_mlp_int4.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                              i32, i32, i32, i32, i32, i32, f32,

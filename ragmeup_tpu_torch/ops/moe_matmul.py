@@ -36,8 +36,10 @@ integers per k-tile and adds the tiles times their scales in f32.
 - ``moe_grouped_matmul_int4`` (batched decode, E < S ≤ 4E; #14,
   ``moe_grouped_int4``, csrc/moe_matmul_int4.cu): rows sorted by expert
   in the padded layout, each unique routed expert's packed bytes read once
-  a tile. Callers gate on ``grouped_int4_viable``: its fallback dequantizes
-  every stack in x's dtype.
+  a tile; bf16 cuts k into slices of whole packing tiles
+  (``grouped_int4_plan``) whose f32 partials are added in slice order.
+  Callers gate on ``grouped_int4_viable``: its fallback dequantizes every
+  stack in x's dtype.
 
 On a kernel route a CUDA tensor launches the kernel (or raises) and a CPU
 tensor takes the kernel's plain version. Nothing on the CUDA routes reads
@@ -99,9 +101,13 @@ def _gather_fallback(x, w, ids, scale):
 
 
 @functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _target_blocks(device_index: int) -> int:
     """Two blocks per SM of the card the kernel launches on."""
-    return 2 * torch.cuda.get_device_properties(device_index).multi_processor_count
+    return 2 * _sm_count(device_index)
 
 
 def gather_slice_for(k: int, n: int, slots: int, target_blocks: int) -> int:
@@ -547,6 +553,33 @@ def moe_grouped_matmul_int4_plain(xs: torch.Tensor, w_p: torch.Tensor,
     return out
 
 
+# blocks an SM that the int4 grouped kernel's split-K aims at: two waves of
+# the four bf16 blocks an SM holds (csrc/moe_matmul_int4.cu);
+# tools/split_k_sweep.py times its neighbours
+_INT4_BLOCKS_PER_SM = 8
+
+
+def grouped_int4_plan(mp: int, k: int, n: int, pack_tile: int, sm_count: int) -> int:
+    """Split-K plan of the bf16 int4 grouped kernel: packing tiles per
+    k-slice. The fewest slices (each as even as whole packing tiles allow)
+    that give ``_INT4_BLOCKS_PER_SM`` blocks to every SM, counting all
+    ``mp / 16`` row tiles (the used ones are a device value, never read on
+    the host); one slice a packing tile when k has too few tiles."""
+    tiles = k // pack_tile
+    blocks = (n // _GROUPED_BN) * (mp // 16)
+    for slices in range(1, tiles + 1):
+        per = -(-tiles // slices)
+        if blocks * -(-tiles // per) >= _INT4_BLOCKS_PER_SM * sm_count:
+            return per
+    return 1
+
+
+def grouped_int4_slices(k: int, pack_tile: int, tiles_per_slice: int):
+    """The plan's k-ranges [k0, k1), in the order their partials are added."""
+    step = tiles_per_slice * pack_tile
+    return [(k0, min(k0 + step, k)) for k0 in range(0, k, step)]
+
+
 def _grouped_int4_cuda(xp, w_p, gscale, texp, used, pack_tile, group):
     mp, k = xp.shape
     n = w_p.shape[2]
@@ -558,10 +591,17 @@ def _grouped_int4_cuda(xp, w_p, gscale, texp, used, pack_tile, group):
     gscale = gscale.float().contiguous()
     kernels.require_cuda("moe_grouped_int4", xp, w_p, gscale, texp, used)
     out = torch.empty((mp, n), dtype=xp.dtype, device=xp.device)
+    per, partial = 0, None      # f32 activations run over all of k
+    if xp.dtype == torch.bfloat16:
+        per = grouped_int4_plan(mp, k, n, pack_tile, _sm_count(xp.device.index))
+        slices = len(grouped_int4_slices(k, pack_tile, per))
+        if slices > 1:
+            partial = torch.empty((slices, mp, n), dtype=torch.float32, device=xp.device)
     err = kernels.lib().rk_moe_grouped_int4(
         xp.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), texp.data_ptr(),
-        used.data_ptr(), mp, k, n, pack_tile, group, kernels.dtype_code(xp.dtype),
-        out.data_ptr(), kernels.stream_handle(xp.device))
+        used.data_ptr(), mp, k, n, pack_tile, group, per, kernels.dtype_code(xp.dtype),
+        None if partial is None else partial.data_ptr(), out.data_ptr(),
+        kernels.stream_handle(xp.device))
     kernels.check(err, "moe_grouped_int4")
     kernels.count("moe_grouped_int4")
     return out
