@@ -11,9 +11,12 @@ Phases (any failure raises and exits non-zero):
    the main paths give it, with the stated tolerance; median times of
    both, and of one PyTorch library call computing the same function where
    there is one, from CUDA events, each after warm-up rounds until two
-   agree within 5 %; the least time the card could take (bytes over 3.35
-   TB/s or operations over the peak rate of their type); the card's SM and
-   memory clocks before the checks and after each.
+   agree within 5 %; the kernel's time also from a CUDA graph's replay
+   (graph_ms: the device's time without the wrapper's host cost, which an
+   eager loop times once it exceeds the kernel's); the least time the card
+   could take (bytes over 3.35 TB/s or operations over the peak rate of
+   their type); the card's SM and memory clocks before the checks and after
+   each.
 4. system, default path: full-width models with random weights drawn on
    the card from --seed (GIST-small-shaped encoder, MiniLM-L-6-shaped
    cross-encoder, Llama-3.1-8B-shaped int8 decoder), a generated corpus of
@@ -121,6 +124,31 @@ def median_ms(fn, reps: int = 20, rounds: int = 5, warm_rounds: int = 10) -> flo
     return statistics.median(one_round() for _ in range(rounds))
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in one CUDA
+    graph and the replay timed by median_ms. The host's cost of enqueueing
+    a call (the wrappers' checks, allocations and the ctypes launch, some
+    20-40 us) exceeds the device time of the fastest kernels, and an eager
+    loop then times the host; the replay does not."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return median_ms(graph.replay, reps=1) / reps
+
+
+def graph_ms_or_none(what: str, fn, reps: int = 10):
+    """graph_ms, or None (logged) where a call cannot be captured."""
+    try:
+        return graph_ms(fn, reps)
+    except Exception as exc:  # a second timing; its failure is printed
+        log(f"  {what}: no graph timing ({type(exc).__name__}: {str(exc).splitlines()[0][:160]})")
+        return None
+
+
 def clocks() -> str:
     """The card's SM and memory clocks now, as nvidia-smi reads them."""
     return subprocess.run(
@@ -205,6 +233,8 @@ def check_topk(gen, n_cols: int) -> dict:
     qb = q.to(torch.bfloat16)
     return {"max_abs_err": err,
             "ms": median_ms(lambda: topk.dense_topk(q, corpus_t, 20, mask=mask)),
+            "graph_ms": graph_ms_or_none("topk", lambda: topk.dense_topk(q, corpus_t, 20,
+                                                                         mask=mask)),
             "plain_ms": median_ms(lambda: topk.dense_topk_plain(q, corpus_t, 20, mask=mask)),
             # the library yardstick: torch.topk after the matmul
             "library_ms": median_ms(lambda: torch.topk(
@@ -240,6 +270,8 @@ def check_topk_int8(gen, n_cols: int) -> dict:
     q = torch.randn(1, d, generator=gen, device="cuda")
     return {"max_abs_err": err,
             "ms": median_ms(lambda: topk.dense_topk_int8(q, corpus, c_scale, 20, mask=mask)),
+            "graph_ms": graph_ms_or_none("topk_int8", lambda: topk.dense_topk_int8(
+                q, corpus, c_scale, 20, mask=mask)),
             "plain_ms": median_ms(lambda: topk.dense_topk_int8_plain(
                 q, corpus, c_scale, 20, mask=mask)),
             "library_ms": None,  # no one PyTorch call scores int8 codes and ranks
@@ -255,8 +287,16 @@ DECODE_SHAPES = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
 def check_int8_matmul(gen) -> dict:
     """#3 at the 8B decode projections, m in {1, 8}, bf16. Tolerance: one
     bf16 ulp of the largest output (2^-7 * max |ref|): both sides sum in
-    f32 and round once. Times: the 7 projections of one layer at m = 1 in
-    sequence (218 MB of int8, beyond the 50 MB L2, as decode reads it)."""
+    f32 and round once. Times: the 7 projections of one layer in sequence
+    (218 MB of int8, beyond the 50 MB L2, as decode reads it) at m = 1 and
+    m = 8, from an eager loop and from a CUDA graph's replay (graph_ms: the
+    device's time without the wrapper's host cost); each projection alone
+    at m = 1, eager (L2-warm: q, k, v and o fit in the L2) and in a graph
+    over copies of its weights that exceed the L2, with its bound, plain
+    time and split-K slices. The library
+    yardstick is torch._weight_int8pack_mm over the same layer (weights
+    (n, k), bf16 scales, prepared outside the timing; the port never calls
+    it), with its error against the plain version beside it."""
     import torch
     from ragmeup_tpu_torch.ops import quant_matmul as qm
     weights = {}
@@ -278,22 +318,88 @@ def check_int8_matmul(gen) -> dict:
             if not diff <= tol:
                 raise AssertionError(f"int8_matmul {name} m={m}: {diff} > {tol}")
             err = max(err, diff)
-    xs = {k: torch.randn(1, k, generator=gen, device="cuda").to(torch.bfloat16)
-          for k in (4096, 14336)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    xs = {m: {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k in (4096, 14336)} for m in (1, 8)}
 
-    def layer(fn):
-        return lambda: [fn(xs[w.shape[0]], w, s) for w, s in weights.values()]
-    per_shape = {name: round(median_ms(lambda w=w, s=s: qm.int8_matmul(
-        xs[w.shape[0]], w, s)), 4) for name, (w, s) in weights.items()}
-    moved = sum(nbytes(w, s) + 2 * (w.shape[0] + w.shape[1])
-                for w, s in weights.values())
+    def layer(fn, m=1):
+        return lambda: [fn(xs[m][w.shape[0]], w, s) for w, s in weights.values()]
+    per_shape = {}
+    for name, (w, s) in weights.items():
+        k, n = w.shape
+        x = xs[1][k]
+        # device time over copies of the weights that exceed the L2 together
+        copies = [(w, s)] + [(w.clone(), s) for _ in range(-(-64 * 2**20 // w.numel()) - 1)]
+        per_shape[name] = {
+            "ms": median_ms(lambda w=w, s=s, x=x: qm.int8_matmul(x, w, s)),
+            "graph_ms": graph_ms(lambda: [qm.int8_matmul(x, wc, sc) for wc, sc in copies],
+                                 reps=4) / len(copies),
+            "plain_ms": median_ms(lambda w=w, s=s, x=x: qm.int8_matmul_plain(x, w, s), reps=5),
+            **bound(nbytes(w, s) + 2 * (k + n), 2 * k * n, "bf16"),
+            "slices": len(qm.int8_slices(k, qm.int8_matmul_plan(1, k, n, sms)))}
+        del copies
+    moved = sum(nbytes(w, s) + 2 * (w.shape[0] + w.shape[1]) for w, s in weights.values())
     ops = sum(2 * w.shape[0] * w.shape[1] for w, _ in weights.values())
+    library, library_graph, library_err, refusal = None, None, None, None
+    try:
+        packed = [(w.t().contiguous(), s.to(torch.bfloat16)) for w, s in weights.values()]
+
+        def run_library():
+            return [torch._weight_int8pack_mm(xs[1][wt.shape[1]], wt, sb) for wt, sb in packed]
+        library_err = max((got.float() - qm.int8_matmul_plain(xs[1][w.shape[0]], w, s).float())
+                          .abs().max().item()
+                          for got, (w, s) in zip(run_library(), weights.values()))
+        library = median_ms(run_library, reps=10)
+        library_graph = graph_ms(run_library, reps=4)
+        del packed
+    except Exception as exc:  # the yardstick is optional; its refusal is printed
+        refusal = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        log(f"  torch._weight_int8pack_mm refused: {refusal}")
+    log(f"  int8_matmul library yardstick torch._weight_int8pack_mm: {library} ms "
+        f"(graph {library_graph}), error against the plain version {library_err}")
     return {"max_abs_err": err, "ms": median_ms(layer(qm.int8_matmul), reps=10),
+            "graph_ms": graph_ms(layer(qm.int8_matmul), reps=4),
             "plain_ms": median_ms(layer(qm.int8_matmul_plain), reps=10),
-            "library_ms": None,  # PyTorch has no int8-weight bf16 matmul on CUDA
+            "library_ms": library, "library_graph_ms": library_graph,
+            "library_call": "torch._weight_int8pack_mm",
+            "library_err": library_err, "library_refusal": refusal,
             **bound(moved, ops, "bf16"),
             "shape": "one decode layer: 7 projections at m=1, bf16",
-            "per_shape_ms_l2_warm": per_shape}
+            "m8": {"ms": median_ms(layer(qm.int8_matmul, 8), reps=10),
+                   "graph_ms": graph_ms(layer(qm.int8_matmul, 8), reps=4),
+                   **bound(sum(nbytes(w, s) + 2 * 8 * (w.shape[0] + w.shape[1])
+                               for w, s in weights.values()), 8 * ops, "bf16")},
+            "per_shape_m1": per_shape}
+
+
+def int4pack_ms(xs, weights, group: int, plain) -> tuple:
+    """torch._weight_int4pack_mm over a layer's projections at group
+    `group`: the same signed nibbles + 8 packed by
+    torch._convert_weight_to_int4pack, bf16 group scales with zero 0, all
+    prepared outside the timing (a yardstick: the port never calls it).
+    Returns (ms, error against the plain version, refusal, graph ms)."""
+    import torch
+    from ragmeup_tpu_torch.ops import quant_matmul as qm
+    try:
+        packed = []
+        for w, s in weights:
+            k = 2 * w.shape[0]
+            u = (qm.unpack_int4(w, qm.int4_tiling(k)[0]).to(torch.int32) + 8).t().contiguous()
+            w_u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            qsz = torch.stack([s.to(torch.bfloat16), torch.zeros_like(s, dtype=torch.bfloat16)],
+                              dim=2).contiguous()
+            packed.append((k, torch._convert_weight_to_int4pack(w_u8, 8), qsz))
+            del u, w_u8
+
+        def run():
+            return [torch._weight_int4pack_mm(xs[k], wp, group, qsz) for k, wp, qsz in packed]
+        err = max((got.float() - plain(xs[2 * w.shape[0]], w, s).float()).abs().max().item()
+                  for got, (w, s) in zip(run(), weights))
+        return median_ms(run, reps=10), err, None, graph_ms(run, reps=4)
+    except Exception as exc:  # the yardstick is optional; its refusal is printed
+        refusal = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+        log(f"  torch._weight_int4pack_mm refused: {refusal}")
+        return None, None, refusal, None
 
 
 def check_int4(gen, a8: bool) -> dict:
@@ -303,7 +409,9 @@ def check_int4(gen, a8: bool) -> dict:
     bf16 ulp of the largest output (2^-7 * max |ref|): both versions sum in
     f32 and round once (W4A8: exact integer sums, the same epilogue order).
     Times: the 7 projections of one layer in sequence at m = 1 (109 MB of
-    packed int4, beyond the 50 MB L2, as decode reads it) and at m = 256."""
+    packed int4, beyond the 50 MB L2, as decode reads it) and at m = 256;
+    #4's library yardstick is torch._weight_int4pack_mm over the group-128
+    layer at m = 1 (int4pack_ms)."""
     import torch
     from ragmeup_tpu_torch.ops import quant_matmul as qm
     plain = qm.int4_matmul_a8_plain if a8 else qm.int4_matmul_plain
@@ -333,6 +441,16 @@ def check_int4(gen, a8: bool) -> dict:
                 err = max(err, diff)
         moved[group] = sum(nbytes(w, s) + 2 * (2 * w.shape[0] + w.shape[1])
                            for w, s in weights.values())
+        if group == (512 if a8 else 128):
+            xs1 = {k: torch.randn(1, k, generator=gen, device="cuda").to(torch.bfloat16)
+                   for k in (4096, 14336)}
+            kernel_graph = graph_ms(lambda: [kernel(xs1[2 * w.shape[0]], w, s)
+                                             for w, s in weights.values()], reps=4)
+        if not a8 and group == 128:
+            library = int4pack_ms(xs1, list(weights.values()), group, plain)
+            log(f"  int4_matmul library yardstick torch._weight_int4pack_mm (group 128): "
+                f"{library[0]} ms (graph {library[3]}), error against the plain version "
+                f"{library[1]}; the kernel's layer in a graph {kernel_graph} ms")
         for m in (1, 256):
             xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                   for k in (4096, 14336)}
@@ -345,8 +463,12 @@ def check_int4(gen, a8: bool) -> dict:
     ms, plain_ms = times["group512_m1" if a8 else "group128_m1"]
     ops = sum(2 * (2 * k) * n for k, n in
               ((w.shape[0], w.shape[1]) for w, _ in weights.values()))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None,  # PyTorch has no packed-int4 matmul on CUDA
+    lib = {"library_ms": None, "graph_ms": kernel_graph}  # W4A8: no one PyTorch call
+    if not a8:
+        lib = {"library_ms": library[0], "library_graph_ms": library[3],
+               "graph_ms": kernel_graph, "library_call": "torch._weight_int4pack_mm",
+               "library_err": library[1], "library_refusal": library[2]}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lib,
             **bound(moved[512 if a8 else 128], ops, "int8" if a8 else "bf16"),
             "shape": f"one decode layer: 7 projections at m=1, bf16, group "
                      f"{512 if a8 else 128}",
@@ -394,6 +516,8 @@ def check_flash(gen) -> dict:
         pairs = bkv * g * s * (s + 1) // 2
         kq, vq = k[:, None, :s], v[:, None, :s]
         return {"ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
+                "graph_ms": graph_ms_or_none("flash_gqa", lambda: attention.flash_attention_gqa(
+                    q, k, v), reps=5),
                 "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v),
                                       reps=5),
                 "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -417,7 +541,7 @@ def check_flash(gen) -> dict:
 def paged_inputs(gen, b: int, lengths, q_len: int, nh: int = 32, nkv: int = 8,
                  P: int = 512, ps: int = 128, mp: int = 16):
     """q (b, q_len, nh, 128) and a bf16 pool (nkv, P, ps, 128) at the 8B
-    serving shapes; each sequence's 16-page table holds distinct pages
+    serving shapes; each sequence's mp-page table holds distinct pages
     scattered over the pool (entries past its length too, which the kernel
     must not read)."""
     import torch
@@ -430,18 +554,25 @@ def paged_inputs(gen, b: int, lengths, q_len: int, nh: int = 32, nkv: int = 8,
 
 
 def check_paged(gen) -> dict:
-    """#9 in both modes at the 8B serving shapes (nh 32, nkv 8, hd 128, 128-
-    token pages, 16-page tables over a 512-page pool, bf16). Decode: 8
-    sequences of 1 to 2048 tokens. Chunk-append: a 128-token chunk for 1 and
-    for 4 sequences after prefixes of 0 to 1920 tokens. Tolerance, element by
-    element: two bf16 ulps of the largest |output| of the element's own
-    (sequence, query, head) row (both versions sum in f32 and round once to
-    bf16, in another order). Per row, because a one-key row outputs a raw V
-    row several times larger than a 2048-key row's average: a tolerance set
-    by it would pass a long row with its tail page dropped; the decode check
-    shows that this one does not. Returns the decode and the chunk entries."""
+    """#9 in both modes at the 8B serving shapes (nh 32, nkv 8, hd 128, bf16;
+    128-token pages, 16-page tables over a 512-page pool unless stated).
+    Decode: 8 sequences of 1 to 2048 tokens; one of 2048; four of 1024 to
+    2048 (the batched run's shape). Chunk-append: a 128-token chunk for 1
+    and for 4 sequences after prefixes of 0 to 1920 tokens. Both modes also
+    with window 512, with softcap 30, and over 16-token pages (128-page
+    tables). Tolerance, element by element: two bf16 ulps of the largest
+    |output| of the element's own (sequence, query, head) row (both versions
+    sum in f32 and round once to bf16, in another order; the chunk kernel
+    carries p as two bf16 parts, about 2^-16 relative). Per row, because a
+    one-key row outputs a raw V row several times larger than a 2048-key
+    row's average: a tolerance set by it would pass a long row with its tail
+    page dropped; the decode check shows that this one does not. Each timed
+    case is timed eagerly and in a CUDA graph (graph_ms, without the
+    wrapper's host cost) and prints its split count (the plan reads the
+    shapes and the SM count). Returns the decode and the chunk entries."""
     import torch
     from ragmeup_tpu_torch.ops import paged_attention as pa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def off(out, ref):
         """|out - ref| and where it exceeds two bf16 ulps of the row's
@@ -462,42 +593,65 @@ def check_paged(gen) -> dict:
                 f"{err[at].item()}, beyond two bf16 ulps of its row's largest output")
         return err.max().item()
 
+    def case(label, b, lengths, q_len, ps=128, mp=16, timed=False, **kw):
+        """One check against the plain version; with `timed`, the kernel's
+        and the plain version's times, the bound and the split count."""
+        q, k, v, idx, lens = paged_inputs(gen, b, lengths, q_len, ps=ps, mp=mp,
+                                          P=max(512, b * mp))
+        if q_len == 1:
+            q = q[:, 0].contiguous()
+            fn, plain = pa.paged_attention, pa.paged_attention_plain
+        else:
+            fn, plain = pa.paged_attention_chunk, pa.paged_attention_chunk_plain
+        name = f"{fn.__name__} {label}"
+        err = compare(name, fn(q, k, v, idx, lens, **kw), plain(q, k, v, idx, lens, **kw))
+        splits = pa.paged_splits(mp, ps, pa.kernel_split(b, q_len, 32, 8, ps, mp,
+                                                         torch.bfloat16, sms))
+        res = {"max_abs_err": err, "splits": splits}
+        if timed:
+            # K/V rows read once per kv head; 4 flops per (query row, key, dim)
+            pairs = sum(q_len * (n - q_len) + q_len * (q_len + 1) // 2 for n in lengths)
+            res.update(ms=median_ms(lambda: fn(q, k, v, idx, lens, **kw)),
+                       graph_ms=graph_ms(lambda: fn(q, k, v, idx, lens, **kw)),
+                       plain_ms=median_ms(lambda: plain(q, k, v, idx, lens, **kw), reps=5),
+                       **bound(2 * sum(lengths) * 8 * 128 * 2 + 2 * nbytes(q) + nbytes(idx, lens),
+                               4 * pairs * 32 * 128, "bf16"))
+            log(f"  {name}: {res['ms']:.4f} ms, graph {res['graph_ms']:.4f} (plain "
+                f"{res['plain_ms']:.4f}, bound {res['bound_ms']:.4f}), {splits} splits")
+        return res, (q, k, v, idx, lens)
+
     lengths = [1, 2048, 777, 128, 129, 1500, 64, 1024]
-    q, k, v, idx, lens = paged_inputs(gen, 8, lengths, 1)
-    qd = q[:, 0].contiguous()
-    ref = pa.paged_attention_plain(qd, k, v, idx, lens)
-    err = compare("paged_attention", pa.paged_attention(qd, k, v, idx, lens), ref)
+    decode, (qd, k, v, idx, lens) = case("b=8", 8, lengths, 1, timed=True)
     # the tolerance must catch a kernel that drops each long sequence's tail page
+    ref = pa.paged_attention_plain(qd, k, v, idx, lens)
     cut = torch.tensor([n - ((n - 1) % 128 + 1) if n > 128 else n for n in lengths],
                        dtype=torch.int32, device="cuda")
     caught = off(pa.paged_attention_plain(qd, k, v, idx, cut), ref)[1].flatten(1).any(1)
     if not caught[lens > 128].all():
         raise AssertionError("the paged_attention tolerance passes a dropped tail page")
-    rows = sum(lengths)
-    decode = {"max_abs_err": err,
-              "ms": median_ms(lambda: pa.paged_attention(qd, k, v, idx, lens)),
-              "plain_ms": median_ms(lambda: pa.paged_attention_plain(qd, k, v, idx, lens)),
-              "library_ms": None,  # no one PyTorch call reads a paged pool
-              **bound(2 * rows * 8 * 128 * 2 + 2 * nbytes(qd) + nbytes(idx, lens),
-                      4 * rows * 32 * 128, "bf16"),
-              "shape": f"b=8 nh=32 nkv=8 hd=128 ps=128 lengths={lengths} bf16"}
-    chunk, chunk_err = {}, 0.0
+    decode.update(library_ms=None,  # no one PyTorch call reads a paged pool
+                  shape=f"b=8 nh=32 nkv=8 hd=128 ps=128 lengths={lengths} bf16")
+    decode["b1"] = case("b=1 2048 tokens", 1, [2048], 1, timed=True)[0]
+    decode["b4"] = case("b=4", 4, [1024, 1333, 1700, 2048], 1, timed=True)[0]
+    chunk = {}
     for prefixes in ([1920], [0, 640, 1333, 1920]):
         b = len(prefixes)
-        lengths = [p + 128 for p in prefixes]
-        q, k, v, idx, lens = paged_inputs(gen, b, lengths, 128)
-        chunk_err = max(chunk_err, compare(
-            "paged_attention_chunk", pa.paged_attention_chunk(q, k, v, idx, lens),
-            pa.paged_attention_chunk_plain(q, k, v, idx, lens)))
-        pairs = sum(128 * p + 128 * 129 // 2 for p in prefixes)
-        chunk[b] = {"ms": median_ms(lambda: pa.paged_attention_chunk(q, k, v, idx, lens),
-                                    reps=5),
-                    "plain_ms": median_ms(lambda: pa.paged_attention_chunk_plain(
-                        q, k, v, idx, lens), reps=5),
-                    **bound(2 * sum(lengths) * 8 * 128 * 2 + 2 * nbytes(q)
-                            + nbytes(idx, lens), 4 * pairs * 32 * 128, "bf16"),
-                    "prefixes": prefixes}
-    chunk_entry = dict(chunk[4], max_abs_err=chunk_err, library_ms=None,
+        chunk[b] = case(f"b={b}", b, [p + 128 for p in prefixes], 128, timed=True)[0]
+        chunk[b]["prefixes"] = prefixes
+    variants = {}
+    for label, kw in (("window=512", {"window": 512}), ("softcap=30", {"softcap": 30.0}),
+                      ("ps=16", {"ps": 16, "mp": 128})):
+        variants[f"decode {label}"] = case(label, 8, lengths, 1, **kw)[0]
+        variants[f"chunk {label}"] = case(label, 4, [p + 128 for p in (0, 640, 1333, 1920)],
+                                          128, **kw)[0]
+    log(f"  paged variants (error, splits): "
+        + json.dumps({key: [r["max_abs_err"], r["splits"]] for key, r in variants.items()}))
+    err = max(r["max_abs_err"] for r in variants.values())
+    decode["max_abs_err"] = max(decode["max_abs_err"], decode["b1"]["max_abs_err"],
+                                decode["b4"]["max_abs_err"], err)
+    chunk_entry = dict(chunk[4], max_abs_err=max(chunk[1]["max_abs_err"],
+                                                 chunk[4]["max_abs_err"], err),
+                       library_ms=None,
                        shape="q_len=128 b=4 nh=32 nkv=8 hd=128 ps=128 bf16",
                        b1=chunk[1])
     return {"decode": decode, "chunk": chunk_entry}
@@ -570,8 +724,9 @@ def check_moe_gather(gen) -> dict:
                 + nbytes(xs[w.shape[1]]) + 2 * 2 * w.shape[2] for w, _ in weights.values())
     ops = sum(2 * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
     return {"max_abs_err": err, "ms": median_ms(layer(mm.moe_gather_matmul), reps=10),
+            "graph_ms": graph_ms_or_none("moe_gather", layer(mm.moe_gather_matmul), reps=4),
             "plain_ms": median_ms(layer(mm.moe_gather_matmul_plain), reps=2),
-            "library_ms": None,  # PyTorch has no int8-weight bf16 matmul on CUDA
+            "library_ms": None,  # no one PyTorch call gathers experts and multiplies
             **bound(moved, ops, "bf16"),
             "shape": "one Mixtral decode layer: gate, up, down at S=2 slots (experts 5, 2), "
                      "int8 experts, bf16"}
@@ -646,6 +801,7 @@ def check_moe_grouped(gen) -> dict:
         out[name] = {
             "max_abs_err": err,
             "ms": median_ms(layer(mm.moe_grouped_matmul), reps=5),
+            "graph_ms": graph_ms_or_none(name, layer(mm.moe_grouped_matmul), reps=2),
             "plain_ms": median_ms(layer(lambda x, w, g, s, **_: mm.moe_grouped_matmul_plain(
                 x, w, g, s)), reps=2),
             "library_ms": None,  # PyTorch has no int8-weight grouped matmul
@@ -707,6 +863,9 @@ def check_moe_gather_int4(gen) -> dict:
         times[group] = (median_ms(layer(mm.moe_gather_matmul_int4), reps=10),
                         median_ms(layer(mm.moe_gather_matmul_int4_plain), reps=2))
         if group == 128:
+            gather_graph = graph_ms_or_none("moe_gather_int4", layer(mm.moe_gather_matmul_int4),
+                                            reps=4)
+        if group == 128:
             moved = sum(2 * nbytes(w[0], s[0]) + nbytes(xs[2 * w.shape[1]])
                         + 2 * 2 * w.shape[2] for w, s in weights.values())
             ops = sum(2 * 2 * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
@@ -717,8 +876,9 @@ def check_moe_gather_int4(gen) -> dict:
         moe_compare(f"moe_gather_int4 f32 group {group}",
                     launched(f"f32 group {group}", x, w, s, sid, 512, group),
                     mm.moe_gather_matmul_int4_plain(x, w, s, sid, 512, group))
-    return {"max_abs_err": err, "ms": times[128][0], "plain_ms": times[128][1],
-            "library_ms": None,  # PyTorch has no packed-int4 matmul
+    return {"max_abs_err": err, "ms": times[128][0], "graph_ms": gather_graph,
+            "plain_ms": times[128][1],
+            "library_ms": None,  # no one PyTorch call gathers int4 experts and multiplies
             **bound(moved, ops, "bf16"),
             "shape": "one Mixtral decode layer: gate, up, down at S=2 slots (experts 5, 2), "
                      "packed int4 experts, group 128, bf16",
@@ -798,6 +958,8 @@ def check_moe_grouped_int4(gen) -> dict:
                         fn(xp, *weights[p], texp, 512, group)
             return run
         res = {"ms": median_ms(on_padded(mm.grouped_int4_padded), reps=10),
+               "graph_ms": graph_ms_or_none("moe_grouped_int4", on_padded(mm.grouped_int4_padded),
+                                            reps=4),
                "plain_ms": median_ms(on_padded(mm.grouped_int4_padded_plain), reps=2),
                "function_ms": median_ms(lambda weights=weights, group=group: [
                    mm.moe_grouped_matmul_int4(xs[k], *weights[p], gsz, 512, group)
@@ -865,8 +1027,9 @@ def check_fused_mlp_int4(gen) -> dict:
     x = torch.randn(1, h, generator=gen, device="cuda").to(torch.bfloat16)
     return {"max_abs_err": err,
             "ms": median_ms(lambda: qm.fused_mlp_int4(x, nw, *ws), reps=10),
+            "graph_ms": graph_ms_or_none("fused_mlp_int4", lambda: qm.fused_mlp_int4(x, nw, *ws)),
             "plain_ms": median_ms(lambda: qm.fused_mlp_int4_plain(x, nw, *ws), reps=2),
-            "library_ms": None,  # PyTorch has no packed-int4 matmul
+            "library_ms": None,  # no one PyTorch call runs the fused int4 MLP
             **bound(nbytes(*ws, nw) + 2 * nbytes(x), 2 * 3 * h * inter, "bf16"),
             "shape": "Llama-3.1-8B MLP at m=1: h 4096, I 14336, group 128, bf16"}
 

@@ -18,6 +18,7 @@ can show that the main path really went through the kernels
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -140,7 +141,7 @@ def lib() -> ctypes.CDLL:
             so.rk_flash_gqa.restype = i32
             so.rk_paged_attention.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                               i32, i32, i32, i32, f32, i32, f32,
-                                              i32, vp, vp]
+                                              i32, i32, vp, vp, vp]
             so.rk_paged_attention.restype = i32
             so.rk_moe_gather.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                          i32, vp, vp, vp]
@@ -182,6 +183,13 @@ def dtype_code(dtype) -> int:
 def stream_handle(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """SMs of the card the kernels launch on (the split plans read it)."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -49,7 +49,6 @@ a device value on the host. The grouped kernel's backward is not ported
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -100,14 +99,9 @@ def _gather_fallback(x, w, ids, scale):
     return torch.einsum("sk,skn->sn", x, wd)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def _target_blocks(device_index: int) -> int:
     """Two blocks per SM of the card the kernel launches on."""
-    return 2 * _sm_count(device_index)
+    return 2 * kernels.sm_count(device_index)
 
 
 def gather_slice_for(k: int, n: int, slots: int, target_blocks: int) -> int:
@@ -593,7 +587,7 @@ def _grouped_int4_cuda(xp, w_p, gscale, texp, used, pack_tile, group):
     out = torch.empty((mp, n), dtype=xp.dtype, device=xp.device)
     per, partial = 0, None      # f32 activations run over all of k
     if xp.dtype == torch.bfloat16:
-        per = grouped_int4_plan(mp, k, n, pack_tile, _sm_count(xp.device.index))
+        per = grouped_int4_plan(mp, k, n, pack_tile, kernels.sm_count(xp.device.index))
         slices = len(grouped_int4_slices(k, pack_tile, per))
         if slices > 1:
             partial = torch.empty((slices, mp, n), dtype=torch.float32, device=xp.device)

@@ -14,7 +14,10 @@ Counterpart of ``ragmeup_tpu/ops/paged_attention.py``:
 - ``paged_attention`` (decode: q ``(b, nh, hd)``) and
   ``paged_attention_chunk`` (chunk-append: q ``(b, s, nh, hd)``): CUDA
   tensors launch csrc/paged_attention.cu (kernel #9), CPU tensors take
-  ``paged_attention_plain`` / ``paged_attention_chunk_plain``.
+  ``paged_attention_plain`` / ``paged_attention_chunk_plain``. On bf16
+  pools the kernel cuts the keys into splits (``paged_split_plan``, from
+  the shapes and the SM count: ``lengths`` never leave the device) and
+  merges each row's splits in split order.
 
 Layout: the pool is ``(nkv, P, ps, hd)`` with one token per row. The JAX
 package packs 128/hd tokens into one row or pads hd up to 128
@@ -45,6 +48,13 @@ from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.devices import resolve_device
 
 KERNEL_HEAD_DIM = 128
+SPLIT_KEYS = 64            # csrc/paged_attention.cu: keys per tile
+DECODE_MAX_G = 8           # query heads per kv head the decode kernel takes
+CHUNK_ROWS = 64            # query rows per block of the chunk kernel
+# blocks an SM the split plan aims at: decode blocks are light (three fit an
+# SM) and end early on short sequences; a chunk block fills half an SM
+_DECODE_BLOCKS_PER_SM = 4
+_CHUNK_BLOCKS_PER_SM = 1
 
 
 class PagedKVCache:
@@ -306,8 +316,43 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# attention: kernel wrappers
+# attention: the split plan and the kernel wrappers
 # ---------------------------------------------------------------------------
+
+def paged_split_plan(mp: int, ps: int, b: int, nkv: int, sm_count: int,
+                     row_tiles: Optional[int] = None) -> int:
+    """Keys per split of the bf16 kernels: a whole number of 64-key tiles.
+
+    ``row_tiles`` None plans the decode kernel (one block per sequence, kv
+    head and split); a number plans the chunk kernel with that many 64-row
+    tiles per (sequence, kv head). Reads the page table's width, never the
+    lengths: the splits cover every key below ``mp * ps``, and a split past
+    a sequence's length ends at once. As few splits as give the blocks the
+    kernel aims at on every SM, at most one per tile, cut evenly into whole
+    tiles (which may round to fewer splits)."""
+    tiles = -(-(mp * ps) // SPLIT_KEYS)
+    per_sm = _DECODE_BLOCKS_PER_SM if row_tiles is None else _CHUNK_BLOCKS_PER_SM
+    base = b * nkv * (row_tiles or 1)
+    splits = min(tiles, max(1, -(-per_sm * sm_count // base)))
+    return -(-tiles // splits) * SPLIT_KEYS
+
+
+def paged_splits(mp: int, ps: int, keys_per_split: int) -> int:
+    return -(-(mp * ps) // keys_per_split)
+
+
+def kernel_split(b: int, q_len: int, nh: int, nkv: int, ps: int, mp: int,
+                 dtype: torch.dtype, sm_count: int) -> int:
+    """Keys per split of the launch the wrappers make for these shapes: the
+    plan on bf16 (decode kernel for q_len 1 and at most ``DECODE_MAX_G``
+    heads per kv head, else the chunk kernel), one split on f32."""
+    if dtype != torch.bfloat16:
+        return -(-(mp * ps) // SPLIT_KEYS) * SPLIT_KEYS
+    g = nh // nkv
+    if q_len == 1 and g <= DECODE_MAX_G:
+        return paged_split_plan(mp, ps, b, nkv, sm_count)
+    return paged_split_plan(mp, ps, b, nkv, sm_count, -(-(q_len * g) // CHUNK_ROWS))
+
 
 def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                 page_indices: torch.Tensor, lengths: torch.Tensor,
@@ -335,11 +380,18 @@ def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     kernels.require_cuda(name, q, k_pages, v_pages, out)
     if idx.device != q.device or lens.device != q.device:
         raise ValueError(f"{name}: page tables and lengths must be on {q.device}")
+    mp = idx.shape[1]
+    kps = kernel_split(b, q_len, nh, nkv, ps, mp, q.dtype,
+                       kernels.sm_count(q.device.index))
+    splits = paged_splits(mp, ps, kps)
+    # per (sequence, kv head, row, split): m and l, then the 128 sums of o
+    ws = torch.empty(b * q_len * nh * splits * (2 + hd) if splits > 1 else 0,
+                     dtype=torch.float32, device=q.device)
     err = kernels.lib().rk_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), idx.data_ptr(),
-        lens.data_ptr(), b, q_len, nh, nkv, P, ps, idx.shape[1],
+        lens.data_ptr(), b, q_len, nh, nkv, P, ps, mp,
         float(sm_scale), int(window), float(softcap),
-        kernels.dtype_code(q.dtype), out.data_ptr(),
+        kernels.dtype_code(q.dtype), kps, ws.data_ptr(), out.data_ptr(),
         kernels.stream_handle(q.device))
     kernels.check(err, name)
     kernels.count(name)

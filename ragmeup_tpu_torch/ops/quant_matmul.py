@@ -5,7 +5,8 @@ Counterpart of ``ragmeup_tpu/ops/quant_matmul.py``.
 ``int8_matmul``: ``x (m, k) @ (w_q (k, n) int8 · scale (n,)) → (m, n)`` in
 x's dtype, f32 accumulation, the per-channel scale applied after the sum. At
 decode (m ≤ 8) the product is bound by reading the int8 weights once;
-csrc/quant_matmul.cu streams them with a deterministic split-K.
+csrc/quant_matmul.cu streams them 16 bytes a lane with a deterministic
+split-K (``int8_matmul_plan``).
 
 ``int4_matmul``: packed int4 weights ``w_p (k/2, n)`` with group-wise scales
 ``gscale (k/group, n)`` (the TPU-native counterpart of the reference's 4-bit
@@ -41,7 +42,12 @@ from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops.topk import divide_exactly, quantize_int8
 
 MAX_ROWS = 8
-_COLS_PER_BLOCK = 512   # csrc/quant_matmul.cu: 128 threads x 4 columns
+# csrc/quant_matmul.cu: 8 warps a block, 16 columns a lane (512 a block), x's
+# slice staged as f32 in at most 12288 floats of shared memory
+_INT8_COLS_PER_BLOCK = 512
+_INT8_ROW_STEP = 64          # 8 warps x one 8-row batch each
+_INT8_XS_FLOATS = 12288
+_INT8_BLOCKS_PER_SM = 2
 
 
 def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -57,17 +63,26 @@ def _target_blocks(device_index: int) -> int:
     return 2 * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def k_slice_for(k: int, n: int, target_blocks: int) -> int:
-    """Split-K slice length: the longest slice (fewest partials) that still
-    gives ``target_blocks`` blocks; a divisor of k."""
-    col_blocks = -(-n // _COLS_PER_BLOCK)
-    divisors = [s for s in (256, 128, 64, 32, 16) if k % s == 0]
-    if not divisors:
-        raise ValueError(f"int8_matmul kernel: k={k} not a multiple of 16")
-    for s in divisors:
-        if col_blocks * (k // s) >= target_blocks:
-            return s
-    return divisors[-1]
+def int8_matmul_plan(m: int, k: int, n: int, sm_count: int) -> int:
+    """#3's split-K plan: the k rows of one block's slice (slice i covers
+    rows ``[i * k_slice, min(k, (i + 1) * k_slice))``). The 512-column
+    strips alone give too few blocks at every 8B decode shape, so k is cut
+    into as few slices as give ``_INT8_BLOCKS_PER_SM`` blocks on every SM,
+    each a whole number of the 8 warps' 8-row batches (which may round to
+    fewer slices), and no longer than x's staging buffer holds at m rows
+    (rounded up to 1, 2, 4 or 8)."""
+    strips = -(-n // _INT8_COLS_PER_BLOCK)
+    step = _INT8_ROW_STEP
+    x_rows = 1 << (max(m, 1) - 1).bit_length()
+    cap = max(step, _INT8_XS_FLOATS // x_rows // step * step)
+    slices = max(1, -(-_INT8_BLOCKS_PER_SM * sm_count // strips))
+    k_slice = -(-k // slices)
+    return min(-(-k_slice // step) * step, cap)
+
+
+def int8_slices(k: int, k_slice: int):
+    """[(k0, k1)] of each slice in slice order, as the kernel cuts k."""
+    return [(k0, min(k, k0 + k_slice)) for k0 in range(0, k, k_slice)]
 
 
 def _int8_matmul_cuda(x, w_q, scale):
@@ -75,14 +90,16 @@ def _int8_matmul_cuda(x, w_q, scale):
     n = w_q.shape[1]
     if m > MAX_ROWS:
         raise ValueError(f"int8_matmul kernel takes at most {MAX_ROWS} rows, got {m}")
-    if w_q.dtype != torch.int8 or n % 4:
-        raise ValueError(f"int8_matmul kernel: w_q int8 with n % 4 == 0 "
+    if w_q.dtype != torch.int8 or n % 16:
+        raise ValueError(f"int8_matmul kernel: w_q int8 with n % 16 == 0 "
                          f"(got {w_q.dtype}, n={n})")
     x = x.contiguous()
     scale = scale.float().contiguous()
     kernels.require_cuda("int8_matmul", x, w_q, scale)
-    ks = k_slice_for(k, n, _target_blocks(x.device.index))
-    partial = torch.empty((k // ks, m, n), dtype=torch.float32, device=x.device)
+    ks = int8_matmul_plan(m, k, n, kernels.sm_count(x.device.index))
+    slices = -(-k // ks)
+    partial = torch.empty((slices, m, n) if slices > 1 else (0,),
+                          dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     err = kernels.lib().rk_int8_matmul(
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), m, k, n, ks,

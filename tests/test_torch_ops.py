@@ -257,12 +257,15 @@ def test_int4_split_k_slices_stay_in_a_tile(k, n, m, expect):
     assert ks == expect and (tile_k // 2) % ks == 0
 
 
-@pytest.mark.parametrize("k,n,expect", [(4096, 4096, 64), (4096, 1024, 16),
-                                        (4096, 14336, 256), (14336, 4096, 256),
-                                        (512, 512, 16)])
+@pytest.mark.parametrize("k,n,expect", [(4096, 4096, 128), (4096, 1024, 64),
+                                        (4096, 14336, 448), (14336, 4096, 448),
+                                        (512, 512, 64)])
 def test_int8_split_k_fills_the_card(k, n, expect):
-    ks = quant_matmul.k_slice_for(k, n, target_blocks=264)  # 132-SM H100
-    assert ks == expect and k % ks == 0
+    """#3's plan at m = 1 on a 132-SM H100: slices of whole 64-row steps
+    that give about two blocks an SM (tests/test_torch_kernel_plans.py
+    holds the plan in full)."""
+    ks = quant_matmul.int8_matmul_plan(1, k, n, sm_count=132)
+    assert ks == expect and ks % 64 == 0
 
 
 def _attn_inputs(seed, bkv, g, s=128, kv_len=256, d=128):
