@@ -402,23 +402,119 @@ def int4pack_ms(xs, weights, group: int, plain) -> tuple:
         return None, None, refusal, None
 
 
+def launched_kernels(fn) -> set:
+    """Names of the device kernels one call of `fn` launched, from a
+    torch.profiler trace."""
+    import torch
+    from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {name for name, _, _ in _device_intervals(prof)}
+
+
+def check_int4_decode_short_and_routes(gen) -> dict:
+    """#4's decode kernels (m <= 8) where the plan leaves a short last
+    slice in every k-tile (k = tile_k = 1040: 520 packed rows a tile in
+    slices of 64, the last 8 rows; quality group 130, which crosses the
+    warps' runs and takes the scalar kernel, and group 1040, the
+    output-scaled route, which bf16 takes to the tensor cores), m in {1, 3,
+    8}, bf16 and f32, against the plain version at one bf16 ulp of the
+    largest output. Then which kernels launch: W4A16 bf16 at m = 1 and 8
+    (group 128) must run rk_int4_decode_mma_kernel, f32 at m = 1 and bf16
+    at group 130 rk_int4_decode_kernel, m = 256 rk_int4_partial_kernel,
+    each alone beside the reduce."""
+    import torch
+    from ragmeup_tpu_torch.ops import quant_matmul as qm
+    k, n = 1040, 512
+    ks = qm.int4_decode_plan(1, k, n, k, 130, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+    last = qm.int4_decode_slices(k, k, ks)[-1]
+    if not last[1] - last[0] < ks:
+        raise AssertionError(f"int4 decode: no short slice at k={k} (slice {ks}, last {last})")
+    err = 0.0
+    short = {}
+    for group in (130, 1040):
+        w = torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand(k // group, n, generator=gen, device="cuda") * 2e-3 + 1e-3
+        short[group] = (w, s)
+        for dtype in (torch.bfloat16, torch.float32):
+            for m in (1, 3, 8):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+                y1 = qm.int4_matmul(x, w, s)
+                y0 = qm.int4_matmul_plain(x, w, s)
+                torch.cuda.synchronize()
+                diff = (y0.float() - y1.float()).abs().max().item()
+                tol = 2.0 ** -7 * y0.float().abs().max().item()
+                if not diff <= tol:
+                    raise AssertionError(f"int4 decode short slice group={group} {dtype} "
+                                         f"m={m}: {diff} > {tol}")
+                err = max(err, diff)
+    k, n = DECODE_SHAPES["q"]
+    w = torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda", dtype=torch.int8)
+    s = torch.rand(k // 128, n, generator=gen, device="cuda") * 2e-3 + 1e-3
+    cases = {"bf16 m=1": (1, torch.bfloat16, w, s, "rk_int4_decode_mma_kernel"),
+             "bf16 m=8": (8, torch.bfloat16, w, s, "rk_int4_decode_mma_kernel"),
+             "f32 m=1": (1, torch.float32, w, s, "rk_int4_decode_kernel"),
+             "bf16 m=1 group 130": (1, torch.bfloat16, *short[130], "rk_int4_decode_kernel"),
+             "bf16 m=256": (256, torch.bfloat16, w, s, "rk_int4_partial_kernel")}
+    routes = {}
+    for label, (m, dtype, wc, sc, want) in cases.items():
+        x = torch.randn(m, 2 * wc.shape[0], generator=gen, device="cuda").to(dtype)
+        names = sorted({found for name in launched_kernels(lambda: qm.int4_matmul(x, wc, sc))
+                        for found in re.findall(r"rk_\w+", name)})
+        main = [name for name in names if "reduce" not in name]
+        if main != [want]:
+            raise AssertionError(f"int4_matmul {label} launched {names}, wanted {want}")
+        routes[label] = names
+    log(f"  int4 decode: short-slice error {err}; kernels: {routes}")
+    return {"short_slice_err": err, "kernels_by_call": routes}
+
+
+def int4_scalar_decode(x, w, s):
+    """#4's scalar decode kernel (rk_int4_decode_kernel) on a bf16 call the
+    wrapper sends to the tensor cores: the yardstick of that choice, timed
+    beside it (the port never makes this call)."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import quant_matmul as qm
+    m, k = x.shape
+    n = w.shape[1]
+    tile_k, group = qm.int4_tiling(k)[0], k // s.shape[0]
+    ks = qm.int4_decode_plan(m, k, n, tile_k, group, kernels.sm_count(x.device.index))
+    slices = len(qm.int4_decode_slices(k, tile_k, ks))
+    partial = torch.empty((slices, m, n) if slices > 1 else (0,), device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    kernels.check(kernels.lib().rk_int4_decode(
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), m, k, n, tile_k, group, ks,
+        kernels.dtype_code(x.dtype), 0, partial.data_ptr(), out.data_ptr(),
+        kernels.stream_handle(x.device)), "int4 scalar decode")
+    return out
+
+
 def check_int4(gen, a8: bool) -> dict:
     """#4 (W4A16, groups 128 and 512: the quality and the output-scaled
-    route) or #5 (W4A8, group 512) at the 8B projection shapes for m in
-    {1, 8, 256}, bf16, on random packed bytes and scales. Tolerance: one
-    bf16 ulp of the largest output (2^-7 * max |ref|): both versions sum in
-    f32 and round once (W4A8: exact integer sums, the same epilogue order).
-    Times: the 7 projections of one layer in sequence at m = 1 (109 MB of
-    packed int4, beyond the 50 MB L2, as decode reads it) and at m = 256;
-    #4's library yardstick is torch._weight_int4pack_mm over the group-128
-    layer at m = 1 (int4pack_ms)."""
+    route) or #5 (W4A8, group 512) at the 8B projection shapes, bf16, on
+    random packed bytes and scales: #4 at m in {1, 2, 3, 4, 8, 256} (m <= 8
+    is the decode kernel) and with f32 activations at m <= 8, #5 at m in
+    {1, 8, 256}. Tolerance: one bf16 ulp of the largest output (2^-7 *
+    max |ref|): both versions sum in f32 and round once (W4A8: exact
+    integer sums, the same epilogue order). Times: the 7 projections of one
+    layer in sequence (109 MB of packed int4, beyond the 50 MB L2, as
+    decode reads it) at m = 1 and m = 256, eager, and from a CUDA graph's
+    replay; #4 also at m = 8, beside its library yardstick
+    torch._weight_int4pack_mm over the group-128 layer at m = 1 and 8
+    (int4pack_ms) and its scalar decode kernel on the same bf16 calls
+    (int4_scalar_decode, checked at the same tolerance), and its
+    short-slice and launch checks (check_int4_decode_short_and_routes)."""
     import torch
     from ragmeup_tpu_torch.ops import quant_matmul as qm
     plain = qm.int4_matmul_a8_plain if a8 else qm.int4_matmul_plain
 
     def kernel(x, w, s):
         return qm.int4_matmul(x, w, s, a8=a8)
-    err, times, moved = 0.0, {}, {}
+    err, f32_err, times, moved, graph, library, scalar = 0.0, 0.0, {}, {}, {}, {}, {}
+    checked = (1, 8, 256) if a8 else (1, 2, 3, 4, 8, 256)
     for group in (512,) if a8 else (128, 512):
         weights = {}
         for name, (k, n) in DECODE_SHAPES.items():
@@ -428,52 +524,73 @@ def check_int4(gen, a8: bool) -> dict:
             weights[name] = (w, s)
             if name in ("v", "o", "up"):
                 continue  # same (k, n) as a projection checked already
-            for m in (1, 8, 256):
-                x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            cases = [(m, torch.bfloat16) for m in checked]
+            if not a8:
+                cases += [(m, torch.float32) for m in checked if m <= 8]
+            for m, dtype in cases:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
                 y1 = kernel(x, w, s)
                 y0 = plain(x, w, s)
                 torch.cuda.synchronize()
                 diff = (y0.float() - y1.float()).abs().max().item()
                 tol = 2.0 ** -7 * y0.float().abs().max().item()
                 if not diff <= tol:
-                    raise AssertionError(f"int4 a8={a8} group={group} {name} m={m}: "
-                                         f"{diff} > {tol}")
-                err = max(err, diff)
+                    raise AssertionError(f"int4 a8={a8} group={group} {name} m={m} "
+                                         f"{dtype}: {diff} > {tol}")
+                if dtype == torch.float32:
+                    f32_err = max(f32_err, diff)
+                else:
+                    err = max(err, diff)
         moved[group] = sum(nbytes(w, s) + 2 * (2 * w.shape[0] + w.shape[1])
                            for w, s in weights.values())
-        if group == (512 if a8 else 128):
-            xs1 = {k: torch.randn(1, k, generator=gen, device="cuda").to(torch.bfloat16)
-                   for k in (4096, 14336)}
-            kernel_graph = graph_ms(lambda: [kernel(xs1[2 * w.shape[0]], w, s)
-                                             for w, s in weights.values()], reps=4)
-        if not a8 and group == 128:
-            library = int4pack_ms(xs1, list(weights.values()), group, plain)
-            log(f"  int4_matmul library yardstick torch._weight_int4pack_mm (group 128): "
-                f"{library[0]} ms (graph {library[3]}), error against the plain version "
-                f"{library[1]}; the kernel's layer in a graph {kernel_graph} ms")
-        for m in (1, 256):
+        for m in (1, 256) if a8 else (1, 8, 256):
             xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                   for k in (4096, 14336)}
 
             def layer(fn, xs=xs, weights=weights):
                 return lambda: [fn(xs[2 * w.shape[0]], w, s) for w, s in weights.values()]
-            reps = 10 if m == 1 else 2
+            reps = 10 if m <= 8 else 2
             times[f"group{group}_m{m}"] = (median_ms(layer(kernel), reps=reps),
                                            median_ms(layer(plain), reps=reps))
-    ms, plain_ms = times["group512_m1" if a8 else "group128_m1"]
+            if m <= 8:
+                graph[f"group{group}_m{m}"] = graph_ms(layer(kernel), reps=4)
+            if not a8 and group == 128 and m <= 8:
+                for w, s in weights.values():
+                    y0 = plain(xs[2 * w.shape[0]], w, s)
+                    diff = (y0.float() - int4_scalar_decode(xs[2 * w.shape[0]], w, s).float()
+                            ).abs().max().item()
+                    if not diff <= 2.0 ** -7 * y0.float().abs().max().item():
+                        raise AssertionError(f"int4 scalar decode m={m}: {diff}")
+                scalar[m] = graph_ms(layer(int4_scalar_decode), reps=4)
+                library[m] = int4pack_ms(xs, list(weights.values()), group, plain)
+                log(f"  int4_matmul library yardstick torch._weight_int4pack_mm (group 128, "
+                    f"m={m}): {library[m][0]} ms (graph {library[m][3]}), error against the "
+                    f"plain version {library[m][1]}; the kernel's layer {times[f'group128_m{m}'][0]}"
+                    f" ms, in a graph {graph[f'group128_m{m}']} ms (scalar kernel {scalar[m]})")
+    main = "group512_m1" if a8 else "group128_m1"
+    ms, plain_ms = times[main]
     ops = sum(2 * (2 * k) * n for k, n in
               ((w.shape[0], w.shape[1]) for w, _ in weights.values()))
-    lib = {"library_ms": None, "graph_ms": kernel_graph}  # W4A8: no one PyTorch call
+    lib = {"library_ms": None}  # W4A8: no one PyTorch call
     if not a8:
-        lib = {"library_ms": library[0], "library_graph_ms": library[3],
-               "graph_ms": kernel_graph, "library_call": "torch._weight_int4pack_mm",
-               "library_err": library[1], "library_refusal": library[2]}
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **lib,
-            **bound(moved[512 if a8 else 128], ops, "int8" if a8 else "bf16"),
+        g = moved[128]
+        lib = {"library_ms": library[1][0], "library_graph_ms": library[1][3],
+               "library_call": "torch._weight_int4pack_mm",
+               "library_err": library[1][1], "library_refusal": library[1][2],
+               "f32_max_abs_err": f32_err,
+               "scalar_kernel_graph_ms": scalar,
+               "m8": {"ms": times["group128_m8"][0], "graph_ms": graph["group128_m8"],
+                      "library_ms": library[8][0], "library_graph_ms": library[8][3],
+                      **bound(g + sum(2 * 7 * (2 * w.shape[0] + w.shape[1])
+                                      for w, _ in weights.values()), 8 * ops, "bf16")},
+               **check_int4_decode_short_and_routes(gen)}
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph[main], "plain_ms": plain_ms,
+            **lib, **bound(moved[512 if a8 else 128], ops, "int8" if a8 else "bf16"),
             "shape": f"one decode layer: 7 projections at m=1, bf16, group "
                      f"{512 if a8 else 128}",
-            "layer_ms_kernel_plain": {k: [round(a, 4), round(b, 4)]
-                                      for k, (a, b) in times.items()}}
+            "layer_graph_ms": {key: round(t, 4) for key, t in graph.items()},
+            "layer_ms_kernel_plain": {key: [round(a, 4), round(b, 4)]
+                                      for key, (a, b) in times.items()}}
 
 
 def check_flash(gen) -> dict:

@@ -1,8 +1,10 @@
 // Helpers shared by the kernels under csrc/: conversions between the
 // activation types (float, bf16) and f32, the rounding of a dequantized
-// weight to the activation type, the signed nibbles of packed int4, and
-// the sm_80+ instructions the tensor-core kernels are built from (16-byte
-// cp.async into shared memory, ldmatrix, mma.sync m16n8k16 bf16).
+// weight to the activation type, the signed nibbles of packed int4 (one at
+// a time, or two at once as exact bf16 integers without the conversion
+// unit), the 16-byte read-only weight load, and the sm_80+ instructions
+// the tensor-core kernels are built from (16-byte cp.async into shared
+// memory, ldmatrix, mma.sync m16n8k16 bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +37,15 @@ __device__ __forceinline__ int nib_lo(uint2 w, int c) {
 }
 __device__ __forceinline__ int nib_hi(uint2 w, int c) {
   return ((int)(byte_word(w, c) << (24 - 8 * (c & 3)))) >> 28;
+}
+
+// 16 bytes global -> registers through the non-coherent (read-only) path
+__device__ __forceinline__ int4 ld_nc16(const void* p) {
+  int4 r;
+  asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(__cvta_generic_to_global(p)));
+  return r;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -87,6 +98,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// signed nibbles at bits 0-3 and 16-19 of t -> bf16x2 of the integers:
+// bf16 bits 0x4300 | (u ^ 8) is 136 + q exactly
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
+  const uint32_t biased = (t & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   __float2bfloat162_rn(136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the pair's integers times their column's scale in f32, rounded to bf16
+__device__ __forceinline__ uint32_t scale_pair(uint32_t q, float s) {
+  return pack_bf16x2(__fmul_rn(__uint_as_float(q << 16), s),
+                     __fmul_rn(__uint_as_float(q & 0xFFFF0000u), s));
 }
 
 }  // namespace

@@ -108,21 +108,6 @@ struct Ring {
   }
 };
 
-// signed nibbles at bits 0-3 and 16-19 of t -> bf16x2 of the integers:
-// bf16 bits 0x4300 | (u ^ 8) is 136 + q exactly
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
-  const uint32_t biased = (t & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
-                                   __float2bfloat162_rn(136.f));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// the pair's integers times their column's scale in f32, rounded to bf16
-__device__ __forceinline__ uint32_t scale_pair(uint32_t q, float s) {
-  return pack_bf16x2(__fmul_rn(__uint_as_float(q << 16), s),
-                     __fmul_rn(__uint_as_float(q & 0xFFFF0000u), s));
-}
-
 template <bool kOutScaled, int kMP>
 __global__ void __launch_bounds__(kThreads, 4) rk_moe_grouped_int4_mma_kernel(
     const __nv_bfloat16* __restrict__ xp, const int8_t* __restrict__ w_p,

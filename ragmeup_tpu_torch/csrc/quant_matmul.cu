@@ -43,14 +43,6 @@ constexpr int kColsPerBlock = 32 * kColsPerLane;         // 512
 constexpr int kRedFloats = kWarps * kColsPerBlock;        // warp sums of one x row
 constexpr int kMaxXsFloats = 12288;                       // 48 KB of staged x
 
-__device__ __forceinline__ int4 ld_nc16(const void* p) {
-  int4 r;
-  asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(__cvta_generic_to_global(p)));
-  return r;
-}
-
 // byte b (0..3) of a word whose sign bits were flipped, as a float
 __device__ __forceinline__ float i8_at(uint32_t flipped, int b) {
   return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | b)) - 8388736.f;

@@ -13,7 +13,10 @@
 //
 // At decode (m = 1) the product is bound by reading the packed weights once
 // (k * n / 2 bytes, half of int8); the arithmetic per byte is a few
-// conversions and FMAs. Design, shared by both kernels:
+// conversions and FMAs. W4A16 with m <= 8 takes rk_int4_decode_kernel
+// (its design is described above it, at the end of this file). The
+// design below is shared by the W4A16 kernel for m > 8, the gather and
+// W4A8:
 //
 //   * Each thread owns 8 adjacent output columns and reads w_p[j, col:col+8]
 //     as one 8-byte load per packed row: a warp reads 256 contiguous bytes.
@@ -410,6 +413,449 @@ int launch_w4a8(const void* xv, const int8_t* w_p, const float* gs, int m,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// W4A16 decode (m <= 8): rk_int4_decode_kernel (f32 x, and shapes whose
+// scale groups the tensor-core kernel below cannot take) and
+// rk_int4_decode_mma_kernel (bf16 x)
+// ---------------------------------------------------------------------------
+//
+// The same function as rk_int4_partial_kernel, on #3's weight stream
+// (csrc/quant_matmul.cu) at half the bytes a column. Bound by the packed
+// bytes (k * n / 2); what held the 64-thread kernel back was bytes in
+// flight (8 a lane, about 1 KB a block) and the conversion unit (an I2F
+// and an F2F per weight on the quality route: 4 a packed byte, against the
+// 16 a clock an SM converts). Design:
+//
+//   * A block of 8 warps owns a strip of 512 columns and a slice of one
+//     k-tile's packed rows; each warp walks a contiguous, even run of them.
+//     A lane loads 16 adjacent columns of a packed row (32 weights: rows j
+//     and j + tile_k/2) with one 16-byte ld.global.nc, and keeps two
+//     register batches of rows in flight (8 rows for m <= 4, 4 at m = 8),
+//     issuing the next batch's loads before it consumes the current one.
+//   * Nibbles to numbers without the conversion unit: one PRMT puts
+//     column c's byte of packed rows j and j + 1 side by side, and
+//     nibbles_bf16x2 (a mask, a bias and one HSUB2) turns each nibble pair
+//     into exact bf16 integers. Rows j and j + 1 share their scale groups (the
+//     runs start at even rows and the groups are even), so on the quality
+//     route with bf16 x, scale_pair takes both to f32(q) * scale rounded to
+//     bf16 (the TPU kernel's rounding) with one packing conversion: one
+//     conversion a packed byte. The bf16 pairs are widened to f32 by shift
+//     and mask and FMA'd into f32 sums. f32 x scales in f32 and does not
+//     round; the output-scaled route (group == tile_k) needs no conversion.
+//   * x's slice is staged in shared memory as f32, each packed row's low-
+//     and high-nibble x values side by side ([row][lo m | hi m]), so a pair
+//     of rows is one to eight float4 broadcasts.
+//   * The warps' sums are added in shared memory in warp order; on the
+//     output-scaled route the block's sum is then scaled by its tile's
+//     scale. The plan (ops/quant_matmul.py::int4_decode_plan) splits each
+//     k-tile into slices where the strips alone leave SMs idle; each slice
+//     writes an f32 partial, added in slice order by rk_int4_reduce_kernel
+//     (no atomics). One slice writes the output directly.
+//   * A warp's first batch of weights is requested before x is staged, so
+//     the two loads' latencies overlap.
+
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecColsPerLane = 16;
+constexpr int kDecColsPerBlock = 32 * kDecColsPerLane;   // 512
+constexpr int kDecRedFloats = kDecWarps * kDecColsPerBlock;
+constexpr int kDecXsFloats = 12288;                       // 48 KB of staged x
+
+// x of packed rows j and j + 1: [lo of j (M) | hi of j (M) | lo of j + 1 | hi of j + 1]
+template <int M>
+__device__ __forceinline__ void x_pair(const float* xs, float (&xv)[4 * M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const float4 v = reinterpret_cast<const float4*>(xs)[i];
+    xv[4 * i] = v.x; xv[4 * i + 1] = v.y; xv[4 * i + 2] = v.z; xv[4 * i + 3] = v.w;
+  }
+}
+
+// acc[r][c] += the 16 columns' four weights (low and high nibble of packed
+// rows j and j + 1) times their x values
+template <typename T, int M, bool kOutScaled>
+__device__ __forceinline__ void consume_pair(const int4& wa, const int4& wb,
+                                             const float* xs, const float (&slo)[16],
+                                             const float (&shi)[16],
+                                             float (&acc)[M][kDecColsPerLane]) {
+  float xv[4 * M];
+  x_pair<M>(xs, xv);
+  const uint32_t a[4] = {(uint32_t)wa.x, (uint32_t)wa.y, (uint32_t)wa.z, (uint32_t)wa.w};
+  const uint32_t b[4] = {(uint32_t)wb.x, (uint32_t)wb.y, (uint32_t)wb.z, (uint32_t)wb.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int byte = 0; byte < 4; ++byte) {
+      const int c = 4 * q + byte;
+      // byte `byte` of row j at bits 0-7, of row j + 1 at bits 16-23
+      const uint32_t t = __byte_perm(a[q], b[q], byte | ((4 + byte) << 8));
+      uint32_t lo = nibbles_bf16x2(t), hi = nibbles_bf16x2(t >> 4);
+      constexpr bool kRound = !kOutScaled && sizeof(T) == 2;
+      if constexpr (kRound) {
+        lo = scale_pair(lo, slo[c]);
+        hi = scale_pair(hi, shi[c]);
+      }
+      float la = __uint_as_float(lo << 16), lb = __uint_as_float(lo & 0xFFFF0000u);
+      float ha = __uint_as_float(hi << 16), hb = __uint_as_float(hi & 0xFFFF0000u);
+      if constexpr (!kOutScaled && !kRound) {
+        la = __fmul_rn(la, slo[c]); lb = __fmul_rn(lb, slo[c]);
+        ha = __fmul_rn(ha, shi[c]); hb = __fmul_rn(hb, shi[c]);
+      }
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        float s = acc[r][c];
+        s = fmaf(xv[r], la, s);
+        s = fmaf(xv[M + r], ha, s);
+        s = fmaf(xv[2 * M + r], lb, s);
+        acc[r][c] = fmaf(xv[3 * M + r], hb, s);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void load_scales16(const float* p, float (&s)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
+    s[4 * i] = v.x; s[4 * i + 1] = v.y; s[4 * i + 2] = v.z; s[4 * i + 3] = v.w;
+  }
+}
+
+template <typename T, int M, int kBatch, bool kOutScaled>
+__global__ void __launch_bounds__(kDecThreads) rk_int4_decode_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ gs,
+    int m, int k, int n, int tile_k, int group, int k_slice, float* __restrict__ partial,
+    T* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int half = tile_k / 2;
+  const int per_tile = (half + k_slice - 1) / k_slice;
+  const int tile = blockIdx.y / per_tile;
+  const int pr0 = (blockIdx.y - tile * per_tile) * k_slice;  // first packed row in the tile
+  const int rows = min(k_slice, half - pr0);
+  const int klo = tile * tile_k + pr0;                       // its low nibble's x column
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = blockIdx.x * kDecColsPerBlock + lane * kDecColsPerLane;
+  const int per_warp = ((rows + kDecWarps - 1) / kDecWarps + 1) & ~1;  // even: pairs
+  const int j0 = min(rows, warp * per_warp);
+  const int j1 = min(rows, j0 + per_warp);
+
+  const int8_t* wp = w + ((size_t)tile * half + pr0) * n + col;
+  int4 a[kBatch], b[kBatch];
+  auto load = [&](int4 (&buf)[kBatch], int j) {
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      buf[u] = j + u < j1 ? ld_nc16(wp + (size_t)(j + u) * n) : make_int4(0, 0, 0, 0);
+  };
+  load(a, j0);  // in flight while x is staged
+
+  float* xs = smem;  // [rows][lo M | hi M], then the warp sums
+  for (int i = threadIdx.x; i < 2 * M * rows; i += kDecThreads) {
+    const int r = i / (2 * rows), rem = i - r * 2 * rows;
+    const int h = rem / rows, j = rem - h * rows;
+    xs[j * 2 * M + h * M + r] = r < m ? to_f32(x[(size_t)r * k + klo + h * half + j]) : 0.f;
+  }
+  __syncthreads();
+
+  float acc[M][kDecColsPerLane];
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < kDecColsPerLane; ++c) acc[r][c] = 0.f;
+
+  // the scales of the current low- and high-nibble groups (quality route),
+  // and the slice row at which each group ends
+  float slo[16], shi[16];
+  int lo_end = 0, hi_end = 0;
+  const size_t gpt = (size_t)(tile_k / group);
+  auto scales_for = [&](int j) {
+    if (j >= lo_end) {
+      const int g = (pr0 + j) / group;
+      load_scales16(gs + ((size_t)tile * gpt + g) * n + col, slo);
+      lo_end = (g + 1) * group - pr0;
+    }
+    if (j >= hi_end) {
+      const int g = (half + pr0 + j) / group;
+      load_scales16(gs + ((size_t)tile * gpt + g) * n + col, shi);
+      hi_end = (g + 1) * group - half - pr0;
+    }
+  };
+
+  auto use = [&](const int4 (&buf)[kBatch], int j) {
+#pragma unroll
+    for (int u = 0; u < kBatch; u += 2) {
+      if (j + u < j1) {
+        if constexpr (!kOutScaled) scales_for(j + u);
+        consume_pair<T, M, kOutScaled>(buf[u], buf[u + 1], xs + (j + u) * 2 * M, slo, shi,
+                                       acc);
+      }
+    }
+  };
+  for (int j = j0; j < j1; j += 2 * kBatch) {
+    load(b, j + kBatch);       // in flight while `a` is consumed
+    use(a, j);
+    load(a, j + 2 * kBatch);   // in flight while `b` is consumed
+    use(b, j + kBatch);
+  }
+
+  // add the warps' sums in warp order, one x row at a time
+  float* red = smem;  // [kDecWarps][kDecColsPerBlock]
+  const bool direct = gridDim.y == 1;
+#pragma unroll
+  for (int r = 0; r < M; ++r) {
+    if (r >= m) break;
+    __syncthreads();   // x (first row) or the previous row's sums are read
+    float4* dst = reinterpret_cast<float4*>(red + warp * kDecColsPerBlock +
+                                            lane * kDecColsPerLane);
+#pragma unroll
+    for (int c = 0; c < kDecColsPerLane; c += 4)
+      dst[c / 4] = make_float4(acc[r][c], acc[r][c + 1], acc[r][c + 2], acc[r][c + 3]);
+    __syncthreads();
+    for (int cc = threadIdx.x; cc < kDecColsPerBlock; cc += kDecThreads) {
+      const int oc = blockIdx.x * kDecColsPerBlock + cc;
+      float s = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kDecWarps; ++wi) s += red[wi * kDecColsPerBlock + cc];
+      if (kOutScaled) s = __fmul_rn(s, __ldg(gs + (size_t)tile * n + oc));  // group == tile_k
+      if (direct)
+        out[(size_t)r * n + oc] = from_f32<T>(s);
+      else
+        partial[((size_t)blockIdx.y * m + r) * n + oc] = s;
+    }
+  }
+}
+
+// bf16 x: the products on the tensor cores (rk_int4_decode_mma_kernel).
+// The scalar kernel above spends about 12 instructions a packed byte at
+// m = 1, 4 of them widening the bf16 weights back to f32 and FMAs; here
+// the bf16 pairs that nibbles_bf16x2 / scale_pair produce are already
+// mma.sync fragments, so those go, and m = 8 costs what m = 1 does:
+//
+//   * A block of 4 warps owns the 512-column strip, a warp 128 columns
+//     over the whole slice (no sums across warps). Lane (g, c) = (lane / 4,
+//     lane % 4) loads columns 16 g .. 16 g + 15 of its warp's quarter from
+//     packed rows j + c and j + c + 4 of each 8-row k-block (a warp's load
+//     reads four rows' 128 contiguous bytes), and keeps the next k-block's
+//     loads in flight while it uses the current one. (Measured on the
+//     card: two k-blocks a batch, or a cp.async ring of 4-8 k-blocks in
+//     shared memory, were slower: the kernel waits on its instructions,
+//     not on memory.)
+//   * The weights are the A operand (16 columns x 16 k a mma), x the B
+//     operand (16 k x 8 x rows: m <= 8 fills it). mma i (0..7) of a
+//     k-block takes from lane (g, c) its columns i (A row g) and 8 + i
+//     (A row g + 8): A columns 2c, 2c + 1 are the low nibbles of packed
+//     rows j + c, j + c + 4 (one PRMT + nibbles_bf16x2), 2c + 8, 2c + 9
+//     their high nibbles; on the quality route scale_pair scales each pair
+//     (one group: k-blocks are 8-row aligned and groups a multiple of 8).
+//     x is staged once per block in shared memory as bf16 in the same k
+//     order (exact: x is bf16), one 8-byte B fragment a lane a k-block.
+//   * Lane (g, c) ends with x rows 2c and 2c + 1 of its 16 columns,
+//     scaled by the tile's scale on the output-scaled route and written as
+//     the slice's partial (one slice: the output).
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaMaxXsBytes = 48 * 1024;       // 32 bytes of staged x a packed row
+
+struct KBlock {
+  int4 r0, r4;                                  // the lane's 16 bytes of rows j + c, j + c + 4
+};
+
+template <bool kOutScaled>
+__global__ void __launch_bounds__(kMmaThreads) rk_int4_decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ gs, int m, int k, int n, int tile_k, int group, int k_slice,
+    float* __restrict__ partial, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t xa[];  // [k-block][x row][c][b0, b1]
+  const int half = tile_k / 2;
+  const int per_tile = (half + k_slice - 1) / k_slice;
+  const int tile = blockIdx.y / per_tile;
+  const int pr0 = (blockIdx.y - tile * per_tile) * k_slice;
+  const int kblocks = min(k_slice, half - pr0) / 8;
+  const int klo = tile * tile_k + pr0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int col = blockIdx.x * kDecColsPerBlock + warp * 128 + g * 16;
+  const int8_t* wp = w + ((size_t)tile * half + pr0 + c) * n + col;
+
+  auto load = [&](KBlock& bt, int kb) {
+    const bool in = kb < kblocks;
+    const int8_t* p = wp + (size_t)(8 * kb) * n;
+    bt.r0 = in ? ld_nc16(p) : make_int4(0, 0, 0, 0);
+    bt.r4 = in ? ld_nc16(p + (size_t)4 * n) : make_int4(0, 0, 0, 0);
+  };
+  KBlock A, B;
+  load(A, 0);  // in flight while x is staged
+
+  // bf16 index (kb * 8 + r) * 16 + 4 c' + 2 h + e holds x row r at packed
+  // row 8 kb + c' + 4 e of the low (h = 0) or high (h = 1) nibbles
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(xa);
+  for (int i = threadIdx.x; i < kblocks * 128; i += kMmaThreads) {
+    const int kb = i / 128, r = (i / 16) % 8, p = i % 16;
+    const int j = 8 * kb + p / 4 + 4 * (p % 2);
+    xs[i] = r < m ? x[(size_t)r * k + klo + ((p / 2) % 2) * half + j]
+                  : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+
+  float d[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] = 0.f;
+
+  float slo[16], shi[16];
+  int lo_end = 0, hi_end = 0;
+  const size_t gpt = (size_t)(tile_k / group);
+  auto scales_for = [&](int j) {
+    if (j >= lo_end) {
+      const int gi = (pr0 + j) / group;
+      load_scales16(gs + ((size_t)tile * gpt + gi) * n + col, slo);
+      lo_end = (gi + 1) * group - pr0;
+    }
+    if (j >= hi_end) {
+      const int gi = (half + pr0 + j) / group;
+      load_scales16(gs + ((size_t)tile * gpt + gi) * n + col, shi);
+      hi_end = (gi + 1) * group - half - pr0;
+    }
+  };
+
+  auto use = [&](const KBlock& bt, int kb) {
+    if (kb >= kblocks) return;
+    if constexpr (!kOutScaled) scales_for(8 * kb);
+    const uint2 xb = g < m ? reinterpret_cast<const uint2*>(xa)[(kb * 8 + g) * 4 + c]
+                           : make_uint2(0u, 0u);
+    const uint32_t w0[4] = {(uint32_t)bt.r0.x, (uint32_t)bt.r0.y, (uint32_t)bt.r0.z,
+                            (uint32_t)bt.r0.w};
+    const uint32_t w4[4] = {(uint32_t)bt.r4.x, (uint32_t)bt.r4.y, (uint32_t)bt.r4.z,
+                            (uint32_t)bt.r4.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      // byte i (A row g) and byte 8 + i (A row g + 8) of rows j + c, j + c + 4
+      const int sel = (i % 4) | ((4 + i % 4) << 8);
+      const uint32_t t0 = __byte_perm(w0[i / 4], w4[i / 4], sel);
+      const uint32_t t8 = __byte_perm(w0[2 + i / 4], w4[2 + i / 4], sel);
+      uint32_t a[4] = {nibbles_bf16x2(t0), nibbles_bf16x2(t8), nibbles_bf16x2(t0 >> 4),
+                       nibbles_bf16x2(t8 >> 4)};
+      if constexpr (!kOutScaled) {
+        a[0] = scale_pair(a[0], slo[i]);
+        a[1] = scale_pair(a[1], slo[8 + i]);
+        a[2] = scale_pair(a[2], shi[i]);
+        a[3] = scale_pair(a[3], shi[8 + i]);
+      }
+      mma_bf16(d[i], a, xb.x, xb.y);
+    }
+  };
+  for (int kb = 0; kb < kblocks; kb += 2) {
+    load(B, kb + 1);       // in flight while `A` is consumed
+    use(A, kb);
+    load(A, kb + 2);       // in flight while `B` is consumed
+    use(B, kb + 1);
+  }
+
+  // x rows 2c and 2c + 1: d[i][0], d[i][1] are column i, d[i][2], d[i][3]
+  // column 8 + i of the lane's 16
+  float v[2][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[0][i] = d[i][0];
+    v[1][i] = d[i][1];
+    v[0][8 + i] = d[i][2];
+    v[1][8 + i] = d[i][3];
+  }
+  if (kOutScaled) {  // group == tile_k
+    float sc[16];
+    load_scales16(gs + (size_t)tile * n + col, sc);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      v[0][i] = __fmul_rn(v[0][i], sc[i]);
+      v[1][i] = __fmul_rn(v[1][i], sc[i]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 2 * c + h;
+    if (r >= m) break;
+    if (gridDim.y == 1) {
+      uint4* o = reinterpret_cast<uint4*>(out + (size_t)r * n + col);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        o[i] = make_uint4(pack_bf16x2(v[h][8 * i], v[h][8 * i + 1]),
+                          pack_bf16x2(v[h][8 * i + 2], v[h][8 * i + 3]),
+                          pack_bf16x2(v[h][8 * i + 4], v[h][8 * i + 5]),
+                          pack_bf16x2(v[h][8 * i + 6], v[h][8 * i + 7]));
+    } else {
+      float4* o = reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * m + r) * n + col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] = make_float4(v[h][4 * i], v[h][4 * i + 1], v[h][4 * i + 2], v[h][4 * i + 3]);
+    }
+  }
+}
+
+// whether the tensor-core kernel takes a bf16 call: 8-row k-blocks that
+// stay inside one scale group and x's slice within its shared memory
+// (ops/quant_matmul.py::int4_decode_tensor_cores)
+bool mma_takes(int tile_k, int group, int k_slice) {
+  return tile_k % 16 == 0 && (group == tile_k || group % 8 == 0) && k_slice % 8 == 0 &&
+         32 * k_slice <= kMmaMaxXsBytes;
+}
+
+int decode_slices(int k, int tile_k, int k_slice) {
+  return k / tile_k * ((tile_k / 2 + k_slice - 1) / k_slice);
+}
+
+template <typename T, int M, int kBatch>
+cudaError_t launch_decode_slices(const T* x, const int8_t* w, const float* gs, int m,
+                                 int k, int n, int tile_k, int group, int k_slice,
+                                 float* partial, T* out, cudaStream_t s) {
+  if (2 * M * k_slice > kDecXsFloats) return cudaErrorInvalidValue;
+  const size_t bytes = (size_t)max(2 * M * k_slice, kDecRedFloats) * sizeof(float);
+  const dim3 grid(n / kDecColsPerBlock, decode_slices(k, tile_k, k_slice));
+  if (group == tile_k)
+    rk_int4_decode_kernel<T, M, kBatch, true><<<grid, kDecThreads, bytes, s>>>(
+        x, w, gs, m, k, n, tile_k, group, k_slice, partial, out);
+  else
+    rk_int4_decode_kernel<T, M, kBatch, false><<<grid, kDecThreads, bytes, s>>>(
+        x, w, gs, m, k, n, tile_k, group, k_slice, partial, out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_w4a16_decode(const void* xv, const int8_t* w, const float* gs, int m, int k,
+                        int n, int tile_k, int group, int k_slice, bool tensor_cores,
+                        float* partial, void* outv, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  cudaError_t err;
+  if (tensor_cores) {
+    const dim3 grid(n / kDecColsPerBlock, decode_slices(k, tile_k, k_slice));
+    const size_t bytes = (size_t)32 * k_slice;
+    const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+    __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(out);
+    if (group == tile_k)
+      rk_int4_decode_mma_kernel<true><<<grid, kMmaThreads, bytes, s>>>(
+          xb, w, gs, m, k, n, tile_k, group, k_slice, partial, ob);
+    else
+      rk_int4_decode_mma_kernel<false><<<grid, kMmaThreads, bytes, s>>>(
+          xb, w, gs, m, k, n, tile_k, group, k_slice, partial, ob);
+    err = cudaGetLastError();
+  } else if (m <= 1)
+    err = launch_decode_slices<T, 1, 8>(x, w, gs, m, k, n, tile_k, group, k_slice, partial, out, s);
+  else if (m <= 2)
+    err = launch_decode_slices<T, 2, 8>(x, w, gs, m, k, n, tile_k, group, k_slice, partial, out, s);
+  else if (m <= 4)
+    err = launch_decode_slices<T, 4, 8>(x, w, gs, m, k, n, tile_k, group, k_slice, partial, out, s);
+  else
+    err = launch_decode_slices<T, 8, 4>(x, w, gs, m, k, n, tile_k, group, k_slice, partial, out, s);
+  if (err != cudaSuccess) return (int)err;
+  const int splits = decode_slices(k, tile_k, k_slice);
+  if (splits > 1) {
+    const int total = m * n;
+    rk_int4_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(partial, m, n, splits, out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,6 +912,31 @@ int rk_int4_matmul_a8(const void* x, const int8_t* w_p, const float* gscale,
                                       xq, x_scale, partial, out, s);
   return launch_w4a8<float>(x, w_p, gscale, m, k, n, tile_k, k_slice, xq,
                             x_scale, partial, out, s);
+}
+
+// W4A16 decode: shapes and dtypes as rk_int4_matmul, with 1 <= m <= 8,
+// tile_k % 4 == 0 and an even group (or group == tile_k); k_slice even,
+// at most tile_k/2, with 2 * k_slice * (m rounded up to 1, 2, 4 or 8) <=
+// 12288. Each k-tile is cut into ceil(tile_k/2 / k_slice) slices of
+// k_slice packed rows (the last may be shorter); partial holds
+// (k/tile_k) * ceil(tile_k/2 / k_slice) * m * n floats when there is more
+// than one slice. tensor_cores = 1 takes rk_int4_decode_mma_kernel (bf16
+// x; tile_k % 16 == 0, group % 8 == 0 or group == tile_k, k_slice % 8 ==
+// 0 and 32 * k_slice <= 49152), 0 the scalar kernel. Returns a cudaError_t.
+int rk_int4_decode(const void* x, const int8_t* w_p, const float* gscale, int m,
+                   int k, int n, int tile_k, int group, int k_slice, int dtype,
+                   int tensor_cores, float* partial, void* out, void* stream) {
+  if (m < 1 || m > 8 || n < kDecColsPerBlock || n % kDecColsPerBlock || tile_k < 4 ||
+      tile_k % 4 || k < tile_k || k % tile_k || group < 1 || tile_k % group ||
+      (group != tile_k && group % 2) || k_slice < 2 || k_slice % 2 || k_slice > tile_k / 2 ||
+      (tensor_cores && (dtype != 1 || !mma_takes(tile_k, group, k_slice))))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_w4a16_decode<__nv_bfloat16>(x, w_p, gscale, m, k, n, tile_k, group,
+                                              k_slice, tensor_cores, partial, out, s);
+  return launch_w4a16_decode<float>(x, w_p, gscale, m, k, n, tile_k, group, k_slice, false,
+                                    partial, out, s);
 }
 
 }  // extern "C"

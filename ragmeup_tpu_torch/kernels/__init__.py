@@ -133,6 +133,9 @@ def lib() -> ctypes.CDLL:
             so.rk_int4_matmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                           i32, i32, vp, vp, vp]
             so.rk_int4_matmul.restype = i32
+            so.rk_int4_decode.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                          i32, i32, i32, vp, vp, vp]
+            so.rk_int4_decode.restype = i32
             so.rk_int4_matmul_a8.argtypes = [vp, vp, vp, i32, i32, i32, i32,
                                              i32, i32, vp, vp, vp, vp, vp]
             so.rk_int4_matmul_a8.restype = i32

@@ -22,6 +22,10 @@ rounding (csrc/quant_matmul_int4.cu):
   unscaled integers, times the tile's scale;
 - W4A16 quality (group < tile_k): each weight dequantized in f32 and
   rounded to x's dtype, then an f32 dot;
+- W4A16 with m ≤ 8 (decode) streams the packed bytes 16 a lane with a
+  deterministic split-K (``int4_decode_plan``), the products on the tensor
+  cores for bf16 x (``int4_decode_tensor_cores``) and in f32 FMAs
+  otherwise; larger m walks 8-row groups of x in the older kernel;
 - shapes that do not tile (n % 512, m > 256): unpack, dequantize in x's
   dtype and ``torch.matmul``, outside any kernel as in the JAX package.
 
@@ -270,6 +274,81 @@ def int4_slice_for(k: int, tile_k: int, n: int, row_groups: int,
     return usable[-1]
 
 
+# csrc/quant_matmul_int4.cu rk_int4_decode_kernel: 8 warps a block, 16
+# columns a lane (512 a block), x's slice staged as f32 (low and high nibble
+# side by side) in at most 12288 floats of shared memory
+_INT4_ROW_STEP = 64          # packed rows: 8 warps x one 8-row batch each
+_INT4_XS_FLOATS = 12288
+_INT4_BLOCKS_PER_SM = 2
+_INT4_MMA_XS_BYTES = 48 * 1024   # the tensor-core kernel's staged x: 32 bytes a packed row
+
+
+def int4_decode_viable(m: int, tile_k: int, group: int) -> bool:
+    """Whether the decode kernel takes a W4A16 call: at most 8 rows, and
+    packed rows j, j + 1 sharing their scale groups (an even half tile, and
+    an even group on the quality route)."""
+    return m <= MAX_ROWS and tile_k % 4 == 0 and (group == tile_k or group % 2 == 0)
+
+
+def int4_decode_plan(m: int, k: int, n: int, tile_k: int, group: int,
+                     sm_count: int) -> int:
+    """The decode kernel's split-K plan: the packed rows of one block's
+    slice. Each k-tile's tile_k/2 packed rows are cut into slices of that
+    many rows (the last one of a tile may be shorter), so a slice never
+    crosses a k-tile and applies one tile scale on the output-scaled route.
+    The 512-column strips alone leave SMs idle at every 8B decode shape, so
+    the tiles are cut into as few slices as give ``_INT4_BLOCKS_PER_SM``
+    blocks on every SM, each a whole number of the 8 warps' 8-row batches
+    where the half tile allows (else the half tile), and no longer than x's
+    staging buffer holds at m rows (rounded up to 1, 2, 4 or 8), low and
+    high nibble."""
+    if not int4_decode_viable(m, tile_k, group):
+        raise ValueError(f"int4 decode kernel: m={m}, tile_k={tile_k}, group={group}")
+    half = tile_k // 2
+    strips = -(-n // INT4_TILE_N)
+    step = _INT4_ROW_STEP
+    x_rows = 1 << (max(m, 1) - 1).bit_length()
+    cap = max(step, _INT4_XS_FLOATS // (2 * x_rows) // step * step)
+    slices = max(1, -(-_INT4_BLOCKS_PER_SM * sm_count // strips))
+    per_tile = -(-slices // (k // tile_k))
+    k_slice = -(-(-(-half // per_tile)) // step) * step
+    return min(k_slice, cap, half)
+
+
+def int4_decode_tensor_cores(tile_k: int, group: int, k_slice: int, dtype) -> bool:
+    """Whether a decode call takes the tensor-core kernel: bf16 x, 8-row
+    k-blocks that stay inside one scale group (a half tile of whole
+    k-blocks; groups of whole k-blocks or the tile's own), and 32 bytes of
+    staged x a packed row within 48 KB. Else the scalar kernel, which also
+    takes f32 x."""
+    return (dtype == torch.bfloat16 and tile_k % 16 == 0
+            and (group == tile_k or group % 8 == 0) and k_slice % 8 == 0
+            and 32 * k_slice <= _INT4_MMA_XS_BYTES)
+
+
+def int4_decode_slices(k: int, tile_k: int, k_slice: int):
+    """[(p0, p1)] packed rows of each slice in slice order, as the decode
+    kernel cuts each k-tile."""
+    half = tile_k // 2
+    return [(t * half + p0, t * half + min(half, p0 + k_slice))
+            for t in range(k // tile_k) for p0 in range(0, half, k_slice)]
+
+
+def _int4_decode_cuda(x, w_p, gscale, m, k, n, tile_k, group):
+    ks = int4_decode_plan(m, k, n, tile_k, group, kernels.sm_count(x.device.index))
+    slices = k // tile_k * -(-(tile_k // 2) // ks)      # len(int4_decode_slices(...))
+    partial = torch.empty((slices, m, n) if slices > 1 else (0,),
+                          dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = kernels.lib().rk_int4_decode(
+        x.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), m, k, n, tile_k, group, ks,
+        kernels.dtype_code(x.dtype), int(int4_decode_tensor_cores(tile_k, group, ks, x.dtype)),
+        partial.data_ptr(), out.data_ptr(), kernels.stream_handle(x.device))
+    kernels.check(err, "int4_matmul")
+    kernels.count("int4_matmul")
+    return out
+
+
 def _int4_cuda(x, w_p, gscale, a8: bool):
     m, k, n, tile_k, group = _int4_tiles(x, w_p, gscale)
     name = "int4_matmul_a8" if a8 else "int4_matmul"
@@ -278,6 +357,8 @@ def _int4_cuda(x, w_p, gscale, a8: bool):
                          f"(got {w_p.dtype}, {gscale.dtype})")
     x = x.contiguous()
     kernels.require_cuda(name, x, w_p, gscale)
+    if not a8 and int4_decode_viable(m, tile_k, group):
+        return _int4_decode_cuda(x, w_p, gscale, m, k, n, tile_k, group)
     row_groups = math.ceil(m / 8)
     ks = int4_slice_for(k, tile_k, n, row_groups, _target_blocks(x.device.index))
     slices = k // 2 // ks

@@ -14,11 +14,14 @@ target is timed in turn with the split counts it gives:
   longer than its host call).
 - #3 (csrc/quant_matmul.cu, ``int8_matmul_plan``, ``_INT8_BLOCKS_PER_SM``)
   over the 7 projections of one Llama-3.1-8B decode layer at m = 1 and 8;
+- #4's decode kernel (csrc/quant_matmul_int4.cu, ``int4_decode_plan``,
+  ``quant_matmul._INT4_BLOCKS_PER_SM``) over the same layer packed in int4
+  with 128-row scale groups, at m = 1 and 8, 1 to 4 blocks an SM;
 - #9 (csrc/paged_attention.cu, ``paged_split_plan``,
   ``_DECODE_BLOCKS_PER_SM`` and ``_CHUNK_BLOCKS_PER_SM``) at the 8B serving
   shapes: decode at 8, 4 and 1 sequences, the 128-token chunk at 4 and 1;
-  #3 and #9 from a CUDA graph's replay, since their wrappers' host cost
-  exceeds their device time.
+  #3, #4 and #9 from a CUDA graph's replay, since their wrappers' host
+  cost exceeds their device time.
 
 Medians of five rounds after warm-up. Prints the card's name and power
 limit, then one JSON line per kernel.
@@ -127,6 +130,30 @@ def sweep_int8(gen, sms: int) -> dict:
     return out
 
 
+def sweep_int4_decode(gen, sms: int) -> dict:
+    weights = [(torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(k // 128, n, generator=gen, device="cuda") * 2e-3 + 1e-3)
+               for k, n in LLAMA_8B.values()]
+    xs = {m: {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k in (4096, 14336)} for m in (1, 8)}
+    default = qm._INT4_BLOCKS_PER_SM
+    out = {"kernel": "int4_matmul (decode)", "default_target": default}
+    try:
+        for target in (1, 2, 3, 4):
+            qm._INT4_BLOCKS_PER_SM = target
+            out[f"target{target}"] = {
+                f"m{m}_layer_graph_ms": _graph_ms(lambda m=m: [
+                    qm.int4_matmul(xs[m][2 * w.shape[0]], w, s) for w, s in weights], reps=4)
+                for m in (1, 8)}
+            out[f"target{target}"]["slices_m1"] = {
+                name: len(qm.int4_decode_slices(k, 512, qm.int4_decode_plan(
+                    1, k, n, 512, 128, sms))) for name, (k, n) in LLAMA_8B.items()}
+    finally:
+        qm._INT4_BLOCKS_PER_SM = default
+    return out
+
+
 def sweep_paged(gen, sms: int) -> dict:
     def pool(b, lengths, q_len):
         q = torch.randn(b, q_len, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
@@ -167,7 +194,7 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = kernels.sm_count(0)
-    for sweep in (sweep_grouped_int4, sweep_int8, sweep_paged):
+    for sweep in (sweep_grouped_int4, sweep_int8, sweep_int4_decode, sweep_paged):
         print(json.dumps(sweep(gen, sms)), flush=True)
         torch.cuda.empty_cache()
     return 0

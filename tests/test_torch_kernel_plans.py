@@ -16,12 +16,16 @@ below ``mp * ps`` into splits of whole 64-key tiles (``paged_split_plan``)
 and merges each row's per-split (m, l, o) in split order; the W8A16 decode
 matmul (#3, csrc/quant_matmul.cu) cuts k into slices (``int8_matmul_plan``)
 whose f32 partials, each the sum of 8 warps' runs of rows, are added in
-slice order. Both plans are held to cover their range once, in order, and
-an emulation of each kernel's arithmetic under its plan (plain torch, f32
-or bf16) is held to the port's plain version and to the JAX package
-(``paged_attention_ref`` / the Pallas kernels in interpret mode): f32 to
-1e-5 absolute (#9, as tests/test_torch_paged.py) or 2e-5 of the largest
-output (#3), bf16 within one bf16 ulp of the largest output.
+slice order; the W4A16 decode matmul (#4 at m <= 8,
+csrc/quant_matmul_int4.cu ``rk_int4_decode_kernel``) does the same over
+slices of one k-tile's packed rows (``int4_decode_plan``), each packed row
+feeding a low- and a high-nibble x column. The plans are held to cover
+their range once, in order, and an emulation of each kernel's arithmetic
+under its plan (plain torch, f32 or bf16) is held to the port's plain
+version and to the JAX package (``paged_attention_ref`` / the Pallas
+kernels in interpret mode): f32 to 1e-5 absolute (#9, as
+tests/test_torch_paged.py) or 2e-5 of the largest output (#3, #4), bf16
+within one bf16 ulp of the largest output.
 """
 import functools
 
@@ -33,6 +37,7 @@ import torch
 from ragmeup_tpu.ops import moe_matmul as jmoe
 from ragmeup_tpu.ops import paged_attention as jpa
 from ragmeup_tpu.ops import quant_matmul as jqm
+from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops import moe_matmul as moe
 from ragmeup_tpu_torch.ops import paged_attention as tpa
 from ragmeup_tpu_torch.ops import quant_matmul as qm
@@ -399,3 +404,269 @@ def test_int8_split_k_plain_matches_plain_and_jax(m, dtype, sms):
     _close(got, qm.int8_matmul_plain(tx, torch.from_numpy(w), torch.from_numpy(s)).float().numpy(),
            dtype)
     _close(got, want, dtype)
+
+
+# ---------------------------------------------------------------------------
+# #4: the W4A16 decode matmul's split-K plan (m <= 8)
+# ---------------------------------------------------------------------------
+
+# "short": tile_k = k = 1040, whose 520 packed rows a tile leave a short
+# last slice; its quality group 130 crosses the warps' runs
+INT4_TINY = {"tiny": (1024, 512), "short": (1040, 512), "wide": (1536, 1024)}
+
+
+def _int4_groups(k):
+    tile_k = qm.int4_tiling(k)[0]
+    return [128, tile_k] if tile_k % 128 == 0 else [tile_k // 8, tile_k]
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("shape", list({**LLAMA_8B, **INT4_TINY}))
+def test_int4_decode_plan_covers_every_packed_row(shape, m, sms):
+    k, n = {**LLAMA_8B, **INT4_TINY}[shape]
+    tile_k = qm.int4_tiling(k)[0]
+    half, tiles = tile_k // 2, k // tile_k
+    x_rows = 1 << (m - 1).bit_length()
+    for group in _int4_groups(k):
+        assert qm.int4_decode_viable(m, tile_k, group)
+        ks = qm.int4_decode_plan(m, k, n, tile_k, group, sms)
+        assert ks % 2 == 0 and 2 <= ks <= half and 2 * ks * x_rows <= 12288
+        assert ks % 64 == 0 or ks == half
+        ranges = qm.int4_decode_slices(k, tile_k, ks)
+        assert ranges[0][0] == 0 and ranges[-1][1] == k // 2
+        for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+            assert a1 == b0
+        for p0, p1 in ranges:
+            assert p0 < p1 and p0 // half == (p1 - 1) // half     # one k-tile
+            assert p1 - p0 == ks or p1 % half == 0                # only a tile's last is short
+        assert len(ranges) == tiles * -(-half // ks)
+        # as few slices a tile as give two blocks on every SM over the
+        # 512-column strips, cut to whole 64-row steps (which may round to
+        # fewer slices), within the half tile and x's staging buffer
+        wanted = -(-2 * sms // -(-n // 512))
+        cap = 12288 // (2 * x_rows) // 64 * 64
+        assert ks == min(cap, half, -(-(-(-half // -(-wanted // tiles))) // 64) * 64)
+
+
+def test_int4_decode_plan_on_an_h100():
+    """The 8B decode projections at group 128 on 132 SMs, m 1 and 8: 256
+    blocks for q and o, 64 for k/v, 448 for gate/up and down (two slices a
+    k-tile: one gives 224)."""
+    for m in (1, 8):
+        slices = {name: len(qm.int4_decode_slices(k, 512, qm.int4_decode_plan(
+            m, k, n, 512, 128, H100_SMS))) for name, (k, n) in LLAMA_8B.items()}
+        assert slices == {"q": 32, "k": 32, "gate": 16, "down": 56}
+    ks = qm.int4_decode_plan(1, 1040, 512, 1040, 130, H100_SMS)
+    assert ks == 64 and qm.int4_decode_slices(1040, 1040, ks)[-1] == (512, 520)
+
+
+@pytest.mark.parametrize("shape,group", [("tiny", 128), ("short", 1040)])
+def test_int4_decode_models_agree(shape, group):
+    """Both kernels' sums in bf16 (the scalar kernel's model too, though
+    the wrapper sends bf16 to the tensor cores here) within one bf16 ulp of
+    each other and of the plain version."""
+    x, w_p, gs = _int4_decode_case(shape, group, 8)
+    k, n = INT4_TINY[shape]
+    tile_k = qm.int4_tiling(k)[0]
+    tx, tw, ts = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w_p), torch.from_numpy(gs)
+    ks = qm.int4_decode_plan(8, k, n, tile_k, group, H100_SMS)
+    assert qm.int4_decode_tensor_cores(tile_k, group, ks, torch.bfloat16)
+    assert not qm.int4_decode_tensor_cores(tile_k, group, ks, torch.float32)
+    mma = _int4_decode_mma_plain(tx, tw, ts, ks)
+    _close(mma, _int4_decode_plain(tx, tw, ts, ks).float().numpy(), "bfloat16")
+    _close(mma, qm.int4_matmul_plain(tx, tw, ts).float().numpy(), "bfloat16")
+
+
+def test_int4_decode_refuses_what_it_cannot_pair():
+    """Packed rows j and j + 1 share a scale only with an even half tile
+    and, on the quality route, an even group."""
+    assert not qm.int4_decode_viable(9, 512, 128)
+    assert not qm.int4_decode_viable(1, 1030, 1030)
+    assert not qm.int4_decode_viable(1, 1040, 65)
+    assert qm.int4_decode_viable(1, 1040, 1040) and qm.int4_decode_viable(8, 512, 512)
+    # tensor cores: 8-row k-blocks inside one group, bf16 x only
+    assert not qm.int4_decode_tensor_cores(1040, 130, 64, torch.bfloat16)
+    assert not qm.int4_decode_tensor_cores(1036, 1036, 64, torch.bfloat16)
+    assert not qm.int4_decode_tensor_cores(512, 128, 256, torch.float32)
+    assert qm.int4_decode_tensor_cores(512, 128, 256, torch.bfloat16)
+    with pytest.raises(ValueError):
+        qm.int4_decode_plan(1, 1030, 512, 1030, 1030, H100_SMS)
+
+
+def _int4_decode_plain(x, w_p, gs, k_slice):
+    """The decode kernel's sums: weights dequantized by the route (quality:
+    f32(q) * scale, rounded to x's dtype; output-scaled: the integers); per
+    slice, each of 8 warps' even runs of packed rows (their low- and
+    high-nibble x columns) in f32, the warps added in order, the sum times
+    the tile's scale on the output-scaled route; the slices added in order,
+    then one rounding to x's dtype."""
+    m, k = x.shape
+    tile_k = qm.int4_tiling(k)[0]
+    group, half = k // gs.shape[0], tile_k // 2
+    wd = qm.unpack_int4(w_p, tile_k).float()
+    if group != tile_k:
+        wd = (wd * gs.float().repeat_interleave(group, dim=0)).to(x.dtype).float()
+    xf = x.float()
+    acc = None
+    for p0, p1 in qm.int4_decode_slices(k, tile_k, k_slice):
+        t = p0 // half
+        lo = t * tile_k + p0 - t * half       # x column of the slice's first low nibble
+        per_warp = -(-(p1 - p0) // 8)
+        per_warp += per_warp % 2
+        part = None
+        for j0 in range(0, p1 - p0, per_warp):
+            j1 = min(p1 - p0, j0 + per_warp)
+            cols = list(range(lo + j0, lo + j1)) + list(range(lo + half + j0, lo + half + j1))
+            run = xf[:, cols] @ wd[cols]
+            part = run if part is None else part + run
+        if group == tile_k:
+            part = part * gs.float()[t]
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype)
+
+
+def _int4_decode_mma_plain(x, w_p, gs, k_slice):
+    """The tensor-core kernel's sums: each warp takes its columns over the
+    whole slice, adding each 8-row k-block's product (low and high
+    nibbles) in f32 in order; then the route's scaling and the slices in
+    order, as _int4_decode_plain."""
+    m, k = x.shape
+    tile_k = qm.int4_tiling(k)[0]
+    group, half = k // gs.shape[0], tile_k // 2
+    wd = qm.unpack_int4(w_p, tile_k).float()
+    if group != tile_k:
+        wd = (wd * gs.float().repeat_interleave(group, dim=0)).to(x.dtype).float()
+    xf = x.float()
+    acc = None
+    for p0, p1 in qm.int4_decode_slices(k, tile_k, k_slice):
+        t = p0 // half
+        lo = t * tile_k + p0 - t * half
+        part = None
+        for j0 in range(0, p1 - p0, 8):
+            cols = list(range(lo + j0, lo + j0 + 8)) + list(range(lo + half + j0,
+                                                                  lo + half + j0 + 8))
+            run = xf[:, cols] @ wd[cols]
+            part = run if part is None else part + run
+        if group == tile_k:
+            part = part * gs.float()[t]
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype)
+
+
+def _int4_decode_case(shape, group, m, seed=0):
+    k, n = INT4_TINY[shape]
+    rng = np.random.default_rng(k + group + m + seed)
+    w_p = rng.integers(-128, 128, (k // 2, n)).astype(np.int8)
+    gs = (rng.random((k // group, n)) * 2e-2 + 1e-2).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    return x, w_p, gs
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_jax(shape, group, m, dtype):
+    x, w_p, gs = _int4_decode_case(shape, group, m)
+    jdt = DTYPES[dtype][1]
+    return np.asarray(jqm.int4_matmul(jnp.asarray(x, jdt), jnp.asarray(w_p), jnp.asarray(gs),
+                                      interpret=True).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("sms", [1, 8, H100_SMS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("shape,group", [("tiny", 128), ("tiny", 512), ("short", 130),
+                                         ("short", 1040)])
+def test_int4_decode_plain_matches_plain_and_jax(shape, group, m, dtype, sms):
+    """The kernel the wrapper picks (tensor cores for bf16 where
+    int4_decode_tensor_cores allows, else the scalar kernel), modelled
+    under the plan."""
+    x, w_p, gs = _int4_decode_case(shape, group, m)
+    k, n = INT4_TINY[shape]
+    tile_k = qm.int4_tiling(k)[0]
+    tdt = DTYPES[dtype][0]
+    tx, tw, ts = torch.from_numpy(x).to(tdt), torch.from_numpy(w_p), torch.from_numpy(gs)
+    ks = qm.int4_decode_plan(m, k, n, tile_k, group, sms)
+    model = (_int4_decode_mma_plain if qm.int4_decode_tensor_cores(tile_k, group, ks, tdt)
+             else _int4_decode_plain)
+    got = model(tx, tw, ts, ks)
+    assert got.dtype == tdt and got.shape == (m, n)
+    _close(got, qm.int4_matmul_plain(tx, tw, ts).float().numpy(), dtype)
+    _close(got, _int4_jax(shape, group, m, dtype), dtype)
+
+
+class _EntryRecorder:
+    """Stands in for the kernel library: records each C entry called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("m,k,group,a8,entry", [
+    (1, 4096, 128, False, "rk_int4_decode"), (8, 4096, 512, False, "rk_int4_decode"),
+    (3, 1040, 130, False, "rk_int4_decode"), (9, 4096, 128, False, "rk_int4_matmul"),
+    (256, 4096, 128, False, "rk_int4_matmul"), (1, 1030, 1030, False, "rk_int4_matmul"),
+    (1, 4096, 512, True, "rk_int4_matmul_a8")])
+def test_int4_wrapper_routes_decode_rows_to_the_decode_kernel(m, k, group, a8, entry,
+                                                              monkeypatch):
+    """W4A16 at m <= 8 calls rk_int4_decode with the plan's slice; m > 8,
+    a half tile it cannot pair and W4A8 keep their entries; each call
+    counts one int4 launch."""
+    rec = _EntryRecorder()
+    monkeypatch.setattr(kernels, "lib", lambda: rec)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(qm, "_target_blocks", lambda index: 2 * H100_SMS)
+    kernels.reset_counts()
+    n = 512
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    w_p = torch.zeros(k // 2, n, dtype=torch.int8)
+    gs = torch.ones(k // group, n)
+    out = qm._int4_cuda(x, w_p, gs, a8=a8)
+    assert out.shape == (m, n) and [name for name, _ in rec.calls] == [entry]
+    counts = kernels.launch_counts()
+    assert counts["int4_matmul_a8" if a8 else "int4_matmul"] == 1 and sum(counts.values()) == 1
+    if entry == "rk_int4_decode":
+        tile_k = qm.int4_tiling(k)[0]
+        ks = qm.int4_decode_plan(m, k, n, tile_k, group, H100_SMS)
+        # bf16: the tensor cores where the k-blocks fit the groups
+        assert rec.calls[0][1][3:11] == (m, k, n, tile_k, group, ks, 1, int(group % 8 == 0))
+    kernels.reset_counts()
+
+
+SASS = """
+        Function : _ZN4demo25rk_int4_decode_mma_kernelILb0EEEvv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;     /* 0x00000a0000017a02 */
+        /*0010*/                   F2FP.BF16.F32.PACK_AB R2, R3, R4 ;
+        /*0020*/                   HADD2.BF16_V2 R5, R5, -136, -136 ;
+        /*0030*/                   F2FP.BF16.F32.PACK_AB R6, R3, R4 ;
+        /*0040*/              @!P0 BRA 0x20 ;
+        /*0050*/                   EXIT ;
+        Function : _ZN4demo6other_kernelEv
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_count_reads_a_listing():
+    """tools/sass_count.py: opcodes by function, the main loop as the
+    backward branch around the nibble pairs, conversions per packed byte
+    (one bf16 HADD2 a byte) for the kernel and for its loop."""
+    from ragmeup_tpu_torch.tools import sass_count
+    code = sass_count.instructions(SASS)
+    assert list(code) == ["_ZN4demo25rk_int4_decode_mma_kernelILb0EEEvv",
+                          "_ZN4demo6other_kernelEv"]
+    kernel = code["_ZN4demo25rk_int4_decode_mma_kernelILb0EEEvv"]
+    whole = sass_count.summarize(sass_count.opcode_counts(kernel))
+    assert whole["instructions"] == 6 and whole["bf16_nibble_pairs"] == 1
+    assert whole["conversions"] == {"F2FP.BF16.F32.PACK_AB": 2}
+    assert whole["conversions_per_packed_byte"] == 2.0
+    loop = sass_count.main_loop(kernel)
+    assert [addr for addr, _, _ in loop] == [0x20, 0x30, 0x40]
+    assert sass_count.summarize(sass_count.opcode_counts(loop))[
+        "conversions_per_packed_byte"] == 1.0
