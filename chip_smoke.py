@@ -372,29 +372,30 @@ def check_int8_matmul(gen) -> dict:
             "per_shape_m1": per_shape}
 
 
-def int4pack_ms(xs, weights, group: int, plain) -> tuple:
-    """torch._weight_int4pack_mm over a layer's projections at group
-    `group`: the same signed nibbles + 8 packed by
-    torch._convert_weight_to_int4pack, bf16 group scales with zero 0, all
-    prepared outside the timing (a yardstick: the port never calls it).
-    Returns (ms, error against the plain version, refusal, graph ms)."""
+def int4pack_ms(calls, group: int, plain) -> tuple:
+    """torch._weight_int4pack_mm over `calls` [(x, w, s)] (a layer's
+    projections, or each slot's expert of a gather layer) at group `group`:
+    the same signed nibbles + 8 packed by torch._convert_weight_to_int4pack,
+    bf16 group scales with zero 0, all prepared outside the timing (a
+    yardstick: the port never calls it). Returns (ms, error against the
+    plain version, refusal, graph ms)."""
     import torch
     from ragmeup_tpu_torch.ops import quant_matmul as qm
     try:
         packed = []
-        for w, s in weights:
+        for x, w, s in calls:
             k = 2 * w.shape[0]
             u = (qm.unpack_int4(w, qm.int4_tiling(k)[0]).to(torch.int32) + 8).t().contiguous()
             w_u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
             qsz = torch.stack([s.to(torch.bfloat16), torch.zeros_like(s, dtype=torch.bfloat16)],
                               dim=2).contiguous()
-            packed.append((k, torch._convert_weight_to_int4pack(w_u8, 8), qsz))
+            packed.append((x, torch._convert_weight_to_int4pack(w_u8, 8), qsz))
             del u, w_u8
 
         def run():
-            return [torch._weight_int4pack_mm(xs[k], wp, group, qsz) for k, wp, qsz in packed]
-        err = max((got.float() - plain(xs[2 * w.shape[0]], w, s).float()).abs().max().item()
-                  for got, (w, s) in zip(run(), weights))
+            return [torch._weight_int4pack_mm(x, wp, group, qsz) for x, wp, qsz in packed]
+        err = max((got.float() - plain(x, w, s).float()).abs().max().item()
+                  for got, (x, w, s) in zip(run(), calls))
         return median_ms(run, reps=10), err, None, graph_ms(run, reps=4)
     except Exception as exc:  # the yardstick is optional; its refusal is printed
         refusal = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
@@ -411,6 +412,11 @@ def launched_kernels(fn) -> set:
         fn()
         torch.cuda.synchronize()
     return {name for name, _, _ in _device_intervals(prof)}
+
+
+def kernels_of(fn) -> list:
+    """The rk_ kernels one call of `fn` launched (torch.profiler), sorted."""
+    return sorted({found for name in launched_kernels(fn) for found in re.findall(r"rk_\w+", name)})
 
 
 def check_int4_decode_short_and_routes(gen) -> dict:
@@ -461,8 +467,7 @@ def check_int4_decode_short_and_routes(gen) -> dict:
     routes = {}
     for label, (m, dtype, wc, sc, want) in cases.items():
         x = torch.randn(m, 2 * wc.shape[0], generator=gen, device="cuda").to(dtype)
-        names = sorted({found for name in launched_kernels(lambda: qm.int4_matmul(x, wc, sc))
-                        for found in re.findall(r"rk_\w+", name)})
+        names = kernels_of(lambda: qm.int4_matmul(x, wc, sc))
         main = [name for name in names if "reduce" not in name]
         if main != [want]:
             raise AssertionError(f"int4_matmul {label} launched {names}, wanted {want}")
@@ -562,7 +567,8 @@ def check_int4(gen, a8: bool) -> dict:
                     if not diff <= 2.0 ** -7 * y0.float().abs().max().item():
                         raise AssertionError(f"int4 scalar decode m={m}: {diff}")
                 scalar[m] = graph_ms(layer(int4_scalar_decode), reps=4)
-                library[m] = int4pack_ms(xs, list(weights.values()), group, plain)
+                library[m] = int4pack_ms([(xs[2 * w.shape[0]], w, s)
+                                          for w, s in weights.values()], group, plain)
                 log(f"  int4_matmul library yardstick torch._weight_int4pack_mm (group 128, "
                     f"m={m}): {library[m][0]} ms (graph {library[m][3]}), error against the "
                     f"plain version {library[m][1]}; the kernel's layer {times[f'group128_m{m}'][0]}"
@@ -876,8 +882,11 @@ def check_moe_grouped(gen) -> dict:
     Mixtral's int8 expert shapes, bf16; both routes also with bf16 experts
     and with f32 experts and activations at a smaller shape. Held to the
     plain version of the whole grouped product (no padded layout) with
-    moe_compare. Times: one layer's three projections on each route.
-    Bounds count the experts this data routes to and its real rows."""
+    moe_compare. Times: one layer's three projections on each route (the
+    whole function, host scatter included), and for #11 the kernel alone on
+    the padded layout scatter_layout gives (kernel_ms, and kernel_graph_ms
+    from a CUDA graph). Bounds count the experts this data routes to and
+    its real rows."""
     import torch
     from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
@@ -915,7 +924,25 @@ def check_moe_grouped(gen) -> dict:
         moved = sum(used * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
                     + nbytes(xs[w.shape[1]]) + 2 * m * w.shape[2] for w, _ in weights.values())
         ops = sum(2 * m * w.shape[1] * w.shape[2] for w, _ in weights.values())
+        kernel_alone = {}
+        if name == "moe_grouped":
+            # the kernel alone, on the padded layout the function hands it
+            padded = {k: mm.scatter_layout(x, gsz, kw["tm"], MOE_E) for k, x in xs.items()}
+
+            def on_padded(padded=padded):
+                for w, s in weights.values():
+                    xp, _, texp, used_rows = padded[w.shape[1]]
+                    mm.grouped_padded(xp, w, s, texp, used_rows, kw["tm"], stack=False)
+            before = kernels.launch_counts()[name]
+            on_padded()
+            if kernels.launch_counts()[name] != before + len(weights):
+                raise AssertionError(f"{name}: the padded calls took another route")
+            kernel_alone = {"kernel_ms": median_ms(on_padded, reps=5),
+                            "kernel_graph_ms": graph_ms_or_none(f"{name} kernel", on_padded,
+                                                                reps=4)}
+            del padded
         out[name] = {
+            **kernel_alone,
             "max_abs_err": err,
             "ms": median_ms(layer(mm.moe_grouped_matmul), reps=5),
             "graph_ms": graph_ms_or_none(name, layer(mm.moe_grouped_matmul), reps=2),
@@ -940,18 +967,31 @@ def int4_experts(gen, e: int, k: int, n: int, group: int):
 
 def check_moe_gather_int4(gen) -> dict:
     """#13 at Mixtral's expert shapes (E 8; gate/up 4096 x 14336, down
-    14336 x 4096), 2 slots (experts 5 and 2), bf16, for group 128 (weights
-    dequantized and rounded) and group 512 (the k-tile: the output-scaled
-    route), and with f32 activations at a smaller shape. Tolerance:
-    moe_compare; on the output-scaled route the kernel scales each split-K
-    slice's partial before the slices are added, one more f32 rounding than
-    the plain version's per-tile sums, far inside one bf16 ulp. Times: one
-    decode layer's three projections at group 128 (187 MB routed: beyond
-    the 50 MB L2); the bound counts the two routed experts' bytes. Each
-    checked call must take the kernel route."""
+    14336 x 4096), bf16, for group 128 (weights dequantized and rounded)
+    and group 512 (the k-tile: the output-scaled route), on 2 slots with
+    distinct experts (5, 2), 2 slots on one expert (3, 3) and 16 slots
+    (experts repeated); f32 activations at a smaller shape (16 slots); k =
+    tile_k = 1040 (3 slots, groups 130 and 1040, bf16 and f32), where the
+    plan's last slice of the k-tile is short; n = 768, which the 512-column
+    strips do not tile (the older kernel). Tolerance: moe_compare; the
+    kernel scales each split-K slice's partial before the slices are added
+    (output-scaled route) and adds the slices in order, one more f32
+    rounding than the plain version's per-tile sums, far inside one bf16
+    ulp. Each checked call must take the kernel route, and a torch.profiler
+    trace shows that each route launched the kernel it names (bf16 groups
+    128, 512 and 1040 rk_moe_gather_int4_mma_kernel, f32 and group 130
+    rk_moe_gather_int4_decode_kernel, n = 768
+    rk_moe_gather_int4_partial_kernel), with the reduce where the plan cuts
+    k into slices. Times: one decode layer's three projections at S = 2
+    (experts 5 and 2) at groups 128 (187 MB routed: beyond the 50 MB L2)
+    and 512, eager and from a CUDA graph; the bound counts the two routed
+    experts' bytes. Beside them, a yardstick that is not one call and so
+    not a library call of the same function: torch._weight_int4pack_mm on
+    each slot's expert (6 calls a layer, group 128, int4pack_ms)."""
     import torch
     from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
+    from ragmeup_tpu_torch.ops import quant_matmul as qm
 
     def launched(what, *args):
         before = kernels.launch_counts()["moe_gather_int4"]
@@ -959,33 +999,65 @@ def check_moe_gather_int4(gen) -> dict:
         if kernels.launch_counts()["moe_gather_int4"] == before:
             raise AssertionError(f"moe_gather_int4 {what}: the call took another route")
         return got
+
+    def route(what, want, slices, *args):
+        names = kernels_of(lambda: mm.moe_gather_matmul_int4(*args))
+        wanted = sorted([want] + ["rk_moe_gather_int4_reduce_kernel"] * (slices > 1))
+        if names != wanted:
+            raise AssertionError(f"moe_gather_int4 {what} launched {names}, wanted {wanted}")
+        return names
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     ids = torch.tensor([5, 2], device="cuda")
-    xs = {k: torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
-          for k in (4096, 14336)}
-    err, times = 0.0, {}
+    many = torch.randint(0, MOE_E, (16,), generator=gen, device="cuda")
+    many[:4] = torch.tensor([5, 2, 5, 2])
+    slot_ids = {"distinct": ids, "repeated": torch.tensor([3, 3], device="cuda"),
+                "16 slots": many}
+    xs = {label: {k: torch.randn(len(i), k, generator=gen, device="cuda").to(torch.bfloat16)
+                  for k in (4096, 14336)} for label, i in slot_ids.items()}
+    err, times, graphs, routes = 0.0, {}, {}, {}
     for group in (128, 512):
         weights = {name: int4_experts(gen, MOE_E, k, n, group)
                    for name, (k, n) in MOE_SHAPES.items()}
+        for label, sid in slot_ids.items():
+            for name, (w, s) in weights.items():
+                if label == "16 slots" and name == "up":
+                    continue  # gate's shape
+                x = xs[label][2 * w.shape[1]]
+                what = f"{name} group {group} {label}"
+                err = max(err, moe_compare(f"moe_gather_int4 {what}",
+                                           launched(what, x, w, s, sid, 512, group),
+                                           mm.moe_gather_matmul_int4_plain(x, w, s, sid, 512,
+                                                                           group)))
+        w, s = weights["gate"]
+        k, n = MOE_SHAPES["gate"]
+        routes[f"bf16 group {group}"] = route(
+            f"bf16 group {group}", "rk_moe_gather_int4_mma_kernel",
+            len(qm.int4_decode_slices(k, 512, mm.int4_gather_plan(2, k, n, 512, group, sms))),
+            xs["distinct"][k], w, s, ids, 512, group)
 
-        def call(fn, w, s):
-            return fn(xs[2 * w.shape[1]], w, s, ids, 512, group)
-        for name, (w, s) in weights.items():
-            what = f"{name} group {group}"
-            err = max(err, moe_compare(f"moe_gather_int4 {what}",
-                                       launched(what, xs[2 * w.shape[1]], w, s, ids, 512, group),
-                                       call(mm.moe_gather_matmul_int4_plain, w, s)))
-
-        def layer(fn, weights=weights, call=call):
-            return lambda: [call(fn, w, s) for w, s in weights.values()]
+        def layer(fn, weights=weights, group=group):
+            return lambda: [fn(xs["distinct"][2 * w.shape[1]], w, s, ids, 512, group)
+                            for w, s in weights.values()]
         times[group] = (median_ms(layer(mm.moe_gather_matmul_int4), reps=10),
                         median_ms(layer(mm.moe_gather_matmul_int4_plain), reps=2))
+        graphs[group] = graph_ms_or_none(f"moe_gather_int4 group {group}",
+                                         layer(mm.moe_gather_matmul_int4), reps=4)
         if group == 128:
-            gather_graph = graph_ms_or_none("moe_gather_int4", layer(mm.moe_gather_matmul_int4),
-                                            reps=4)
-        if group == 128:
-            moved = sum(2 * nbytes(w[0], s[0]) + nbytes(xs[2 * w.shape[1]])
+            moved = sum(2 * nbytes(w[0], s[0]) + nbytes(xs["distinct"][2 * w.shape[1]])
                         + 2 * 2 * w.shape[2] for w, s in weights.values())
             ops = sum(2 * 2 * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
+            slices = {name: len(qm.int4_decode_slices(k, 512, mm.int4_gather_plan(
+                2, k, n, 512, group, sms))) for name, (k, n) in MOE_SHAPES.items()}
+            library = int4pack_ms(
+                [(xs["distinct"][2 * w.shape[1]][i:i + 1], w[e], s[e])
+                 for w, s in weights.values() for i, e in enumerate(ids.tolist())],
+                group, qm.int4_matmul_plain)
+            log(f"  moe_gather_int4 yardstick torch._weight_int4pack_mm on each slot's expert "
+                f"(6 calls, group 128; not one call, not a library call of the same "
+                f"function): {library[0]} ms (graph {library[3]}), error against the plain "
+                f"version {library[1]}; the kernel's layer {times[128][0]} ms, graph "
+                f"{graphs[128]} ms, split-K slices {slices}")
+        del weights
     for group in (128, 512):
         w, s = int4_experts(gen, MOE_E, 1024, 2048, group)
         x = torch.randn(16, 1024, generator=gen, device="cuda")
@@ -993,13 +1065,51 @@ def check_moe_gather_int4(gen) -> dict:
         moe_compare(f"moe_gather_int4 f32 group {group}",
                     launched(f"f32 group {group}", x, w, s, sid, 512, group),
                     mm.moe_gather_matmul_int4_plain(x, w, s, sid, 512, group))
-    return {"max_abs_err": err, "ms": times[128][0], "graph_ms": gather_graph,
+        if group == 128:
+            routes["f32 group 128"] = route(
+                "f32 group 128", "rk_moe_gather_int4_decode_kernel",
+                len(qm.int4_decode_slices(1024, 512, mm.int4_gather_plan(
+                    16, 1024, 2048, 512, group, sms))), x, w, s, sid, 512, group)
+    # k = tile_k = 1040: 520 packed rows a tile, the last slice short
+    k, n = 1040, 512
+    sid = torch.tensor([4, 1, 4], device="cuda")
+    for group, kernel in ((130, "rk_moe_gather_int4_decode_kernel"),
+                          (1040, "rk_moe_gather_int4_mma_kernel")):
+        ks = mm.int4_gather_plan(3, k, n, k, group, sms)
+        ranges = qm.int4_decode_slices(k, k, ks)
+        if not ranges[-1][1] - ranges[-1][0] < ks:
+            raise AssertionError(f"moe_gather_int4: no short slice at k={k} (slice {ks})")
+        w, s = int4_experts(gen, MOE_E, k, n, group)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(3, k, generator=gen, device="cuda").to(dtype)
+            what = f"k {k} group {group} {dtype}"
+            err = max(err, moe_compare(f"moe_gather_int4 {what}", launched(
+                what, x, w, s, sid, k, group),
+                mm.moe_gather_matmul_int4_plain(x, w, s, sid, k, group)))
+            want = kernel if dtype == torch.bfloat16 else "rk_moe_gather_int4_decode_kernel"
+            routes[what] = route(what, want, len(ranges), x, w, s, sid, k, group)
+    # n = 768: the JAX gate admits it (an n tile of 256), the strips do not
+    w, s = int4_experts(gen, MOE_E, 1024, 768, 128)
+    x = torch.randn(3, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+    err = max(err, moe_compare("moe_gather_int4 n 768", launched("n 768", x, w, s, sid, 512, 128),
+                               mm.moe_gather_matmul_int4_plain(x, w, s, sid, 512, 128)))
+    routes["n 768"] = route("n 768", "rk_moe_gather_int4_partial_kernel", 2,  # always reduces
+                            x, w, s, sid, 512, 128)
+    log(f"  moe_gather_int4 kernels by call: {routes}")
+    return {"max_abs_err": err, "ms": times[128][0], "graph_ms": graphs[128],
             "plain_ms": times[128][1],
             "library_ms": None,  # no one PyTorch call gathers int4 experts and multiplies
+            "int4pack_per_slot_yardstick": {
+                "ms": library[0], "graph_ms": library[3], "err": library[1],
+                "refusal": library[2],
+                "calls": "torch._weight_int4pack_mm on each slot's expert, 6 a layer: not one "
+                         "call, not a rule-1 library call"},
             **bound(moved, ops, "bf16"),
             "shape": "one Mixtral decode layer: gate, up, down at S=2 slots (experts 5, 2), "
                      "packed int4 experts, group 128, bf16",
-            "group512_ms_plain_ms": [round(t, 4) for t in times[512]]}
+            "slices": slices, "kernels_by_call": routes,
+            "group512": {"ms": times[512][0], "graph_ms": graphs[512],
+                         "plain_ms": times[512][1]}}
 
 
 def seeded_groups(gen, tokens: int = 8, e: int = MOE_E, top_k: int = 2):

@@ -13,10 +13,29 @@
 //
 // At decode (m = 1) the product is bound by reading the packed weights once
 // (k * n / 2 bytes, half of int8); the arithmetic per byte is a few
-// conversions and FMAs. W4A16 with m <= 8 takes rk_int4_decode_kernel
-// (its design is described above it, at the end of this file). The
-// design below is shared by the W4A16 kernel for m > 8, the gather and
-// W4A8:
+// conversions and FMAs. W4A16 with m <= 8 takes the decode kernels
+// (rk_int4_decode_mma_kernel, rk_int4_decode_kernel: their design is
+// described above them, further down), and so does the gather where
+// n % 512 == 0:
+//
+//   * The gather runs the decode kernels' bodies with one slot a block
+//     along grid.z (kernels of its own names, so a trace tells #4 and #13
+//     apart: rk_moe_gather_int4_mma_kernel for bf16 x whose groups the
+//     tensor cores take, rk_moe_gather_int4_decode_kernel for f32 x and
+//     the groups they refuse). The block reads its slot's expert id from
+//     device memory (the TPU kernel's scalar prefetch, no host sync),
+//     offsets the packed weights and the scales by it, stages its slot's x
+//     row alone and writes row z of the output or of its slice's partial.
+//     The slices are added in slice order by rk_moe_gather_int4_reduce_kernel
+//     (no atomics). At Mixtral decode (2 slots) one layer's gate, up and
+//     down are 176 MB of packed experts and 11 MB of group-128 scales:
+//     0.056 ms at 3.35 TB/s, bound by those bytes; each routed expert's
+//     bytes stream once per slot. The plan is the decode route's, with the
+//     slots counted as blocks (ops/moe_matmul.py::int4_gather_plan).
+//
+// The design below is shared by the W4A16 kernel for m > 8, W4A8 and the
+// gather's shapes whose n the 512-column strips do not tile (n % 256 ==
+// 0, rk_moe_gather_int4_partial_kernel):
 //
 //   * Each thread owns 8 adjacent output columns and reads w_p[j, col:col+8]
 //     as one 8-byte load per packed row: a warp reads 256 contiguous bytes.
@@ -27,15 +46,9 @@
 //     order (no atomics: greedy decoding repeats bit for bit).
 //   * m > 8 walks 8-row groups of x (grid.z); each group re-reads the
 //     weights, from L2 where they fit. A decode-shaped design: the 128- and
-//     256-row prefill buckets reach it too, at scalar-FMA speed.
-//   * The gather runs the W4A16 kernel's body with one slot a block along
-//     grid.z (its own kernel names, so a trace tells the two apart): the
-//     block reads its slot's expert id from device memory (the TPU kernel's
-//     scalar prefetch, no host sync) and offsets the packed weights and the
-//     scales by it. At Mixtral decode (2 slots) one layer's gate, up and down
-//     are 176 MB of packed experts and 11 MB of group-128 scales: 0.056 ms
-//     at 3.35 TB/s, bound by those bytes; the design streams each routed
-//     expert's bytes once per slot, 16-byte rows a warp at a time.
+//     256-row prefill buckets reach it too, at scalar-FMA speed. The gather
+//     on this body takes one slot a block along grid.z, offset by its
+//     expert as above.
 //
 // Rounding is each route's own, as in the TPU kernel:
 //   W4A16 quality (group < tile_k): each weight is dequantized in f32 and
@@ -416,7 +429,9 @@ int launch_w4a8(const void* xv, const int8_t* w_p, const float* gs, int m,
 // ---------------------------------------------------------------------------
 // W4A16 decode (m <= 8): rk_int4_decode_kernel (f32 x, and shapes whose
 // scale groups the tensor-core kernel below cannot take) and
-// rk_int4_decode_mma_kernel (bf16 x)
+// rk_int4_decode_mma_kernel (bf16 x); the gather's
+// rk_moe_gather_int4_decode_kernel and rk_moe_gather_int4_mma_kernel run
+// the same bodies on one slot's x row and expert
 // ---------------------------------------------------------------------------
 //
 // The same function as rk_int4_partial_kernel, on #3's weight stream
@@ -521,11 +536,15 @@ __device__ __forceinline__ void load_scales16(const float* p, float (&s)[16]) {
   }
 }
 
+// The scalar kernel's body, shared by #4 and the gather: x's rows [0, m)
+// (m <= M) against one weight matrix w / gs, for the block's strip and
+// slice; x row r lands in row row0 + r of the output (rows_out rows) or of
+// the block's slice of the partial.
 template <typename T, int M, int kBatch, bool kOutScaled>
-__global__ void __launch_bounds__(kDecThreads) rk_int4_decode_kernel(
-    const T* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ gs,
-    int m, int k, int n, int tile_k, int group, int k_slice, float* __restrict__ partial,
-    T* __restrict__ out) {
+__device__ __forceinline__ void int4_decode_body(
+    const T* __restrict__ x, int m, const int8_t* __restrict__ w,
+    const float* __restrict__ gs, int k, int n, int tile_k, int group, int k_slice,
+    int row0, int rows_out, float* __restrict__ partial, T* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int half = tile_k / 2;
   const int per_tile = (half + k_slice - 1) / k_slice;
@@ -618,11 +637,34 @@ __global__ void __launch_bounds__(kDecThreads) rk_int4_decode_kernel(
       for (int wi = 0; wi < kDecWarps; ++wi) s += red[wi * kDecColsPerBlock + cc];
       if (kOutScaled) s = __fmul_rn(s, __ldg(gs + (size_t)tile * n + oc));  // group == tile_k
       if (direct)
-        out[(size_t)r * n + oc] = from_f32<T>(s);
+        out[(size_t)(row0 + r) * n + oc] = from_f32<T>(s);
       else
-        partial[((size_t)blockIdx.y * m + r) * n + oc] = s;
+        partial[((size_t)blockIdx.y * rows_out + row0 + r) * n + oc] = s;
     }
   }
+}
+
+template <typename T, int M, int kBatch, bool kOutScaled>
+__global__ void __launch_bounds__(kDecThreads) rk_int4_decode_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ gs,
+    int m, int k, int n, int tile_k, int group, int k_slice, float* __restrict__ partial,
+    T* __restrict__ out) {
+  int4_decode_body<T, M, kBatch, kOutScaled>(x, m, w, gs, k, n, tile_k, group, k_slice, 0,
+                                             m, partial, out);
+}
+
+// The gather on the scalar kernel: slot z (grid.z) is one x row against
+// expert ids[z], read from device memory (no host sync)
+template <typename T, bool kOutScaled>
+__global__ void __launch_bounds__(kDecThreads) rk_moe_gather_int4_decode_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ gs,
+    const int* __restrict__ ids, int slots, int k, int n, int tile_k, int group,
+    int k_slice, float* __restrict__ partial, T* __restrict__ out) {
+  const int z = blockIdx.z;
+  const size_t e = (size_t)ids[z];
+  int4_decode_body<T, 1, 8, kOutScaled>(x + (size_t)z * k, 1, w + e * (k / 2) * n,
+                                        gs + e * (k / group) * n, k, n, tile_k, group,
+                                        k_slice, z, slots, partial, out);
 }
 
 // bf16 x: the products on the tensor cores (rk_int4_decode_mma_kernel).
@@ -660,11 +702,13 @@ struct KBlock {
   int4 r0, r4;                                  // the lane's 16 bytes of rows j + c, j + c + 4
 };
 
+// The tensor-core kernel's body, shared by #4 and the gather; arguments as
+// int4_decode_body's (m <= 8)
 template <bool kOutScaled>
-__global__ void __launch_bounds__(kMmaThreads) rk_int4_decode_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ gs, int m, int k, int n, int tile_k, int group, int k_slice,
-    float* __restrict__ partial, __nv_bfloat16* __restrict__ out) {
+__device__ __forceinline__ void int4_decode_mma_body(
+    const __nv_bfloat16* __restrict__ x, int m, const int8_t* __restrict__ w,
+    const float* __restrict__ gs, int k, int n, int tile_k, int group, int k_slice,
+    int row0, int rows_out, float* __restrict__ partial, __nv_bfloat16* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t xa[];  // [k-block][x row][c][b0, b1]
   const int half = tile_k / 2;
   const int per_tile = (half + k_slice - 1) / k_slice;
@@ -776,7 +820,7 @@ __global__ void __launch_bounds__(kMmaThreads) rk_int4_decode_mma_kernel(
     const int r = 2 * c + h;
     if (r >= m) break;
     if (gridDim.y == 1) {
-      uint4* o = reinterpret_cast<uint4*>(out + (size_t)r * n + col);
+      uint4* o = reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * n + col);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         o[i] = make_uint4(pack_bf16x2(v[h][8 * i], v[h][8 * i + 1]),
@@ -784,12 +828,38 @@ __global__ void __launch_bounds__(kMmaThreads) rk_int4_decode_mma_kernel(
                           pack_bf16x2(v[h][8 * i + 4], v[h][8 * i + 5]),
                           pack_bf16x2(v[h][8 * i + 6], v[h][8 * i + 7]));
     } else {
-      float4* o = reinterpret_cast<float4*>(partial + ((size_t)blockIdx.y * m + r) * n + col);
+      float4* o = reinterpret_cast<float4*>(
+          partial + ((size_t)blockIdx.y * rows_out + row0 + r) * n + col);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         o[i] = make_float4(v[h][4 * i], v[h][4 * i + 1], v[h][4 * i + 2], v[h][4 * i + 3]);
     }
   }
+}
+
+template <bool kOutScaled>
+__global__ void __launch_bounds__(kMmaThreads) rk_int4_decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ gs, int m, int k, int n, int tile_k, int group, int k_slice,
+    float* __restrict__ partial, __nv_bfloat16* __restrict__ out) {
+  int4_decode_mma_body<kOutScaled>(x, m, w, gs, k, n, tile_k, group, k_slice, 0, m, partial,
+                                   out);
+}
+
+// The gather on the tensor cores: slot z (grid.z) is one x row (B column
+// 0 of each mma, whose lanes g = 0 carry it) against expert ids[z]; its
+// sums land in row z
+template <bool kOutScaled>
+__global__ void __launch_bounds__(kMmaThreads) rk_moe_gather_int4_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ gs, const int* __restrict__ ids, int slots, int k, int n,
+    int tile_k, int group, int k_slice, float* __restrict__ partial,
+    __nv_bfloat16* __restrict__ out) {
+  const int z = blockIdx.z;
+  const size_t e = (size_t)ids[z];
+  int4_decode_mma_body<kOutScaled>(x + (size_t)z * k, 1, w + e * (k / 2) * n,
+                                   gs + e * (k / group) * n, k, n, tile_k, group, k_slice, z,
+                                   slots, partial, out);
 }
 
 // whether the tensor-core kernel takes a bf16 call: 8-row k-blocks that
@@ -854,6 +924,55 @@ int launch_w4a16_decode(const void* xv, const int8_t* w, const float* gs, int m,
     rk_int4_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(partial, m, n, splits, out);
   }
   return (int)cudaGetLastError();
+}
+
+// the gather on the decode kernels: grid (strips, slices, slots)
+template <typename T>
+int launch_gather_decode(const void* xv, const int8_t* w, const float* gs, const int* ids,
+                         int slots, int k, int n, int tile_k, int group, int k_slice,
+                         bool tensor_cores, float* partial, void* outv, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
+  const int splits = decode_slices(k, tile_k, k_slice);
+  const dim3 grid(n / kDecColsPerBlock, splits, slots);
+  if (tensor_cores) {
+    const size_t bytes = (size_t)32 * k_slice;
+    const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+    __nv_bfloat16* ob = reinterpret_cast<__nv_bfloat16*>(out);
+    if (group == tile_k)
+      rk_moe_gather_int4_mma_kernel<true><<<grid, kMmaThreads, bytes, s>>>(
+          xb, w, gs, ids, slots, k, n, tile_k, group, k_slice, partial, ob);
+    else
+      rk_moe_gather_int4_mma_kernel<false><<<grid, kMmaThreads, bytes, s>>>(
+          xb, w, gs, ids, slots, k, n, tile_k, group, k_slice, partial, ob);
+  } else {
+    if (2 * k_slice > kDecXsFloats) return (int)cudaErrorInvalidValue;
+    const size_t bytes = (size_t)max(2 * k_slice, kDecRedFloats) * sizeof(float);
+    if (group == tile_k)
+      rk_moe_gather_int4_decode_kernel<T, true><<<grid, kDecThreads, bytes, s>>>(
+          x, w, gs, ids, slots, k, n, tile_k, group, k_slice, partial, out);
+    else
+      rk_moe_gather_int4_decode_kernel<T, false><<<grid, kDecThreads, bytes, s>>>(
+          x, w, gs, ids, slots, k, n, tile_k, group, k_slice, partial, out);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const int total = slots * n;
+    rk_moe_gather_int4_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(
+        partial, slots, n, splits, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// shapes the decode kernels refuse (rk_int4_decode, rk_moe_gather_int4_decode)
+bool bad_decode_shape(int k, int n, int tile_k, int group, int k_slice, int dtype,
+                      int tensor_cores) {
+  return n < kDecColsPerBlock || n % kDecColsPerBlock || tile_k < 4 || tile_k % 4 ||
+         k < tile_k || k % tile_k || group < 1 || tile_k % group ||
+         (group != tile_k && group % 2) || k_slice < 2 || k_slice % 2 ||
+         k_slice > tile_k / 2 ||
+         (tensor_cores && (dtype != 1 || !mma_takes(tile_k, group, k_slice)));
 }
 
 }  // namespace
@@ -926,10 +1045,7 @@ int rk_int4_matmul_a8(const void* x, const int8_t* w_p, const float* gscale,
 int rk_int4_decode(const void* x, const int8_t* w_p, const float* gscale, int m,
                    int k, int n, int tile_k, int group, int k_slice, int dtype,
                    int tensor_cores, float* partial, void* out, void* stream) {
-  if (m < 1 || m > 8 || n < kDecColsPerBlock || n % kDecColsPerBlock || tile_k < 4 ||
-      tile_k % 4 || k < tile_k || k % tile_k || group < 1 || tile_k % group ||
-      (group != tile_k && group % 2) || k_slice < 2 || k_slice % 2 || k_slice > tile_k / 2 ||
-      (tensor_cores && (dtype != 1 || !mma_takes(tile_k, group, k_slice))))
+  if (m < 1 || m > 8 || bad_decode_shape(k, n, tile_k, group, k_slice, dtype, tensor_cores))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
@@ -937,6 +1053,29 @@ int rk_int4_decode(const void* x, const int8_t* w_p, const float* gscale, int m,
                                               k_slice, tensor_cores, partial, out, s);
   return launch_w4a16_decode<float>(x, w_p, gscale, m, k, n, tile_k, group, k_slice, false,
                                     partial, out, s);
+}
+
+// Gather (#13) on the decode kernels: x (slots, k), w_p (E, k/2, n),
+// gscale (E, k/group, n), ids (slots,) int32 and out (slots, n) as
+// rk_moe_gather_int4; the shapes rk_int4_decode takes, with 1 <= slots <=
+// 64 in place of m and 2 * k_slice <= 12288 on the scalar kernel. partial
+// holds (k/tile_k) * ceil(tile_k/2 / k_slice) * slots * n floats when there
+// is more than one slice. tensor_cores = 1 takes
+// rk_moe_gather_int4_mma_kernel (bf16 x), 0 rk_moe_gather_int4_decode_kernel.
+// Returns a cudaError_t.
+int rk_moe_gather_int4_decode(const void* x, const int8_t* w_p, const float* gscale,
+                              const int* ids, int slots, int k, int n, int tile_k, int group,
+                              int k_slice, int dtype, int tensor_cores, float* partial,
+                              void* out, void* stream) {
+  if (slots < 1 || slots > 64 ||
+      bad_decode_shape(k, n, tile_k, group, k_slice, dtype, tensor_cores))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_gather_decode<__nv_bfloat16>(x, w_p, gscale, ids, slots, k, n, tile_k,
+                                               group, k_slice, tensor_cores, partial, out, s);
+  return launch_gather_decode<float>(x, w_p, gscale, ids, slots, k, n, tile_k, group, k_slice,
+                                     false, partial, out, s);
 }
 
 }  // extern "C"

@@ -155,6 +155,9 @@ def lib() -> ctypes.CDLL:
             so.rk_moe_gather_int4.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                               i32, i32, i32, vp, vp, vp]
             so.rk_moe_gather_int4.restype = i32
+            so.rk_moe_gather_int4_decode.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                                     i32, i32, i32, i32, vp, vp, vp]
+            so.rk_moe_gather_int4_decode.restype = i32
             so.rk_moe_grouped_int4.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                                i32, i32, i32, i32, vp, vp, vp]
             so.rk_moe_grouped_int4.restype = i32

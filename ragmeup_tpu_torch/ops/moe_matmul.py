@@ -31,8 +31,14 @@ integers per k-tile and adds the tiles times their scales in f32.
 
 - ``moe_gather_matmul_int4`` (decode, at most 64 slots; #13, counted as
   ``moe_gather_int4``, csrc/quant_matmul_int4.cu): the routed slots'
-  packed bytes only. Shapes the JAX gate refuses take a gather, unpack and
-  dequantize in x's dtype + einsum.
+  packed bytes only, one slot a block that reads its expert id on the
+  device. Where n % 512 == 0 it runs on the W4A16 decode kernels
+  (``int4_gather_plan``: #4's split-K plan with the slots counted as
+  blocks): bf16 x on the tensor cores where ``int4_decode_tensor_cores``
+  takes the groups, f32 x and the groups it refuses on the scalar kernel.
+  Shapes the JAX gate admits and the 512-column strips do not tile (n %
+  256 == 0) keep the older 64-thread kernel. Shapes the JAX gate refuses
+  take a gather, unpack and dequantize in x's dtype + einsum.
 - ``moe_grouped_matmul_int4`` (batched decode, E < S ≤ 4E; #14,
   ``moe_grouped_int4``, csrc/moe_matmul_int4.cu): rows sorted by expert
   in the padded layout, each unique routed expert's packed bytes read once
@@ -54,7 +60,9 @@ from typing import Optional, Tuple
 import torch
 
 from ragmeup_tpu_torch import kernels
-from ragmeup_tpu_torch.ops.quant_matmul import (_add_in_tile_order, int4_slice_for,
+from ragmeup_tpu_torch.ops.quant_matmul import (INT4_TILE_N, _add_in_tile_order,
+                                                int4_decode_plan, int4_decode_tensor_cores,
+                                                int4_decode_viable, int4_slice_for,
                                                 unpack_int4)
 
 GATHER_MAX_SLOTS = 64      # the JAX gate of the gather kernel
@@ -448,6 +456,15 @@ def _gather_int4_fallback(x, w_p, gscale, ids, tile_k, group):
     return torch.einsum("sk,skn->sn", x, wd)
 
 
+def int4_gather_plan(slots: int, k: int, n: int, tile_k: int, group: int,
+                     sm_count: int) -> int:
+    """The gather's split-K slice on the decode kernels, in packed rows:
+    ``int4_decode_plan`` for one x row, its strips times the slots counting
+    towards its blocks an SM (each slot is a block of its own); each k-tile
+    is cut as ``int4_decode_slices`` cuts it."""
+    return int4_decode_plan(1, k, n, tile_k, group, sm_count, row_blocks=slots)
+
+
 def _gather_int4_cuda(x, w_p, gscale, ids, tile_k, group):
     s_slots, k = x.shape
     n = w_p.shape[2]
@@ -457,14 +474,25 @@ def _gather_int4_cuda(x, w_p, gscale, ids, tile_k, group):
     ids = ids.to(torch.int32).contiguous()
     gscale = gscale.float().contiguous()
     kernels.require_cuda("moe_gather_int4", x, w_p, gscale, ids)
-    ks = int4_slice_for(k, tile_k, n, s_slots, _target_blocks(x.device.index))
-    partial = torch.empty((k // 2 // ks, s_slots, n), dtype=torch.float32,
-                          device=x.device)
     out = torch.empty((s_slots, n), dtype=x.dtype, device=x.device)
-    err = kernels.lib().rk_moe_gather_int4(
-        x.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), ids.data_ptr(), s_slots, k,
-        n, tile_k, group, ks, kernels.dtype_code(x.dtype), partial.data_ptr(),
-        out.data_ptr(), kernels.stream_handle(x.device))
+    if n % INT4_TILE_N == 0 and int4_decode_viable(1, tile_k, group):
+        ks = int4_gather_plan(s_slots, k, n, tile_k, group, kernels.sm_count(x.device.index))
+        slices = k // tile_k * -(-(tile_k // 2) // ks)   # len(int4_decode_slices(...))
+        partial = torch.empty((slices, s_slots, n) if slices > 1 else (0,),
+                              dtype=torch.float32, device=x.device)
+        err = kernels.lib().rk_moe_gather_int4_decode(
+            x.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), ids.data_ptr(), s_slots, k, n,
+            tile_k, group, ks, kernels.dtype_code(x.dtype),
+            int(int4_decode_tensor_cores(tile_k, group, ks, x.dtype)), partial.data_ptr(),
+            out.data_ptr(), kernels.stream_handle(x.device))
+    else:
+        ks = int4_slice_for(k, tile_k, n, s_slots, _target_blocks(x.device.index))
+        partial = torch.empty((k // 2 // ks, s_slots, n), dtype=torch.float32,
+                              device=x.device)
+        err = kernels.lib().rk_moe_gather_int4(
+            x.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), ids.data_ptr(), s_slots, k,
+            n, tile_k, group, ks, kernels.dtype_code(x.dtype), partial.data_ptr(),
+            out.data_ptr(), kernels.stream_handle(x.device))
     kernels.check(err, "moe_gather_int4")
     kernels.count("moe_gather_int4")
     return out

@@ -279,7 +279,10 @@ def int4_slice_for(k: int, tile_k: int, n: int, row_groups: int,
 # side by side) in at most 12288 floats of shared memory
 _INT4_ROW_STEP = 64          # packed rows: 8 warps x one 8-row batch each
 _INT4_XS_FLOATS = 12288
-_INT4_BLOCKS_PER_SM = 2
+# blocks an SM the decode plan aims at (tools/split_k_sweep.py): at the 8B
+# and Mixtral attention shapes 2 and 4 give the same slices (the 64-row step
+# rounds them); the expert gather at 2 slots takes 4 (half-tile slices)
+_INT4_BLOCKS_PER_SM = 4
 _INT4_MMA_XS_BYTES = 48 * 1024   # the tensor-core kernel's staged x: 32 bytes a packed row
 
 
@@ -291,25 +294,26 @@ def int4_decode_viable(m: int, tile_k: int, group: int) -> bool:
 
 
 def int4_decode_plan(m: int, k: int, n: int, tile_k: int, group: int,
-                     sm_count: int) -> int:
+                     sm_count: int, row_blocks: int = 1) -> int:
     """The decode kernel's split-K plan: the packed rows of one block's
     slice. Each k-tile's tile_k/2 packed rows are cut into slices of that
     many rows (the last one of a tile may be shorter), so a slice never
     crosses a k-tile and applies one tile scale on the output-scaled route.
     The 512-column strips alone leave SMs idle at every 8B decode shape, so
     the tiles are cut into as few slices as give ``_INT4_BLOCKS_PER_SM``
-    blocks on every SM, each a whole number of the 8 warps' 8-row batches
+    blocks on every SM (over the strips times ``row_blocks``: the gather's
+    slots, a block each), each a whole number of the 8 warps' 8-row batches
     where the half tile allows (else the half tile), and no longer than x's
     staging buffer holds at m rows (rounded up to 1, 2, 4 or 8), low and
     high nibble."""
     if not int4_decode_viable(m, tile_k, group):
         raise ValueError(f"int4 decode kernel: m={m}, tile_k={tile_k}, group={group}")
     half = tile_k // 2
-    strips = -(-n // INT4_TILE_N)
+    per_slice = -(-n // INT4_TILE_N) * row_blocks      # blocks a slice: strips x row blocks
     step = _INT4_ROW_STEP
     x_rows = 1 << (max(m, 1) - 1).bit_length()
     cap = max(step, _INT4_XS_FLOATS // (2 * x_rows) // step * step)
-    slices = max(1, -(-_INT4_BLOCKS_PER_SM * sm_count // strips))
+    slices = max(1, -(-_INT4_BLOCKS_PER_SM * sm_count // per_slice))
     per_tile = -(-slices // (k // tile_k))
     k_slice = -(-(-(-half // per_tile)) // step) * step
     return min(k_slice, cap, half)

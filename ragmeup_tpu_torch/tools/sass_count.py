@@ -6,7 +6,9 @@ Builds the kernel library (``kernels.build()``), disassembles it with
 ``cuobjdump -sass`` and counts, for each instantiation of
 ``rk_int4_decode_kernel`` (csrc/quant_matmul_int4.cu: activation type,
 rows M, batch, route) and of ``rk_int4_decode_mma_kernel`` (bf16, by
-route), the instructions of its code by opcode. Every packed
+route), and of the expert gather's kernels on their bodies
+(``rk_moe_gather_int4_decode_kernel``, ``rk_moe_gather_int4_mma_kernel``),
+the instructions of its code by opcode. Every packed
 byte the kernel consumes passes through exactly one bf16 HADD2/HFMA2
 (``nibbles_bf16x2`` turns the two nibbles at one position of two packed
 rows into bf16 integers: one per packed byte), so the conversions per
@@ -29,7 +31,8 @@ import subprocess
 
 from ragmeup_tpu_torch import kernels
 
-KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel")
+KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel",
+           "rk_moe_gather_int4_decode_kernel", "rk_moe_gather_int4_mma_kernel")
 CONVERSIONS = ("I2F", "I2FP", "F2F", "F2FP", "F2I")
 _INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)")

@@ -17,11 +17,15 @@ target is timed in turn with the split counts it gives:
 - #4's decode kernel (csrc/quant_matmul_int4.cu, ``int4_decode_plan``,
   ``quant_matmul._INT4_BLOCKS_PER_SM``) over the same layer packed in int4
   with 128-row scale groups, at m = 1 and 8, 1 to 4 blocks an SM;
+- #13, the int4 expert gather on the same decode kernels
+  (``moe_matmul.int4_gather_plan``, the same constant), over one
+  Mixtral-8x7B decode layer's gate, up and down at 2 slots (experts 5 and
+  2 of 8), groups 128 and 512, 1 to 4 blocks an SM;
 - #9 (csrc/paged_attention.cu, ``paged_split_plan``,
   ``_DECODE_BLOCKS_PER_SM`` and ``_CHUNK_BLOCKS_PER_SM``) at the 8B serving
   shapes: decode at 8, 4 and 1 sequences, the 128-token chunk at 4 and 1;
-  #3, #4 and #9 from a CUDA graph's replay, since their wrappers' host
-  cost exceeds their device time.
+  #3, #4, #13 and #9 from a CUDA graph's replay, since their wrappers'
+  host cost exceeds their device time.
 
 Medians of five rounds after warm-up. Prints the card's name and power
 limit, then one JSON line per kernel.
@@ -154,6 +158,32 @@ def sweep_int4_decode(gen, sms: int) -> dict:
     return out
 
 
+def sweep_gather_int4(gen, sms: int) -> dict:
+    ids = torch.tensor([5, 2], device="cuda")
+    xs = {k: torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
+          for k in (4096, 14336)}
+    default = qm._INT4_BLOCKS_PER_SM
+    out = {"kernel": "moe_gather_int4", "default_target": default}
+    try:
+        for group in (128, 512):
+            weights = [(torch.randint(-128, 128, (8, k // 2, n), generator=gen, device="cuda",
+                                      dtype=torch.int8),
+                        torch.rand(8, k // group, n, generator=gen, device="cuda") * 2e-3
+                        + 1e-3) for k, n in SHAPES.values()]
+            for target in (1, 2, 3, 4):
+                qm._INT4_BLOCKS_PER_SM = target
+                out[f"group{group} target{target}"] = {
+                    "layer_graph_ms": _graph_ms(lambda: [
+                        mm.moe_gather_matmul_int4(xs[2 * w.shape[1]], w, s, ids, 512, group)
+                        for w, s in weights], reps=4),
+                    "slices": {name: len(qm.int4_decode_slices(k, 512, mm.int4_gather_plan(
+                        2, k, n, 512, group, sms))) for name, (k, n) in SHAPES.items()}}
+            del weights
+    finally:
+        qm._INT4_BLOCKS_PER_SM = default
+    return out
+
+
 def sweep_paged(gen, sms: int) -> dict:
     def pool(b, lengths, q_len):
         q = torch.randn(b, q_len, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
@@ -194,7 +224,8 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = kernels.sm_count(0)
-    for sweep in (sweep_grouped_int4, sweep_int8, sweep_int4_decode, sweep_paged):
+    for sweep in (sweep_grouped_int4, sweep_int8, sweep_int4_decode, sweep_gather_int4,
+                  sweep_paged):
         print(json.dumps(sweep(gen, sms)), flush=True)
         torch.cuda.empty_cache()
     return 0

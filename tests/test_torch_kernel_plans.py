@@ -19,7 +19,10 @@ whose f32 partials, each the sum of 8 warps' runs of rows, are added in
 slice order; the W4A16 decode matmul (#4 at m <= 8,
 csrc/quant_matmul_int4.cu ``rk_int4_decode_kernel``) does the same over
 slices of one k-tile's packed rows (``int4_decode_plan``), each packed row
-feeding a low- and a high-nibble x column. The plans are held to cover
+feeding a low- and a high-nibble x column; the int4 expert gather (#13)
+runs #4's decode kernels with one slot a block (``int4_gather_plan``: the
+slots counted as blocks), its wrapper sending each shape to the entry its
+route names. The plans are held to cover
 their range once, in order, and an emulation of each kernel's arithmetic
 under its plan (plain torch, f32 or bf16) is held to the port's plain
 version and to the JAX package (``paged_attention_ref`` / the Pallas
@@ -441,10 +444,10 @@ def test_int4_decode_plan_covers_every_packed_row(shape, m, sms):
             assert p0 < p1 and p0 // half == (p1 - 1) // half     # one k-tile
             assert p1 - p0 == ks or p1 % half == 0                # only a tile's last is short
         assert len(ranges) == tiles * -(-half // ks)
-        # as few slices a tile as give two blocks on every SM over the
-        # 512-column strips, cut to whole 64-row steps (which may round to
-        # fewer slices), within the half tile and x's staging buffer
-        wanted = -(-2 * sms // -(-n // 512))
+        # as few slices a tile as give the plan's blocks on every SM over
+        # the 512-column strips, cut to whole 64-row steps (which may round
+        # to fewer slices), within the half tile and x's staging buffer
+        wanted = -(-qm._INT4_BLOCKS_PER_SM * sms // -(-n // 512))
         cap = 12288 // (2 * x_rows) // 64 * 64
         assert ks == min(cap, half, -(-(-(-half // -(-wanted // tiles))) // 64) * 64)
 
@@ -637,6 +640,163 @@ def test_int4_wrapper_routes_decode_rows_to_the_decode_kernel(m, k, group, a8, e
         ks = qm.int4_decode_plan(m, k, n, tile_k, group, H100_SMS)
         # bf16: the tensor cores where the k-blocks fit the groups
         assert rec.calls[0][1][3:11] == (m, k, n, tile_k, group, ks, 1, int(group % 8 == 0))
+    kernels.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# #13: the int4 expert gather on #4's decode kernels, one slot a block
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("slots", [1, 2, 3, 16, 64])
+@pytest.mark.parametrize("shape", list({**MIXTRAL, **INT4_TINY}))
+def test_int4_gather_plan_covers_every_packed_row_of_every_slot(shape, slots, sms):
+    """The grid (strips, slices, slots) reads every packed row of every
+    slot's expert exactly once in each 512-column strip, in slices of one
+    k-tile within both kernels' staging buffers (one x row), the slots
+    counted as blocks towards the plan's target."""
+    k, n = {**MIXTRAL, **INT4_TINY}[shape]
+    tile_k = qm.int4_tiling(k)[0]
+    half, strips = tile_k // 2, n // 512
+    for group in _int4_groups(k):
+        ks = moe.int4_gather_plan(slots, k, n, tile_k, group, sms)
+        assert ks % 2 == 0 and 2 <= ks <= half and 2 * ks <= 12288 and 32 * ks <= 48 * 1024
+        ranges = qm.int4_decode_slices(k, tile_k, ks)
+        seen = np.zeros((slots, k // 2), np.int32)
+        for _strip in range(strips):
+            for p0, p1 in ranges:
+                assert p0 // half == (p1 - 1) // half               # one k-tile
+                seen[:, p0:p1] += 1                                  # grid.z: every slot
+        assert (seen == strips).all()
+        # as few slices as give the plan's blocks an SM over strips x slots
+        wanted = -(-qm._INT4_BLOCKS_PER_SM * sms // (strips * slots))
+        tiles = k // tile_k
+        assert ks == min(half, -(-(-(-half // -(-wanted // tiles))) // 64) * 64)
+
+
+def test_int4_gather_plan_on_an_h100():
+    """Mixtral decode on 132 SMs at 2 slots: gate/up 28 strips x 2 slots x
+    16 slices (two a k-tile), down 8 x 2 x 56, 896 blocks each against the
+    528 the plan aims at; at 64 slots one slice a k-tile, the grid within
+    limits and the partial 29.4 MB."""
+    for name, (k, n) in MIXTRAL.items():
+        tiles = k // 512
+        for group in (128, 512):
+            ks = moe.int4_gather_plan(2, k, n, 512, group, H100_SMS)
+            assert ks == 128 and qm.int4_decode_tensor_cores(512, group, ks, torch.bfloat16)
+            slices = len(qm.int4_decode_slices(k, 512, ks))
+            assert slices == 2 * tiles and slices == {"gate": 16, "up": 16, "down": 56}[name]
+            assert n // 512 * 2 * slices == 896 >= qm._INT4_BLOCKS_PER_SM * H100_SMS
+            ks64 = moe.int4_gather_plan(64, k, n, 512, group, H100_SMS)
+            slices64 = len(qm.int4_decode_slices(k, 512, ks64))
+            assert ks64 == 256 and slices64 == tiles
+            assert slices64 * 64 * n * 4 == 29_360_128 and slices64 <= 65535
+
+
+def _gather_model(x, w_p, gs, ids, k_slice, tensor_cores):
+    """The gather kernels' sums: each slot's row through the model of the
+    decode kernel its route takes (tensor cores or scalar), against its
+    expert, under the gather's plan."""
+    model = _int4_decode_mma_plain if tensor_cores else _int4_decode_plain
+    return torch.cat([model(x[s:s + 1], w_p[e], gs[e], k_slice)
+                      for s, e in enumerate(ids.tolist())])
+
+
+GATHER_IDS = {1: [3], 3: [2, 0, 2], 16: [1, 1, 0, 3, 2, 2, 3, 0, 0, 1, 3, 3, 2, 0, 1, 1]}
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_case(shape, group, slots, dtype):
+    """Packed experts (4 of them), one x row a slot, repeated experts, and
+    the JAX gather's output on them (interpret mode)."""
+    k, n = INT4_TINY[shape]
+    rng = np.random.default_rng(k + group + slots)
+    w_p, gs = _packed_experts(rng, group, k=k, n=n)
+    x = rng.standard_normal((slots, k)).astype(np.float32)
+    ids = np.asarray(GATHER_IDS[slots], np.int32)
+    tile_k = qm.int4_tiling(k)[0]
+    want = np.asarray(jmoe.moe_gather_matmul_int4(
+        jnp.asarray(x, DTYPES[dtype][1]), jnp.asarray(w_p), jnp.asarray(gs), jnp.asarray(ids),
+        tile_k, group, interpret=True).astype(jnp.float32))
+    return x, w_p, gs, ids, want
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS])
+@pytest.mark.parametrize("slots", [1, 3, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,group", [("tiny", 128), ("tiny", 512), ("short", 130)])
+def test_int4_gather_model_matches_plain_and_jax(shape, group, dtype, slots, sms):
+    """The kernel the gather's wrapper picks (tensor cores for bf16 where
+    int4_decode_tensor_cores allows: groups 128 and 512; group 130 and f32
+    the scalar kernel), modelled slot by slot under int4_gather_plan, held
+    to moe_gather_matmul_int4_plain and to JAX's gather (interpret mode):
+    distinct and repeated experts, the output rows in slot order."""
+    x, w_p, gs, ids, want = _gather_case(shape, group, slots, dtype)
+    k, n = INT4_TINY[shape]
+    tile_k = qm.int4_tiling(k)[0]
+    tdt = DTYPES[dtype][0]
+    tx, tw, ts, ti = (torch.from_numpy(x).to(tdt), torch.from_numpy(w_p),
+                      torch.from_numpy(gs), torch.from_numpy(ids))
+    ks = moe.int4_gather_plan(slots, k, n, tile_k, group, sms)
+    tc = qm.int4_decode_tensor_cores(tile_k, group, ks, tdt)
+    assert tc == (dtype == "bfloat16" and group != 130)
+    got = _gather_model(tx, tw, ts, ti, ks, tc)
+    assert got.dtype == tdt and got.shape == (slots, n)
+    _close(got, moe.moe_gather_matmul_int4_plain(tx, tw, ts, ti, tile_k, group).float().numpy(),
+           dtype)
+    _close(got, want, dtype)
+
+
+# (slots, k, n, group, dtype, C entry or None for the fallback, tensor-core flag)
+GATHER_ROUTES = {
+    "bf16 group 128 gate": (2, 4096, 14336, 128, torch.bfloat16, "rk_moe_gather_int4_decode", 1),
+    "bf16 group 512 down": (2, 14336, 4096, 512, torch.bfloat16, "rk_moe_gather_int4_decode", 1),
+    "f32 group 128 gate": (2, 4096, 14336, 128, torch.float32, "rk_moe_gather_int4_decode", 0),
+    "bf16 group 130": (3, 1040, 512, 130, torch.bfloat16, "rk_moe_gather_int4_decode", 0),
+    "bf16 64 slots": (64, 1024, 512, 128, torch.bfloat16, "rk_moe_gather_int4_decode", 1),
+    "n 768": (2, 1024, 768, 128, torch.bfloat16, "rk_moe_gather_int4", None),
+    "65 slots": (65, 1024, 512, 128, torch.bfloat16, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_ROUTES))
+def test_int4_gather_wrapper_routes_to_the_decode_kernels(case, monkeypatch):
+    """A stand-in library records the C entry each call reaches: n % 512 ==
+    0 the decode kernels' gather entry with the plan's slice and the
+    tensor-core flag int4_decode_tensor_cores gives (bf16 at Mixtral's
+    shapes: 1; f32 and group 130: 0), n = 768 the older kernel, 65 slots
+    the fallback (no entry). Each kernel call counts one moe_gather_int4."""
+    slots, k, n, group, dtype, entry, tc = GATHER_ROUTES[case]
+    rec = _EntryRecorder()
+    monkeypatch.setattr(kernels, "lib", lambda: rec)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(moe, "_target_blocks", lambda index: 2 * H100_SMS)
+    fallback = []
+    real_fallback = moe._gather_int4_fallback
+    monkeypatch.setattr(moe, "_gather_int4_fallback",
+                        lambda *a: fallback.append(1) or real_fallback(*a))
+    kernels.reset_counts()
+    tile_k = qm.int4_tiling(k)[0]
+    x = torch.zeros(slots, k, dtype=dtype)
+    w_p = torch.zeros(1, k // 2, n, dtype=torch.int8)
+    gs = torch.ones(1, k // group, n)
+    ids = torch.zeros(slots, dtype=torch.int32)
+    if entry is None:
+        out = moe.moe_gather_matmul_int4(x, w_p, gs, ids, tile_k, group)
+        assert fallback == [1] and rec.calls == []
+        assert not any(kernels.launch_counts().values())
+    else:
+        out = moe._gather_int4_cuda(x, w_p, gs, ids, tile_k, group)
+        assert [name for name, _ in rec.calls] == [entry] and fallback == []
+        counts = kernels.launch_counts()
+        assert counts["moe_gather_int4"] == 1 and sum(counts.values()) == 1
+        if tc is not None:
+            ks = moe.int4_gather_plan(slots, k, n, tile_k, group, H100_SMS)
+            assert rec.calls[0][1][4:12] == (slots, k, n, tile_k, group, ks,
+                                             kernels.dtype_code(dtype), tc)
+    assert out.shape == (slots, n) and out.dtype == dtype
     kernels.reset_counts()
 
 
