@@ -497,17 +497,109 @@ def int4_scalar_decode(x, w, s):
     return out
 
 
+def int4_quantize_rows(x):
+    """#5's first kernel alone (rk_quantize_rows_kernel, through its own C
+    entry): x's int8 codes and row scales. A check and timing call; the
+    port never makes it."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    m, k = x.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty(m, device=x.device)
+    kernels.check(kernels.lib().rk_quantize_rows(
+        x.data_ptr(), m, k, kernels.dtype_code(x.dtype), xq.data_ptr(), xs.data_ptr(),
+        kernels.stream_handle(x.device)), "quantize rows")
+    return xq, xs
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device ms of the rk_ kernels one call of `fn` launched, summed by
+    kernel name (torch.profiler): where a layer's time goes."""
+    import torch
+    from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    sums = {}
+    for name, start, end in _device_intervals(prof):
+        for found in re.findall(r"rk_\w+", name):
+            sums[found] = round(sums.get(found, 0.0) + (end - start) / 1e3, 4)
+    return sums
+
+
+def check_int4_a8_decode_short_and_routes(gen) -> dict:
+    """#5's decode kernel (m <= 8) where its plan leaves a short last slice
+    in the k-tile (k = tile_k = 2144: 67 k-blocks of 16 packed rows, which
+    no longer slice divides; n = 14336), m in {1, 3, 8}, bf16 and f32,
+    equal to the plain version; the quantizer's codes and scales equal to
+    quantize_int8's at the 8B widths; then which kernels launch: m = 1 and
+    8 rk_int4_a8_decode_kernel, m = 256 and m = 3 at k = 1040 (whose half
+    tile is no whole number of k-blocks; equal to the plain version)
+    rk_int4_a8_partial_kernel, each beside the quantizer and the reduce."""
+    import torch
+    from ragmeup_tpu_torch.ops import quant_matmul as qm
+    from ragmeup_tpu_torch.ops.topk import quantize_int8
+    k, n = 2144, 14336
+    ks = qm.int4_a8_decode_plan(1, k, n, k, torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+    last = qm.int4_decode_slices(k, k, ks)[-1]
+    if not last[1] - last[0] < ks:
+        raise AssertionError(f"int4 a8 decode: no short slice at k={k} (slice {ks}, last {last})")
+    short = {"k": k, "n": n, "k_slice": ks, "last": last, "equal": True}
+    w = torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda", dtype=torch.int8)
+    s = torch.rand(1, n, generator=gen, device="cuda") * 2e-3 + 1e-3
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (1, 3, 8):
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            if not torch.equal(qm.int4_matmul(x, w, s, a8=True), qm.int4_matmul_a8_plain(x, w, s)):
+                raise AssertionError(f"int4 a8 decode short slice {dtype} m={m}: not equal")
+            for kq in (4096, 14336):
+                xk = torch.randn(m, kq, generator=gen, device="cuda").to(dtype)
+                got, want = int4_quantize_rows(xk), quantize_int8(xk.float(), axis=1)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1][:, 0])):
+                    raise AssertionError(f"quantize rows {dtype} m={m} k={kq}: not equal")
+    k, n = DECODE_SHAPES["q"]
+    w = torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda", dtype=torch.int8)
+    s = torch.rand(k // 512, n, generator=gen, device="cuda") * 2e-3 + 1e-3
+    # k = tile_k = 1040: 520 packed rows a tile, no whole k-blocks, so m <= 8
+    # takes the 8-row kernel
+    w1040 = torch.randint(-128, 128, (520, 512), generator=gen, device="cuda", dtype=torch.int8)
+    s1040 = torch.rand(1, 512, generator=gen, device="cuda") * 2e-3 + 1e-3
+    routes = {}
+    for m, want, wc, sc in ((1, "rk_int4_a8_decode_kernel", w, s),
+                            (8, "rk_int4_a8_decode_kernel", w, s),
+                            (256, "rk_int4_a8_partial_kernel", w, s),
+                            (3, "rk_int4_a8_partial_kernel", w1040, s1040)):
+        x = torch.randn(m, 2 * wc.shape[0], generator=gen, device="cuda").to(torch.bfloat16)
+        if m <= 8 and not torch.equal(qm.int4_matmul(x, wc, sc, a8=True),
+                                      qm.int4_matmul_a8_plain(x, wc, sc)):
+            raise AssertionError(f"int4_matmul_a8 m={m} k={x.shape[1]}: not equal")
+        names = kernels_of(lambda: qm.int4_matmul(x, wc, sc, a8=True))
+        main = [name for name in names if "reduce" not in name and "quantize" not in name]
+        if main != [want]:
+            raise AssertionError(f"int4_matmul_a8 m={m} launched {names}, wanted {want}")
+        routes[f"bf16 m={m} k={x.shape[1]}"] = names
+    log(f"  int4 a8 decode: short slice ({ks} packed rows, last {last}) and quantizer exact; "
+        f"kernels: {routes}")
+    return {"short_slice": short, "kernels_by_call": routes}
+
+
 def check_int4(gen, a8: bool) -> dict:
     """#4 (W4A16, groups 128 and 512: the quality and the output-scaled
     route) or #5 (W4A8, group 512) at the 8B projection shapes, bf16, on
-    random packed bytes and scales: #4 at m in {1, 2, 3, 4, 8, 256} (m <= 8
-    is the decode kernel) and with f32 activations at m <= 8, #5 at m in
-    {1, 8, 256}. Tolerance: one bf16 ulp of the largest output (2^-7 *
-    max |ref|): both versions sum in f32 and round once (W4A8: exact
-    integer sums, the same epilogue order). Times: the 7 projections of one
-    layer in sequence (109 MB of packed int4, beyond the 50 MB L2, as
-    decode reads it) at m = 1 and m = 256, eager, and from a CUDA graph's
-    replay; #4 also at m = 8, beside its library yardstick
+    random packed bytes and scales, at m in {1, 2, 3, 4, 8, 256} (m <= 8
+    is the decode kernel); #4 also with f32 activations at m <= 8.
+    Tolerance: one bf16 ulp of the largest output (2^-7 * max |ref|): both
+    versions sum in f32 and round once; #5 at m <= 8 equal to the plain
+    version (exact integer sums, the same epilogue order). Times: the 7
+    projections of one layer in sequence (109 MB of packed int4, beyond
+    the 50 MB L2, as decode reads it) at m = 1, 8 and 256, eager, and from
+    a CUDA graph's replay; #5 also its quantizer's 7 launches alone in a
+    graph (int4_quantize_rows), the layer's device time by kernel
+    (device_ms_by_kernel), and its short-slice, quantizer and launch checks
+    (check_int4_a8_decode_short_and_routes); #4 beside its library yardstick
     torch._weight_int4pack_mm over the group-128 layer at m = 1 and 8
     (int4pack_ms) and its scalar decode kernel on the same bf16 calls
     (int4_scalar_decode, checked at the same tolerance), and its
@@ -519,7 +611,8 @@ def check_int4(gen, a8: bool) -> dict:
     def kernel(x, w, s):
         return qm.int4_matmul(x, w, s, a8=a8)
     err, f32_err, times, moved, graph, library, scalar = 0.0, 0.0, {}, {}, {}, {}, {}
-    checked = (1, 8, 256) if a8 else (1, 2, 3, 4, 8, 256)
+    quant, by_kernel = {}, {}
+    checked = (1, 2, 3, 4, 8, 256)
     for group in (512,) if a8 else (128, 512):
         weights = {}
         for name, (k, n) in DECODE_SHAPES.items():
@@ -539,16 +632,16 @@ def check_int4(gen, a8: bool) -> dict:
                 torch.cuda.synchronize()
                 diff = (y0.float() - y1.float()).abs().max().item()
                 tol = 2.0 ** -7 * y0.float().abs().max().item()
-                if not diff <= tol:
+                if not diff <= tol or (a8 and m <= 8 and not torch.equal(y0, y1)):
                     raise AssertionError(f"int4 a8={a8} group={group} {name} m={m} "
-                                         f"{dtype}: {diff} > {tol}")
+                                         f"{dtype}: {diff} > {tol} or not equal")
                 if dtype == torch.float32:
                     f32_err = max(f32_err, diff)
                 else:
                     err = max(err, diff)
         moved[group] = sum(nbytes(w, s) + 2 * (2 * w.shape[0] + w.shape[1])
                            for w, s in weights.values())
-        for m in (1, 256) if a8 else (1, 8, 256):
+        for m in (1, 8, 256):
             xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
                   for k in (4096, 14336)}
 
@@ -557,8 +650,14 @@ def check_int4(gen, a8: bool) -> dict:
             reps = 10 if m <= 8 else 2
             times[f"group{group}_m{m}"] = (median_ms(layer(kernel), reps=reps),
                                            median_ms(layer(plain), reps=reps))
-            if m <= 8:
-                graph[f"group{group}_m{m}"] = graph_ms(layer(kernel), reps=4)
+            graph[f"group{group}_m{m}"] = graph_ms(layer(kernel), reps=4 if m <= 8 else 2)
+            if a8 and m <= 8:
+                quant[m] = graph_ms(lambda xs=xs, weights=weights: [
+                    int4_quantize_rows(xs[2 * w.shape[0]]) for w, _ in weights.values()], reps=4)
+                by_kernel[m] = device_ms_by_kernel(layer(kernel))
+                log(f"  int4_matmul_a8 layer m={m}: graph {graph[f'group512_m{m}']} ms, its "
+                    f"quantizer's 7 launches alone {quant[m]} ms; device ms by kernel "
+                    f"{by_kernel[m]}")
             if not a8 and group == 128 and m <= 8:
                 for w, s in weights.values():
                     y0 = plain(xs[2 * w.shape[0]], w, s)
@@ -577,9 +676,17 @@ def check_int4(gen, a8: bool) -> dict:
     ms, plain_ms = times[main]
     ops = sum(2 * (2 * k) * n for k, n in
               ((w.shape[0], w.shape[1]) for w, _ in weights.values()))
-    lib = {"library_ms": None}  # W4A8: no one PyTorch call
+    m8_bound = bound(moved[512 if a8 else 128] + sum(2 * 7 * (2 * w.shape[0] + w.shape[1])
+                                                     for w, _ in weights.values()),
+                     8 * ops, "int8" if a8 else "bf16")
+    # W4A8: no one PyTorch call
+    lib = {"library_ms": None, "library_graph_ms": None,
+           "m8": {"ms": times["group512_m8"][0], "graph_ms": graph["group512_m8"], **m8_bound},
+           "quantize_graph_ms": quant,
+           "quantize_share": {m: round(quant[m] / graph[f"group512_m{m}"], 4) for m in quant},
+           "device_ms_by_kernel": by_kernel,
+           **check_int4_a8_decode_short_and_routes(gen)} if a8 else {}
     if not a8:
-        g = moved[128]
         lib = {"library_ms": library[1][0], "library_graph_ms": library[1][3],
                "library_call": "torch._weight_int4pack_mm",
                "library_err": library[1][1], "library_refusal": library[1][2],
@@ -587,8 +694,7 @@ def check_int4(gen, a8: bool) -> dict:
                "scalar_kernel_graph_ms": scalar,
                "m8": {"ms": times["group128_m8"][0], "graph_ms": graph["group128_m8"],
                       "library_ms": library[8][0], "library_graph_ms": library[8][3],
-                      **bound(g + sum(2 * 7 * (2 * w.shape[0] + w.shape[1])
-                                      for w, _ in weights.values()), 8 * ops, "bf16")},
+                      **m8_bound},
                **check_int4_decode_short_and_routes(gen)}
     return {"max_abs_err": err, "ms": ms, "graph_ms": graph[main], "plain_ms": plain_ms,
             **lib, **bound(moved[512 if a8 else 128], ops, "int8" if a8 else "bf16"),
@@ -1839,7 +1945,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(run["counts"][name] for run in runs.values()),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}}
+                                    "bound_by", "library_ms")},
+         **{key: r.get(key) for key in ("graph_ms", "library_graph_ms")}}
         for name, (r, src, rep) in results.items()],
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
                           "after_kernel_checks": clock_after}}), flush=True)

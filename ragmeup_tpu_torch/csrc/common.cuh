@@ -4,7 +4,7 @@
 // a time, or two at once as exact bf16 integers without the conversion
 // unit), the 16-byte read-only weight load, and the sm_80+ instructions
 // the tensor-core kernels are built from (16-byte cp.async into shared
-// memory, ldmatrix, mma.sync m16n8k16 bf16).
+// memory, ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -92,6 +92,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32, row) * b (32x8, col), s8 operands, exact s32 accumulation.
+// Lane l = 4 g + c holds a: rows g (a0, a2) and g + 8 (a1, a3) x columns
+// 4c .. 4c + 3 (a0, a1) and 16 + 4c .. 16 + 4c + 3 (a2, a3), a byte each;
+// b: rows 4c .. 4c + 3 (b0) and 16 + 4c .. 16 + 4c + 3 (b1) of column g;
+// d: rows g (d0, d1) and g + 8 (d2, d3), columns 2c and 2c + 1.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

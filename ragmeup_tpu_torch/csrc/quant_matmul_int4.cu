@@ -15,8 +15,9 @@
 // (k * n / 2 bytes, half of int8); the arithmetic per byte is a few
 // conversions and FMAs. W4A16 with m <= 8 takes the decode kernels
 // (rk_int4_decode_mma_kernel, rk_int4_decode_kernel: their design is
-// described above them, further down), and so does the gather where
-// n % 512 == 0:
+// described above them, further down), W4A8 with m <= 8 the integer
+// tensor-core kernel rk_int4_a8_decode_kernel on the same weight stream
+// (last section), and the gather takes #4's where n % 512 == 0:
 //
 //   * The gather runs the decode kernels' bodies with one slot a block
 //     along grid.z (kernels of its own names, so a trace tells #4 and #13
@@ -33,7 +34,8 @@
 //     bytes stream once per slot. The plan is the decode route's, with the
 //     slots counted as blocks (ops/moe_matmul.py::int4_gather_plan).
 //
-// The design below is shared by the W4A16 kernel for m > 8, W4A8 and the
+// The design below is shared by the W4A16 and W4A8 kernels for m > 8 (and
+// W4A8 tiles the integer kernel cannot cut into 16-row k-blocks) and the
 // gather's shapes whose n the 512-column strips do not tile (n % 256 ==
 // 0, rk_moe_gather_int4_partial_kernel):
 //
@@ -396,15 +398,6 @@ int launch_gather(const void* xv, const int8_t* w_p, const float* gs, const int*
   return (int)cudaGetLastError();
 }
 
-template <int M>
-cudaError_t launch_a8_partial(const int8_t* xq, const uint2* w, int m, int k,
-                              int n, int tile_k, int k_slice, int* partial,
-                              cudaStream_t s) {
-  rk_int4_a8_partial_kernel<M><<<partial_grid(m, k, n, k_slice), kThreads, 0, s>>>(
-      xq, w, m, k, n, tile_k, k_slice, partial);
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch_w4a8(const void* xv, const int8_t* w_p, const float* gs, int m,
                 int k, int n, int tile_k, int k_slice, int8_t* xq, float* xs,
@@ -413,11 +406,11 @@ int launch_w4a8(const void* xv, const int8_t* w_p, const float* gs, int m,
                                                         xq, xs);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const uint2* w = reinterpret_cast<const uint2*>(w_p);
-  if (m <= 1) err = launch_a8_partial<1>(xq, w, m, k, n, tile_k, k_slice, partial, s);
-  else if (m <= 2) err = launch_a8_partial<2>(xq, w, m, k, n, tile_k, k_slice, partial, s);
-  else if (m <= 4) err = launch_a8_partial<4>(xq, w, m, k, n, tile_k, k_slice, partial, s);
-  else err = launch_a8_partial<8>(xq, w, m, k, n, tile_k, k_slice, partial, s);
+  // 8-row groups of x (m <= 8 reaches this kernel only at tiles the decode
+  // kernel cannot cut into 16-row k-blocks)
+  rk_int4_a8_partial_kernel<kRowGroup><<<partial_grid(m, k, n, k_slice), kThreads, 0, s>>>(
+      xq, reinterpret_cast<const uint2*>(w_p), m, k, n, tile_k, k_slice, partial);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = m * n;
   rk_int4_a8_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(
@@ -975,6 +968,202 @@ bool bad_decode_shape(int k, int n, int tile_k, int group, int k_slice, int dtyp
          (tensor_cores && (dtype != 1 || !mma_takes(tile_k, group, k_slice)));
 }
 
+// ---------------------------------------------------------------------------
+// W4A8 decode (m <= 8): rk_int4_a8_decode_kernel, the products on the
+// integer tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces ragmeup_tpu/ops/quant_matmul.py::_kernel4_a8 at decode. The
+// same function as rk_int4_a8_partial_kernel: rk_quantize_rows_kernel
+// gives x's int8 codes and row scales (its rounding is the contract), each
+// slice sums x_code * q exactly in int32, and rk_int4_a8_reduce_kernel adds
+// each tile's slices, then acc + float(p) * x_scale * tile_scale over the
+// tiles in order. Bound by the packed bytes (k * n / 2), as #4. What held
+// the 64-thread kernel back was bytes in flight (8 a lane, about 1 KB a
+// block) and 8 scalar integer multiply-adds a weight per x row. Design, on
+// #4's weight stream (int4_decode_mma_body):
+//
+//   * A block of 4 warps owns a 512-column strip and a slice of one
+//     k-tile's packed rows, a warp 128 columns over the whole slice (no
+//     sums across warps). Lane (g, c) = (lane / 4, lane % 4) loads columns
+//     16 g .. 16 g + 15 of its warp's quarter from packed rows
+//     a8_kblock_row(c, 0..3) of each 16-row k-block, one 16-byte
+//     ld.global.nc a row (a warp's load reads four rows' 128 contiguous
+//     bytes), and keeps the next k-block's loads in flight while it uses
+//     the current one; the first k-block is requested before x is staged.
+//   * The products are mma.sync m16n8k32 s8 (mma_s8): the weights are the A
+//     operand (16 columns x 32 k: a k-block's low and high nibbles), x's
+//     codes the B operand (32 k x 8 x rows: m <= 8 fills it). mma i (0..7)
+//     of a k-block takes from lane (g, c) its columns i (A row g) and 8 + i
+//     (A row g + 8); k position 4c + e is the low nibble of packed row
+//     a8_kblock_row(c, e), 16 + 4c + e its high nibble.
+//   * Nibbles to int8 without the conversion unit: 4x4 byte transposes
+//     (8 PRMT for 4 columns of 4 rows, 32 a k-block) put column j's byte
+//     of the lane's four rows into one word t; t & 0xF0F0F0F0 is then the four high
+//     nibbles as int8 16 q exactly (q in [-8, 7]), and (t << 4) &
+//     0xF0F0F0F0 the four low nibbles. Every term is a multiple of 16, so
+//     each sum is 16 p, exact: a slice has at most 2 * 3072 k terms (the
+//     entry refuses longer slices), |16 p| <= 6144 * 128 * 127 < 2^31, and
+//     p = sum >> 4.
+//   * x's codes are staged once per block in shared memory in the mma's k
+//     order, one 8-byte B fragment a lane a k-block (16 bytes a packed row:
+//     8 x rows, low and high nibble; rows at or above m are zero).
+//   * Lane (g, c) ends with x rows 2c and 2c + 1 of its 16 columns and
+//     writes them as the slice's int32 partial. The plan
+//     (ops/quant_matmul.py::int4_a8_decode_plan) cuts each k-tile into
+//     slices of whole k-blocks (the last of a tile may be shorter); the
+//     reduce adds them in slice order (no atomics).
+constexpr int kA8KBlock = 16;                   // packed rows a k-block: 32 k an mma
+constexpr int kA8MaxXsBytes = 48 * 1024;        // 16 bytes of staged x codes a packed row
+// k-blocks a lane has loaded or in flight (measured on the card: 3, 4 and 6
+// were no faster; the layer's 21 launches, not the stream, set its time)
+constexpr int kA8Depth = 2;
+
+// the packed row of a k-block that lane (., c) loads e-th (0..3): its low
+// nibble is the mma's k position 4c + e, its high nibble 16 + 4c + e
+// (ops/quant_matmul.py::int4_a8_kblock_order). Rows e = 0..3 of a lane are
+// adjacent, so one 4-byte load stages their x codes.
+__device__ __forceinline__ int a8_kblock_row(int c, int e) { return 4 * c + e; }
+
+struct A8KBlock {
+  int4 r[4];                                    // the lane's 16 bytes of rows a8_kblock_row(c, e)
+};
+
+// t[b] = byte b of w0..w3, lowest first: column b of four packed rows
+__device__ __forceinline__ void transpose_bytes(uint32_t w0, uint32_t w1, uint32_t w2,
+                                                uint32_t w3, uint32_t (&t)[4]) {
+  const uint32_t p0 = __byte_perm(w0, w1, 0x5140), p1 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t q0 = __byte_perm(w2, w3, 0x5140), q1 = __byte_perm(w2, w3, 0x7362);
+  t[0] = __byte_perm(p0, q0, 0x5410);
+  t[1] = __byte_perm(p0, q0, 0x7632);
+  t[2] = __byte_perm(p1, q1, 0x5410);
+  t[3] = __byte_perm(p1, q1, 0x7632);
+}
+
+__global__ void __launch_bounds__(kMmaThreads) rk_int4_a8_decode_kernel(
+    const int8_t* __restrict__ xq, const int8_t* __restrict__ w, int m, int k, int n,
+    int tile_k, int k_slice, int* __restrict__ partial) {
+  extern __shared__ __align__(16) uint32_t xa[];  // [k-block][x row][c][lo, hi]
+  const int half = tile_k / 2;
+  const int per_tile = (half + k_slice - 1) / k_slice;
+  const int tile = blockIdx.y / per_tile;
+  const int pr0 = (blockIdx.y - tile * per_tile) * k_slice;
+  const int kblocks = min(k_slice, half - pr0) / kA8KBlock;
+  const int klo = tile * tile_k + pr0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int col = blockIdx.x * kDecColsPerBlock + warp * 128 + g * 16;
+  const int8_t* wp = w + ((size_t)tile * half + pr0) * n + col;
+
+  auto load = [&](A8KBlock& bt, int kb) {
+    const bool in = kb < kblocks;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int8_t* p = wp + (size_t)(kA8KBlock * kb + a8_kblock_row(c, e)) * n;
+      bt.r[e] = in ? ld_nc16(p) : make_int4(0, 0, 0, 0);
+    }
+  };
+  A8KBlock buf[kA8Depth];  // buffer u holds the k-blocks kb = u (mod kA8Depth)
+#pragma unroll
+  for (int u = 0; u + 1 < kA8Depth; ++u) load(buf[u], u);  // in flight while x is staged
+
+  // word ((kb * 8 + r) * 4 + c') * 2 + h: x row r's codes at k positions
+  // 16 h + 4 c' .. + 3 of k-block kb
+  for (int i = threadIdx.x; i < kblocks * 64; i += kMmaThreads) {
+    const int kb = i / 64, r = (i / 8) % 8, cc = (i / 2) % 4, h = i % 2;
+    xa[i] = r < m ? *reinterpret_cast<const uint32_t*>(
+                        xq + (size_t)r * k + klo + h * half + kA8KBlock * kb + a8_kblock_row(cc, 0))
+                  : 0u;
+  }
+  __syncthreads();
+
+  int d[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[i][e] = 0;
+
+  auto use = [&](const A8KBlock& bt, int kb) {
+    if (kb >= kblocks) return;
+    const uint2 xb = reinterpret_cast<const uint2*>(xa)[(kb * 8 + g) * 4 + c];
+    const uint32_t r0[4] = {(uint32_t)bt.r[0].x, (uint32_t)bt.r[0].y, (uint32_t)bt.r[0].z,
+                            (uint32_t)bt.r[0].w};
+    const uint32_t r1[4] = {(uint32_t)bt.r[1].x, (uint32_t)bt.r[1].y, (uint32_t)bt.r[1].z,
+                            (uint32_t)bt.r[1].w};
+    const uint32_t r2[4] = {(uint32_t)bt.r[2].x, (uint32_t)bt.r[2].y, (uint32_t)bt.r[2].z,
+                            (uint32_t)bt.r[2].w};
+    const uint32_t r3[4] = {(uint32_t)bt.r[3].x, (uint32_t)bt.r[3].y, (uint32_t)bt.r[3].z,
+                            (uint32_t)bt.r[3].w};
+    uint32_t lo[16], hi[16];  // column j's four rows: low / high nibbles as 16 q
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t t[4];
+      transpose_bytes(r0[q], r1[q], r2[q], r3[q], t);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        hi[4 * q + b] = t[b] & 0xF0F0F0F0u;
+        lo[4 * q + b] = (t[b] << 4) & 0xF0F0F0F0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t a[4] = {lo[i], lo[8 + i], hi[i], hi[8 + i]};
+      mma_s8(d[i], a, xb.x, xb.y);
+    }
+  };
+  for (int kb = 0; kb < kblocks; kb += kA8Depth) {
+#pragma unroll
+    for (int u = 0; u < kA8Depth; ++u) {
+      // the k-block kA8Depth - 1 ahead, into the buffer used last
+      load(buf[(u + kA8Depth - 1) % kA8Depth], kb + u + kA8Depth - 1);
+      use(buf[u], kb + u);
+    }
+  }
+
+  // x rows 2c and 2c + 1: d[i][h] is column i, d[i][2 + h] column 8 + i of
+  // the lane's 16; each sum is 16 p
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 2 * c + h;
+    if (r >= m) break;
+    int4* o = reinterpret_cast<int4*>(partial + ((size_t)blockIdx.y * m + r) * n + col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * (i % 2), e = h + 2 * (i / 2);
+      o[i] = make_int4(d[j][e] >> 4, d[j + 1][e] >> 4, d[j + 2][e] >> 4, d[j + 3][e] >> 4);
+    }
+  }
+}
+
+// shapes rk_int4_a8_decode refuses: whole 16-row k-blocks in each half
+// tile, a slice of whole k-blocks within it and x's staging buffer
+bool bad_a8_decode_shape(int m, int k, int n, int tile_k, int k_slice) {
+  return m < 1 || m > 8 || n < kDecColsPerBlock || n % kDecColsPerBlock || tile_k < 32 ||
+         tile_k % 32 || k < tile_k || k % tile_k || k_slice < kA8KBlock ||
+         k_slice % kA8KBlock || k_slice > tile_k / 2 || 16 * k_slice > kA8MaxXsBytes;
+}
+
+template <typename T>
+int launch_w4a8_decode(const void* xv, const int8_t* w, const float* gs, int m, int k,
+                       int n, int tile_k, int k_slice, int8_t* xq, float* xs, int* partial,
+                       void* outv, cudaStream_t s) {
+  rk_quantize_rows_kernel<T><<<m, kQuantThreads, 0, s>>>(static_cast<const T*>(xv), k, xq,
+                                                        xs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int slices = decode_slices(k, tile_k, k_slice);
+  const dim3 grid(n / kDecColsPerBlock, slices);
+  rk_int4_a8_decode_kernel<<<grid, kMmaThreads, (size_t)16 * k_slice, s>>>(
+      xq, w, m, k, n, tile_k, k_slice, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = m * n;
+  rk_int4_a8_reduce_kernel<T><<<(total + 255) / 256, 256, 0, s>>>(
+      partial, xs, gs, m, n, slices, (tile_k / 2 + k_slice - 1) / k_slice,
+      static_cast<T*>(outv));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1076,6 +1265,40 @@ int rk_moe_gather_int4_decode(const void* x, const int8_t* w_p, const float* gsc
                                                group, k_slice, tensor_cores, partial, out, s);
   return launch_gather_decode<float>(x, w_p, gscale, ids, slots, k, n, tile_k, group, k_slice,
                                      false, partial, out, s);
+}
+
+// W4A8 decode: x (m, k) in dtype, 1 <= m <= 8; w_p (k/2, n) packed int8;
+// gscale (k/tile_k, n) f32; n % 512 == 0, tile_k % 32 == 0, k % tile_k ==
+// 0; k_slice a multiple of 16, at most tile_k/2 and 3072. Each k-tile is cut
+// into ceil(tile_k/2 / k_slice) slices of k_slice packed rows (the last may
+// be shorter); xq (m, k) int8 and x_scale (m,) f32 are scratch for the
+// quantized rows, partial holds (k/tile_k) * ceil(tile_k/2 / k_slice) * m *
+// n int32. Returns a cudaError_t.
+int rk_int4_a8_decode(const void* x, const int8_t* w_p, const float* gscale, int m, int k,
+                      int n, int tile_k, int k_slice, int dtype, int8_t* xq,
+                      float* x_scale, int* partial, void* out, void* stream) {
+  if (bad_a8_decode_shape(m, k, n, tile_k, k_slice)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_w4a8_decode<__nv_bfloat16>(x, w_p, gscale, m, k, n, tile_k, k_slice, xq,
+                                             x_scale, partial, out, s);
+  return launch_w4a8_decode<float>(x, w_p, gscale, m, k, n, tile_k, k_slice, xq, x_scale,
+                                   partial, out, s);
+}
+
+// W4A8's first kernel alone (rk_quantize_rows_kernel): x (m, k) in dtype ->
+// xq (m, k) int8 and x_scale (m,) f32. Returns a cudaError_t.
+int rk_quantize_rows(const void* x, int m, int k, int dtype, int8_t* xq, float* x_scale,
+                     void* stream) {
+  if (m < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    rk_quantize_rows_kernel<__nv_bfloat16><<<m, kQuantThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), k, xq, x_scale);
+  else
+    rk_quantize_rows_kernel<float><<<m, kQuantThreads, 0, s>>>(static_cast<const float*>(x), k,
+                                                               xq, x_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

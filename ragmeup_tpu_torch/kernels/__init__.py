@@ -139,6 +139,11 @@ def lib() -> ctypes.CDLL:
             so.rk_int4_matmul_a8.argtypes = [vp, vp, vp, i32, i32, i32, i32,
                                              i32, i32, vp, vp, vp, vp, vp]
             so.rk_int4_matmul_a8.restype = i32
+            so.rk_int4_a8_decode.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                             i32, vp, vp, vp, vp, vp]
+            so.rk_int4_a8_decode.restype = i32
+            so.rk_quantize_rows.argtypes = [vp, i32, i32, i32, vp, vp, vp]
+            so.rk_quantize_rows.restype = i32
             so.rk_flash_gqa.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32,
                                         i32, vp, vp]
             so.rk_flash_gqa.restype = i32

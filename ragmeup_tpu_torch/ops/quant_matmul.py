@@ -17,7 +17,8 @@ rounding (csrc/quant_matmul_int4.cu):
 
 - W4A8 (``a8`` and group == tile_k): x quantized per row to int8 over all
   of k, int32 dots per k-tile, ``float(p) * x_scale * tile_scale`` summed
-  over the tiles in order;
+  over the tiles in order; at m ≤ 8 the dots run on the integer tensor
+  cores over #4's weight stream (``int4_a8_decode_plan``);
 - W4A16 output-scaled (group == tile_k): per k-tile f32 dot of x with the
   unscaled integers, times the tile's scale;
 - W4A16 quality (group < tile_k): each weight dequantized in f32 and
@@ -332,10 +333,69 @@ def int4_decode_tensor_cores(tile_k: int, group: int, k_slice: int, dtype) -> bo
 
 def int4_decode_slices(k: int, tile_k: int, k_slice: int):
     """[(p0, p1)] packed rows of each slice in slice order, as the decode
-    kernel cuts each k-tile."""
+    kernels (W4A16's and W4A8's) cut each k-tile."""
     half = tile_k // 2
     return [(t * half + p0, t * half + min(half, p0 + k_slice))
             for t in range(k // tile_k) for p0 in range(0, half, k_slice)]
+
+
+# csrc/quant_matmul_int4.cu rk_int4_a8_decode_kernel: 4 warps a block, 512
+# columns; a k-block is 16 packed rows (32 k values: the s8 mma's depth) and
+# x's codes are staged at 16 bytes a packed row within 48 KB
+_INT4_A8_KBLOCK = 16
+_INT4_A8_XS_BYTES = 48 * 1024
+# blocks an SM #5's decode plan aims at (tools/split_k_sweep.py): fewer,
+# longer slices were faster at every 8B shape, 1 the fastest of 1-8
+_INT4_A8_BLOCKS_PER_SM = 1
+
+
+def int4_a8_decode_viable(m: int, tile_k: int) -> bool:
+    """Whether the W4A8 decode kernel takes a call: at most 8 rows and a half
+    tile of whole 16-row k-blocks."""
+    return m <= MAX_ROWS and tile_k % (2 * _INT4_A8_KBLOCK) == 0
+
+
+def int4_a8_kblock_order():
+    """[(packed row of the k-block, nibble: 0 low, 1 high)] at each of the
+    32 k positions of the W4A8 decode kernel's mma (csrc a8_kblock_row):
+    lane c's e-th row 4c + e gives position 4c + e its low nibble and 16 +
+    4c + e its high nibble. x's codes are staged in the same order."""
+    return [(4 * c + e, h) for h in (0, 1) for c in range(4) for e in range(4)]
+
+
+def int4_a8_decode_plan(m: int, k: int, n: int, tile_k: int, sm_count: int) -> int:
+    """The W4A8 decode kernel's split-K plan: the packed rows of one block's
+    slice, cut as ``int4_decode_plan`` cuts (a slice never crosses a k-tile,
+    the last of a tile may be shorter, and the reduce applies one tile scale
+    to a tile's integer slices), in whole 16-row k-blocks: as few slices a
+    tile as give ``_INT4_A8_BLOCKS_PER_SM`` blocks on every SM over the
+    512-column strips, and no longer than x's staging buffer (16 bytes a
+    packed row) holds."""
+    if not int4_a8_decode_viable(m, tile_k):
+        raise ValueError(f"int4 W4A8 decode kernel: m={m}, tile_k={tile_k}")
+    half = tile_k // 2
+    step = _INT4_A8_KBLOCK
+    cap = _INT4_A8_XS_BYTES // 16 // step * step
+    slices = max(1, -(-_INT4_A8_BLOCKS_PER_SM * sm_count // -(-n // INT4_TILE_N)))
+    per_tile = -(-slices // (k // tile_k))
+    k_slice = -(-(-(-half // per_tile)) // step) * step
+    return min(k_slice, cap, half)
+
+
+def _int4_a8_decode_cuda(x, w_p, gscale, m, k, n, tile_k):
+    ks = int4_a8_decode_plan(m, k, n, tile_k, kernels.sm_count(x.device.index))
+    slices = k // tile_k * -(-(tile_k // 2) // ks)      # len(int4_decode_slices(...))
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty(m, dtype=torch.float32, device=x.device)
+    partial = torch.empty((slices, m, n), dtype=torch.int32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    err = kernels.lib().rk_int4_a8_decode(
+        x.data_ptr(), w_p.data_ptr(), gscale.data_ptr(), m, k, n, tile_k, ks,
+        kernels.dtype_code(x.dtype), xq.data_ptr(), xs.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), kernels.stream_handle(x.device))
+    kernels.check(err, "int4_matmul_a8")
+    kernels.count("int4_matmul_a8")
+    return out
 
 
 def _int4_decode_cuda(x, w_p, gscale, m, k, n, tile_k, group):
@@ -363,6 +423,8 @@ def _int4_cuda(x, w_p, gscale, a8: bool):
     kernels.require_cuda(name, x, w_p, gscale)
     if not a8 and int4_decode_viable(m, tile_k, group):
         return _int4_decode_cuda(x, w_p, gscale, m, k, n, tile_k, group)
+    if a8 and int4_a8_decode_viable(m, tile_k):
+        return _int4_a8_decode_cuda(x, w_p, gscale, m, k, n, tile_k)
     row_groups = math.ceil(m / 8)
     ks = int4_slice_for(k, tile_k, n, row_groups, _target_blocks(x.device.index))
     slices = k // 2 // ks

@@ -1,4 +1,4 @@
-"""Conversion instructions per packed byte in the int4 decode kernels' SASS.
+"""Instructions per packed byte in the int4 decode kernels' SASS.
 
     python3 -m ragmeup_tpu_torch.tools.sass_count
 
@@ -6,19 +6,22 @@ Builds the kernel library (``kernels.build()``), disassembles it with
 ``cuobjdump -sass`` and counts, for each instantiation of
 ``rk_int4_decode_kernel`` (csrc/quant_matmul_int4.cu: activation type,
 rows M, batch, route) and of ``rk_int4_decode_mma_kernel`` (bf16, by
-route), and of the expert gather's kernels on their bodies
-(``rk_moe_gather_int4_decode_kernel``, ``rk_moe_gather_int4_mma_kernel``),
-the instructions of its code by opcode. Every packed
-byte the kernel consumes passes through exactly one bf16 HADD2/HFMA2
-(``nibbles_bf16x2`` turns the two nibbles at one position of two packed
-rows into bf16 integers: one per packed byte), so the conversions per
-packed byte are the conversion instructions (I2F, I2FP, F2F, F2FP, F2I)
-over that count. The counts are static (each instruction of the code once,
-wherever a loop runs it), for the whole kernel and for its main loop (the
-backward branch whose body holds the most of those HADD2/HFMA2s: the
-prologue's and epilogue's conversions, such as the output's packing to
-bf16, fall outside it). Prints the card's name and power limit, then one
-JSON line per instantiation.
+route), of the expert gather's kernels on their bodies
+(``rk_moe_gather_int4_decode_kernel``, ``rk_moe_gather_int4_mma_kernel``)
+and of the W4A8 decode kernel ``rk_int4_a8_decode_kernel``, the
+instructions of its code by opcode. Every packed byte a W4A16 kernel
+consumes passes through exactly one bf16 HADD2/HFMA2 (``nibbles_bf16x2``
+turns the two nibbles at one position of two packed rows into bf16
+integers: one per packed byte); every IMMA of the W4A8 kernel (an
+m16n8k32 s8 mma: 16 columns x 16 packed rows a warp) consumes 8 packed
+bytes a lane. Conversions (I2F, I2FP, F2F, F2FP, F2I), all instructions,
+PRMTs and LOP3s per packed byte follow from those counts. The counts are
+static (each instruction of the code once, wherever a loop runs it), for
+the whole kernel and for its main loop (the backward branch whose body
+holds the most of those HADD2/HFMA2s or IMMAs: the prologue's and
+epilogue's conversions, such as the output's packing to bf16, fall
+outside it). Prints the card's name and power limit, then one JSON line
+per instantiation.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ import subprocess
 from ragmeup_tpu_torch import kernels
 
 KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel",
-           "rk_moe_gather_int4_decode_kernel", "rk_moe_gather_int4_mma_kernel")
+           "rk_moe_gather_int4_decode_kernel", "rk_moe_gather_int4_mma_kernel",
+           "rk_int4_a8_decode_kernel")
+INTEGER_KERNELS = ("rk_int4_a8_decode_kernel",)   # packed bytes counted by IMMA
+BYTES_PER_IMMA = 8
 CONVERSIONS = ("I2F", "I2FP", "F2F", "F2FP", "F2I")
 _INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)")
@@ -73,6 +79,10 @@ def _is_nibble_pair(op: str) -> bool:
     return op.split(".")[0] in ("HADD2", "HFMA2") and "BF16" in op
 
 
+def _is_imma(op: str) -> bool:
+    return op.startswith("IMMA")
+
+
 def opcode_counts(code) -> dict:
     ops = {}
     for _, op, _ in code:
@@ -80,27 +90,40 @@ def opcode_counts(code) -> dict:
     return ops
 
 
-def main_loop(code) -> list:
+def main_loop(code, marker=_is_nibble_pair) -> list:
     """The instructions between the target and the address of the backward
-    branch whose range holds the most nibble-pair instructions."""
-    best, best_pairs = [], 0
+    branch whose range holds the most `marker` instructions (nibble pairs,
+    or IMMAs)."""
+    best, best_marks = [], 0
     for addr, op, rest in code:
         target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
         if target and int(target.group(1), 16) < addr:
             body = [ins for ins in code if int(target.group(1), 16) <= ins[0] <= addr]
-            pairs = sum(_is_nibble_pair(op) for _, op, _ in body)
-            if pairs > best_pairs:
-                best, best_pairs = body, pairs
+            marks = sum(marker(op) for _, op, _ in body)
+            if marks > best_marks:
+                best, best_marks = body, marks
     return best
 
 
-def summarize(ops: dict) -> dict:
-    bytes_ = sum(n for op, n in ops.items() if _is_nibble_pair(op))
+def summarize(ops: dict, integer: bool = False) -> dict:
+    """Counts of one body of code; packed bytes from its bf16 nibble pairs
+    or, for the W4A8 kernel (`integer`), from its IMMAs."""
+    pairs = sum(n for op, n in ops.items() if _is_nibble_pair(op))
+    imma = sum(n for op, n in ops.items() if _is_imma(op))
+    bytes_ = BYTES_PER_IMMA * imma if integer else pairs
     conv = {op: n for op, n in ops.items() if op.split(".")[0] in CONVERSIONS}
-    return {"instructions": sum(ops.values()), "bf16_nibble_pairs": bytes_,
+    total = sum(ops.values())
+
+    def per(count):
+        return count / bytes_ if bytes_ else None
+    return {"instructions": total, "bf16_nibble_pairs": pairs, "imma": imma,
+            "packed_bytes": bytes_,
+            "prmt": sum(n for op, n in ops.items() if op.split(".")[0] == "PRMT"),
+            "lop3": sum(n for op, n in ops.items() if op.split(".")[0] == "LOP3"),
             "ldg_128": sum(n for op, n in ops.items() if op.startswith("LDG") and "128" in op),
             "conversions": conv,
-            "conversions_per_packed_byte": sum(conv.values()) / bytes_ if bytes_ else None}
+            "conversions_per_packed_byte": per(sum(conv.values())),
+            "instructions_per_packed_byte": per(total)}
 
 
 def decode_kernel_counts(library: str) -> list:
@@ -111,9 +134,14 @@ def decode_kernel_counts(library: str) -> list:
                  if any(kernel in name for kernel in KERNELS)}
     if not functions:
         raise RuntimeError(f"no {' or '.join(KERNELS)} in the SASS of {library}")
-    return [{"kernel": pretty, **summarize(opcode_counts(functions[name])),
-             "main_loop": summarize(opcode_counts(main_loop(functions[name])))}
-            for name, pretty in zip(functions, _demangle(list(functions)))]
+    rows = []
+    for name, pretty in zip(functions, _demangle(list(functions))):
+        integer = any(kernel in name for kernel in INTEGER_KERNELS)
+        loop = main_loop(functions[name], _is_imma if integer else _is_nibble_pair)
+        rows.append({"kernel": pretty,
+                     **summarize(opcode_counts(functions[name]), integer),
+                     "main_loop": summarize(opcode_counts(loop), integer)})
+    return rows
 
 
 def main() -> int:

@@ -17,6 +17,10 @@ target is timed in turn with the split counts it gives:
 - #4's decode kernel (csrc/quant_matmul_int4.cu, ``int4_decode_plan``,
   ``quant_matmul._INT4_BLOCKS_PER_SM``) over the same layer packed in int4
   with 128-row scale groups, at m = 1 and 8, 1 to 4 blocks an SM;
+- #5's decode kernel (csrc/quant_matmul_int4.cu ``rk_int4_a8_decode_kernel``,
+  ``int4_a8_decode_plan``, ``quant_matmul._INT4_A8_BLOCKS_PER_SM``) over
+  the same layer in W4A8 (512-row tiles, one scale each), at m = 1 and 8, 1
+  to 8 blocks an SM;
 - #13, the int4 expert gather on the same decode kernels
   (``moe_matmul.int4_gather_plan``, the same constant), over one
   Mixtral-8x7B decode layer's gate, up and down at 2 slots (experts 5 and
@@ -24,7 +28,7 @@ target is timed in turn with the split counts it gives:
 - #9 (csrc/paged_attention.cu, ``paged_split_plan``,
   ``_DECODE_BLOCKS_PER_SM`` and ``_CHUNK_BLOCKS_PER_SM``) at the 8B serving
   shapes: decode at 8, 4 and 1 sequences, the 128-token chunk at 4 and 1;
-  #3, #4, #13 and #9 from a CUDA graph's replay, since their wrappers'
+  #3, #4, #5, #13 and #9 from a CUDA graph's replay, since their wrappers'
   host cost exceeds their device time.
 
 Medians of five rounds after warm-up. Prints the card's name and power
@@ -158,6 +162,31 @@ def sweep_int4_decode(gen, sms: int) -> dict:
     return out
 
 
+def sweep_int4_a8(gen, sms: int) -> dict:
+    weights = [(torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda",
+                              dtype=torch.int8),
+                torch.rand(k // 512, n, generator=gen, device="cuda") * 2e-3 + 1e-3)
+               for k, n in LLAMA_8B.values()]
+    xs = {m: {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k in (4096, 14336)} for m in (1, 8)}
+    default = qm._INT4_A8_BLOCKS_PER_SM
+    out = {"kernel": "int4_matmul_a8 (decode)", "default_target": default}
+    try:
+        for target in range(1, 9):
+            qm._INT4_A8_BLOCKS_PER_SM = target
+            out[f"target{target}"] = {
+                f"m{m}_layer_graph_ms": _graph_ms(lambda m=m: [
+                    qm.int4_matmul(xs[m][2 * w.shape[0]], w, s, a8=True) for w, s in weights],
+                    reps=4)
+                for m in (1, 8)}
+            out[f"target{target}"]["slices"] = {
+                name: len(qm.int4_decode_slices(k, 512, qm.int4_a8_decode_plan(
+                    1, k, n, 512, sms))) for name, (k, n) in LLAMA_8B.items()}
+    finally:
+        qm._INT4_A8_BLOCKS_PER_SM = default
+    return out
+
+
 def sweep_gather_int4(gen, sms: int) -> dict:
     ids = torch.tensor([5, 2], device="cuda")
     xs = {k: torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
@@ -224,8 +253,8 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = kernels.sm_count(0)
-    for sweep in (sweep_grouped_int4, sweep_int8, sweep_int4_decode, sweep_gather_int4,
-                  sweep_paged):
+    for sweep in (sweep_grouped_int4, sweep_int8, sweep_int4_decode, sweep_int4_a8,
+                  sweep_gather_int4, sweep_paged):
         print(json.dumps(sweep(gen, sms)), flush=True)
         torch.cuda.empty_cache()
     return 0

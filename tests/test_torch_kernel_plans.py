@@ -22,7 +22,11 @@ slices of one k-tile's packed rows (``int4_decode_plan``), each packed row
 feeding a low- and a high-nibble x column; the int4 expert gather (#13)
 runs #4's decode kernels with one slot a block (``int4_gather_plan``: the
 slots counted as blocks), its wrapper sending each shape to the entry its
-route names. The plans are held to cover
+route names; the W4A8 decode matmul (#5 at m <= 8,
+``rk_int4_a8_decode_kernel``) sums int8 x codes times 16 q on the integer
+tensor cores over slices of whole 16-row k-blocks
+(``int4_a8_decode_plan``), exactly, so its model is held bit for bit. The
+plans are held to cover
 their range once, in order, and an emulation of each kernel's arithmetic
 under its plan (plain torch, f32 or bf16) is held to the port's plain
 version and to the JAX package (``paged_attention_ref`` / the Pallas
@@ -40,10 +44,12 @@ import torch
 from ragmeup_tpu.ops import moe_matmul as jmoe
 from ragmeup_tpu.ops import paged_attention as jpa
 from ragmeup_tpu.ops import quant_matmul as jqm
+from ragmeup_tpu.ops import topk as jtopk
 from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops import moe_matmul as moe
 from ragmeup_tpu_torch.ops import paged_attention as tpa
 from ragmeup_tpu_torch.ops import quant_matmul as qm
+from ragmeup_tpu_torch.ops.topk import quantize_int8
 from test_torch_moe_int4 import DTYPES, _close, _packed_experts
 
 H100_SMS = 132
@@ -614,12 +620,15 @@ class _EntryRecorder:
     (1, 4096, 128, False, "rk_int4_decode"), (8, 4096, 512, False, "rk_int4_decode"),
     (3, 1040, 130, False, "rk_int4_decode"), (9, 4096, 128, False, "rk_int4_matmul"),
     (256, 4096, 128, False, "rk_int4_matmul"), (1, 1030, 1030, False, "rk_int4_matmul"),
-    (1, 4096, 512, True, "rk_int4_matmul_a8")])
+    (1, 4096, 512, True, "rk_int4_a8_decode"), (8, 4096, 512, True, "rk_int4_a8_decode"),
+    (3, 2144, 2144, True, "rk_int4_a8_decode"), (20, 4096, 512, True, "rk_int4_matmul_a8"),
+    (1, 1040, 1040, True, "rk_int4_matmul_a8")])
 def test_int4_wrapper_routes_decode_rows_to_the_decode_kernel(m, k, group, a8, entry,
                                                               monkeypatch):
-    """W4A16 at m <= 8 calls rk_int4_decode with the plan's slice; m > 8,
-    a half tile it cannot pair and W4A8 keep their entries; each call
-    counts one int4 launch."""
+    """W4A16 at m <= 8 calls rk_int4_decode with the plan's slice, W4A8
+    at m <= 8 rk_int4_a8_decode with its own plan's; m > 8, a half tile
+    the decode kernels cannot cut and W4A8 at m > 8 keep their entries;
+    each call counts one int4 launch."""
     rec = _EntryRecorder()
     monkeypatch.setattr(kernels, "lib", lambda: rec)
     monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
@@ -640,7 +649,190 @@ def test_int4_wrapper_routes_decode_rows_to_the_decode_kernel(m, k, group, a8, e
         ks = qm.int4_decode_plan(m, k, n, tile_k, group, H100_SMS)
         # bf16: the tensor cores where the k-blocks fit the groups
         assert rec.calls[0][1][3:11] == (m, k, n, tile_k, group, ks, 1, int(group % 8 == 0))
+    if entry == "rk_int4_a8_decode":
+        tile_k = qm.int4_tiling(k)[0]
+        ks = qm.int4_a8_decode_plan(m, k, n, tile_k, H100_SMS)
+        assert rec.calls[0][1][3:9] == (m, k, n, tile_k, ks, 1)
     kernels.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# #5: W4A8 at m <= 8 on the integer tensor cores
+# ---------------------------------------------------------------------------
+
+# "short": tile_k = k = 2144, 67 k-blocks a half tile, so no slice of more
+# than one k-block divides it and the last slice of a tile is short
+A8_TINY = {"tiny": (1024, 512), "wide": (1536, 1024), "short": (2144, 512)}
+
+
+def _bytes_as_int8(words: np.ndarray) -> np.ndarray:
+    return words.astype("<u4").view(np.int8)
+
+
+def test_int4_a8_nibbles_are_16q_for_every_byte():
+    """t & 0xF0F0F0F0 and (t << 4) & 0xF0F0F0F0, read as four int8, are 16
+    times the high and the low signed nibble of each byte of t, for all
+    256 byte values at every byte position."""
+    values = np.arange(256, dtype=np.uint8)
+    q = qm.unpack_int4(torch.from_numpy(values.view(np.int8)).reshape(1, 256), 2).numpy()
+    for shift in range(4):
+        words = np.roll(values, shift).view("<u4")           # every value at every position
+        want = np.roll(q.astype(np.int32) * 16, shift, axis=1)
+        np.testing.assert_array_equal(_bytes_as_int8(words & np.uint32(0xF0F0F0F0)), want[1])
+        np.testing.assert_array_equal(
+            _bytes_as_int8((words << np.uint32(4)) & np.uint32(0xF0F0F0F0)), want[0])
+
+
+def test_int4_a8_kblock_order_covers_every_packed_row_once():
+    """The mma's 32 k positions of a k-block are its 16 packed rows' low
+    and high nibbles, each once; lane c's e-th row feeds positions 4c + e
+    (low) and 16 + 4c + e (high), and a lane's rows are adjacent (one
+    4-byte load stages their x codes); over a slice of k-blocks every
+    packed row appears once with each nibble."""
+    order = qm.int4_a8_kblock_order()
+    assert len(order) == 32 and sorted(order) == [(r, h) for r in range(16) for h in (0, 1)]
+    for c in range(4):
+        rows = [order[4 * c + e][0] for e in range(4)]
+        assert rows == list(range(rows[0], rows[0] + 4))
+        assert all(order[4 * c + e] == (rows[e], 0) and order[16 + 4 * c + e] == (rows[e], 1)
+                   for e in range(4))
+    kblocks = 7
+    seen = [(16 * kb + row, h) for kb in range(kblocks) for row, h in order]
+    assert sorted(seen) == [(r, h) for r in range(16 * kblocks) for h in (0, 1)]
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("shape", list({**LLAMA_8B, **A8_TINY}))
+def test_int4_a8_decode_plan_covers_every_packed_row(shape, m, sms):
+    k, n = {**LLAMA_8B, **A8_TINY}[shape]
+    tile_k = qm.int4_tiling(k)[0]
+    half, tiles = tile_k // 2, k // tile_k
+    assert qm.int4_a8_decode_viable(m, tile_k)
+    ks = qm.int4_a8_decode_plan(m, k, n, tile_k, sms)
+    assert ks % 16 == 0 and 16 <= ks <= half and 16 * ks <= 48 * 1024
+    ranges = qm.int4_decode_slices(k, tile_k, ks)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k // 2
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0
+    for p0, p1 in ranges:
+        assert p0 < p1 and p0 // half == (p1 - 1) // half       # one k-tile
+        assert (p1 - p0) % 16 == 0                               # whole k-blocks
+        assert p1 - p0 == ks or p1 % half == 0                   # only a tile's last is short
+    assert len(ranges) == tiles * -(-half // ks)
+    # as few slices a tile as give the plan's blocks on every SM over the
+    # 512-column strips, in whole k-blocks, within the half tile
+    wanted = -(-qm._INT4_A8_BLOCKS_PER_SM * sms // -(-n // 512))
+    assert ks == min(half, -(-(-(-half // -(-wanted // tiles))) // 16) * 16)
+
+
+def test_int4_a8_decode_plan_on_an_h100():
+    """The 8B decode projections on 132 SMs at m 1 and 8: 192 blocks for q
+    and o, 128 for k/v, 224 for gate/up, 224 for down; k = 2144 over 14336
+    columns leaves a short last slice."""
+    for m in (1, 8):
+        slices = {name: len(qm.int4_decode_slices(k, 512, qm.int4_a8_decode_plan(
+            m, k, n, 512, H100_SMS))) for name, (k, n) in LLAMA_8B.items()}
+        assert slices == {"q": 24, "k": 64, "gate": 8, "down": 28}
+    ks = qm.int4_a8_decode_plan(1, 2144, 14336, 2144, H100_SMS)
+    assert ks == 224 and qm.int4_decode_slices(2144, 2144, ks)[-1] == (896, 1072)
+
+
+def test_int4_a8_decode_refuses_what_it_cannot_cut():
+    assert not qm.int4_a8_decode_viable(9, 512)
+    assert not qm.int4_a8_decode_viable(1, 1040)     # 520 packed rows: no whole k-blocks
+    assert qm.int4_a8_decode_viable(8, 512) and qm.int4_a8_decode_viable(1, 2144)
+    with pytest.raises(ValueError):
+        qm.int4_a8_decode_plan(1, 1040, 512, 1040, H100_SMS)
+
+
+def _int4_a8_decode_model(x, w_p, gs, k_slice):
+    """The W4A8 decode kernel's arithmetic: x quantized per row
+    (quantize_int8 in f32, as rk_quantize_rows_kernel); per slice, each
+    16-row k-block's 32 products of x codes with the weights' nibbles as 16
+    q (the masks of the 256-byte test), in int32-range integers, summed
+    over the slice and shifted right by 4; each tile's slices added in
+    int32, then acc + float(p) * x_scale * tile_scale over the tiles in
+    order, one f32 rounding a step, and one rounding to x's dtype."""
+    m, k = x.shape
+    tile_k = qm.int4_tiling(k)[0]
+    half = tile_k // 2
+    xq, xs = quantize_int8(x.float(), axis=1)
+    xq = xq.long()
+    b = w_p.to(torch.int32) & 0xFF
+    nib16 = [((b << 4) & 0xF0).to(torch.uint8).view(torch.int8).long(),   # low nibble, 16 q
+             (b & 0xF0).to(torch.uint8).view(torch.int8).long()]          # high nibble, 16 q
+    order = qm.int4_a8_kblock_order()
+    tile_p = {}
+    for p0, p1 in qm.int4_decode_slices(k, tile_k, k_slice):
+        t = p0 // half
+        acc = torch.zeros(m, w_p.shape[1], dtype=torch.long)
+        for kb0 in range(p0, p1, 16):
+            rows = [kb0 + row for row, _ in order]
+            a = torch.stack([nib16[h][r] for r, (_, h) in zip(rows, order)])        # (32, n)
+            cols = [t * tile_k + (r - t * half) + h * half for r, (_, h) in zip(rows, order)]
+            acc += xq[:, cols] @ a
+            assert acc.abs().max() < 2 ** 31
+        assert bool((acc % 16 == 0).all())
+        tile_p[t] = tile_p.get(t, 0) + (acc >> 4)
+    out = torch.zeros(m, w_p.shape[1])
+    for t in range(k // tile_k):
+        out = out + tile_p[t].to(torch.int32).float() * xs * gs.float()[t]
+    return out.to(x.dtype)
+
+
+def _int4_a8_case(shape, m):
+    k, n = A8_TINY[shape]
+    rng = np.random.default_rng(k + m + 5)
+    w_p = rng.integers(-128, 128, (k // 2, n)).astype(np.int8)
+    gs = (rng.random((k // qm.int4_tiling(k)[0], n)) * 2e-2 + 1e-2).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    return x, w_p, gs
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_a8_jax(shape, m, dtype):
+    """(JAX's W4A8 definition from its own quantizer and unpacker, its
+    interpreted kernel), as f32 numpy."""
+    x, w_p, gs = _int4_a8_case(shape, m)
+    jdt = DTYPES[dtype][1]
+    jx = jnp.asarray(x, jdt)
+    tile_k = qm.int4_tiling(x.shape[1])[0]
+    xq, xs = (np.asarray(a) for a in jtopk.quantize_int8(jx.astype(jnp.float32), axis=1))
+    w = np.asarray(jqm.unpack_int4(jnp.asarray(w_p), tile_k)).astype(np.int64)
+    acc = np.zeros((x.shape[0], w.shape[1]), np.float32)
+    for t in range(x.shape[1] // tile_k):
+        p = xq[:, t * tile_k:(t + 1) * tile_k].astype(np.int64) @ w[t * tile_k:(t + 1) * tile_k]
+        acc = acc + p.astype(np.float32) * xs * gs[t]
+    definition = np.asarray(jnp.asarray(acc).astype(jdt).astype(jnp.float32))
+    kernel = np.asarray(jqm.int4_matmul(jx, jnp.asarray(w_p), jnp.asarray(gs), a8=True,
+                                        interpret=True).astype(jnp.float32))
+    return definition, kernel
+
+
+@pytest.mark.parametrize("sms", [1, 8, H100_SMS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("shape", list(A8_TINY))
+def test_int4_a8_decode_model_matches_plain_and_jax(shape, m, dtype, sms):
+    """The kernel's integer sums under its plan and the tile-order reduce
+    equal int4_matmul_a8_plain and JAX's W4A8 definition (its quantize_int8
+    and unpack_int4, the same epilogue) bit for bit. JAX's interpreted
+    Pallas kernel is held within one bf16 ulp (f32: 2e-5) of the largest
+    output, as tests/test_torch_ops.py holds the route: its jitted
+    epilogue differs by an f32 ulp and its in-kernel quantizer can move a
+    code."""
+    x, w_p, gs = _int4_a8_case(shape, m)
+    k, n = A8_TINY[shape]
+    tdt = DTYPES[dtype][0]
+    tx, tw, ts = torch.from_numpy(x).to(tdt), torch.from_numpy(w_p), torch.from_numpy(gs)
+    ks = qm.int4_a8_decode_plan(m, k, n, qm.int4_tiling(k)[0], sms)
+    got = _int4_a8_decode_model(tx, tw, ts, ks)
+    assert got.dtype == tdt and got.shape == (m, n)
+    assert torch.equal(got, qm.int4_matmul_a8_plain(tx, tw, ts))
+    definition, kernel = _int4_a8_jax(shape, m, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), definition)
+    _close(got, kernel, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -811,6 +1003,35 @@ SASS = """
         Function : _ZN4demo6other_kernelEv
         /*0000*/                   EXIT ;
 """
+
+
+SASS_A8 = """
+        Function : _ZN4demo24rk_int4_a8_decode_kernelEv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   PRMT R2, R3, 0x5140, R4 ;
+        /*0020*/                   LOP3.LUT R5, R2, 0xf0f0f0f0, RZ, 0xc0, !PT ;
+        /*0030*/                   IMMA.16832.S8.S8 R8, R12, R16, R8 ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   I2F.U32.RP R6, R7 ;
+        /*0060*/                   EXIT ;
+"""
+
+
+def test_sass_count_reads_the_integer_kernel():
+    """W4A8's decode kernel: the main loop is the backward branch around
+    the IMMAs, each 8 packed bytes a lane; PRMT, LOP3 and instructions per
+    packed byte, and no conversion inside the loop."""
+    from ragmeup_tpu_torch.tools import sass_count
+    kernel = sass_count.instructions(SASS_A8)["_ZN4demo24rk_int4_a8_decode_kernelEv"]
+    loop = sass_count.main_loop(kernel, sass_count._is_imma)
+    assert [addr for addr, _, _ in loop] == [0x10, 0x20, 0x30, 0x40]
+    counts = sass_count.summarize(sass_count.opcode_counts(loop), integer=True)
+    assert counts["imma"] == 1 and counts["packed_bytes"] == 8
+    assert counts["prmt"] == 1 and counts["lop3"] == 1 and counts["conversions"] == {}
+    assert counts["instructions_per_packed_byte"] == 0.5
+    whole = sass_count.summarize(sass_count.opcode_counts(kernel), integer=True)
+    assert whole["conversions"] == {"I2F.U32.RP": 1}
+    assert whole["conversions_per_packed_byte"] == 1 / 8
 
 
 def test_sass_count_reads_a_listing():
