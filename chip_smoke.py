@@ -981,48 +981,81 @@ def grouped_mm_ms(xs, weights, gsz):
         return None
 
 
+# the kernel each grouped route launches (torch.profiler names)
+GROUPED_KERNELS = {("moe_grouped", "bf16"): "rk_moe_grouped_wmma_kernel",
+                   ("moe_grouped_stack", "bf16"): "rk_moe_stack_wgmma_kernel",
+                   ("moe_grouped", "f32"): "rk_moe_grouped_f32_kernel",
+                   ("moe_grouped_stack", "f32"): "rk_moe_grouped_f32_kernel"}
+
+
 def check_moe_grouped(gen) -> dict:
     """#11 on the dedup route (16 slots sorted by expert, expert 2 with no
     rows, 16-row tiles, no_stack) and #12 on the full-stack route (a
-    prefill chunk of 1032 rows over all 8 experts, 128-row tiles), at
-    Mixtral's int8 expert shapes, bf16; both routes also with bf16 experts
-    and with f32 experts and activations at a smaller shape. Held to the
-    plain version of the whole grouped product (no padded layout) with
-    moe_compare. Times: one layer's three projections on each route (the
-    whole function, host scatter included), and for #11 the kernel alone on
-    the padded layout scatter_layout gives (kernel_ms, and kernel_graph_ms
-    from a CUDA graph). Bounds count the experts this data routes to and
-    its real rows."""
+    prefill chunk of 1032 rows over all 8 experts, 128-row tiles; and a
+    second set of 1032 rows with an empty group, a one-row group and exact
+    multiples of 128), at Mixtral's int8 expert shapes, bf16; both routes
+    also with bf16 experts and with f32 experts and activations at a
+    smaller shape, and #12 at k = 1152 (18 k-steps, not a whole number of
+    rings). Held to the plain version of the whole grouped product (no
+    padded layout) with moe_compare; each call must launch its route's
+    kernel (GROUPED_KERNELS, from the profiler). Times: one layer's three
+    projections on each route (the whole function, host scatter included),
+    and each route's kernel alone on the padded layout scatter_layout gives
+    (kernel_ms, and kernel_graph_ms from a CUDA graph); for #12 also
+    csrc/moe_matmul.cu's WMMA kernel on the same layout, the design it
+    replaced (wmma_kernel_graph_ms). Bounds count the experts this data
+    routes to and its real rows."""
     import torch
     from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
     weights = {name: moe_experts(gen, MOE_E, k, n, "int8")
                for name, (k, n) in MOE_SHAPES.items()}
-    routes = {"moe_grouped": (torch.tensor([3, 2, 0, 4, 1, 2, 3, 1]),
+    stack_sets = [torch.tensor([100, 180, 90, 150, 120, 132, 160, 100]),
+                  torch.tensor([128, 0, 1, 255, 17, 384, 130, 117])]
+    routes = {"moe_grouped": ([torch.tensor([3, 2, 0, 4, 1, 2, 3, 1])],
                               dict(tm=16, tile_k=2048, tile_n=1024, no_stack=True)),
-              "moe_grouped_stack": (torch.tensor([100, 180, 90, 150, 120, 132, 160, 100]),
-                                    {})}
+              "moe_grouped_stack": (stack_sets, {})}
+
+    def launched(name, kind, fn):
+        """fn's output, after checking it launched the route's kernel once."""
+        before = kernels.launch_counts()[name]
+        found = kernels_of(fn)
+        if kernels.launch_counts()[name] != before + 1 or found != [GROUPED_KERNELS[name, kind]]:
+            raise AssertionError(f"{name} {kind}: launched {found}, not "
+                                 f"{GROUPED_KERNELS[name, kind]}")
+        return fn()
+
     out = {}
-    for name, (gsz, kw) in routes.items():
-        gsz = gsz.cuda()
-        m = int(gsz.sum())
-        xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-              for k in (4096, 14336)}
+    for name, (group_sets, kw) in routes.items():
         err = 0.0
-        for proj in ("gate", "down"):
-            w, s = weights[proj]
-            before = kernels.launch_counts()[name]
-            got = mm.moe_grouped_matmul(xs[w.shape[1]], w, gsz, s, **kw)
-            if kernels.launch_counts()[name] == before:
-                raise AssertionError(f"{name}: the {proj} call took another route")
-            err = max(err, moe_compare(f"{name} {proj}", got,
-                                       mm.moe_grouped_matmul_plain(xs[w.shape[1]], w, gsz, s)))
+        for gsz in group_sets:
+            gsz = gsz.cuda()
+            m = int(gsz.sum())
+            xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+                  for k in (4096, 14336)}
+            for proj in ("gate", "down"):
+                w, s = weights[proj]
+                got = launched(name, "bf16", lambda: mm.moe_grouped_matmul(xs[w.shape[1]], w,
+                                                                            gsz, s, **kw))
+                err = max(err, moe_compare(f"{name} {proj} groups {gsz.tolist()}", got,
+                                           mm.moe_grouped_matmul_plain(xs[w.shape[1]], w, gsz,
+                                                                       s)))
+        gsz = group_sets[0].cuda()
+        m = int(gsz.sum())
         for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             w, _ = moe_experts(gen, MOE_E, 1024, 2048, kind)
             x = torch.randn(m, 1024, generator=gen, device="cuda").to(dtype)
             fkw = dict(kw, tm=8) if kw and dtype == torch.float32 else kw
-            moe_compare(f"{name} {kind} experts", mm.moe_grouped_matmul(x, w, gsz, **fkw),
-                        mm.moe_grouped_matmul_plain(x, w, gsz))
+            got = launched(name, "bf16" if dtype == torch.bfloat16 else "f32",
+                           lambda: mm.moe_grouped_matmul(x, w, gsz, **fkw))
+            moe_compare(f"{name} {kind} experts", got, mm.moe_grouped_matmul_plain(x, w, gsz))
+        if name == "moe_grouped_stack":
+            w, s = moe_experts(gen, MOE_E, 1152, 2048, "int8")
+            x = torch.randn(m, 1152, generator=gen, device="cuda").to(torch.bfloat16)
+            moe_compare(f"{name} k 1152", launched(name, "bf16", lambda: mm.moe_grouped_matmul(
+                x, w, gsz, s, tile_k=128)), mm.moe_grouped_matmul_plain(x, w, gsz, s))
+        xs = {k: torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k in (4096, 14336)}
 
         def layer(fn, kw=kw):
             return lambda: [fn(xs[w.shape[1]], w, gsz, s, **kw) for w, s in weights.values()]
@@ -1030,23 +1063,30 @@ def check_moe_grouped(gen) -> dict:
         moved = sum(used * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
                     + nbytes(xs[w.shape[1]]) + 2 * m * w.shape[2] for w, _ in weights.values())
         ops = sum(2 * m * w.shape[1] * w.shape[2] for w, _ in weights.values())
-        kernel_alone = {}
-        if name == "moe_grouped":
-            # the kernel alone, on the padded layout the function hands it
-            padded = {k: mm.scatter_layout(x, gsz, kw["tm"], MOE_E) for k, x in xs.items()}
+        # the kernel alone, on the padded layout the function hands it
+        tm = kw.get("tm", 128)
+        padded = {k: mm.scatter_layout(x, gsz, tm, MOE_E) for k, x in xs.items()}
+        rows = {k: mm.tile_rows(gsz, p[2], tm) for k, p in padded.items()}
 
-            def on_padded(padded=padded):
+        def on_padded(stack):
+            def run():
                 for w, s in weights.values():
                     xp, _, texp, used_rows = padded[w.shape[1]]
-                    mm.grouped_padded(xp, w, s, texp, used_rows, kw["tm"], stack=False)
-            before = kernels.launch_counts()[name]
-            on_padded()
-            if kernels.launch_counts()[name] != before + len(weights):
-                raise AssertionError(f"{name}: the padded calls took another route")
-            kernel_alone = {"kernel_ms": median_ms(on_padded, reps=5),
-                            "kernel_graph_ms": graph_ms_or_none(f"{name} kernel", on_padded,
-                                                                reps=4)}
-            del padded
+                    mm.grouped_padded(xp, w, s, texp, used_rows, tm, stack=stack,
+                                      rows=rows[w.shape[1]])
+            return run
+        stack = name == "moe_grouped_stack"
+        before = kernels.launch_counts()[name]
+        on_padded(stack)()
+        if kernels.launch_counts()[name] != before + len(weights):
+            raise AssertionError(f"{name}: the padded calls took another route")
+        kernel_alone = {"kernel_ms": median_ms(on_padded(stack), reps=5),
+                        "kernel_graph_ms": graph_ms_or_none(f"{name} kernel", on_padded(stack),
+                                                            reps=4)}
+        if stack:   # the design it replaced, csrc/moe_matmul.cu's WMMA kernel, same layout
+            kernel_alone["wmma_kernel_graph_ms"] = graph_ms_or_none(
+                "moe_grouped wmma kernel", on_padded(False), reps=2)
+        del padded
         out[name] = {
             **kernel_alone,
             "max_abs_err": err,
@@ -1916,8 +1956,9 @@ def main() -> int:
                              "ragmeup_tpu/ops/moe_matmul.py:47")
     free_card()
     grouped = {name: stamped(r) for name, r in check_moe_grouped(gen).items()}
-    for name, rep in (("moe_grouped", 123), ("moe_grouped_stack", 220)):
-        results[name] = (grouped[name], "ragmeup_tpu_torch/csrc/moe_matmul.cu",
+    for name, src, rep in (("moe_grouped", "moe_matmul.cu", 123),
+                           ("moe_grouped_stack", "moe_stack.cu", 220)):
+        results[name] = (grouped[name], f"ragmeup_tpu_torch/csrc/{src}",
                          f"ragmeup_tpu/ops/moe_matmul.py:{rep}")
     free_card()
     results["moe_gather_int4"] = (stamped(check_moe_gather_int4(gen)),
@@ -1946,7 +1987,8 @@ def main() -> int:
          "launches": sum(run["counts"][name] for run in runs.values()),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
-         **{key: r.get(key) for key in ("graph_ms", "library_graph_ms")}}
+         **{key: r.get(key) for key in ("graph_ms", "library_graph_ms", "kernel_ms",
+                                        "kernel_graph_ms")}}
         for name, (r, src, rep) in results.items()],
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
                           "after_kernel_checks": clock_after}}), flush=True)

@@ -17,27 +17,27 @@
 // partials; a second kernel sums them in a fixed order and applies the
 // scale, so a greedy decode repeats bit for bit.
 //
-// rk_moe_grouped replaces ragmeup_tpu/ops/moe_matmul.py::_grouped_kernel
-// and ::_stack_kernel, which compute the same function: the grouped GEMM
-// over rows sorted by expert and padded to tm-row tiles, tile i reading
-// expert texp[i]. One block computes one (tm-row tile, 128-column strip)
-// over all of k, in 64-deep steps through shared memory; the weights are
-// cast to x's dtype as they land there, and the int8 scale is applied in
-// the epilogue. bf16 activations multiply on the tensor cores (WMMA
-// 16x16x16, f32 accumulation, 8 warps, the next step's 16-byte loads in
-// flight while the current step multiplies); f32 activations take f32
-// FMAs, since a tensor-core product would round them. Tiles from
-// *used_rows on hold padding only and exit at once: their rows are never
-// read back.
-//   - At batched decode (the dedup route: 16 slots, at most 8 unique
-//     experts, tm = 16) it streams each routed expert's weights once per
-//     tile, up to 1.41 GB a Mixtral layer (0.42 ms at 3.35 TB/s).
-//   - On the full-stack route (prefill, every expert routed, tm = 128)
-//     2048 padded rows of a Mixtral layer are 0.72 TFLOP, bound by the
-//     tensor cores (0.73 ms at 989 TFLOP/s). Walking the m-tiles fastest
-//     (the TPU stack kernel's order) measured no faster on the H100, so
-//     both routes launch the same grid: 128-column strips fastest.
-// No asynchronous copies (cp.async/TMA) and no wgmma yet: a later PR's work.
+// rk_moe_grouped replaces ragmeup_tpu/ops/moe_matmul.py::_grouped_kernel:
+// the grouped GEMM over rows sorted by expert and padded to tm-row tiles,
+// tile i reading expert texp[i]. One block computes one (tm-row tile,
+// 128-column strip) over all of k, in 64-deep steps through shared memory;
+// the weights are cast to x's dtype as they land there, and the int8 scale
+// is applied in the epilogue. bf16 activations multiply on the tensor cores
+// (WMMA 16x16x16, f32 accumulation, 8 warps, the next step's 16-byte loads
+// in flight while the current step multiplies); f32 activations take f32
+// FMAs, since a tensor-core product would round them. Tiles from *used_rows
+// on hold padding only and exit at once: their rows are never read back.
+// Which kernel serves which route (ops/moe_matmul.py stack_kernel_takes):
+//   - the dedup route (#11, batched decode: 16 slots, at most 8 unique
+//     experts, tm = 16): the WMMA kernel here, streaming each routed
+//     expert's weights once per tile, up to 1.41 GB a Mixtral layer (0.42
+//     ms at 3.35 TB/s);
+//   - the full-stack route (#12, prefill under moe_grouped="on", every
+//     expert routed, tm = 128) with bf16 rows and int8 or bf16 experts:
+//     csrc/moe_stack.cu's wgmma kernel, which also skips the padding rows;
+//   - f32 rows or f32 experts on either route, and the full-stack route at
+//     other tiles: the kernels here.
+// No asynchronous copies (cp.async/TMA) and no wgmma here.
 
 #include <mma.h>
 

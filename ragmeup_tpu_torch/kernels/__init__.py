@@ -31,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ragmeup_tpu_torch")
 SOURCES = ("topk.cu", "quant_matmul.cu", "quant_matmul_int4.cu",
            "flash_attention.cu", "paged_attention.cu", "moe_matmul.cu",
-           "moe_matmul_int4.cu", "fused_mlp_int4.cu")
+           "moe_stack.cu", "moe_matmul_int4.cu", "fused_mlp_int4.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -157,6 +157,9 @@ def lib() -> ctypes.CDLL:
             so.rk_moe_grouped.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                           i32, i32, vp, vp]
             so.rk_moe_grouped.restype = i32
+            so.rk_moe_grouped_stack.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                                i32, vp, vp]
+            so.rk_moe_grouped_stack.restype = i32
             so.rk_moe_gather_int4.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                               i32, i32, i32, vp, vp, vp]
             so.rk_moe_gather_int4.restype = i32

@@ -19,7 +19,11 @@ multiplies the sum, and the result rounds once to x's dtype.
   weights (``scatter_layout``); long row sets chunk as the JAX package
   chunks them. The JAX package's choice between its per-tile kernel and
   its full-stack kernel is kept and picks the counter: ``moe_grouped``
-  (#11, the dedup route) or ``moe_grouped_stack`` (#12). Non-tiling
+  (#11, the dedup route) or ``moe_grouped_stack`` (#12). #12 with bf16
+  rows in 128-row tiles over int8 or bf16 experts runs its own kernel
+  (csrc/moe_stack.cu), which skips each tile's padding rows
+  (``tile_rows``, handed to every #12 call); every other grouped call runs
+  csrc/moe_matmul.cu's (``stack_kernel_takes`` says which). Non-tiling
   shapes and short row sets take a grouped product that dequantizes in x's
   dtype first (the JAX ``ragged_dot`` fallback).
 
@@ -69,6 +73,10 @@ GATHER_MAX_SLOTS = 64      # the JAX gate of the gather kernel
 _COLS_PER_BLOCK = 512      # csrc/moe_matmul.cu gather: 128 threads x 4 columns
 _GROUPED_BN = 128          # csrc/moe_matmul.cu grouped: columns per block
 _GROUPED_BK = 64           # csrc/moe_matmul.cu grouped: k per step
+_STACK_TM = 128            # csrc/moe_stack.cu: rows a tile
+_STACK_BN = 128            # csrc/moe_stack.cu: columns a strip
+_STACK_BK = 64             # csrc/moe_stack.cu: k a ring stage
+_STACK_BLOCKS_PER_SM = 2   # csrc/moe_stack.cu: blocks an SM holds (its persistent grid)
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -283,9 +291,66 @@ def _grouped_fallback(xs, w, gsz, scale):
     return out
 
 
-def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool):
+def tile_rows(gsz: torch.Tensor, texp: torch.Tensor, tm: int) -> torch.Tensor:
+    """Each tile's count of real rows in ``scatter_layout``'s padded layout
+    (int32, on texp's device, no host read): its group's size less the rows
+    of the group's earlier tiles, clamped to 0..tm. Tiles from the used rows
+    on count 0."""
+    gsz = gsz.to(device=texp.device, dtype=torch.int64)
+    pgs = (gsz + (tm - 1)) // tm * tm
+    start = torch.cumsum(pgs, 0) - pgs
+    t = texp.long()
+    before = torch.arange(texp.shape[0], device=texp.device) * tm - start[t]
+    return (gsz[t] - before).clamp_(0, tm).to(torch.int32)
+
+
+def stack_kernel_takes(tm: int, k: int, n: int, x_dtype: torch.dtype,
+                       w_dtype: torch.dtype) -> bool:
+    """True when #12's call runs csrc/moe_stack.cu's kernel: bf16 rows in
+    128-row tiles, int8 or bf16 experts, k in 64-deep steps, n in 128-column
+    strips. f32 rows or experts, and other tiles, run csrc/moe_matmul.cu's."""
+    return (tm == _STACK_TM and x_dtype == torch.bfloat16
+            and w_dtype in (torch.int8, torch.bfloat16)
+            and k % _STACK_BK == 0 and n % _STACK_BN == 0)
+
+
+def stack_grid(mp: int, n: int, sm_count: int) -> int:
+    """The stack kernel's persistent blocks: as many as the card holds, and
+    no more than the padded layout has (tile, strip) pairs."""
+    return max(1, min((mp // _STACK_TM) * (n // _STACK_BN),
+                      _STACK_BLOCKS_PER_SM * sm_count))
+
+
+def _stack_cuda(xp, w, scale, texp, rows, used):
     mp, k = xp.shape
     n = w.shape[2]
+    if rows.shape != texp.shape:
+        raise ValueError(f"moe_grouped_stack kernel: one count of real rows a tile "
+                         f"(got {tuple(rows.shape)} for {texp.shape[0]} tiles)")
+    texp = texp.to(torch.int32).contiguous()
+    rows = rows.to(torch.int32).contiguous()
+    used = used.to(torch.int32).contiguous()
+    tensors = [xp, w, texp, rows, used]
+    if scale is not None:
+        scale = scale.float().contiguous()
+        tensors.append(scale)
+    kernels.require_cuda("moe_grouped_stack", *tensors)
+    out = torch.empty((mp, n), dtype=xp.dtype, device=xp.device)
+    err = kernels.lib().rk_moe_grouped_stack(
+        xp.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
+        texp.data_ptr(), rows.data_ptr(), used.data_ptr(), k, n, _W_CODES[w.dtype],
+        stack_grid(mp, n, kernels.sm_count(xp.device.index)), out.data_ptr(),
+        kernels.stream_handle(xp.device))
+    kernels.check(err, "moe_grouped_stack")
+    kernels.count("moe_grouped_stack")
+    return out
+
+
+def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool, rows):
+    mp, k = xp.shape
+    n = w.shape[2]
+    if stack and stack_kernel_takes(tm, k, n, xp.dtype, w.dtype):
+        return _stack_cuda(xp, w, scale, texp, rows, used)
     name = "moe_grouped_stack" if stack else "moe_grouped"
     if k % _GROUPED_BK or n % _GROUPED_BN:
         raise ValueError(f"{name} kernel: k % {_GROUPED_BK} and n % {_GROUPED_BN} "
@@ -312,13 +377,20 @@ def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool):
 
 def grouped_padded(xp: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
                    texp: torch.Tensor, used: torch.Tensor, tm: int,
-                   stack: bool) -> torch.Tensor:
+                   stack: bool, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The grouped kernel on the padded layout: (mp, k) rows, tile i of
     ``tm`` rows times expert ``texp[i]``. ``stack`` marks the JAX package's
-    full-stack route (#12, counted as ``moe_grouped_stack``); otherwise the
-    per-tile route (#11, ``moe_grouped``). Both launch the same kernel."""
+    full-stack route (#12, counted as ``moe_grouped_stack``), which takes
+    each tile's count of real rows ``rows`` (``tile_rows``); otherwise the
+    per-tile route (#11, ``moe_grouped``). Where ``stack_kernel_takes``
+    holds, #12 runs csrc/moe_stack.cu's kernel, which leaves the padding
+    rows' outputs unwritten; the other calls run csrc/moe_matmul.cu's. Only
+    real rows may be read back."""
+    if stack and rows is None:
+        raise ValueError("moe_grouped_stack: the full-stack route takes each tile's "
+                         "real rows (tile_rows)")
     if xp.is_cuda:
-        return _grouped_cuda(xp, w, scale, texp, used, tm, stack)
+        return _grouped_cuda(xp, w, scale, texp, used, tm, stack, rows)
     return grouped_padded_plain(xp, w, scale, texp, tm)
 
 
@@ -327,7 +399,8 @@ def _pad_scatter_call(xs, w, scale, gsz, tm, no_stack):
     xp, dst, texp, used = scatter_layout(xs, gsz, tm, e)
     st = None if no_stack else stack_tiles(xp.shape[0], e, k, n, w.element_size(),
                                            xs.element_size())
-    yp = grouped_padded(xp, w, scale, texp, used, tm, stack=st is not None)
+    rows = None if st is None else tile_rows(gsz, texp, tm)
+    yp = grouped_padded(xp, w, scale, texp, used, tm, stack=st is not None, rows=rows)
     return yp.index_select(0, dst)
 
 

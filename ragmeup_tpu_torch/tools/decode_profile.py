@@ -3,14 +3,17 @@ Mixtral-8x7B-shaped) decoder on one card.
 
     python3 -m ragmeup_tpu_torch.tools.decode_profile [--quantization int4 [--w4a8]]
     python3 -m ragmeup_tpu_torch.tools.decode_profile --moe [--quantization int4 [--w4a8]]
+    python3 -m ragmeup_tpu_torch.tools.decode_profile --moe --moe-grouped on
 
 int8 weights (the default) run twice, with the CUDA kernels and with their
 plain PyTorch versions (``quant_kernel`` and ``use_flash`` off). int4
 weights (W4A16 with 128-row scale groups, or W4A8 with 512-row groups) and
 the MoE decoders run once: their matmul kernels have no switch, since a
 CUDA tensor of a routable shape always launches its kernel (the MoE
-prefill takes the all-experts einsum over stacks dequantized in bf16, its
-decode the expert gather: #10 for int8 experts, #13 for int4 ones).
+prefill takes the all-experts einsum over stacks dequantized in bf16, or
+with ``--moe-grouped on`` the grouped route, #12's full-stack kernel for
+int8 experts; its decode the expert gather: #10 for int8 experts, #13 for
+int4 ones).
 Random weights are drawn on the card as chip_smoke.py draws them at its
 default seed. For each run it prints one JSON line:
 
@@ -31,7 +34,10 @@ default seed. For each run it prints one JSON line:
   expert gather's (partials and reduce) over the routed experts' codes
   and scales (top_k experts per layer per token; packed int4 with their
   group scales for int4 experts);
-- ``top``: the device's largest kernels per token.
+- ``top``: the device's largest kernels per token;
+- ``prefill_device_ms``: one more prefill under ``torch.profiler``, the
+  union of its device intervals, and ``prefill_top`` its largest kernels
+  (ms per prefill).
 
 The card's name and power limit come first, as nvidia-smi reports them.
 """
@@ -85,6 +91,7 @@ def profile(llm, label: str, weight_bytes: int, expert_bytes: int = 0) -> dict:
     n = len(prompt)
     cache_len = llm._bucket(n + 64)
     ids = llm._padded(prompt, llm._bucket(n))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.inference_mode():
         for _ in range(2):
             torch.cuda.synchronize()
@@ -92,6 +99,10 @@ def profile(llm, label: str, weight_bytes: int, expert_bytes: int = 0) -> dict:
             logits, caches = llm._prefill(ids, n, cache_len)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
+        with torch.profiler.profile(activities=acts) as prof:
+            llm._prefill(ids, n, cache_len)
+            torch.cuda.synchronize()
+        prefill_dev = _device_intervals(prof)
         tok, pos = int(torch.argmax(logits)), n
         for _ in range(4):
             tok = int(torch.argmax(llm._decode(tok, pos, caches)))
@@ -103,8 +114,6 @@ def profile(llm, label: str, weight_bytes: int, expert_bytes: int = 0) -> dict:
             pos += 1
         torch.cuda.synchronize()
         decode_s = (time.perf_counter() - t0) / DECODE_TOKENS
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -130,9 +139,15 @@ def profile(llm, label: str, weight_bytes: int, expert_bytes: int = 0) -> dict:
                     if "rk_moe_gather" in k) / PROFILED_TOKENS / 1e3
         moe = {"expert_ms_per_token": ex_ms,
                "expert_weight_TBps": expert_bytes / (ex_ms * 1e-3) / 1e12 if ex_ms else None}
+    prefill_kernels: dict = {}
+    for name, s, e in prefill_dev:
+        prefill_kernels[name] = prefill_kernels.get(name, 0.0) + (e - s)
     return {
         "label": label,
         "prefill_ms": prefill_s * 1e3,
+        "prefill_device_ms": _union_us(prefill_dev) / 1e3,
+        "prefill_top": [(k[:80], t / 1e3) for k, t in
+                        sorted(prefill_kernels.items(), key=lambda kv: -kv[1])[:6]],
         "decode_ms_per_token": decode_s * 1e3,
         "device_ms_per_token": device_ms,
         "device_busy_share": device_ms / (decode_s * 1e3),
@@ -151,9 +166,14 @@ def main() -> int:
                     help="int4 with int8 activations (512-row scale groups)")
     ap.add_argument("--moe", action="store_true",
                     help="the Mixtral-8x7B-shaped decoder")
+    ap.add_argument("--moe-grouped", choices=("auto", "on"), default="auto",
+                    help="the MoE layers' grouped route (LlamaConfig.moe_grouped); "
+                         "'on' sends prefill through #12")
     args = ap.parse_args()
     if args.w4a8 and args.quantization != "int4":
         ap.error("--w4a8 needs --quantization int4")
+    if args.moe_grouped != "auto" and not args.moe:
+        ap.error("--moe-grouped needs --moe")
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile: no CUDA device")
     from ragmeup_tpu_torch import kernels
@@ -167,6 +187,8 @@ def main() -> int:
     kernels.build()
     shape = LlamaConfig.mixtral_8x7b if args.moe else LlamaConfig.llama31_8b
     cfg = select_kernels(shape(quantization=args.quantization, int4_w4a8=args.w4a8))
+    if args.moe:
+        cfg = dataclasses.replace(cfg, moe_grouped=args.moe_grouped)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = init_decoder_params(cfg, gen, "cuda")
     weight_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
@@ -179,7 +201,7 @@ def main() -> int:
     variant = ("W4A8" if args.w4a8 else "W4A16" if args.quantization == "int4"
                else "int8")
     if args.moe:
-        variant = f"Mixtral {variant}"
+        variant = f"Mixtral {variant}" + (", moe_grouped on" if args.moe_grouped == "on" else "")
     runs = [(f"{variant} kernels", cfg)]
     if args.quantization == "int8" and not args.moe:
         runs.append(("int8 plain", dataclasses.replace(cfg, quant_kernel=False,

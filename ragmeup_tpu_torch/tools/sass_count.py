@@ -1,4 +1,5 @@
-"""Instructions per packed byte in the int4 decode kernels' SASS.
+"""Instructions per packed byte in the int4 decode kernels' SASS, and per
+int8 weight in #12's.
 
     python3 -m ragmeup_tpu_torch.tools.sass_count
 
@@ -14,11 +15,15 @@ consumes passes through exactly one bf16 HADD2/HFMA2 (``nibbles_bf16x2``
 turns the two nibbles at one position of two packed rows into bf16
 integers: one per packed byte); every IMMA of the W4A8 kernel (an
 m16n8k32 s8 mma: 16 columns x 16 packed rows a warp) consumes 8 packed
-bytes a lane. Conversions (I2F, I2FP, F2F, F2FP, F2I), all instructions,
+bytes a lane. #12's full-stack kernel ``rk_moe_stack_wgmma_kernel``
+(csrc/moe_stack.cu) turns two int8 weights into bf16 with each bf16
+HADD2 (``s8x2_bf16x2``), so its bytes are two a pair; its wgmmas (HGMMA)
+are counted too. Conversions (I2F, I2FP, F2F, F2FP, F2I), all instructions,
 PRMTs and LOP3s per packed byte follow from those counts. The counts are
 static (each instruction of the code once, wherever a loop runs it), for
 the whole kernel and for its main loop (the backward branch whose body
-holds the most of those HADD2/HFMA2s or IMMAs: the prologue's and
+holds the most of those HADD2/HFMA2s or IMMAs, or for #12 the innermost
+one around HGMMAs, a k loop: the prologue's and
 epilogue's conversions, such as the output's packing to bf16, fall
 outside it). Prints the card's name and power limit, then one JSON line
 per instantiation.
@@ -36,8 +41,9 @@ from ragmeup_tpu_torch import kernels
 
 KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel",
            "rk_moe_gather_int4_decode_kernel", "rk_moe_gather_int4_mma_kernel",
-           "rk_int4_a8_decode_kernel")
+           "rk_int4_a8_decode_kernel", "rk_moe_stack_wgmma_kernel")
 INTEGER_KERNELS = ("rk_int4_a8_decode_kernel",)   # packed bytes counted by IMMA
+STACK_KERNELS = ("rk_moe_stack_wgmma_kernel",)    # int8 weights: 2 a bf16 pair
 BYTES_PER_IMMA = 8
 CONVERSIONS = ("I2F", "I2FP", "F2F", "F2FP", "F2I")
 _INSTRUCTION = re.compile(
@@ -83,6 +89,10 @@ def _is_imma(op: str) -> bool:
     return op.startswith("IMMA")
 
 
+def _is_hgmma(op: str) -> bool:
+    return op.startswith("HGMMA")
+
+
 def opcode_counts(code) -> dict:
     ops = {}
     for _, op, _ in code:
@@ -90,33 +100,43 @@ def opcode_counts(code) -> dict:
     return ops
 
 
-def main_loop(code, marker=_is_nibble_pair) -> list:
+def main_loop(code, marker=_is_nibble_pair, innermost: bool = False) -> list:
     """The instructions between the target and the address of the backward
     branch whose range holds the most `marker` instructions (nibble pairs,
-    or IMMAs)."""
-    best, best_marks = [], 0
+    or IMMAs); with `innermost`, the first range that holds any and no
+    other such range (#12's k loops, one per wgmma N, sit inside its loop
+    over (tile, strip) pairs)."""
+    ranges = []
     for addr, op, rest in code:
         target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
         if target and int(target.group(1), 16) < addr:
-            body = [ins for ins in code if int(target.group(1), 16) <= ins[0] <= addr]
+            lo = int(target.group(1), 16)
+            body = [ins for ins in code if lo <= ins[0] <= addr]
             marks = sum(marker(op) for _, op, _ in body)
-            if marks > best_marks:
-                best, best_marks = body, marks
-    return best
+            if marks:
+                ranges.append((lo, addr, marks, body))
+    if innermost:
+        inner = [r for r in ranges if not any(o is not r and r[0] <= o[0] and o[1] <= r[1]
+                                              for o in ranges)]
+        return min(inner, key=lambda r: r[0])[3] if inner else []
+    return max(ranges, key=lambda r: r[2])[3] if ranges else []
 
 
-def summarize(ops: dict, integer: bool = False) -> dict:
+def summarize(ops: dict, integer: bool = False, stack: bool = False) -> dict:
     """Counts of one body of code; packed bytes from its bf16 nibble pairs
-    or, for the W4A8 kernel (`integer`), from its IMMAs."""
+    or, for the W4A8 kernel (`integer`), from its IMMAs; for #12's stack
+    kernel (`stack`) the int8 weights its bf16 pairs convert (two a pair)
+    and its wgmmas (HGMMA)."""
     pairs = sum(n for op, n in ops.items() if _is_nibble_pair(op))
     imma = sum(n for op, n in ops.items() if _is_imma(op))
-    bytes_ = BYTES_PER_IMMA * imma if integer else pairs
+    hgmma = sum(n for op, n in ops.items() if _is_hgmma(op))
+    bytes_ = BYTES_PER_IMMA * imma if integer else 2 * pairs if stack else pairs
     conv = {op: n for op, n in ops.items() if op.split(".")[0] in CONVERSIONS}
     total = sum(ops.values())
 
     def per(count):
         return count / bytes_ if bytes_ else None
-    return {"instructions": total, "bf16_nibble_pairs": pairs, "imma": imma,
+    return {"instructions": total, "bf16_nibble_pairs": pairs, "imma": imma, "hgmma": hgmma,
             "packed_bytes": bytes_,
             "prmt": sum(n for op, n in ops.items() if op.split(".")[0] == "PRMT"),
             "lop3": sum(n for op, n in ops.items() if op.split(".")[0] == "LOP3"),
@@ -137,10 +157,12 @@ def decode_kernel_counts(library: str) -> list:
     rows = []
     for name, pretty in zip(functions, _demangle(list(functions))):
         integer = any(kernel in name for kernel in INTEGER_KERNELS)
-        loop = main_loop(functions[name], _is_imma if integer else _is_nibble_pair)
+        stack = any(kernel in name for kernel in STACK_KERNELS)
+        marker = _is_imma if integer else _is_hgmma if stack else _is_nibble_pair
+        loop = main_loop(functions[name], marker, innermost=stack)
         rows.append({"kernel": pretty,
-                     **summarize(opcode_counts(functions[name]), integer),
-                     "main_loop": summarize(opcode_counts(loop), integer)})
+                     **summarize(opcode_counts(functions[name]), integer, stack),
+                     "main_loop": summarize(opcode_counts(loop), integer, stack)})
     return rows
 
 

@@ -74,9 +74,9 @@ def routes(monkeypatch):
     seen = []
     real = moe.grouped_padded
 
-    def spy(xp, w, scale, texp, used, tm, stack):
+    def spy(xp, w, scale, texp, used, tm, stack, rows=None):
         seen.append("moe_grouped_stack" if stack else "moe_grouped")
-        return real(xp, w, scale, texp, used, tm, stack)
+        return real(xp, w, scale, texp, used, tm, stack, rows)
     monkeypatch.setattr(moe, "grouped_padded", spy)
     return seen
 
