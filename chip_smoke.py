@@ -8,7 +8,12 @@ Phases (any failure raises and exits non-zero):
 2. build: compiles the CUDA kernels of ragmeup_tpu_torch/csrc with nvcc
    (one process per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   the main paths give it, with the stated tolerance; median times of
+   the main paths give it, with the stated tolerance (#1 and #2 also at a
+   million-column corpus and at 256 queries over 65,536 columns,
+   TOPK_SHAPES, with every column masked and k above the live columns,
+   on both of their merge routes, each at most two launches a call and #2
+   captured in a CUDA graph);
+   median times of
    both, and of one PyTorch library call computing the same function where
    there is one, from CUDA events, each after warm-up rounds until two
    agree within 5 %; the kernel's time also from a CUDA graph's replay
@@ -192,91 +197,254 @@ def log_ptxas(build_log: str) -> None:
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def topk_corpus(gen, n_cols: int, d: int = 384):
-    """Unit rows (n_cols, d) with exact duplicates (the lowest index must
-    win the ties) and an additive mask with a padding tail and 500 dead
-    columns."""
+TOPK_D = 384
+# (b, corpus columns, k) at which #1 and #2 are timed, d = TOPK_D
+TOPK_SHAPES = {
+    "S1": (1, N_DOCS, 20),     # the smoke /chat corpus
+    "S2": (1, 1 << 20, 20),    # a million-chunk corpus: 805 MB in bf16, 403 MB in int8
+    "S3": (256, 65536, 10),    # the JAX package's retrieval benchmark (bench.py)
+}
+TOPK_NEAR_TIE = 1e-5  # #1 at S2 and S3: ids may swap only between plain scores this close
+TOPK_NEAR_TIE_F64 = 1e-6  # ... and against the f64 order only between dots this close
+
+
+def topk_corpus(gen, n_cols: int, d: int = TOPK_D):
+    """Unit rows (n_cols, d) with exact duplicates of row 50 (rows 100-109,
+    a pair straddling the first 128-column tile's end and a pair straddling
+    the corpus's middle: the lowest index must win the ties wherever they
+    fall) and an additive mask with a padding tail and 500 dead columns."""
     import torch
     from ragmeup_tpu_torch.ops import topk
     c = torch.randn(n_cols, d, generator=gen, device="cuda")
     c = c / c.norm(dim=1, keepdim=True)
     c[100:110] = c[50]
+    c[[127, 128, n_cols // 2 - 1, n_cols // 2]] = c[50].clone()
     mask = torch.zeros(1, n_cols, device="cuda")
     mask[0, n_cols - 300:] = topk.NEG_INF                 # padding tail
     mask[0, torch.randperm(n_cols - 300, generator=gen, device="cuda")[:500]] = topk.NEG_INF
     return c, mask
 
 
-def check_topk(gen, n_cols: int) -> dict:
-    """#1 at the retrieval shapes: d = 384, the smoke corpus capacity, dead
-    and padding columns, exact duplicates. Ids must match exactly; scores
-    to 1e-5 (bf16 products are exact in f32, only the sum order differs)."""
+def topk_index(gen, kind: str, n_cols: int):
+    """Row 50 of a topk_corpus, its mask, and the index #1 (bf16 columns)
+    or #2 (int8 codes and per-column scales, as the int8 index stores
+    them) scores."""
     import torch
     from ragmeup_tpu_torch.ops import topk
-    d = 384
-    c, mask = topk_corpus(gen, n_cols, d)
-    corpus_t = c.T.contiguous().to(torch.bfloat16)
-    err = 0.0
-    for b in (1, 8):
-        q = torch.randn(b, d, generator=gen, device="cuda")
-        q[0] = c[50]
-        for k in (10, 20):
-            s1, i1 = topk.dense_topk(q, corpus_t, k, mask=mask)
-            s0, i0 = topk.dense_topk_plain(q, corpus_t, k, mask=mask)
-            torch.cuda.synchronize()
-            if not torch.equal(i0, i1):
-                raise AssertionError(f"topk ids differ at b={b} k={k}:\n{i0}\n{i1}")
-            err = max(err, (s0 - s1).abs().max().item())
+    c, mask = topk_corpus(gen, n_cols)
+    if kind == "bf16":
+        corpus, c_scale = c.T.contiguous().to(torch.bfloat16), None
+    else:
+        codes, scales = topk.quantize_int8(c, axis=1)
+        corpus, c_scale = codes.T.contiguous(), scales.T.contiguous()
+    return c[50].clone(), mask, corpus, c_scale
+
+
+def topk_calls(kind: str, corpus, c_scale):
+    """(kernel, plain) as functions of (queries, k, mask), the kernel's
+    with a `merge` route keyword (None: the plan's)."""
+    from ragmeup_tpu_torch.ops import topk
+    if kind == "int8":
+        def kernel(q, k, m, merge=None):
+            if merge is None:
+                return topk.dense_topk_int8(q, corpus, c_scale, k, mask=m)
+            return topk._dense_topk_int8_cuda(q, corpus, c_scale, k, m, merge)
+        return kernel, lambda q, k, m: topk.dense_topk_int8_plain(q, corpus, c_scale, k, mask=m)
+
+    def kernel(q, k, m, merge=None):
+        if merge is None:
+            return topk.dense_topk(q, corpus, k, mask=m)
+        return topk._dense_topk_cuda(q, corpus, k, m, merge)
+    return kernel, lambda q, k, m: topk.dense_topk_plain(q, corpus, k, mask=m)
+
+
+def topk_compare(what: str, q, corpus, mask, got, want, near_ties: bool) -> tuple:
+    """(largest score difference, near-tie swaps) of a kernel's (scores,
+    ids) against the plain version's. Ids must be equal. With `near_ties`
+    a rank's id x may differ from the plain version's y only in a near-tie:
+    both columns live, their plain scores within TOPK_NEAR_TIE (two columns
+    whose f32 sums, taken in another order, swap), and their dots in f64
+    either in the kernel's order of x and y (x first unless y stands
+    earlier in the kernel's list) or within TOPK_NEAR_TIE_F64 of each
+    other; each row's ids stay distinct. The first swaps are logged with
+    both columns' plain scores and f64 dots. Any other difference raises."""
+    import torch
+    (s1, i1), (s0, i0) = got, want
+    err = (s0 - s1).abs().max().item()
+    bad = i0 != i1
+    if not bad.any():
+        return err, 0
+    r, j = bad.nonzero()[0].tolist()
+    first = (f"first at row {r} rank {j}: {i1[r, j].item()} ({s1[r, j].item()!r}) for "
+             f"{i0[r, j].item()} ({s0[r, j].item()!r})")
+    if not near_ties or int(bad.sum()) > 64:
+        raise AssertionError(f"{what}: {int(bad.sum())} ids differ, {first}")
+    qc = q.to(corpus.dtype)
+    far, logged = 0, 0
+    for r, j in bad.nonzero().tolist():
+        x, y = int(i1[r, j]), int(i0[r, j])
+        listed = i1[r].tolist()
+        x_first = y not in listed or j < listed.index(y)
+        cols = [x, y] if min(x, y) >= 0 else [0, 0]
+        plain = (qc[r:r + 1].float() @ corpus[:, cols].float() + mask[:, cols])[0].tolist()
+        exact = (qc[r].double() @ corpus[:, cols].double()).tolist()
+        live = min(x, y) >= 0 and bool((mask[0, cols] == 0).all())
+        ex, ey = exact if x_first else exact[::-1]
+        ix, iy = (x, y) if x_first else (y, x)
+        in_order = ex > ey or (ex == ey and ix < iy)
+        near = (live and abs(plain[0] - plain[1]) <= TOPK_NEAR_TIE
+                and (in_order or abs(ex - ey) <= TOPK_NEAR_TIE_F64))
+        far += not near
+        if logged < 4 or not near:
+            logged += 1
+            log(f"  {what}: row {r} rank {j}: kernel {x} for plain {y} "
+                f"({'near-tie' if near else 'NOT a near-tie'}); plain scores {plain}, "
+                f"f64 dots {exact}, the kernel lists {x if x_first else y} first")
+    distinct = bool((i1[bad.any(dim=1)].sort(dim=1).values.diff(dim=1) != 0).all())
+    if far or not distinct:
+        raise AssertionError(f"{what}: ids differ beyond near-ties ({far} far swaps; ids "
+                             f"distinct in each row: {distinct}), {first}")
+    return err, int(bad.sum())
+
+
+def device_events(fn) -> list:
+    """(name, start_us, end_us) of each device kernel, copy and memset one
+    call of `fn` launched, after a warm-up call (torch.profiler)."""
+    import torch
+    from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _device_intervals(prof)
+
+
+def ms_by_kernel(events) -> dict:
+    """Device ms of the rk_ kernels among `events`, summed by name."""
+    sums = {}
+    for name, start, end in events:
+        for found in re.findall(r"rk_\w+", name):
+            sums[found] = round(sums.get(found, 0.0) + (end - start) / 1e3, 4)
+    return sums
+
+
+def topk_readings(gen, kind: str) -> dict:
+    """#1 (kind "bf16") or #2 ("int8") at TOPK_SHAPES against its plain
+    version, on both merge routes (topk.MERGE_ROUTES: a second launch, or
+    the last block of each row group): at S1 and S2, b in {1, 8} and k in
+    {10, 20, 128} with query 0 on row 50's duplicates; at S3, b = 256 and
+    k = 10. #2's ids equal and scores equal. #1's scores within 1e-5, ids
+    equal at S1 and equal up to near-ties at S2 and S3 (topk_compare: its
+    tensor-core sums are taken in another order than cuBLAS's, so two
+    columns within about 1e-7 can swap), the swaps counted a shape. At S1
+    also eight queries over a corpus with every column masked (k = 20) and
+    with 50 live columns (k = 128), ids equal. Times at each shape's (b, k),
+    on the plan's route: eager and CUDA-graph ms, the plain version's ms,
+    #1's two-call yardstick (a bf16 matmul, then torch.topk, which does not
+    promise the lowest index on ties), the device launches of one call, the
+    bound, and the clocks after; and each route's graph ms, measured in the
+    order launch, last block, last block, launch (`merge_graph_ms`). Each
+    shape's index is freed before the next."""
+    import torch
+    from ragmeup_tpu_torch.ops import topk
+    err, shapes = 0.0, {}
+    for name, (b_t, n_cols, k_t) in TOPK_SHAPES.items():
+        c50, mask, corpus, c_scale = topk_index(gen, kind, n_cols)
+        kernel, plain = topk_calls(kind, corpus, c_scale)
+        cases = [(b_t, k_t)] if name == "S3" else [(b, k) for b in (1, 8) for k in (10, 20, 128)]
+        swaps = 0
+        for b, k in cases:
+            q = torch.randn(b, TOPK_D, generator=gen, device="cuda")
+            q[0] = c50
+            want = plain(q, k, mask)
+            for merge in topk.MERGE_ROUTES:
+                got = kernel(q, k, mask, merge)
+                torch.cuda.synchronize()
+                e, s = topk_compare(f"{kind} top-k {name} b={b} k={k} merge={merge}", q, corpus,
+                                    mask, got, want, near_ties=kind == "bf16" and name != "S1")
+                err, swaps = max(err, e), swaps + s
+        if name == "S1":
+            live50 = torch.full_like(mask, topk.NEG_INF)
+            live50[0, torch.randperm(n_cols, generator=gen, device="cuda")[:50]] = 0.0
+            for label, m, k in (("every column masked", torch.full_like(mask, topk.NEG_INF), 20),
+                                ("50 live columns", live50, 128)):
+                q = torch.randn(8, TOPK_D, generator=gen, device="cuda")
+                want = plain(q, k, m)
+                for merge in topk.MERGE_ROUTES:
+                    got = kernel(q, k, m, merge)
+                    torch.cuda.synchronize()
+                    e, _ = topk_compare(f"{kind} top-k {label} merge={merge}", q, corpus, m, got,
+                                        want, False)
+                    err = max(err, e)
+        q = torch.randn(b_t, TOPK_D, generator=gen, device="cuda")
+        run = lambda: kernel(q, k_t, mask)  # noqa: E731
+        events = device_events(run)
+        routes = {merge: [] for merge in topk.MERGE_ROUTES}
+        for merge in (*topk.MERGE_ROUTES, *reversed(topk.MERGE_ROUTES)):
+            routes[merge].append(graph_ms_or_none(f"top-k {kind} {name} merge={merge}",
+                                                  lambda: kernel(q, k_t, mask, merge)))
+        reading = {"b": b_t, "n": n_cols, "k": k_t, "ms": median_ms(run),
+                   "graph_ms": graph_ms_or_none(f"top-k {kind} {name}", run),
+                   "merge_graph_ms": routes,
+                   "plain_ms": median_ms(lambda: plain(q, k_t, mask)),
+                   "launches_a_call": len(events), "device_ms": ms_by_kernel(events),
+                   **bound(nbytes(q, corpus, mask, *([c_scale] if c_scale is not None else []))
+                           + b_t * k_t * 8, 2 * b_t * TOPK_D * n_cols, kind)}
+        if kind == "bf16":
+            qb = q.to(torch.bfloat16)
+            reading["yardstick_ms"] = median_ms(
+                lambda: torch.topk((qb @ corpus).float() + mask, k_t))
+            reading["near_tie_swaps"] = swaps
+        shapes[name] = stamped(reading)
+        log(f"  top-k {kind} {name}: {json.dumps(shapes[name])}")
+        del corpus, c_scale, mask, kernel, plain, q
+        free_card()
+    if err > (1e-5 if kind == "bf16" else 0.0):
+        raise AssertionError(f"top-k {kind} scores differ by {err}")
+    s1 = shapes["S1"]
+    return {"max_abs_err": err, "library_ms": None, "shapes": shapes,
+            **{key: s1[key] for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")},
+            "shape": f"b=1 d={TOPK_D} N={N_DOCS} k=20 {kind}"}
+
+
+def check_topk(gen) -> dict:
+    """#1 at TOPK_SHAPES (topk_readings), at most two device launches a
+    call, and an f32 corpus (the CUDA-core product) at S1 against its plain
+    version within 1e-5, ids equal. No one PyTorch call computes the
+    function: library_ms is None, the two-call yardstick is in `shapes`."""
+    import torch
+    from ragmeup_tpu_torch.ops import topk
+    result = topk_readings(gen, "bf16")
+    c50, mask, corpus, _ = topk_index(gen, "bf16", N_DOCS)
+    corpus = corpus.float()
+    q = torch.randn(8, TOPK_D, generator=gen, device="cuda")
+    q[0] = c50
+    err, _ = topk_compare("f32 top-k S1 b=8 k=20", q, corpus, mask,
+                          topk.dense_topk(q, corpus, 20, mask=mask),
+                          topk.dense_topk_plain(q, corpus, 20, mask=mask), False)
     if err > 1e-5:
-        raise AssertionError(f"topk scores differ by {err}")
-    q = torch.randn(1, d, generator=gen, device="cuda")
-    qb = q.to(torch.bfloat16)
-    return {"max_abs_err": err,
-            "ms": median_ms(lambda: topk.dense_topk(q, corpus_t, 20, mask=mask)),
-            "graph_ms": graph_ms_or_none("topk", lambda: topk.dense_topk(q, corpus_t, 20,
-                                                                         mask=mask)),
-            "plain_ms": median_ms(lambda: topk.dense_topk_plain(q, corpus_t, 20, mask=mask)),
-            # the library yardstick: torch.topk after the matmul
-            "library_ms": median_ms(lambda: torch.topk(
-                (qb @ corpus_t).float() + mask, 20)),
-            **bound(nbytes(q, corpus_t, mask) + 20 * 8, 2 * d * n_cols, "bf16"),
-            "shape": f"b=1 d={d} N={n_cols} k=20 bf16"}
+        raise AssertionError(f"f32 top-k scores differ by {err}")
+    too_many = {n: r["launches_a_call"] for n, r in result["shapes"].items()
+                if r["launches_a_call"] > 2}
+    if too_many:
+        raise AssertionError(f"top-k bf16 launches more than two kernels a call: {too_many}")
+    return dict(result, f32_max_abs_err=err)
 
 
-def check_topk_int8(gen, n_cols: int) -> dict:
-    """#2 at the int8 retrieval shapes: the corpus quantized per row as the
-    int8 index stores it, d = 384, the smoke corpus capacity, b in {1, 8},
-    k in {10, 20}. Ids must match exactly and scores be equal: the int8 dot
-    is exact in both versions and the epilogue rounds in the same order."""
-    import torch
-    from ragmeup_tpu_torch.ops import topk
-    d = 384
-    c, mask = topk_corpus(gen, n_cols, d)
-    codes, scales = topk.quantize_int8(c, axis=1)
-    corpus, c_scale = codes.T.contiguous(), scales.T.contiguous()
-    err = 0.0
-    for b in (1, 8):
-        q = torch.randn(b, d, generator=gen, device="cuda")
-        q[0] = c[50]
-        for k in (10, 20):
-            s1, i1 = topk.dense_topk_int8(q, corpus, c_scale, k, mask=mask)
-            s0, i0 = topk.dense_topk_int8_plain(q, corpus, c_scale, k, mask=mask)
-            torch.cuda.synchronize()
-            if not torch.equal(i0, i1):
-                raise AssertionError(f"topk_int8 ids differ at b={b} k={k}:\n{i0}\n{i1}")
-            err = max(err, (s0 - s1).abs().max().item())
-    if err != 0.0:
-        raise AssertionError(f"topk_int8 scores differ by {err}")
-    q = torch.randn(1, d, generator=gen, device="cuda")
-    return {"max_abs_err": err,
-            "ms": median_ms(lambda: topk.dense_topk_int8(q, corpus, c_scale, 20, mask=mask)),
-            "graph_ms": graph_ms_or_none("topk_int8", lambda: topk.dense_topk_int8(
-                q, corpus, c_scale, 20, mask=mask)),
-            "plain_ms": median_ms(lambda: topk.dense_topk_int8_plain(
-                q, corpus, c_scale, 20, mask=mask)),
-            "library_ms": None,  # no one PyTorch call scores int8 codes and ranks
-            **bound(nbytes(q, corpus, c_scale, mask) + 20 * 8, 2 * d * n_cols, "int8"),
-            "shape": f"b=1 d={d} N={n_cols} k=20 int8"}
+def check_topk_int8(gen) -> dict:
+    """#2 at TOPK_SHAPES (topk_readings): scores equal to the plain
+    version's (the int8 dot is exact and the epilogue rounds in the same
+    order), queries quantized inside the kernel, so a call is captured in a
+    CUDA graph (graph_ms must be a number) and launches at most two
+    kernels."""
+    result = topk_readings(gen, "int8")
+    for name, r in result["shapes"].items():
+        if r["graph_ms"] is None:
+            raise AssertionError(f"top-k int8 at {name}: the call was not captured in a graph")
+        if r["launches_a_call"] > 2:
+            raise AssertionError(f"top-k int8 at {name}: {r['launches_a_call']} launches a call")
+    return result
 
 
 DECODE_SHAPES = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
@@ -515,18 +683,7 @@ def int4_quantize_rows(x):
 def device_ms_by_kernel(fn) -> dict:
     """Device ms of the rk_ kernels one call of `fn` launched, summed by
     kernel name (torch.profiler): where a layer's time goes."""
-    import torch
-    from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    sums = {}
-    for name, start, end in _device_intervals(prof):
-        for found in re.findall(r"rk_\w+", name):
-            sums[found] = round(sums.get(found, 0.0) + (end - start) / 1e3, 4)
-    return sums
+    return ms_by_kernel(device_events(fn))
 
 
 def check_int4_a8_decode_short_and_routes(gen) -> dict:
@@ -1929,7 +2086,7 @@ def main() -> int:
     clock_before = clocks()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     results = {  # N_DOCS rows fill the dense index's capacity exactly
-        "topk": (stamped(check_topk(gen, N_DOCS)), "ragmeup_tpu_torch/csrc/topk.cu",
+        "topk": (stamped(check_topk(gen)), "ragmeup_tpu_torch/csrc/topk.cu",
                  "ragmeup_tpu/ops/topk.py:63"),
         "int8_matmul": (stamped(check_int8_matmul(gen)),
                         "ragmeup_tpu_torch/csrc/quant_matmul.cu",
@@ -1937,7 +2094,7 @@ def main() -> int:
         "flash_gqa": (stamped(check_flash(gen)),
                       "ragmeup_tpu_torch/csrc/flash_attention.cu",
                       "ragmeup_tpu/ops/attention.py:156"),
-        "topk_int8": (stamped(check_topk_int8(gen, N_DOCS)),
+        "topk_int8": (stamped(check_topk_int8(gen)),
                       "ragmeup_tpu_torch/csrc/topk.cu", "ragmeup_tpu/ops/topk.py:88"),
         "int4_matmul": (stamped(check_int4(gen, a8=False)),
                         "ragmeup_tpu_torch/csrc/quant_matmul_int4.cu",
@@ -1988,7 +2145,7 @@ def main() -> int:
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          **{key: r.get(key) for key in ("graph_ms", "library_graph_ms", "kernel_ms",
-                                        "kernel_graph_ms")}}
+                                        "kernel_graph_ms", "shapes")}}
         for name, (r, src, rep) in results.items()],
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
                           "after_kernel_checks": clock_after}}), flush=True)

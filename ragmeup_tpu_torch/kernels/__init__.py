@@ -121,11 +121,11 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             so = ctypes.CDLL(build())
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            so.rk_topk.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
-                                   vp, vp, vp, vp, vp]
+            so.rk_topk.argtypes = [vp, vp, i32, vp, i32, i32, i32, i32, i32, i32,
+                                   vp, vp, vp, vp, vp, vp]
             so.rk_topk.restype = i32
-            so.rk_topk_int8.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                        vp, vp, vp, vp, vp]
+            so.rk_topk_int8.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                        vp, vp, vp, vp, vp, vp]
             so.rk_topk_int8.restype = i32
             so.rk_int8_matmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                           vp, vp, vp]

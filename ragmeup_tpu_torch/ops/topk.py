@@ -6,8 +6,16 @@ Counterpart of ``ragmeup_tpu/ops/topk.py``. ``dense_topk`` scores
 writing the (b, N) score matrix to device memory (csrc/topk.cu). Queries
 are cast to the corpus dtype before the dot, as the TPU kernel does, so
 near-tie ids agree with it. ``dense_topk_int8`` does the same over an int8
-corpus with per-column scales: queries are quantized per row on the device
-and scored ``float(int32 dot) * q_scale * c_scale + mask``.
+corpus with per-column scales: queries are quantized per row
+(``quantize_int8``; inside the kernel on the card) and scored
+``float(int32 dot) * q_scale * c_scale + mask``.
+
+On the card a call is one launch of the scoring kernel over the grid
+``topk_plan`` gives (row groups of up to 64 queries, each over runs of
+128-column tiles, sized from the SM count), each block keeping its own
+top-k by threshold selection; the blocks' candidates are merged per query
+row by a second launch or, for a single query, by the last block to
+finish.
 
 Slots that no live column fills (k larger than the live rows) come out as
 ``(NEG_INF, -1)``: dead and padding columns carry the additive mask value
@@ -16,7 +24,7 @@ NEG_INF and never outrank an unfilled slot, exactly as in the TPU merge.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +33,70 @@ from ragmeup_tpu_torch import kernels
 
 NEG_INF = float(-1e30)
 MAX_K = 128
-_CHUNK = 1024  # columns per block in csrc/topk.cu
+_CHUNK = 1024  # the corpus's columns come in multiples of this (DenseIndex pads)
+
+# csrc/topk.cu's constants
+_TILE = 128                      # corpus columns a block scores at once (kTile)
+_RING_BYTES = 8 * 8192           # its cp.async ring (kStages x kStageBytes)
+_SMEM_BLOCK = 232448             # shared memory one block may take (227 KB)
+_SMEM_SM = 233472                # an SM's, 1 KB of it reserved per block
+_BLOCKS_PER_SM = 2               # the grid's target where two blocks fit
+_MAX_ROWS = 64                   # query rows a block (8 n-tiles of the mma)
+_ITEMSIZE = {"f32": 4, "bf16": 2, "int8": 1}
+
+
+MERGE_ROUTES = ("launch", "last_block")
+
+
+class TopkPlan(NamedTuple):
+    rows: int    # query rows a block: 8, 16, 32 or 64
+    groups: int  # row groups, ceil(b / rows)
+    blocks: int  # column blocks a row group, each a run of whole tiles
+    tiles: int   # 128-column tiles of the corpus
+    merge: str   # how the blocks' candidates meet, one of MERGE_ROUTES
+
+
+def topk_kp(k: int) -> int:
+    """Length of a block's ranked list and of its candidate buffer per
+    query row: k rounded up to 32, 64 or 128 (a warp's bitonic width)."""
+    return 32 if k <= 32 else (64 if k <= 64 else 128)
+
+
+def topk_smem(rows: int, d: int, k: int, kind: str) -> int:
+    """Shared memory of one scoring block (csrc/topk.cu score_smem): the
+    ring, the staged queries (d rounded to 64 plus a 16-byte pad a row),
+    the int8 row scales, a tile's scores (a row of 132 f32), and each
+    row's ranked list, buffer and count."""
+    d64 = -(-d // 64) * 64
+    return (_RING_BYTES + rows * (d64 * _ITEMSIZE[kind] + 16) + rows * 4
+            + rows * (_TILE + 4) * 4 + rows * topk_kp(k) * 16 + rows * 4)
+
+
+def topk_plan(n: int, b: int, sms: int, d: int = 384, k: int = 20,
+              kind: str = "bf16") -> TopkPlan:
+    """Grid of the scoring kernel: row groups of the fewest n-tiles that
+    hold b (at most 64 rows, fewer where the staged queries and lists
+    would not fit a block's shared memory), and per group enough column
+    blocks for ``_BLOCKS_PER_SM`` blocks an SM (one where only one fits),
+    never more than the corpus has tiles. A single query's candidates are
+    merged by the last block to finish ("last_block": no second launch);
+    more rows by a second launch, a block a row ("launch"), where the last
+    block would merge its group's rows one after another."""
+    rows = 8
+    while rows < min(b, _MAX_ROWS):
+        rows *= 2
+    while rows > 8 and topk_smem(rows, d, k, kind) > _SMEM_BLOCK:
+        rows //= 2
+    groups = -(-b // rows)
+    per_sm = max(1, min(_BLOCKS_PER_SM, _SMEM_SM // (topk_smem(rows, d, k, kind) + 1024)))
+    tiles = n // _TILE
+    blocks = max(1, min(tiles, -(-sms * per_sm // groups)))
+    return TopkPlan(rows, groups, blocks, tiles, "last_block" if b == 1 else "launch")
+
+
+def topk_block_tiles(plan: TopkPlan, p: int) -> Tuple[int, int]:
+    """The tiles [t0, t1) column block p scores (csrc/topk.cu)."""
+    return plan.tiles * p // plan.blocks, plan.tiles * (p + 1) // plan.blocks
 
 
 def rank_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,31 +128,62 @@ def dense_topk_plain(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
     return _rank_scores(s, k)
 
 
-def _dense_topk_cuda(queries, corpus_t, k, mask):
+# (device index, stream) -> zeroed words, one a row group, that the kernel's
+# last-block route takes tickets from and leaves zero; calls on one stream
+# run in order, so no two launches share a word at once. Outgrown buffers
+# stay referenced: a captured CUDA graph may still point at them.
+_TICKETS: dict = {}
+
+
+def _tickets(device, groups: int) -> torch.Tensor:
+    key = (device.index, kernels.stream_handle(device))
+    held = _TICKETS.setdefault(key, [])
+    if not held or held[-1].numel() < groups:
+        held.append(torch.zeros(max(groups, 64), dtype=torch.int32, device=device))
+    return held[-1]
+
+
+def _topk_launch(entry: str, counter: str, kind: str, q, corpus_t, k, args, merge=None):
+    """Plans the grid, allocates the candidates and the output, calls the
+    C entry ``entry`` with ``args`` (its arguments before b) and counts one
+    launch of ``counter``. ``merge`` (one of MERGE_ROUTES, by default the
+    plan's; chip_smoke.py times both) says how the blocks' candidates meet:
+    a second launch, or the last block of each row group to finish,
+    elected by a ticket."""
     d, n = corpus_t.shape
-    b = queries.shape[0]
+    b = q.shape[0]
+    plan = topk_plan(n, b, kernels.sm_count(q.device.index), d, k, kind)
+    merge = merge or plan.merge
+    cand = plan.blocks * b * k if plan.blocks > 1 else 1
+    cand_s = torch.empty(cand, dtype=torch.float32, device=q.device)
+    cand_i = torch.empty(cand, dtype=torch.int32, device=q.device)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    ticket = (_tickets(q.device, plan.groups).data_ptr()
+              if merge == "last_block" and plan.blocks > 1 else None)
+    err = getattr(kernels.lib(), entry)(
+        *args, b, d, n, k, plan.rows, plan.blocks, cand_s.data_ptr(), cand_i.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), ticket, kernels.stream_handle(q.device))
+    kernels.check(err, entry)
+    kernels.count(counter)
+    return out_s, out_i
+
+
+def _dense_topk_cuda(queries, corpus_t, k, mask, merge=None):
+    d, n = corpus_t.shape
     if corpus_t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dense_topk kernel: corpus dtype {corpus_t.dtype}")
     if d > 1024:
         raise ValueError(f"dense_topk kernel: d={d} > 1024")
-    q = queries.to(corpus_t.dtype).contiguous()
+    q = queries.float().contiguous()  # cast to the corpus dtype in the kernel
     mask = mask.reshape(-1).float().contiguous()
     if mask.numel() != n:
         raise ValueError(f"mask has {mask.numel()} columns, corpus {n}")
     kernels.require_cuda("dense_topk", q, corpus_t, mask)
-    nchunks = -(-n // _CHUNK)
-    ws_s = torch.empty(2 * b * nchunks * k, dtype=torch.float32, device=q.device)
-    ws_i = torch.empty(2 * b * nchunks * k, dtype=torch.int32, device=q.device)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    lib = kernels.lib()
-    err = lib.rk_topk(q.data_ptr(), corpus_t.data_ptr(), mask.data_ptr(), b, d,
-                      n, k, kernels.dtype_code(corpus_t.dtype), ws_s.data_ptr(),
-                      ws_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                      kernels.stream_handle(q.device))
-    kernels.check(err, "dense_topk")
-    kernels.count("topk")
-    return out_s, out_i
+    kind = "bf16" if corpus_t.dtype == torch.bfloat16 else "f32"
+    return _topk_launch("rk_topk", "topk", kind, q, corpus_t, k, (
+        q.data_ptr(), corpus_t.data_ptr(), kernels.dtype_code(corpus_t.dtype),
+        mask.data_ptr()), merge)
 
 
 def _check_topk_args(corpus_t: torch.Tensor, k: int) -> None:
@@ -100,8 +202,8 @@ def dense_topk(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
     """Fused scores = queries @ corpus_t + mask → top-k (scores f32 (b, k),
     indices i32 (b, k)), ties to the lowest index.
 
-    queries (b, d); corpus_t (d, N) with N a multiple of the kernel's
-    1024-column chunk; mask (1, N) additive f32 (0 live / NEG_INF dead and
+    queries (b, d); corpus_t (d, N) with N a multiple of 1024 (DenseIndex
+    pads to it); mask (1, N) additive f32 (0 live / NEG_INF dead and
     padding). CUDA tensors launch the kernel; CPU tensors take the plain
     version."""
     _check_topk_args(corpus_t, k)
@@ -146,34 +248,20 @@ def dense_topk_int8_plain(queries: torch.Tensor, corpus_i8: torch.Tensor,
     return _rank_scores(s, k)
 
 
-def _dense_topk_int8_cuda(queries, corpus_i8, c_scale, k, mask):
+def _dense_topk_int8_cuda(queries, corpus_i8, c_scale, k, mask, merge=None):
     d, n = corpus_i8.shape
-    b = queries.shape[0]
     if corpus_i8.dtype != torch.int8 or d > 1024:
         raise ValueError(f"dense_topk_int8 kernel: corpus int8 with d <= 1024 "
                          f"(got {corpus_i8.dtype}, d={d})")
-    q_i8, q_scale = quantize_int8(queries.float(), axis=1)
-    q_i8 = q_i8.contiguous()
-    q_scale = q_scale.reshape(-1).contiguous()
+    q = queries.float().contiguous()  # quantized per row inside the kernel
     c_scale = c_scale.reshape(-1).float().contiguous()
     mask = mask.reshape(-1).float().contiguous()
     if mask.numel() != n or c_scale.numel() != n:
         raise ValueError(f"mask ({mask.numel()}) and scales ({c_scale.numel()}) "
                          f"must have the corpus's {n} columns")
-    kernels.require_cuda("dense_topk_int8", q_i8, q_scale, corpus_i8, c_scale, mask)
-    nchunks = n // _CHUNK
-    ws_s = torch.empty(2 * b * nchunks * k, dtype=torch.float32, device=q_i8.device)
-    ws_i = torch.empty(2 * b * nchunks * k, dtype=torch.int32, device=q_i8.device)
-    out_s = torch.empty((b, k), dtype=torch.float32, device=q_i8.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=q_i8.device)
-    err = kernels.lib().rk_topk_int8(
-        q_i8.data_ptr(), q_scale.data_ptr(), corpus_i8.data_ptr(),
-        c_scale.data_ptr(), mask.data_ptr(), b, d, n, k, ws_s.data_ptr(),
-        ws_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        kernels.stream_handle(q_i8.device))
-    kernels.check(err, "dense_topk_int8")
-    kernels.count("topk_int8")
-    return out_s, out_i
+    kernels.require_cuda("dense_topk_int8", q, corpus_i8, c_scale, mask)
+    return _topk_launch("rk_topk_int8", "topk_int8", "int8", q, corpus_i8, k, (
+        q.data_ptr(), corpus_i8.data_ptr(), c_scale.data_ptr(), mask.data_ptr()), merge)
 
 
 def dense_topk_int8(queries: torch.Tensor, corpus_i8: torch.Tensor,
@@ -182,7 +270,7 @@ def dense_topk_int8(queries: torch.Tensor, corpus_i8: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8 fused top-k: corpus_i8 (d, N) int8 with per-column dequant
     scales c_scale (1, N) f32. Queries (b, d) float are quantized per row
-    on their device (``quantize_int8``); scores are
+    (``quantize_int8``; on the card inside the kernel); scores are
     ``float(q_i8 @ corpus_i8) * q_scale * c_scale + mask``. Same contract as
     ``dense_topk`` otherwise. CUDA tensors launch the kernel; CPU tensors
     take the plain version."""
