@@ -307,17 +307,30 @@ def topk_compare(what: str, q, corpus, mask, got, want, near_ties: bool) -> tupl
     return err, int(bad.sum())
 
 
-def device_events(fn) -> list:
+def traced(fn) -> list:
     """(name, start_us, end_us) of each device kernel, copy and memset one
-    call of `fn` launched, after a warm-up call (torch.profiler)."""
+    call of `fn` launched (torch.profiler). The profiler first runs a
+    warm-up step on a trivial kernel and traces only the next, the call:
+    started cold, the device tracing missed a call's first kernels on the
+    card (one call's first kernel, another's all)."""
     import torch
     from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in (lambda: torch.ones(1, device="cuda").add_(1), fn):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    return _device_intervals(prof)
+
+
+def device_events(fn) -> list:
+    """traced(fn) after a warm-up call of `fn`."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _device_intervals(prof)
+    return traced(fn)
 
 
 def ms_by_kernel(events) -> dict:
@@ -572,14 +585,8 @@ def int4pack_ms(calls, group: int, plain) -> tuple:
 
 
 def launched_kernels(fn) -> set:
-    """Names of the device kernels one call of `fn` launched, from a
-    torch.profiler trace."""
-    import torch
-    from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {name for name, _, _ in _device_intervals(prof)}
+    """Names of the device kernels one call of `fn` launched (traced)."""
+    return {name for name, _, _ in traced(fn)}
 
 
 def kernels_of(fn) -> list:
@@ -1525,42 +1532,85 @@ def check_moe_grouped_int4(gen) -> dict:
 
 
 def check_fused_mlp_int4(gen) -> dict:
-    """#6 at the Llama-3.1-8B MLP shape (h 4096, I 14336, group 128), m in
-    {1, 8}, bf16, and with f32 activations (m = 3, h 512, I 1024), on random
-    packed bytes and scales. Tolerance: one bf16 ulp of the largest output
-    (both versions sum in f32 and round once at the same three places; a
-    normalised input or act value may round the other way, far inside
-    it); f32 1e-5 of it. Times at m = 1 (93.5 MB of packed weights and
-    scales, beyond the 50 MB L2)."""
+    """#6 against its plain version at the Llama-3.1-8B MLP shape (h 4096,
+    I 14336, group 128) in bf16 at m = 1, 2, 3 and 8, and at h 512, I 1024
+    in bf16 and f32 at m = 3, on random packed bytes and scales. Tolerance:
+    one bf16 ulp of the largest output (both versions sum in f32 and round
+    at the same three places; a normalised input or act value may round the
+    other way, far inside it); f32 1e-5 of it. Each call is made twice and
+    must repeat bit for bit (the slices' partials are added in a fixed
+    order, no float atomics), and launch the plan's kernels: bf16 on the
+    tensor cores, two launches at m = 1 (each strip's last block sums it),
+    four at m > 1 (reduce launches); f32 the two scalar kernels. Times at m =
+    1 and 8 (93.5 MB of packed weights and scales, beyond the 50 MB L2):
+    eager and from a CUDA graph, each route in a graph, the device ms of
+    each kernel, and the yardstick, the port's unfused int4 MLP (RMSNorm,
+    #4 for gate, up and down, silu * u, the residual add) in a graph. The
+    parent commit's #6 is timed by tools/mlp_int4_times.py in the same
+    chip call."""
     import torch
+    from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import quant_matmul as qm
+    from ragmeup_tpu_torch.tools.mlp_int4_times import mlp_weights, unfused_mlp_int4
 
-    def weights(h, inter):
-        out = []
-        for k, n in ((h, inter), (h, inter), (inter, h)):
-            w, s = int4_experts(gen, 1, k, n, 128)
-            out += [w[0], s[0]]
-        return out
-    err = 0.0
+    want_kernels = {
+        "last_block": ["rk_mlp4_down_mma_kernel", "rk_mlp4_gate_up_mma_kernel"],
+        "reduce": ["rk_mlp4_down_mma_kernel", "rk_mlp4_down_reduce_kernel",
+                   "rk_mlp4_gate_up_mma_kernel", "rk_mlp4_gate_up_reduce_kernel"],
+        "scalar": ["rk_mlp4_down_kernel", "rk_mlp4_gate_up_kernel"]}
+
+    def held(what, x, nw, ws) -> tuple:
+        h, inter = x.shape[1], ws[0].shape[1]
+        plan = qm.fused_mlp_int4_plan(x.shape[0], h, inter, 512, 128, 512, 128, x.dtype,
+                                      kernels.sm_count(0))
+        got, again = qm.fused_mlp_int4(x, nw, *ws), qm.fused_mlp_int4(x, nw, *ws)
+        err = moe_compare(f"fused_mlp_int4 {what}", got, qm.fused_mlp_int4_plain(x, nw, *ws))
+        if not torch.equal(got, again):
+            raise AssertionError(f"fused_mlp_int4 {what}: a second call differs")
+        events = device_events(lambda: qm.fused_mlp_int4(x, nw, *ws))
+        names = sorted(found for name, _, _ in events for found in re.findall(r"rk_\w+", name))
+        if names != want_kernels[plan.route] or len(events) != len(names):
+            raise AssertionError(f"fused_mlp_int4 {what}: plan {tuple(plan)} launched "
+                                 f"{[name for name, _, _ in events]}")
+        log(f"  fused_mlp_int4 {what}: error {err}, plan {tuple(plan)}, {len(events)} launches, "
+            f"repeats equal")
+        return err, plan, events
+
     h, inter = 4096, 14336
-    ws = weights(h, inter)
+    ws = mlp_weights(gen, h, inter)
     nw = 1.0 + 0.1 * torch.randn(h, generator=gen, device="cuda")
-    for m in (1, 8):
+    err, shapes = 0.0, {}
+    for m in (1, 2, 3, 8):
         x = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
-        err = max(err, moe_compare(f"fused_mlp_int4 m={m}", qm.fused_mlp_int4(x, nw, *ws),
-                                   qm.fused_mlp_int4_plain(x, nw, *ws)))
-    small = weights(512, 1024)
-    x3 = torch.randn(3, 512, generator=gen, device="cuda")
+        e, plan, events = held(f"m={m}", x, nw, ws)
+        err = max(err, e)
+        if m not in (1, 8):
+            continue
+        call = lambda: qm.fused_mlp_int4(x, nw, *ws)  # noqa: E731
+        routes = {route: graph_ms_or_none(
+            f"fused_mlp_int4 m={m} {route}",
+            lambda: qm._fused_mlp_int4_cuda(x, nw, *ws, 1e-5, 512, plan=plan._replace(route=route)))
+            for route in ("last_block", "reduce")}
+        shapes[f"m={m}"] = stamped({
+            "plan": tuple(plan), "launches_a_call": len(events),
+            "device_ms": ms_by_kernel(events), "ms": median_ms(call, reps=10),
+            "graph_ms": graph_ms_or_none(f"fused_mlp_int4 m={m}", call),
+            "route_graph_ms": routes,
+            "yardstick_graph_ms": graph_ms_or_none(
+                f"unfused int4 MLP m={m}", lambda: unfused_mlp_int4(qm, x, nw, *ws)),
+            **bound(nbytes(*ws, nw) + 2 * nbytes(x), 2 * 3 * m * h * inter, "bf16")})
+        log(f"  fused_mlp_int4 m={m}: {json.dumps(shapes[f'm={m}'])}")
+    small = mlp_weights(gen, 512, 1024)
     nw3 = 1.0 + 0.1 * torch.randn(512, generator=gen, device="cuda")
-    moe_compare("fused_mlp_int4 f32", qm.fused_mlp_int4(x3, nw3, *small),
-                qm.fused_mlp_int4_plain(x3, nw3, *small))
+    x3 = torch.randn(3, 512, generator=gen, device="cuda")
+    err = max(err, held("h=512 I=1024 m=3 bf16", x3.to(torch.bfloat16), nw3, small)[0])
+    held("h=512 I=1024 m=3 f32", x3, nw3, small)
     x = torch.randn(1, h, generator=gen, device="cuda").to(torch.bfloat16)
-    return {"max_abs_err": err,
-            "ms": median_ms(lambda: qm.fused_mlp_int4(x, nw, *ws), reps=10),
-            "graph_ms": graph_ms_or_none("fused_mlp_int4", lambda: qm.fused_mlp_int4(x, nw, *ws)),
+    m1 = shapes["m=1"]
+    return {"max_abs_err": err, "shapes": shapes,
+            **{key: m1[key] for key in ("ms", "graph_ms", "bound_ms", "bound_by")},
             "plain_ms": median_ms(lambda: qm.fused_mlp_int4_plain(x, nw, *ws), reps=2),
             "library_ms": None,  # no one PyTorch call runs the fused int4 MLP
-            **bound(nbytes(*ws, nw) + 2 * nbytes(x), 2 * 3 * h * inter, "bf16"),
             "shape": "Llama-3.1-8B MLP at m=1: h 4096, I 14336, group 128, bf16"}
 
 

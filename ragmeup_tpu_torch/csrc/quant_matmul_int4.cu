@@ -63,7 +63,7 @@
 //     integer slices, then acc + float(p) * x_scale * tile_scale over the
 //     tiles in order, one f32 rounding per step, as the plain version does.
 
-#include "common.cuh"
+#include "int4_decode_mma.cuh"
 
 namespace {
 
@@ -521,14 +521,6 @@ __device__ __forceinline__ void consume_pair(const int4& wa, const int4& wb,
   }
 }
 
-__device__ __forceinline__ void load_scales16(const float* p, float (&s)[16]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
-    s[4 * i] = v.x; s[4 * i + 1] = v.y; s[4 * i + 2] = v.z; s[4 * i + 3] = v.w;
-  }
-}
-
 // The scalar kernel's body, shared by #4 and the gather: x's rows [0, m)
 // (m <= M) against one weight matrix w / gs, for the block's strip and
 // slice; x row r lands in row row0 + r of the output (rows_out rows) or of
@@ -689,14 +681,10 @@ __global__ void __launch_bounds__(kDecThreads) rk_moe_gather_int4_decode_kernel(
 //     the slice's partial (one slice: the output).
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaMaxXsBytes = 48 * 1024;       // 32 bytes of staged x a packed row
-
-struct KBlock {
-  int4 r0, r4;                                  // the lane's 16 bytes of rows j + c, j + c + 4
-};
 
 // The tensor-core kernel's body, shared by #4 and the gather; arguments as
-// int4_decode_body's (m <= 8)
+// int4_decode_body's (m <= 8). The stream itself (int4_mma_stream,
+// int4_decode_mma.cuh) is shared with #6's fused MLP too.
 template <bool kOutScaled>
 __device__ __forceinline__ void int4_decode_mma_body(
     const __nv_bfloat16* __restrict__ x, int m, const int8_t* __restrict__ w,
@@ -704,32 +692,20 @@ __device__ __forceinline__ void int4_decode_mma_body(
     int row0, int rows_out, float* __restrict__ partial, __nv_bfloat16* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t xa[];  // [k-block][x row][c][b0, b1]
   const int half = tile_k / 2;
-  const int per_tile = (half + k_slice - 1) / k_slice;
-  const int tile = blockIdx.y / per_tile;
-  const int pr0 = (blockIdx.y - tile * per_tile) * k_slice;
-  const int kblocks = min(k_slice, half - pr0) / 8;
-  const int klo = tile * tile_k + pr0;
+  const MmaSlice sl(tile_k, k_slice);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
   const int col = blockIdx.x * kDecColsPerBlock + warp * 128 + g * 16;
-  const int8_t* wp = w + ((size_t)tile * half + pr0 + c) * n + col;
+  const int8_t* wp = w + ((size_t)sl.tile * half + sl.pr0 + c) * n + col;
+  KBlock A;
+  mma_load(A, wp, n, 0, sl.kblocks);  // in flight while x is staged
 
-  auto load = [&](KBlock& bt, int kb) {
-    const bool in = kb < kblocks;
-    const int8_t* p = wp + (size_t)(8 * kb) * n;
-    bt.r0 = in ? ld_nc16(p) : make_int4(0, 0, 0, 0);
-    bt.r4 = in ? ld_nc16(p + (size_t)4 * n) : make_int4(0, 0, 0, 0);
-  };
-  KBlock A, B;
-  load(A, 0);  // in flight while x is staged
-
-  // bf16 index (kb * 8 + r) * 16 + 4 c' + 2 h + e holds x row r at packed
-  // row 8 kb + c' + 4 e of the low (h = 0) or high (h = 1) nibbles
+  // in the k order of int4_decode_mma.cuh
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(xa);
-  for (int i = threadIdx.x; i < kblocks * 128; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < sl.kblocks * 128; i += kMmaThreads) {
     const int kb = i / 128, r = (i / 16) % 8, p = i % 16;
     const int j = 8 * kb + p / 4 + 4 * (p % 2);
-    xs[i] = r < m ? x[(size_t)r * k + klo + ((p / 2) % 2) * half + j]
+    xs[i] = r < m ? x[(size_t)r * k + sl.klo + ((p / 2) % 2) * half + j]
                   : __float2bfloat16_rn(0.f);
   }
   __syncthreads();
@@ -739,69 +715,14 @@ __device__ __forceinline__ void int4_decode_mma_body(
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[i][e] = 0.f;
+  int4_mma_stream<kOutScaled>(xa, m, wp, gs + (size_t)sl.tile * (tile_k / group) * n + col, n,
+                              half, sl.pr0, group, sl.kblocks, A, d);
 
-  float slo[16], shi[16];
-  int lo_end = 0, hi_end = 0;
-  const size_t gpt = (size_t)(tile_k / group);
-  auto scales_for = [&](int j) {
-    if (j >= lo_end) {
-      const int gi = (pr0 + j) / group;
-      load_scales16(gs + ((size_t)tile * gpt + gi) * n + col, slo);
-      lo_end = (gi + 1) * group - pr0;
-    }
-    if (j >= hi_end) {
-      const int gi = (half + pr0 + j) / group;
-      load_scales16(gs + ((size_t)tile * gpt + gi) * n + col, shi);
-      hi_end = (gi + 1) * group - half - pr0;
-    }
-  };
-
-  auto use = [&](const KBlock& bt, int kb) {
-    if (kb >= kblocks) return;
-    if constexpr (!kOutScaled) scales_for(8 * kb);
-    const uint2 xb = g < m ? reinterpret_cast<const uint2*>(xa)[(kb * 8 + g) * 4 + c]
-                           : make_uint2(0u, 0u);
-    const uint32_t w0[4] = {(uint32_t)bt.r0.x, (uint32_t)bt.r0.y, (uint32_t)bt.r0.z,
-                            (uint32_t)bt.r0.w};
-    const uint32_t w4[4] = {(uint32_t)bt.r4.x, (uint32_t)bt.r4.y, (uint32_t)bt.r4.z,
-                            (uint32_t)bt.r4.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      // byte i (A row g) and byte 8 + i (A row g + 8) of rows j + c, j + c + 4
-      const int sel = (i % 4) | ((4 + i % 4) << 8);
-      const uint32_t t0 = __byte_perm(w0[i / 4], w4[i / 4], sel);
-      const uint32_t t8 = __byte_perm(w0[2 + i / 4], w4[2 + i / 4], sel);
-      uint32_t a[4] = {nibbles_bf16x2(t0), nibbles_bf16x2(t8), nibbles_bf16x2(t0 >> 4),
-                       nibbles_bf16x2(t8 >> 4)};
-      if constexpr (!kOutScaled) {
-        a[0] = scale_pair(a[0], slo[i]);
-        a[1] = scale_pair(a[1], slo[8 + i]);
-        a[2] = scale_pair(a[2], shi[i]);
-        a[3] = scale_pair(a[3], shi[8 + i]);
-      }
-      mma_bf16(d[i], a, xb.x, xb.y);
-    }
-  };
-  for (int kb = 0; kb < kblocks; kb += 2) {
-    load(B, kb + 1);       // in flight while `A` is consumed
-    use(A, kb);
-    load(A, kb + 2);       // in flight while `B` is consumed
-    use(B, kb + 1);
-  }
-
-  // x rows 2c and 2c + 1: d[i][0], d[i][1] are column i, d[i][2], d[i][3]
-  // column 8 + i of the lane's 16
   float v[2][16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    v[0][i] = d[i][0];
-    v[1][i] = d[i][1];
-    v[0][8 + i] = d[i][2];
-    v[1][8 + i] = d[i][3];
-  }
+  mma_rows(d, v);
   if (kOutScaled) {  // group == tile_k
     float sc[16];
-    load_scales16(gs + (size_t)tile * n + col, sc);
+    load_scales16(gs + (size_t)sl.tile * n + col, sc);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       v[0][i] = __fmul_rn(v[0][i], sc[i]);
@@ -853,18 +774,6 @@ __global__ void __launch_bounds__(kMmaThreads) rk_moe_gather_int4_mma_kernel(
   int4_decode_mma_body<kOutScaled>(x + (size_t)z * k, 1, w + e * (k / 2) * n,
                                    gs + e * (k / group) * n, k, n, tile_k, group, k_slice, z,
                                    slots, partial, out);
-}
-
-// whether the tensor-core kernel takes a bf16 call: 8-row k-blocks that
-// stay inside one scale group and x's slice within its shared memory
-// (ops/quant_matmul.py::int4_decode_tensor_cores)
-bool mma_takes(int tile_k, int group, int k_slice) {
-  return tile_k % 16 == 0 && (group == tile_k || group % 8 == 0) && k_slice % 8 == 0 &&
-         32 * k_slice <= kMmaMaxXsBytes;
-}
-
-int decode_slices(int k, int tile_k, int k_slice) {
-  return k / tile_k * ((tile_k / 2 + k_slice - 1) / k_slice);
 }
 
 template <typename T, int M, int kBatch>

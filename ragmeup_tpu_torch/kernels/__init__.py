@@ -171,7 +171,8 @@ def lib() -> ctypes.CDLL:
             so.rk_moe_grouped_int4.restype = i32
             so.rk_fused_mlp_int4.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                              i32, i32, i32, i32, i32, i32, f32,
-                                             i32, vp, vp, vp]
+                                             i32, i32, i32, i32, vp, vp, vp, vp,
+                                             vp, vp]
             so.rk_fused_mlp_int4.restype = i32
             so.rk_error_string.argtypes = [i32]
             so.rk_error_string.restype = ctypes.c_char_p
@@ -204,6 +205,20 @@ def sm_count(device_index: int) -> int:
     """SMs of the card the kernels launch on (the split plans read it)."""
     import torch
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def ticket_words(held: dict, device, words: int):
+    """At least ``words`` zeroed int32 words on ``device`` for the current
+    stream, from ``held`` ((device index, stream) -> buffers). A kernel's
+    last-block route takes atomic tickets from them and leaves them zero;
+    calls on one stream run in order, so no two launches share a word at
+    once. Outgrown buffers stay referenced: a captured CUDA graph may still
+    point at them."""
+    import torch
+    bufs = held.setdefault((device.index, stream_handle(device)), [])
+    if not bufs or bufs[-1].numel() < words:
+        bufs.append(torch.zeros(max(words, 64), dtype=torch.int32, device=device))
+    return bufs[-1]
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -32,14 +32,18 @@ rounding (csrc/quant_matmul_int4.cu):
 
 ``fused_mlp_int4``: ``x + down(silu(gate(rms(x))) * up(rms(x)))`` over packed
 int4 weights for at most 8 rows (csrc/fused_mlp_int4.cu), the JAX package's
-fused MLP. Like there, nothing in the port calls it: it is a building block.
+fused MLP. bf16 x runs both products on #4's tensor-core decode stream, each
+split into slices that fill the card once, the slices' partials added in
+slice order by the last block of each column strip or by reduce launches
+(``fused_mlp_int4_plan``); f32 x takes scalar kernels. As in the JAX
+package, nothing in the port calls it: it is a building block.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -523,7 +527,64 @@ def fused_mlp_int4_plain(x: torch.Tensor, norm_w: torch.Tensor, wg_p: torch.Tens
     return (xf + act @ dequant(wd_p, gs_d, tile_i, group_i)).to(dt)
 
 
-def _fused_mlp_int4_cuda(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, rms_eps, tile_i):
+# csrc/fused_mlp_int4.cu's tensor-core route: 512-column strips (a gate/up
+# block covers a strip of both), the blocks of each phase that reside on an
+# SM (gate/up 8 warps, down 4, at 128 registers a thread), and its routes by
+# C code; tools/mlp_int4_times.py --plans times the alternatives
+_MLP4_STRIP = 512
+_MLP4_RESIDENT = {"gate_up": 2, "down": 4}
+_MLP4_MIN_SLICE = 64
+_MLP4_LAST_BLOCK_ROWS = 1   # m above it sums the partials in reduce launches
+MLP4_ROUTES = {"scalar": 0, "last_block": 1, "reduce": 2}
+# (device index, stream) -> zeroed ticket words, a column strip each
+# (kernels.ticket_words)
+_MLP4_TICKETS: dict = {}
+
+
+class MlpInt4Plan(NamedTuple):
+    """How a fused int4 MLP call runs: ``route`` (a key of MLP4_ROUTES) and
+    the packed rows of a gate/up slice and of a down slice (each k-tile's
+    half cut into slices of that many, the last of a tile may be shorter;
+    0 on the scalar route)."""
+    route: str
+    ks_gu: int = 0
+    ks_dn: int = 0
+
+
+def mlp_int4_slice(k: int, n: int, tile: int, resident: int, sm_count: int) -> int:
+    """Packed rows of one slice of a (k, n) product on the tensor-core
+    route: as many slices a k-tile as keep the strips x slices blocks
+    within one wave of ``resident`` blocks an SM (at least one a tile), in
+    whole 8-row k-blocks, at least _MLP4_MIN_SLICE rows or the half tile."""
+    half = tile // 2
+    per_tile = max(1, resident * sm_count // (n // _MLP4_STRIP * (k // tile)))
+    k_slice = -(-(-(-half // per_tile)) // 8) * 8
+    return min(half, max(_MLP4_MIN_SLICE, k_slice))
+
+
+def fused_mlp_int4_plan(m: int, h: int, inter: int, tile_k: int, group_h: int,
+                        tile_i: int, group_i: int, dtype, sm_count: int) -> MlpInt4Plan:
+    """#6's launch plan. bf16 x with whole 512-column strips in both
+    products and scale groups of whole 8-row k-blocks takes the tensor-core
+    route: each phase in one wave (``mlp_int4_slice``), the slices'
+    partials added in slice order by each strip's last block (m <=
+    _MLP4_LAST_BLOCK_ROWS) or by reduce launches. Everything else takes the
+    scalar kernels."""
+    if (dtype == torch.bfloat16 and 1 <= m <= MAX_ROWS and h % _MLP4_STRIP == 0
+            and inter % _MLP4_STRIP == 0):
+        ks_gu = mlp_int4_slice(h, inter, tile_k, _MLP4_RESIDENT["gate_up"], sm_count)
+        ks_dn = mlp_int4_slice(inter, h, tile_i, _MLP4_RESIDENT["down"], sm_count)
+        if (int4_decode_tensor_cores(tile_k, group_h, ks_gu, dtype)
+                and int4_decode_tensor_cores(tile_i, group_i, ks_dn, dtype)):
+            route = "last_block" if m <= _MLP4_LAST_BLOCK_ROWS else "reduce"
+            return MlpInt4Plan(route, ks_gu, ks_dn)
+    return MlpInt4Plan("scalar")
+
+
+def _fused_mlp_int4_cuda(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, rms_eps, tile_i,
+                         plan: Optional[MlpInt4Plan] = None):
+    """The kernel under ``plan`` (by default ``fused_mlp_int4_plan``'s;
+    chip_smoke.py and tools/mlp_int4_times.py time others)."""
     m, h, inter, tile_k, group_h, group_i = _mlp_int4_shapes(
         x, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, tile_i)
     if m > MAX_ROWS or h % 64 or inter % 128:
@@ -536,14 +597,28 @@ def _fused_mlp_int4_cuda(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d, rms_eps,
     if any(t.dtype != torch.int8 for t in packed):
         raise ValueError("fused_mlp_int4 kernel: packed weights must be int8")
     kernels.require_cuda("fused_mlp_int4", x, nw, *packed, *scales)
+    if plan is None:
+        plan = fused_mlp_int4_plan(m, h, inter, tile_k, group_h, tile_i, group_i, x.dtype,
+                                   kernels.sm_count(x.device.index))
     act = torch.empty((m, inter), dtype=x.dtype, device=x.device)
     out = torch.empty((m, h), dtype=x.dtype, device=x.device)
+    # the partials (held in variables until the launch: a temporary's
+    # memory could be handed out again before it) and the ticket words
+    part_gu = part_dn = tickets = None
+    if plan.route != "scalar":
+        slices_gu = h // tile_k * -(-(tile_k // 2) // plan.ks_gu)    # int4_decode_slices
+        slices_dn = inter // tile_i * -(-(tile_i // 2) // plan.ks_dn)
+        part_gu = torch.empty((slices_gu, 2, m, inter), dtype=torch.float32, device=x.device)
+        part_dn = torch.empty((slices_dn, m, h), dtype=torch.float32, device=x.device)
+        if plan.route == "last_block":
+            tickets = kernels.ticket_words(_MLP4_TICKETS, x.device, (inter + h) // _MLP4_STRIP)
     err = kernels.lib().rk_fused_mlp_int4(
         x.data_ptr(), nw.data_ptr(), wg_p.data_ptr(), scales[0].data_ptr(),
         wu_p.data_ptr(), scales[1].data_ptr(), wd_p.data_ptr(), scales[2].data_ptr(),
         m, h, inter, tile_k, group_h, tile_i, group_i, rms_eps,
-        kernels.dtype_code(x.dtype), act.data_ptr(), out.data_ptr(),
-        kernels.stream_handle(x.device))
+        kernels.dtype_code(x.dtype), MLP4_ROUTES[plan.route], plan.ks_gu, plan.ks_dn,
+        *(t if t is None else t.data_ptr() for t in (part_gu, part_dn, tickets)),
+        act.data_ptr(), out.data_ptr(), kernels.stream_handle(x.device))
     kernels.check(err, "fused_mlp_int4")
     kernels.count("fused_mlp_int4")
     return out
@@ -556,8 +631,8 @@ def fused_mlp_int4(x: torch.Tensor, norm_w: torch.Tensor, wg_p: torch.Tensor,
     """x (m, h) → ``x + down(silu(gate(rms(x))) * up(rms(x)))`` with packed
     int4 weights: gate/up (h/2, inter) with scales (h/group_h, inter), down
     (inter/2, h) packed per ``tile_i`` rows with scales (inter/group_i, h),
-    the groups ``int4_tiling``'s. CUDA tensors launch the kernel (m ≤ 8);
-    CPU tensors take its plain version."""
+    the groups ``int4_tiling``'s. CUDA tensors launch the kernel (m ≤ 8:
+    ``fused_mlp_int4_plan``'s route); CPU tensors take its plain version."""
     if x.is_cuda:
         return _fused_mlp_int4_cuda(x, norm_w, wg_p, gs_g, wu_p, gs_u, wd_p, gs_d,
                                     rms_eps, tile_i)

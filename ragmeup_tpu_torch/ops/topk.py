@@ -129,18 +129,12 @@ def dense_topk_plain(queries: torch.Tensor, corpus_t: torch.Tensor, k: int,
 
 
 # (device index, stream) -> zeroed words, one a row group, that the kernel's
-# last-block route takes tickets from and leaves zero; calls on one stream
-# run in order, so no two launches share a word at once. Outgrown buffers
-# stay referenced: a captured CUDA graph may still point at them.
+# last-block route takes tickets from (kernels.ticket_words)
 _TICKETS: dict = {}
 
 
 def _tickets(device, groups: int) -> torch.Tensor:
-    key = (device.index, kernels.stream_handle(device))
-    held = _TICKETS.setdefault(key, [])
-    if not held or held[-1].numel() < groups:
-        held.append(torch.zeros(max(groups, 64), dtype=torch.int32, device=device))
-    return held[-1]
+    return kernels.ticket_words(_TICKETS, device, groups)
 
 
 def _topk_launch(entry: str, counter: str, kind: str, q, corpus_t, k, args, merge=None):

@@ -8,8 +8,11 @@ Builds the kernel library (``kernels.build()``), disassembles it with
 ``rk_int4_decode_kernel`` (csrc/quant_matmul_int4.cu: activation type,
 rows M, batch, route) and of ``rk_int4_decode_mma_kernel`` (bf16, by
 route), of the expert gather's kernels on their bodies
-(``rk_moe_gather_int4_decode_kernel``, ``rk_moe_gather_int4_mma_kernel``)
-and of the W4A8 decode kernel ``rk_int4_a8_decode_kernel``, the
+(``rk_moe_gather_int4_decode_kernel``, ``rk_moe_gather_int4_mma_kernel``),
+of the fused int4 MLP's kernels on the same stream
+(``rk_mlp4_gate_up_mma_kernel``, ``rk_mlp4_down_mma_kernel``,
+csrc/fused_mlp_int4.cu) and of the W4A8 decode kernel
+``rk_int4_a8_decode_kernel``, the
 instructions of its code by opcode. Every packed byte a W4A16 kernel
 consumes passes through exactly one bf16 HADD2/HFMA2 (``nibbles_bf16x2``
 turns the two nibbles at one position of two packed rows into bf16
@@ -41,7 +44,8 @@ from ragmeup_tpu_torch import kernels
 
 KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel",
            "rk_moe_gather_int4_decode_kernel", "rk_moe_gather_int4_mma_kernel",
-           "rk_int4_a8_decode_kernel", "rk_moe_stack_wgmma_kernel")
+           "rk_int4_a8_decode_kernel", "rk_moe_stack_wgmma_kernel",
+           "rk_mlp4_gate_up_mma_kernel", "rk_mlp4_down_mma_kernel")
 INTEGER_KERNELS = ("rk_int4_a8_decode_kernel",)   # packed bytes counted by IMMA
 STACK_KERNELS = ("rk_moe_stack_wgmma_kernel",)    # int8 weights: 2 a bf16 pair
 BYTES_PER_IMMA = 8

@@ -1051,3 +1051,213 @@ def test_sass_count_reads_a_listing():
     assert [addr for addr, _, _ in loop] == [0x20, 0x30, 0x40]
     assert sass_count.summarize(sass_count.opcode_counts(loop))[
         "conversions_per_packed_byte"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# #6: the fused int4 MLP on #4's tensor-core stream
+# ---------------------------------------------------------------------------
+
+MLP_8B = (4096, 14336)
+MLP_TINY = (512, 1024)
+
+
+def _mlp_plan(m, h, inter, sms, dtype=torch.bfloat16):
+    return qm.fused_mlp_int4_plan(m, h, inter, 512, 128, 512, 128, dtype, sms)
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_mlp_int4_plan_covers_every_packed_row(m, sms):
+    """Each phase's slices cover every packed row of its matrix once, in
+    order, in whole 8-row k-blocks inside one 512-row packing tile; gate/up
+    slices fit the kernel's one staging item a thread (at most 256 rows);
+    each phase's blocks (512-column strips x slices) fill one wave of
+    resident blocks where a slice a tile allows it; the last block of a
+    strip sums it at m = 1, reduce launches above."""
+    h, inter = MLP_8B
+    plan = _mlp_plan(m, h, inter, sms)
+    assert plan.route == ("last_block" if m == 1 else "reduce")
+    assert plan.ks_gu <= 256
+    for k, n, ks, resident in ((h, inter, plan.ks_gu, qm._MLP4_RESIDENT["gate_up"]),
+                               (inter, h, plan.ks_dn, qm._MLP4_RESIDENT["down"])):
+        half = 256
+        assert ks % 8 == 0 and 64 <= ks <= half
+        ranges = qm.int4_decode_slices(k, 512, ks)
+        assert ranges[0][0] == 0 and ranges[-1][1] == k // 2
+        for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+            assert a1 == b0
+        for p0, p1 in ranges:
+            assert p0 // half == (p1 - 1) // half and (p1 - p0) % 8 == 0
+            assert p1 - p0 == ks or p1 % half == 0
+        blocks = n // 512 * len(ranges)
+        per_tile = len(ranges) // (k // 512)
+        assert per_tile == 1 or blocks <= resident * sms
+        # one more slice a tile would have left the wave, unless the slices
+        # are already at their 64-row floor
+        more = n // 512 * (k // 512) * (per_tile + 1)
+        assert more > resident * sms or ks == 64
+
+
+def test_mlp_int4_plan_on_an_h100():
+    """The 8B MLP on 132 SMs: gate/up in slices of 256 rows (one a k-tile:
+    28 x 8 = 224 blocks of 8 warps, two can reside an SM), down in 128 (8 x
+    56 = 448 blocks of 4 warps, four an SM); f32 and shapes without whole
+    512-column strips take the scalar kernels."""
+    for m in (1, 2, 8):
+        plan = _mlp_plan(m, *MLP_8B, H100_SMS)
+        assert plan == qm.MlpInt4Plan("last_block" if m == 1 else "reduce", 256, 128)
+        assert len(qm.int4_decode_slices(4096, 512, plan.ks_gu)) == 8
+        assert len(qm.int4_decode_slices(14336, 512, plan.ks_dn)) == 56
+    assert _mlp_plan(3, *MLP_8B, H100_SMS, torch.float32).route == "scalar"
+    assert qm.fused_mlp_int4_plan(1, 768, 1024, 768, 128, 512, 128, torch.bfloat16,
+                                  H100_SMS).route == "scalar"
+    assert qm.fused_mlp_int4_plan(9, *MLP_8B, 512, 128, 512, 128, torch.bfloat16,
+                                  H100_SMS).route == "scalar"
+
+
+def _mlp_case(m, seed=0):
+    h, inter = MLP_TINY
+    rng = np.random.default_rng(100 + m + seed)
+    x = rng.standard_normal((m, h)).astype(np.float32)
+    nw = (1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    ws = []
+    for k, n in ((h, inter), (h, inter), (inter, h)):
+        ws.append(rng.integers(-128, 128, (k // 2, n)).astype(np.int8))
+        ws.append((rng.random((k // 128, n)) * 2e-3 + 1e-3).astype(np.float32))
+    return x, nw, ws
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_jax(m, dtype):
+    x, nw, ws = _mlp_case(m)
+    jdt = DTYPES[dtype][1]
+    out = jqm.fused_mlp_int4(jnp.asarray(x, jdt), jnp.asarray(nw), *map(jnp.asarray, ws),
+                             interpret=True)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _split_sums(x, w_p, gs, ranges):
+    """f32 partials of x @ dequant(w_p, gs) (each weight f32(q) * scale
+    rounded to x's dtype), one a slice of packed rows (p0, p1), each the sum
+    of its 8-row k-blocks in order (low and high nibbles), as the stream
+    sums them; the partials in slice order."""
+    k = x.shape[1]
+    half = 256
+    wd = qm.unpack_int4(w_p, 512).float()
+    wd = (wd * gs.float().repeat_interleave(k // gs.shape[0], dim=0)).to(x.dtype).float()
+    xf = x.float()
+    parts = []
+    for p0, p1 in ranges:
+        t = p0 // half
+        lo = t * 512 + p0 - t * half
+        part = None
+        for j0 in range(0, p1 - p0, 8):
+            cols = list(range(lo + j0, lo + j0 + 8)) + list(range(lo + half + j0,
+                                                                  lo + half + j0 + 8))
+            run = xf[:, cols] @ wd[cols]
+            part = run if part is None else part + run
+        parts.append(part)
+    return parts
+
+
+def _fused_mlp_model(x, nw, ws, ks_gu, ks_dn):
+    """The tensor-core route's order of sums: RMSNorm in f32 rounded to x's
+    dtype; gate and up slice by slice over ``ks_gu`` packed rows, their
+    partials added in slice order, then silu(g) * u rounded to x's dtype;
+    down slice by slice over ``ks_dn``, the partials in slice order, then x
+    + down in f32, rounded once (the same whichever block or launch adds
+    the partials)."""
+    h, inter = x.shape[1], ws[0].shape[1]
+    xf = x.float()
+    xn = (xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-5)
+          * nw.float()).to(x.dtype)
+
+    def total(parts):
+        acc = None
+        for part in parts:
+            acc = part if acc is None else acc + part
+        return acc
+    g = total(_split_sums(xn, ws[0], ws[1], qm.int4_decode_slices(h, 512, ks_gu)))
+    u = total(_split_sums(xn, ws[2], ws[3], qm.int4_decode_slices(h, 512, ks_gu)))
+    act = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    d = total(_split_sums(act, ws[4], ws[5], qm.int4_decode_slices(inter, 512, ks_dn)))
+    return (xf + d).to(x.dtype)
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 3])
+def test_fused_mlp_model_matches_plain_and_jax(m, dtype, sms):
+    """The tensor-core route's sums under the plan (bf16's slices; f32 runs
+    the same order of sums) against ``fused_mlp_int4_plain`` and the JAX
+    kernel in interpret mode, at h 512, I 1024: f32 within 2e-5 of the
+    largest output, bf16 within one bf16 ulp of it."""
+    x, nw, ws = _mlp_case(m)
+    tdt = DTYPES[dtype][0]
+    tx, tnw = torch.from_numpy(x).to(tdt), torch.from_numpy(nw)
+    tws = list(map(torch.from_numpy, ws))
+    plan = _mlp_plan(m, *MLP_TINY, sms)
+    got = _fused_mlp_model(tx, tnw, tws, plan.ks_gu, plan.ks_dn)
+    assert got.dtype == tdt and got.shape == (m, MLP_TINY[0])
+    _close(got, qm.fused_mlp_int4_plain(tx, tnw, *tws).float().numpy(), dtype)
+    _close(got, _mlp_jax(m, dtype), dtype)
+
+
+def test_fused_mlp_staging_is_the_streams_k_order():
+    """#6 stages x an item (k-block, row) at a time from two 16-byte loads:
+    word 2c' + h of the item packs values c' and c' + 4 of nibble h's load
+    (__byte_perm 0x5410 / 0x7632 of words 0 and 2, 1 and 3). That is #4's
+    staged order: bf16 index (kb * 8 + r) * 16 + 4c' + 2h + e holds x at
+    packed row 8 kb + c' + 4e of nibble h."""
+    def byte_perm(a, b, sel):
+        src = [(a >> (8 * i)) & 0xFF for i in range(4)] + [(b >> (8 * i)) & 0xFF for i in range(4)]
+        return sum(src[(sel >> (4 * i)) & 0xF] << (8 * i) for i in range(4))
+
+    for hh in (0, 1):
+        vals = [1000 * hh + j for j in range(8)]             # bf16 value j of the load
+        v = [vals[2 * q] | (vals[2 * q + 1] << 16) for q in range(4)]
+        words = {hh: byte_perm(v[0], v[2], 0x5410), 2 + hh: byte_perm(v[0], v[2], 0x7632),
+                 4 + hh: byte_perm(v[1], v[3], 0x5410), 6 + hh: byte_perm(v[1], v[3], 0x7632)}
+        for w, word in words.items():
+            for e, value in enumerate((word & 0xFFFF, word >> 16)):
+                index = 2 * w + e                            # bf16 index in the item
+                c_, h_, e_ = index // 4, (index // 2) % 2, index % 2
+                assert h_ == hh and value == vals[c_ + 4 * e_]
+
+
+@pytest.mark.parametrize("m,dtype,route", [(1, torch.bfloat16, 1), (3, torch.bfloat16, 2),
+                                           (8, torch.bfloat16, 2), (3, torch.float32, 0)])
+def test_fused_mlp_wrapper_passes_the_plan(m, dtype, route, monkeypatch):
+    """The wrapper calls rk_fused_mlp_int4 once with the plan's route and
+    slices, partials sized to the slices, ticket words only on the
+    last-block route (zeroed, kept per stream and reused), and counts one
+    launch."""
+    rec = _EntryRecorder()
+    monkeypatch.setattr(kernels, "lib", lambda: rec)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(qm, "_MLP4_TICKETS", {})
+    kernels.reset_counts()
+    h, inter = MLP_8B
+    x = torch.zeros(m, h, dtype=dtype)
+    ws = []
+    for k, n in ((h, inter), (h, inter), (inter, h)):
+        ws += [torch.zeros(k // 2, n, dtype=torch.int8), torch.ones(k // 128, n)]
+    for _ in range(2):
+        out = qm._fused_mlp_int4_cuda(x, torch.ones(h), *ws, 1e-5, 512)
+        assert out.shape == (m, h) and out.dtype == dtype
+    assert [name for name, _ in rec.calls] == ["rk_fused_mlp_int4"] * 2
+    args = rec.calls[0][1]
+    plan = _mlp_plan(m, h, inter, H100_SMS, dtype)
+    assert args[8:16] == (m, h, inter, 512, 128, 512, 128, 1e-5)
+    assert args[16:20] == (int(dtype == torch.bfloat16), route, plan.ks_gu, plan.ks_dn)
+    parts, tickets = args[20:22], args[22]
+    assert (parts == (None, None)) == (route == 0)
+    assert (tickets is None) == (route != 1)
+    if route == 1:
+        (held,) = qm._MLP4_TICKETS.values()
+        assert len(held) == 1 and held[0].numel() >= (inter + h) // 512
+        assert (held[0] == 0).all() and rec.calls[1][1][22] == tickets == held[0].data_ptr()
+    assert kernels.launch_counts()["fused_mlp_int4"] == 2
+    kernels.reset_counts()
