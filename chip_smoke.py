@@ -41,6 +41,37 @@ Phases (any failure raises and exits non-zero):
    from four threads, then a follow-up with history. Prints the backend's
    TTFT and tok/s percentiles and the engine's wave timings; checks the
    prefix-cache hits and that every page is free or registered after stop.
+6b. system, greedy ("greedy", right after phase 6, on phase 4's int8
+   decoder and bf16 index, before it is freed): speculative decoding.
+   Three chat() requests at temperature 0 ("greedy": generate_speculative's
+   verify forwards launch #3 at m = 8, counted by a spy on the decoder's
+   int8_matmul; prints verify forwards, accepted drafts and tokens a
+   forward); one 8-token verify forward after 1,000 and after 24 tokens
+   against 8 decode steps and against a prefill of the same tokens (cosine
+   SPEC_COS and |logit difference| SPEC_LOGIT_TOL, which the same forward
+   with its in-chunk mask dropped or its positions off by one must fail);
+   a ~1,000-token prompt through generate(speculative="auto") and
+   (speculative="off"), 32 tokens at repetition penalty 1.1, which must be
+   equal but for a first difference where the plain path's penalized
+   margin between the two tokens is at most twice the verify forward's
+   largest |logit difference| from the decode steps; forced acceptance
+   (the final norm's weight zeroed, so every logit is 0 and the argmax
+   token 0; a prompt ending in 16 zeros): 32 tokens in at most 5 verify
+   forwards, and one engine request done in its first spec wave of 8
+   iterations where plain 8-step waves take 4; the fused generate loop
+   against the host loop on a sampled reply ending in EOS (equal tokens;
+   the forwards each ran after EOS); the paged engine at temperature 0
+   ("greedy batched": four first turns at once, then a follow-up, through
+   speculative waves and the adaptive gate, which must have dispatched two
+   spec waves before it demotes; #9's chunk mode must launch from the spec
+   waves); blockwise
+   attention provenance (span_attention_mass over qk_forward) against the
+   last layer of attention_forward on a 1,024-token thread, each span's
+   mass within SPAN_TOL (relative), and again with the queries scaled so
+   that attention is far from uniform, where a dropped sm_scale and a
+   dropped causal mask must miss SPAN_TOL; one chat() with
+   provenance_method="attention" through the blockwise branch, whose
+   scores must sum to 1.
 7. system, sparse-MoE path: the int4 decoders are freed; a
    Mixtral-8x7B-shaped int8 decoder (8 experts, top-2; 47.5 GB) with the
    bf16 index of phase 4 answers three chat() requests ("moe": decode
@@ -59,8 +90,8 @@ Phases (any failure raises and exits non-zero):
    ("moe int4 W4A8": #5 and #13's output-scaled route). #6 (the fused int4
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
-Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the ten
-runs of requests resets the kernels' launch counts just before its
+Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the
+twelve runs of requests resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path must
 have launched.
 
@@ -72,6 +103,7 @@ and after phase 3, then the card's name and power limit, and last
 from __future__ import annotations
 
 import argparse
+import collections
 import csv
 import gc
 import json
@@ -312,17 +344,25 @@ def traced(fn) -> list:
     call of `fn` launched (torch.profiler). The profiler first runs a
     warm-up step on a trivial kernel and traces only the next, the call:
     started cold, the device tracing missed a call's first kernels on the
-    card (one call's first kernel, another's all)."""
+    card (one call's first kernel, another's all). Every traced call
+    launches a kernel, so a trace with no device event at all is a miss of
+    the tracing and is taken again, up to three times in all (a warm trace
+    came back empty once, in a #6 route check)."""
     import torch
     from ragmeup_tpu_torch.tools.decode_profile import _device_intervals
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for step in (lambda: torch.ones(1, device="cuda").add_(1), fn):
-            step()
-            torch.cuda.synchronize()
-            prof.step()
-    return _device_intervals(prof)
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                 repeat=1)) as prof:
+            for step in (lambda: torch.ones(1, device="cuda").add_(1), fn):
+                step()
+                torch.cuda.synchronize()
+                prof.step()
+        events = _device_intervals(prof)
+        if events:
+            break
+    return events
 
 
 def device_events(fn) -> list:
@@ -951,7 +991,9 @@ def check_paged(gen) -> dict:
     128-token pages, 16-page tables over a 512-page pool unless stated).
     Decode: 8 sequences of 1 to 2048 tokens; one of 2048; four of 1024 to
     2048 (the batched run's shape). Chunk-append: a 128-token chunk for 1
-    and for 4 sequences after prefixes of 0 to 1920 tokens. Both modes also
+    and for 4 sequences after prefixes of 0 to 1920 tokens; the spec waves'
+    8-token chunk for 4 sequences after 300 to 2040 tokens, and for 8 rows
+    of which 4 are pad rows (length 8 on a shared trash page). Both modes also
     with window 512, with softcap 30, and over 16-token pages (128-page
     tables). Tolerance, element by element: two bf16 ulps of the largest
     |output| of the element's own (sequence, query, head) row (both versions
@@ -986,11 +1028,17 @@ def check_paged(gen) -> dict:
                 f"{err[at].item()}, beyond two bf16 ulps of its row's largest output")
         return err.max().item()
 
-    def case(label, b, lengths, q_len, ps=128, mp=16, timed=False, **kw):
+    def case(label, b, lengths, q_len, ps=128, mp=16, timed=False, pads=0, **kw):
         """One check against the plain version; with `timed`, the kernel's
-        and the plain version's times, the bound and the split count."""
+        and the plain version's times, the bound and the split count. The
+        last `pads` rows are a spec wave's pad rows: a table of page 0 but
+        for one trash page first, shared by them all."""
         q, k, v, idx, lens = paged_inputs(gen, b, lengths, q_len, ps=ps, mp=mp,
                                           P=max(512, b * mp))
+        if pads:
+            trash = idx[b - 1, 0].item()
+            idx[b - pads:] = 0
+            idx[b - pads:, 0] = trash
         if q_len == 1:
             q = q[:, 0].contiguous()
             fn, plain = pa.paged_attention, pa.paged_attention_plain
@@ -1031,6 +1079,14 @@ def check_paged(gen) -> dict:
         b = len(prefixes)
         chunk[b] = case(f"b={b}", b, [p + 128 for p in prefixes], 128, timed=True)[0]
         chunk[b]["prefixes"] = prefixes
+    # the spec waves' shape: 8-token chunks, 32 query rows in a 64-row tile
+    spec = [300, 777, 1500, 2040]
+    chunk["q8"] = case("q_len=8 b=4", 4, [p + 8 for p in spec], 8, timed=True)[0]
+    chunk["q8"]["prefixes"] = spec
+    chunk["q8 pads"] = case("q_len=8 b=8, 4 pad rows", 8,
+                            [p + 8 for p in spec] + [8] * 4, 8, pads=4)[0]
+    log(f"  paged_attention_chunk q_len=8 b=8 with 4 pad rows: error "
+        f"{chunk['q8 pads']['max_abs_err']}, {chunk['q8 pads']['splits']} splits")
     variants = {}
     for label, kw in (("window=512", {"window": 512}), ("softcap=30", {"softcap": 30.0}),
                       ("ps=16", {"ps": 16, "mp": 128})):
@@ -1043,10 +1099,12 @@ def check_paged(gen) -> dict:
     decode["max_abs_err"] = max(decode["max_abs_err"], decode["b1"]["max_abs_err"],
                                 decode["b4"]["max_abs_err"], err)
     chunk_entry = dict(chunk[4], max_abs_err=max(chunk[1]["max_abs_err"],
-                                                 chunk[4]["max_abs_err"], err),
+                                                 chunk[4]["max_abs_err"],
+                                                 chunk["q8"]["max_abs_err"],
+                                                 chunk["q8 pads"]["max_abs_err"], err),
                        library_ms=None,
                        shape="q_len=128 b=4 nh=32 nkv=8 hd=128 ps=128 bf16",
-                       b1=chunk[1])
+                       b1=chunk[1], q8=chunk["q8"], q8_pads=chunk["q8 pads"])
     return {"decode": decode, "chunk": chunk_entry}
 
 
@@ -1811,6 +1869,8 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "int4 W4A8": ("topk_int8", "int4_matmul_a8", "flash_gqa"),
                 "batched": ("topk", "int8_matmul", "paged_attention",
                             "paged_attention_chunk"),
+                "greedy": ("topk", "int8_matmul", "flash_gqa"),
+                "greedy batched": ("topk", "int8_matmul", "paged_attention_chunk"),
                 "moe": ("topk", "int8_matmul", "flash_gqa", "moe_gather"),
                 "moe grouped": ("moe_grouped_stack", "moe_gather"),
                 "moe batched": ("paged_attention", "paged_attention_chunk",
@@ -1987,6 +2047,510 @@ def drive_batched(system, queries, label: str = "batched") -> dict:
             "waves": summary, "prefix_hits": cache.prefix_hits, "rows": engine._B_hwm}
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: greedy decoding, speculative
+# ---------------------------------------------------------------------------
+
+SPAN_TOL = 0.02  # blockwise against full-matrix span masses, relative
+PEAKED_STD = 2.0  # score standard deviation of peaked_span_mass's scaled queries
+SPEC_COS = 0.99  # a verify row against the prefill's at its position (check_decoder's bar)
+# |logit difference| of a verify forward from prefill and decode steps: twice
+# the largest sound reading of the 8B int8 decoder on an H100 (PERF.md §6)
+SPEC_LOGIT_TOL = 1.0
+
+
+def count_int8_rows():
+    """A spy on the name models/decoder.py calls #3 by: records the rows m
+    of every call. Returns (rows, restore)."""
+    from ragmeup_tpu_torch.models import decoder
+    rows = []
+    real = decoder.int8_matmul
+
+    def spy(x, *args, **kwargs):
+        rows.append(x.shape[0])
+        return real(x, *args, **kwargs)
+    decoder.int8_matmul = spy
+    return rows, lambda: setattr(decoder, "int8_matmul", real)
+
+
+def spec_stats(llm) -> list:
+    """Wrap ``llm.generate_speculative`` so that each call appends its
+    verify forwards, accepted drafts and tokens to the returned list."""
+    calls = []
+    real = llm.generate_speculative
+
+    def wrapped(*args, return_stats=False, **kwargs):
+        out, stats = real(*args, return_stats=True, **kwargs)
+        calls.append(dict(stats, tokens=len(out)))
+        return (out, stats) if return_stats else out
+    llm.generate_speculative = wrapped
+    return calls
+
+
+def per_forward(calls) -> str:
+    fwd = sum(c["iters"] for c in calls)
+    toks = sum(c["tokens"] for c in calls)
+    acc = sum(c["accepted"] for c in calls)
+    # each call's first token comes from its prefill, the rest from verify forwards
+    rate = (toks - len(calls)) / fwd if fwd else 0.0
+    return (f"{len(calls)} calls, {toks} tokens, {fwd} verify forwards, {acc} drafts "
+            f"accepted, {rate:.3f} tokens a verify forward")
+
+
+def verify_against(llm, prompt, chunk) -> dict:
+    """One verify forward of `chunk` after `prompt` (LocalLLM._verify: #3 at
+    m = len(chunk), einsum attention with its in-chunk mask) against two
+    references over the same tokens: len(chunk) decode steps (_decode, a
+    one-token _verify: #3 at m = 1), and the rows of a causal prefill of
+    prompt + chunk (the flash kernel, its own positions and mask code, #3
+    replaced by the dequantized matmul). The same chunk also goes through
+    two broken verify forwards, one with the in-chunk mask dropped and one
+    with its positions off by one, to show that the limits catch them.
+    Returns, for each pair, the logits' largest |difference| and least row
+    cosine, and the hidden state's relative difference after each layer."""
+    import torch
+    from ragmeup_tpu_torch.models.decoder import causal_bias
+    n, d = len(prompt), len(chunk)
+    dev = llm.device
+    nl = llm.cfg.num_layers
+    hidden = []
+    handles = [layer.register_forward_hook(
+        lambda mod, args, out: hidden.append(out[0][0].float()))
+        for layer in llm.model.layers]
+
+    def taken():
+        """The hidden rows the hooks saw since the last call, (layers, rows, h)."""
+        h = torch.cat([torch.stack(hidden[i:i + nl]) for i in range(0, len(hidden), nl)],
+                      dim=1)
+        hidden.clear()
+        return h
+
+    try:
+        with torch.inference_mode():
+            _, caches = llm._prefill(llm._padded(prompt, llm._bucket(n)), n,
+                                     llm._bucket(n + 40))
+            copies = [[tuple(t.clone() for t in layer) for layer in caches]
+                      for _ in range(3)]
+            hidden.clear()
+            logits = {"verify": llm._verify(chunk, n, caches).float()}
+            h = {"verify": taken()}
+            logits["steps"] = torch.stack([llm._decode(t, n + i, copies[0])
+                                           for i, t in enumerate(chunk)]).float()
+            h["steps"] = taken()
+            L = llm._bucket(n + d)
+            logits["prefill"] = llm.model(
+                llm._padded(list(prompt) + list(chunk), L), torch.arange(L, device=dev),
+                attn_bias=causal_bias(L, L, device=dev))[0, n:n + d].float()
+            h["prefill"] = taken()[:, n:n + d]
+            ids = torch.tensor([list(chunk)], device=dev)
+            pos = torch.arange(n, n + d, device=dev)
+            keys = torch.arange(caches[0][0].shape[1], device=dev)
+            logits["no in-chunk mask"] = llm.model(
+                ids, pos, attn_bias=torch.where(keys < n + d, 0.0, -1e30)[None, None, None],
+                caches=copies[1], cache_pos=n)[0].float()
+            logits["positions + 1"] = llm.model(
+                ids, pos + 1,
+                attn_bias=torch.where(keys[None] <= pos[:, None], 0.0, -1e30)[None, None],
+                caches=copies[2], cache_pos=n)[0].float()
+            hidden.clear()
+    finally:
+        for handle in handles:
+            handle.remove()
+
+    def pair(a, b):
+        x, y = logits[a], logits[b]
+        return {"max_abs": (x - y).abs().max().item(),
+                "min_cos": torch.nn.functional.cosine_similarity(x, y, dim=-1).min().item()}
+
+    def drift(a, b):
+        return ((h[a] - h[b]).norm(dim=(1, 2)) / h[b].norm(dim=(1, 2))).tolist()
+    out = {f"{a} vs {b}": pair(a, b) for a, b in (
+        ("verify", "steps"), ("verify", "prefill"), ("steps", "prefill"),
+        ("no in-chunk mask", "prefill"), ("positions + 1", "prefill"))}
+    out["drift verify vs steps"] = drift("verify", "steps")
+    out["drift steps vs prefill"] = drift("steps", "prefill")
+    out["logit std"] = logits["prefill"].std().item()
+    return out
+
+
+def int8_row_invariance(llm) -> float:
+    """#3 at m = 8 against 8 calls at m = 1 on layer 0's q projection (the
+    split-K plan reads m, so the partial sums add in another order)."""
+    import torch
+    from ragmeup_tpu_torch.ops.quant_matmul import int8_matmul
+    proj = llm.model.layers[0].attention.q_proj
+    dev = proj.kernel_q.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(8, proj.kernel_q.shape[0], generator=gen, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        eight = int8_matmul(x, proj.kernel_q, proj.scale).float()
+        ones = torch.cat([int8_matmul(x[i:i + 1], proj.kernel_q, proj.scale)
+                          for i in range(8)]).float()
+    return (eight - ones).abs().max().item()
+
+
+def check_spec_stream(llm, seed: int) -> dict:
+    """generate(speculative="auto") against ("off") on a 1,000-token prompt,
+    32 tokens at repetition penalty 1.1. First the verify forward itself
+    (verify_against, at that prompt and at its first 24 tokens): each of
+    its rows within cosine SPEC_COS of the prefill's at the same position,
+    as check_decoder holds a decode step, and its logits within
+    SPEC_LOGIT_TOL of the prefill's and of 8 decode steps'; both broken
+    forwards must fail those limits. The streams must then be equal, or
+    differ first where the plain path's penalized margin between its token
+    and the spec token is at most twice the verify forward's difference
+    from the decode steps (the parity contract of ServingEngine._spec_run)."""
+    import torch
+    from ragmeup_tpu_torch.models.decoder import penalize
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompt = torch.randint(4, min(30000, llm.cfg.vocab_size), (1000,), generator=gen).tolist()
+    rp = 1.1
+    times = {}
+    streams = {}
+    for mode in ("auto", "off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streams[mode] = llm.generate(prompt, 32, temperature=0.0, repetition_penalty=rp,
+                                     speculative=mode)
+        torch.cuda.synchronize()
+        times[mode] = (time.perf_counter() - t0) * 1e3
+    spec, plain = streams["auto"], streams["off"]
+    n = len(prompt)
+    log(f"greedy stream: speculative {times['auto']:.1f} ms, plain {times['off']:.1f} ms "
+        f"for 32 tokens after {n}; #3 at m = 8 against 8 calls at m = 1: largest "
+        f"|difference| {int8_row_invariance(llm):.5f}")
+    out = {"equal": spec == plain, "spec_ms": times["auto"], "plain_ms": times["off"]}
+    for label, head in (("1,000", prompt), ("24", prompt[:24])):
+        r = verify_against(llm, head, plain[:8])
+        nl = llm.cfg.num_layers
+        at = sorted({0, 1, 2, 4, 8, 16, nl - 1} & set(range(nl)))
+        log(f"verify forward after {label} tokens: " + json.dumps(
+            {key: (val if isinstance(val, float) or "drift" not in key
+                   else {i: round(val[i], 5) for i in at})
+             for key, val in r.items()}))
+        sound = all(r[key]["min_cos"] >= SPEC_COS and r[key]["max_abs"] <= SPEC_LOGIT_TOL
+                    for key in ("verify vs prefill", "verify vs steps"))
+        if not sound:
+            raise AssertionError(f"the verify forward after {label} tokens disagrees with "
+                                 f"the prefill or the decode steps beyond cosine {SPEC_COS} "
+                                 f"or |logit difference| {SPEC_LOGIT_TOL}: {r}")
+        for broken in ("no in-chunk mask", "positions + 1"):
+            b = r[f"{broken} vs prefill"]
+            if b["min_cos"] >= SPEC_COS and b["max_abs"] <= SPEC_LOGIT_TOL:
+                raise AssertionError(f"the verify limits pass a forward with {broken} "
+                                     f"after {label} tokens: {b}")
+        out[label] = r
+    diff = out["1,000"]["verify vs steps"]["max_abs"]
+    out["diff"] = diff
+    if spec == plain:
+        log("greedy stream: speculative == plain")
+        return out
+    i = next(k for k in range(min(len(spec), len(plain))) if spec[k] != plain[k])
+    with torch.inference_mode():
+        logits, caches = llm._prefill(llm._padded(prompt, llm._bucket(n)), n,
+                                      llm._bucket(n + 32))
+        for k in range(i):
+            logits = llm._decode(plain[k], n + k, caches)
+        lg = penalize(logits.float(), llm._seen(prompt + plain[:i]), rp)
+        margin = (lg[plain[i]] - lg[spec[i]]).item()
+    out.update(position=i, margin=margin)
+    log(f"greedy stream: first difference at token {i}: plain {plain[i]}, spec {spec[i]}, "
+        f"the plain path's penalized margin {margin:.5f} against 2 x {diff:.5f}")
+    if margin > 2 * diff:
+        raise AssertionError(f"speculative stream differs from plain at {i} with a "
+                             f"margin {margin} above twice the paths' difference {diff}")
+    return out
+
+
+def check_forced_acceptance(llm, seed: int, stats: list) -> dict:
+    """The final norm's weight zeroed: every logit is 0, the argmax token 0,
+    and after a prompt ending in 16 zeros every 2-gram draft is accepted.
+    32 tokens take at most 5 verify forwards; one engine request with the
+    same prompt is done in its first spec wave of 8 iterations, where plain
+    8-step waves take 4. The weight is restored after."""
+    import torch
+    from ragmeup_tpu_torch.pipeline.serving import ServingEngine
+    if 0 in llm.eos_ids:
+        raise AssertionError("token 0 is an EOS id")
+    gen = torch.Generator().manual_seed(seed + 4)
+    prompt = torch.randint(4, min(30000, llm.cfg.vocab_size), (100,),
+                           generator=gen).tolist() + [0] * 16
+    norm = llm.model.final_norm.scale
+    saved = norm.detach().clone()
+    try:
+        with torch.no_grad():
+            norm.zero_()
+        first = len(stats)
+        solo = llm.generate(prompt, 32, temperature=0.0, repetition_penalty=1.1)
+        iters = stats[first]["iters"]
+        eng = ServingEngine(llm, num_pages=8, page_size=128, max_pages_per_seq=4)
+        eng.add_request("spec", prompt, 32, temperature=0.0, repetition_penalty=1.1)
+        left = eng.spec_wave_once(iters=8, draft=8)
+        spec_out = eng.results()["spec"]
+        eng.retire("spec")
+        eng.add_request("plain", prompt, 32, temperature=0.0, repetition_penalty=1.1)
+        waves = 1
+        while eng.wave_once(steps=8) > 0:
+            waves += 1
+        plain_out = eng.retire("plain")
+    finally:
+        with torch.no_grad():
+            norm.copy_(saved)
+    log(f"forced acceptance: solo 32 tokens in {iters} verify forwards "
+        f"({stats[first]['accepted']} drafts accepted); engine: one spec wave of 8 "
+        f"iterations left {left} rows active with {len(spec_out)} tokens, plain 8-step "
+        f"waves {waves}")
+    if solo != [0] * 32 or iters > 5:
+        raise AssertionError(f"forced acceptance: {iters} verify forwards, {solo}")
+    if left != 0 or spec_out != [0] * 32 or plain_out != [0] * 32 or waves != 4:
+        raise AssertionError(f"forced acceptance in the engine: {left} active after one "
+                             f"spec wave, {spec_out}; plain {waves} waves, {plain_out}")
+    return {"solo_iters": iters, "plain_waves": waves}
+
+
+def check_fused_eos(llm, seed: int) -> dict:
+    """The fused generate loop against the host loop on a reply that ends
+    in EOS: sampled at temperature 0.2 from one seed, with the host loop's
+    ninth token made an EOS id. Both must give the tokens before it. Prints
+    the decode forwards each ran and its time: the host loop runs none
+    after EOS, the fused loop those it queued before the device's done flag
+    reached the host (each masked)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed + 6)
+    prompt = torch.randint(4, min(30000, llm.cfg.vocab_size), (500,), generator=gen).tolist()
+    kw = dict(temperature=0.2, repetition_penalty=1.1, seed=seed)
+    free = llm.generate(prompt, 32, fused=False, **kw)
+    eos = free[8]
+    want = free[:free.index(eos)]
+    forwards = [0]
+    real = llm._decode
+
+    def counted(*args, **kwargs):
+        forwards[0] += 1
+        return real(*args, **kwargs)
+    old = llm.eos_ids
+    llm.eos_ids, llm._decode = set(old) | {eos}, counted
+    runs = {}
+    try:
+        for fused in (False, True):
+            forwards[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = llm.generate(prompt, 32, fused=fused, **kw)
+            torch.cuda.synchronize()
+            runs["fused" if fused else "host"] = {
+                "tokens": len(toks), "forwards": forwards[0],
+                "ms": (time.perf_counter() - t0) * 1e3, "equal": toks == want}
+    finally:
+        llm.eos_ids = old
+        del llm._decode
+    log(f"fused loop on a reply ending in EOS after {len(want)} tokens: {json.dumps(runs)}; "
+        f"forwards after EOS: fused {runs['fused']['forwards'] - len(want)}, host "
+        f"{runs['host']['forwards'] - len(want)}")
+    if not (runs["fused"]["equal"] and runs["host"]["equal"]):
+        raise AssertionError(f"the generate loops disagree on a reply ending in EOS: {runs}")
+    return runs
+
+
+def peaked_span_mass(q, k, a0: int = 480, a1: int = 512, n_spans: int = 16) -> dict:
+    """span_attention_mass where attention is far from uniform (random
+    weights leave the model's span masses near uniform, where a wrong scale
+    moves them little). Each head's queries a0..a1 are scaled so that their
+    visible scores have standard deviation PEAKED_STD. The masses of
+    n_spans spans before the queries, averaged over heads, against the full
+    softmax matrix computed here in f32, within SPAN_TOL relative; and two
+    broken calls must differ from it by more: sm_scale dropped (1 for
+    1/sqrt(hd)) and the causal mask dropped (q_offset past every key; the
+    queries sit mid-thread, so half the keys are future ones)."""
+    import numpy as np
+    import torch
+    from ragmeup_tpu_torch.ops.attention import span_attention_mass
+    L, nh, hd = k.shape
+    edges = np.linspace(0, a0 - 2, n_spans + 1).astype(int)
+    spans = list(zip(edges[:-1].tolist(), edges[1:].tolist()))
+    keys = torch.arange(L, device=k.device)
+    q_pos = torch.arange(a0, a1, device=k.device)
+    visible = keys[None, :] <= q_pos[:, None]
+    runs = {"blockwise": 0.0, "full matrix": 0.0, "sm_scale dropped": 0.0,
+            "causal mask dropped": 0.0}
+    top = 0.0
+    for h in range(nh):
+        qh, kh = q[a0:a1, h].float(), k[:, h].float()
+        scores = (qh @ kh.T) / math.sqrt(hd)
+        qh = qh * (PEAKED_STD / scores[visible].std())
+        w = torch.softmax(torch.where(visible, (qh @ kh.T) / math.sqrt(hd), -torch.inf), -1)
+        top += w.max(dim=1).values.mean().item() / nh
+        runs["full matrix"] += np.array([(w[:, lo:hi].sum(1) / (hi - lo)).mean().item()
+                                         for lo, hi in spans]) / nh
+        runs["blockwise"] += span_attention_mass(qh, kh, spans, q_offset=a0) / nh
+        runs["sm_scale dropped"] += span_attention_mass(qh, kh, spans, q_offset=a0,
+                                                        sm_scale=1.0) / nh
+        runs["causal mask dropped"] += span_attention_mass(qh, kh, spans, q_offset=L) / nh
+    ref = runs["full matrix"]
+    err = {key: float(np.abs(val / ref - 1).max()) for key, val in runs.items()
+           if key != "full matrix"}
+    log(f"blockwise provenance, peaked: queries {a0}..{a1} scaled to score std "
+        f"{PEAKED_STD}, mean largest weight of a row {top:.4f} (uniform over its "
+        f"keys: {1 / a0:.4f}); span masses {ref.tolist()}; largest relative difference "
+        f"from the full matrix {json.dumps(err)} (tolerance {SPAN_TOL})")
+    if err["blockwise"] > SPAN_TOL:
+        raise AssertionError(f"peaked span masses differ from the full matrix by "
+                             f"{err['blockwise']}")
+    for broken in ("sm_scale dropped", "causal mask dropped"):
+        if err[broken] <= SPAN_TOL:
+            raise AssertionError(f"SPAN_TOL passes span masses with the {broken}: "
+                                 f"{err[broken]}")
+    return {"max_rel_diff": err["blockwise"], "broken": err, "mean_top_weight": top}
+
+
+def check_blockwise_provenance(llm, seed: int) -> dict:
+    """Span masses of a 1,024-token thread's last 32 tokens over four
+    spans: blockwise (span_attention_mass per head over qk_forward's q and
+    k, whose forward takes the flash kernel at this length, averaged over
+    heads) against the last layer of attention_forward (einsum, the heads'
+    mean weights); each span's mass within SPAN_TOL of the full matrix's,
+    relative: bf16 rounding of the two forwards, 32 layers deep. With
+    random weights that attention is near uniform, so peaked_span_mass
+    then holds the same q and k where it is not."""
+    import numpy as np
+    import torch
+    from ragmeup_tpu_torch.ops.attention import span_attention_mass
+    gen = torch.Generator().manual_seed(seed + 5)
+    ids = torch.randint(4, min(30000, llm.cfg.vocab_size), (1024,), generator=gen).tolist()
+    spans = [(0, 300), (300, 600), (600, 900), (900, 990)]
+    a0, a1 = 992, 1024
+    t0 = time.perf_counter()
+    q, k = (torch.from_numpy(t[0]).cuda() for t in llm.qk_forward(ids))
+    block = sum(span_attention_mass(q[a0:a1, h], k[:, h], spans, q_offset=a0)
+                for h in range(q.shape[1]))
+    t1 = time.perf_counter()
+    att = llm.attention_forward(ids)[-1][0].mean(axis=0)
+    t2 = time.perf_counter()
+    full = np.array([att[a0:a1, lo:hi].mean() for lo, hi in spans])
+    block = block / q.shape[1]
+    err = float(np.abs(block / full - 1).max())
+    log(f"blockwise provenance: span masses {block.tolist()} against the full "
+        f"matrix's {full.tolist()}, largest relative difference {err:.2e} "
+        f"(tolerance {SPAN_TOL}); normalized {np.round(block / block.sum(), 5).tolist()}; "
+        f"blockwise {(t1 - t0) * 1e3:.1f} ms, full {(t2 - t1) * 1e3:.1f} ms")
+    if err > SPAN_TOL:
+        raise AssertionError(f"blockwise provenance differs from the full matrix by {err}")
+    return {"max_rel_diff": err, "peaked": peaked_span_mass(q, k)}
+
+
+def watch_gate(engine) -> dict:
+    """Instrument the engine's adaptive gate: its mode changes, and the spec
+    waves dispatched (and the chunk-attention launches they made) since the
+    gate last reset; a demotion needs two spec waves first."""
+    from ragmeup_tpu_torch import kernels
+    seen = {"changes": [], "spec_waves": 0, "since_reset": 0, "chunk": 0}
+    gate, dispatch, reset = engine._spec_gate, engine._spec_dispatch, engine._spec_track_reset
+
+    def watched_gate():
+        before = engine._spec_mode
+        out = gate()
+        if engine._spec_mode != before:
+            seen["changes"].append({"to": engine._spec_mode,
+                                    "spec_waves_since_reset": seen["since_reset"],
+                                    "accept": engine._spec_accept})
+            if engine._spec_mode == "plain" and seen["since_reset"] < 2:
+                raise AssertionError(f"the gate demoted after {seen['since_reset']} "
+                                     f"spec waves")
+        return out
+
+    def watched_dispatch(*args, **kwargs):
+        before = kernels.launch_counts()["paged_attention_chunk"]
+        entry = dispatch(*args, **kwargs)
+        if isinstance(entry, dict):
+            seen["spec_waves"] += 1
+            seen["since_reset"] += 1
+            seen["chunk"] += kernels.launch_counts()["paged_attention_chunk"] - before
+        return entry
+
+    def watched_reset():
+        seen["since_reset"] = 0
+        reset()
+    engine._spec_gate = watched_gate
+    engine._spec_dispatch = watched_dispatch
+    engine._spec_track_reset = watched_reset
+    return seen
+
+
+def run_greedy(seed: int, llm, encoder, cross, data_dir: str, index_dir: str,
+               queries, first_turns) -> dict:
+    """Phase 6b on phase 4's int8 decoder and bf16 index (see the module
+    docstring). Returns the runs "greedy" and "greedy batched"."""
+    import torch
+    from ragmeup_tpu_torch.pipeline import provenance
+    t_phase = time.perf_counter()
+    runs = {}
+    stats = spec_stats(llm)
+    cfg = rag_config(data_dir, index_dir)
+    cfg.generation.temperature = 0.0
+    system = open_system(cfg, encoder, cross, llm)
+    rows, restore = count_int8_rows()
+    try:
+        runs["greedy"] = drive("greedy", system, llm, queries)
+    finally:
+        restore()
+    m8 = sum(1 for m in rows if m == 8)
+    log(f"greedy: {per_forward(stats)}; #3 calls by rows m: "
+        f"{dict(sorted(collections.Counter(rows).items()))}")
+    if not stats or m8 == 0:
+        raise AssertionError(f"greedy: no verify forward launched #3 at m = 8 "
+                             f"({len(stats)} speculative calls)")
+    runs["greedy"]["int8_matmul_m8"] = m8
+    runs["greedy"]["spec"] = per_forward(stats)
+
+    check_spec_stream(llm, seed)
+    check_forced_acceptance(llm, seed, stats)
+    check_fused_eos(llm, seed)
+
+    cfg = rag_config(data_dir, index_dir)
+    cfg.generation.temperature = 0.0
+    cfg.server.batched_llm = True
+    batched = open_system(cfg, encoder, cross, llm)
+    gate = watch_gate(batched.backend.engine)
+    runs["greedy batched"] = drive_batched(batched, first_turns, label="greedy batched")
+    log(f"greedy batched: {gate['spec_waves']} spec waves launched #9 chunk "
+        f"{gate['chunk']} times; gate mode changes {gate['changes']}; acceptance EWMA "
+        f"{batched.backend.engine._spec_accept}")
+    if gate["spec_waves"] == 0 or gate["chunk"] == 0:
+        raise AssertionError("greedy batched: no spec wave launched #9's chunk mode")
+    runs["greedy batched"]["gate"] = gate
+    del batched
+
+    check_blockwise_provenance(llm, seed)
+    cfg = rag_config(data_dir, index_dir)
+    cfg.generation.temperature = 0.0
+    cfg.pipeline.provenance_method = "attention"
+    system = open_system(cfg, encoder, cross, llm)
+    real = provenance.compute_attention_provenance
+    qk_calls = []
+    qk_forward = llm.qk_forward
+    llm.qk_forward = lambda ids: qk_calls.append(len(ids)) or qk_forward(ids)
+    provenance.compute_attention_provenance = \
+        lambda *args, **kwargs: real(*args, blockwise_threshold=64, **kwargs)
+    try:
+        t0 = time.perf_counter()
+        out = system.chat(queries[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        provenance.compute_attention_provenance = real
+        del llm.qk_forward
+    scores = [d.get("provenance") for d in out["documents"]]
+    log(f"attention provenance /chat: {ms:.1f} ms, threads {qk_calls} tokens through "
+        f"the blockwise branch, scores {scores}")
+    if (not qk_calls or not scores or not all(isinstance(x, float) for x in scores)
+            or abs(sum(scores) - 1.0) > 1e-5):
+        raise AssertionError(f"attention provenance: scores {scores}, blockwise "
+                             f"threads {qk_calls}")
+    del llm.generate_speculative
+    log(f"greedy phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def free_card() -> None:
     import torch
     gc.collect()
@@ -1994,7 +2558,7 @@ def free_card() -> None:
 
 
 def run_system(seed: int) -> dict:
-    """The ten runs of requests; returns each run's counts and latencies."""
+    """The twelve runs of requests; returns each run's counts and latencies."""
     import torch
     encoder, cross = build_encoders(seed)
     runs = {}
@@ -2014,10 +2578,14 @@ def run_system(seed: int) -> dict:
         cfg = rag_config(data_dir, os.path.join(tmp, "index"))
         cfg.server.batched_llm = True
         batched = open_system(cfg, encoder, cross, llm)
-        runs["batched"] = drive_batched(batched, queries[:2] + [
+        first_turns = queries[:2] + [
             f"What is {' '.join(texts[99].split()[:2])}?",
-            f"Summarize the notes on {' '.join(texts[12000].split()[:3])}."])
-        del system, batched, llm
+            f"Summarize the notes on {' '.join(texts[12000].split()[:3])}."]
+        runs["batched"] = drive_batched(batched, first_turns)
+        del system, batched
+        runs.update(run_greedy(seed, llm, encoder, cross, data_dir,
+                               os.path.join(tmp, "index"), queries, first_turns))
+        del llm
         free_card()
 
         index_q = os.path.join(tmp, "index_int8")

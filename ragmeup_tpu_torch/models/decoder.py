@@ -6,7 +6,13 @@ scaling) → SwiGLU, weight-only int8 or packed-int4 projections
 (``QuantDense``), a KV cache of shape (b, cache_len, nkv, hd) updated in
 place, prefill through the causal flash kernel and decode through a grouped
 einsum with the additive mask. ``LocalLLM.generate`` samples at T > 0 (an
-explicit ``torch.Generator``) and decodes greedily at T = 0.
+explicit ``torch.Generator``) and decodes greedily at T = 0, by default
+in a loop whose sampling state stays on the device (``fused``) and, at
+T = 0, speculatively (``generate_speculative``: 2-gram prompt-lookup
+drafts verified 8 tokens a forward against the dense cache; the host
+reads each verify forward's greedy ids once and writes the cache at a
+host offset, so there is one sync a forward). ``attention_forward`` and
+``qk_forward`` capture attention for provenance.
 
 Parameters keep the JAX package's names and layouts (kernels are
 ``(in, out)``; int8 kernels ``kernel_q (in, out)`` with ``scale (out,)``;
@@ -17,8 +23,8 @@ token per sequence (batched decode) or a chunk per sequence (chunked
 prefill), written into the pool in place; ``pipeline/serving.py`` drives
 it. With ``num_experts`` > 0 the MLP is a top-k routed sparse MoE
 (``LlamaMoeMlp``, Mixtral / Qwen3-MoE class) over stacked int8, packed int4
-or float experts (``ops/moe_matmul.py``). Tensor and expert parallelism,
-speculative decoding and ``qk_forward`` are not ported yet.
+or float experts (``ops/moe_matmul.py``). Tensor and expert parallelism
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -307,7 +313,11 @@ class LlamaAttention(nn.Module):
         self.o_proj = dense(nh * hd, c.hidden_size)
 
     def forward(self, x, cos, sin, attn_bias=None, cache=None, cache_pos=0,
-                paged_state=None):
+                paged_state=None, capture=False):
+        """→ (output, capture): ``capture`` True gives the softmax weights
+        (b, nh, s, kv_len) from the einsum path (flash is off for it);
+        ``"qk"`` gives the post-RoPE (q, k), k repeated to the query heads,
+        with flash allowed; otherwise None."""
         c = self.cfg
         b, s, _ = x.shape
         hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
@@ -319,7 +329,7 @@ class LlamaAttention(nn.Module):
         q = apply_rope(q, cos, sin).to(dt)
         k = apply_rope(k, cos, sin).to(dt)
         if paged_state is not None:
-            return self.o_proj(self._paged(q, k, v, paged_state))
+            return self.o_proj(self._paged(q, k, v, paged_state)), None
         if cache is not None:
             ck, cv = cache  # (b, L, nkv, hd), updated in place
             ck[:, cache_pos:cache_pos + s] = k
@@ -328,8 +338,9 @@ class LlamaAttention(nn.Module):
         rep = nh // nkv
         scale = 1.0 / float(np.sqrt(hd))
         kv_len = k.shape[1]
-        use_flash = (c.use_flash and s > 1 and s % FLASH_BLOCK == 0
-                     and kv_len % FLASH_BLOCK == 0)
+        use_flash = (c.use_flash and capture is not True and s > 1
+                     and s % FLASH_BLOCK == 0 and kv_len % FLASH_BLOCK == 0)
+        weights = None
         if use_flash:
             # prefill: causal flash; padded keys sit past every real query
             # row, so the causal mask subsumes the padding mask (the additive
@@ -352,7 +363,12 @@ class LlamaAttention(nn.Module):
                 logits = logits + attn_bias[..., None, :, :]
             weights = torch.softmax(logits, dim=-1)
             out = torch.einsum("bnrqk,bknd->bqnrd", weights.to(dt), v)
-        return self.o_proj(out.reshape(b, s, nh * hd))
+        aux = None
+        if capture == "qk":
+            aux = (q, k.repeat_interleave(rep, dim=2))
+        elif capture:
+            aux = weights.reshape(b, nh, s, kv_len)
+        return self.o_proj(out.reshape(b, s, nh * hd)), aux
 
     def _paged(self, q, k, v, paged_state):
         """Write this step's K/V into the pool in place and attend it.
@@ -559,10 +575,12 @@ class LlamaBlock(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device)
         self.mlp = LlamaMoeMlp(cfg, device) if moe else LlamaMlp(cfg, device)
 
-    def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None):
-        x = x + self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
-                               cache_pos, paged_state)
-        return x + self.mlp(self.post_attn_norm(x))
+    def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None,
+                capture=False):
+        h, aux = self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
+                                cache_pos, paged_state, capture)
+        x = x + h
+        return x + self.mlp(self.post_attn_norm(x)), aux
 
 
 class LlamaModel(nn.Module):
@@ -600,25 +618,38 @@ class LlamaModel(nn.Module):
                 caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 cache_pos: int = 0, head_at=None,
                 paged_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
-                paged_meta: Optional[tuple] = None, skip_head: bool = False
-                ) -> Optional[torch.Tensor]:
+                paged_meta: Optional[tuple] = None, skip_head: bool = False,
+                capture_weights: bool = False, capture_qk_last: bool = False):
         """→ f32 logits (b, s, vocab), or (b, 1, vocab) at ``head_at`` (an
         int, or a (b,) tensor of per-row offsets). positions: (s,) or (b, s).
 
         ``paged_caches`` (per layer (k_pages, v_pages)) with ``paged_meta``
         (page_idx, lengths, pages, slots) attends the paged pool and writes
         this call's K/V into it in place. ``skip_head`` returns None after
-        the layers (a chunked-prefill chunk whose logits nobody reads)."""
+        the layers (a chunked-prefill chunk whose logits nobody reads).
+
+        With ``capture_weights`` or ``capture_qk_last`` the result is a dict
+        {"logits", "attn_weights": per-layer softmax weights (b, nh, s,
+        kv_len), "qk_last": the last layer's post-RoPE (q, k), each
+        (b, s, nh, hd)}, as the JAX package's model returns."""
         c = self.cfg
         x = self.token_embedding[input_ids].to(c.torch_dtype)
         ang = positions.float()[..., None] * self.inv_freq
         cos, sin = torch.cos(ang), torch.sin(ang)
+        all_w, qk_last = [], None
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
             pstate = None
             if paged_caches is not None:
                 pstate = tuple(paged_caches[i]) + tuple(paged_meta)
-            x = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate)
+            cap = capture_weights
+            if capture_qk_last and i == c.num_layers - 1:
+                cap = "qk"
+            x, aux = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate, cap)
+            if cap == "qk":
+                qk_last = aux
+            elif capture_weights:
+                all_w.append(aux)
         if skip_head:
             return None
         x = self.final_norm(x)
@@ -627,7 +658,15 @@ class LlamaModel(nn.Module):
         elif head_at is not None:
             x = x[:, head_at:head_at + 1]
         head, head_dtype = self.head()
-        return x.to(head_dtype).float() @ head
+        logits = x.to(head_dtype).float() @ head
+        if not (capture_weights or capture_qk_last):
+            return logits
+        out = {"logits": logits}
+        if capture_weights:
+            out["attn_weights"] = all_w
+        if capture_qk_last:
+            out["qk_last"] = qk_last
+        return out
 
 
 def _next_pow2_int(x: int) -> int:
@@ -643,6 +682,33 @@ def causal_bias(q_len: int, kv_len: int, device=None) -> torch.Tensor:
     qpos = torch.arange(q_len, device=device)[:, None]
     kpos = torch.arange(kv_len, device=device)[None, :]
     return torch.where(kpos <= qpos, 0.0, -1e30)[None, None]
+
+
+def penalize(logits: torch.Tensor, seen: torch.Tensor, rp) -> torch.Tensor:
+    """The repetition penalty on the ``seen`` ids: positive logits divided
+    by ``rp``, the others multiplied by it (``rp`` a float, or a tensor
+    that broadcasts against ``logits``)."""
+    return torch.where(seen, torch.where(logits > 0, logits / rp, logits * rp), logits)
+
+
+def draft_greedy(logits: torch.Tensor, seen: torch.Tensor, drafts: torch.Tensor,
+                 rp) -> torch.Tensor:
+    """Greedy-with-penalty at every row of speculative verify forwards:
+    logits (B, d, V); seen (B, V); drafts (B, d - 1), the chunks' tokens
+    after the first; rp a float or (B,) penalties. Row i penalizes seen ∪
+    drafts[:, :i], the seen set at that position if the drafts before it
+    are accepted. → (B, d) argmax ids."""
+    B, d, V = logits.shape
+    grew = torch.zeros((B, d, V), dtype=torch.int32, device=logits.device)
+    if d > 1:
+        grew[:, 1:].scatter_(2, drafts.long()[:, :, None], 1)
+    rows = (torch.cumsum(grew, dim=1) > 0) | seen[:, None, :]
+    if isinstance(rp, torch.Tensor):
+        rows = rows & (rp != 1.0)[:, None, None]
+        rp = rp[:, None, None]
+    elif not rp or rp == 1.0:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(penalize(logits, rows, rp), dim=-1)
 
 
 def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -713,6 +779,32 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
     return out
 
 
+class _DoneFlag:
+    """A device flag that the host reads without waiting for the device.
+    Each ``poll`` returns the newest value that has reached pinned host
+    memory and, once that copy has landed (an event not yet recorded
+    counts as landed), queues the next one behind the event. On the CPU
+    the flag is read directly."""
+
+    def __init__(self, flag: torch.Tensor):
+        self.flag = flag
+        self.host = self.event = None
+        if flag.device.type == "cuda":
+            self.host = torch.zeros(flag.shape, dtype=flag.dtype, pin_memory=True)
+            self.event = torch.cuda.Event()
+
+    def poll(self) -> bool:
+        if self.host is None:
+            return bool(self.flag.any())
+        if not self.event.query():
+            return False
+        if self.host.any():
+            return True
+        self.host.copy_(self.flag, non_blocking=True)
+        self.event.record()
+        return False
+
+
 class LocalLLM:
     """Generation wrapper: prefill + stepwise decode with temperature
     sampling and repetition penalty."""
@@ -760,16 +852,27 @@ class LocalLLM:
                             caches=caches, cache_pos=0, head_at=length - 1)
         return logits[0, 0], caches
 
-    def _decode(self, token: int, pos: int, caches):
-        """One token at absolute position ``pos`` against the cache."""
+    def _decode(self, token, pos: int, caches):
+        """One token (an int, or a (1,) tensor on the device) at absolute
+        position ``pos`` against the cache."""
+        if not isinstance(token, torch.Tensor):
+            token = torch.tensor([token], device=self.device)
+        return self._verify(token, pos, caches)[0]
+
+    def _verify(self, chunk, p0: int, caches) -> torch.Tensor:
+        """``chunk``'s tokens (ints, or a 1-D tensor on the device) at
+        positions p0, p0 + 1, ... against the cache, their K/V written into
+        it → (len(chunk), vocab) logits, row i the distribution after
+        chunk[:i + 1]: a decode step, or a speculative verify forward."""
         dev = self.device
+        ids = (chunk if isinstance(chunk, torch.Tensor)
+               else torch.tensor(list(chunk), device=dev))[None]
         kv_len = caches[0][0].shape[1]
-        kmask = torch.where(torch.arange(kv_len, device=dev) <= pos,
-                            0.0, -1e30)[None, None, None, :]
-        ids = torch.tensor([[token]], device=dev)
-        logits = self.model(ids, torch.tensor([pos], device=dev),
-                            attn_bias=kmask, caches=caches, cache_pos=pos)
-        return logits[0, -1]
+        positions = torch.arange(p0, p0 + ids.shape[1], device=dev)
+        bias = torch.where(torch.arange(kv_len, device=dev)[None, :]
+                           <= positions[:, None], 0.0, -1e30)[None, None]
+        return self.model(ids, positions, attn_bias=bias, caches=caches,
+                          cache_pos=p0)[0]
 
     def _bucket(self, n: int) -> int:
         for b in self.PREFILL_BUCKETS:
@@ -792,40 +895,93 @@ class LocalLLM:
         return logits.cpu().numpy()
 
     @torch.inference_mode()
+    def attention_forward(self, ids: Sequence[int]) -> List[np.ndarray]:
+        """Forward with attention capture (provenance): per layer the
+        (1, heads, L, L) softmax weights over the unpadded ids, f32."""
+        out = self._capture(ids, capture_weights=True)
+        return [w.float().cpu().numpy() for w in out["attn_weights"]]
+
+    @torch.inference_mode()
+    def qk_forward(self, ids: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+        """The last layer's post-RoPE (q, k), each (1, L, heads, hd) f32 (k
+        repeated to the query heads): the inputs of blockwise attention
+        provenance, which never builds the L×L matrix."""
+        q, k = self._capture(ids, capture_qk_last=True)["qk_last"]
+        return q.float().cpu().numpy(), k.float().cpu().numpy()
+
+    def _capture(self, ids: Sequence[int], **capture) -> dict:
+        L = len(ids)
+        dev = self.device
+        # the head only at the last row: the captures do not need logits
+        return self.model(torch.tensor([list(ids)], device=dev),
+                          torch.arange(L, device=dev),
+                          attn_bias=causal_bias(L, L, device=dev),
+                          head_at=L - 1, **capture)
+
+    def _fit_prompt(self, prompt_ids: Sequence[int], max_new_tokens: int) -> List[int]:
+        """The context-window guard: the prompt's tail, leaving room to
+        generate."""
+        msl = self.cfg.max_seq_len
+        max_prompt = msl - min(max_new_tokens, msl // 2)
+        return list(prompt_ids)[-max_prompt:]
+
+    def _seen(self, ids: Sequence[int]) -> torch.Tensor:
+        """(vocab,) bool on the device: the ids the repetition penalty hits."""
+        seen = torch.zeros(self.cfg.vocab_size, dtype=torch.bool, device=self.device)
+        if len(ids):
+            seen[torch.as_tensor(sorted(set(map(int, ids))), device=self.device)] = True
+        return seen
+
+    @staticmethod
+    def _pick(logits: torch.Tensor, seen: torch.Tensor, temperature: float,
+              rp: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+        """The next token as a (1,) tensor on the device: the penalty on the
+        seen ids, then a draw from softmax(logits / T) through ``gen``, or
+        the argmax at T = 0."""
+        if rp and rp != 1.0:
+            logits = penalize(logits, seen, rp)
+        if temperature and temperature > 0:
+            return torch.multinomial(torch.softmax(logits / temperature, dim=-1), 1,
+                                     generator=gen)
+        return torch.argmax(logits).reshape(1)
+
+    @torch.inference_mode()
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int = 100,
                  temperature: float = 0.2, repetition_penalty: float = 1.1,
-                 seed: int = 0) -> List[int]:
+                 seed: int = 0, fused: bool = True,
+                 speculative: str = "auto") -> List[int]:
         """Continuation token ids (prompt not included): greedy at
         temperature 0, else sampled from softmax(logits / T) with a
-        ``torch.Generator`` seeded by ``seed``."""
-        max_prompt = self.cfg.max_seq_len - min(max_new_tokens,
-                                                self.cfg.max_seq_len // 2)
-        if len(prompt_ids) > max_prompt:
-            prompt_ids = list(prompt_ids)[-max_prompt:]
+        ``torch.Generator`` seeded by ``seed``.
+
+        ``speculative="auto"`` with ``fused`` sends greedy requests through
+        ``generate_speculative``; ``"off"`` keeps the one-token loop.
+        ``fused`` keeps sampling, the penalty, EOS and the output on the
+        device (the host learns of EOS without waiting, and reads the
+        tokens once at the end); ``fused=False`` is the host loop that
+        reads every token. Both loops draw from one generator in the same
+        order, so for a seed they give the same tokens."""
+        if (speculative == "auto" and fused
+                and not (temperature and temperature > 0)):
+            return self.generate_speculative(
+                prompt_ids, max_new_tokens=max_new_tokens,
+                repetition_penalty=repetition_penalty)
+        prompt_ids = self._fit_prompt(prompt_ids, max_new_tokens)
         n = len(prompt_ids)
         cache_len = self._bucket(n + max_new_tokens)
         logits, caches = self._prefill(self._padded(prompt_ids, self._bucket(n)),
                                        n, cache_len=cache_len)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        penalize = bool(repetition_penalty) and repetition_penalty != 1.0
-        seen = torch.zeros(self.cfg.vocab_size, dtype=torch.bool,
-                           device=self.device)
-        if penalize and n:
-            seen[torch.as_tensor(sorted(set(map(int, prompt_ids))),
-                                 device=self.device)] = True
+        loop = self._loop_fused if fused else self._loop_host
+        return loop(logits, caches, n, cache_len, self._seen(prompt_ids), gen,
+                    max_new_tokens, temperature, repetition_penalty)
+
+    def _loop_host(self, logits, caches, n, cache_len, seen, gen, max_new,
+                   temperature, rp) -> List[int]:
         out: List[int] = []
         pos = n
-        for _ in range(max_new_tokens):
-            lg = logits
-            if penalize:
-                pen = torch.where(lg > 0, lg / repetition_penalty,
-                                  lg * repetition_penalty)
-                lg = torch.where(seen, pen, lg)
-            if temperature and temperature > 0:
-                probs = torch.softmax(lg / temperature, dim=-1)
-                tok = int(torch.multinomial(probs, 1, generator=gen))
-            else:
-                tok = int(torch.argmax(lg))
+        for _ in range(max_new):
+            tok = int(self._pick(logits, seen, temperature, rp, gen))
             if tok in self.eos_ids:
                 break
             out.append(tok)
@@ -835,6 +991,106 @@ class LocalLLM:
             if pos >= cache_len:
                 break
         return out
+
+    def _loop_fused(self, logits, caches, n, cache_len, seen, gen, max_new,
+                    temperature, rp) -> List[int]:
+        """The host loop's tokens without a read that waits: (done, count)
+        live on the device, and the host learns of EOS through
+        ``_DoneFlag``, which never blocks. A step after EOS, run while the
+        news is on its way (as long as the device lags the host), is
+        masked, as a done row of a wave is: it emits nothing, marks nothing
+        seen and feeds token 0."""
+        dev = self.device
+        eos = torch.tensor(sorted(self.eos_ids) or [-1], device=dev)
+        out = torch.full((max_new,), -1, dtype=torch.long, device=dev)
+        state = torch.zeros(2, dtype=torch.long, device=dev)  # done, count
+        flag = _DoneFlag(state[:1])
+        pos = n
+        for step in range(max_new):
+            tok = self._pick(logits, seen, temperature, rp, gen)
+            emit = (state[:1] == 0) & ~(tok == eos).any()
+            out[step:step + 1] = torch.where(emit, tok, -1)
+            seen[tok] = seen[tok] | emit
+            state += torch.cat([~emit, emit]).long()
+            if step == max_new - 1 or flag.poll():
+                break
+            logits = self._decode(torch.where(emit, tok, 0), pos, caches)
+            pos += 1
+            if pos >= cache_len:
+                break
+        return out[:int(state[1])].tolist()
+
+    @torch.inference_mode()
+    def generate_speculative(self, prompt_ids: Sequence[int],
+                             max_new_tokens: int = 100,
+                             repetition_penalty: float = 1.1,
+                             draft_len: int = 8, return_stats: bool = False):
+        """Greedy generation with self-speculative decoding: the tokens of
+        ``generate(temperature=0, speculative="off")``, up to ``draft_len``
+        a forward where the continuation repeats a 2-gram of the context
+        (RAG answers quote their documents).
+
+        One iteration: the last 2-gram match whose continuation window is
+        confirmed gives d - 1 draft tokens; one verify forward of [pending,
+        drafts] against the dense cache at offset p0; greedy-with-penalty
+        at every row; the drafts accepted while they equal it, then the
+        model's own next token. The host reads the d greedy ids once a
+        verify forward (one sync a forward, not a token) and keeps the
+        token buffer, so the cache is written at a host offset. The cache
+        is never written past its end: near it the chunk narrows, and the
+        stream stops where the window ends, as the plain loop does.
+        ``return_stats`` adds {"iters": verify forwards, "accepted": draft
+        tokens accepted}."""
+        prompt_ids = self._fit_prompt(prompt_ids, max_new_tokens)
+        n = len(prompt_ids)
+        d = draft_len
+        rp = repetition_penalty
+        cache_len = self._bucket(n + max_new_tokens + d)
+        logits, caches = self._prefill(self._padded(prompt_ids, self._bucket(n)),
+                                       n, cache_len=cache_len)
+        stats = {"iters": 0, "accepted": 0}
+        seen = self._seen(prompt_ids)
+        t0 = int(self._pick(logits, seen, 0.0, rp, None))
+        if t0 in self.eos_ids or max_new_tokens < 1:
+            return ([], stats) if return_stats else []
+        # confirmed tokens; buf[n_tok - 1] is pending: not yet in the cache
+        buf = np.full(cache_len, -1, np.int64)
+        buf[:n] = prompt_ids
+        buf[n] = t0
+        n_tok = n + 1
+        seen[t0] = True
+        left = max_new_tokens - 1
+        while left > 0 and n_tok < cache_len:
+            p0 = n_tok - 1
+            pending, t1 = buf[p0], buf[max(p0 - 1, 0)]
+            lim = max(n_tok - d, 0)  # matches j <= n_tok - d - 1
+            hits = np.flatnonzero((buf[:lim] == t1) & (buf[1:lim + 1] == pending))
+            cont = (buf[hits[-1] + 2:hits[-1] + d + 1] if len(hits)
+                    else np.zeros(d - 1, np.int64))
+            w = min(d, cache_len - p0)
+            chunk = [int(pending)] + [int(t) for t in cont[:w - 1]]
+            lg = self._verify(chunk, p0, caches)
+            greedy = draft_greedy(lg[None], seen[None],
+                                  torch.tensor([chunk[1:]], device=self.device),
+                                  rp)[0].tolist()
+            a = 0
+            while a < w - 1 and chunk[a + 1] == greedy[a]:
+                a += 1
+            toks = chunk[1:a + 1] + [greedy[a]]
+            first_eos = next((i for i, t in enumerate(toks) if t in self.eos_ids),
+                             len(toks))
+            emit = min(a + 1, first_eos, left, cache_len - n_tok)
+            buf[n_tok:n_tok + emit] = toks[:emit]
+            if emit:
+                seen[torch.tensor(toks[:emit], device=self.device)] = True
+            n_tok += emit
+            left -= emit
+            stats["iters"] += 1
+            stats["accepted"] += a
+            if first_eos <= a or emit == 0:
+                break
+        out = [int(t) for t in buf[n:n_tok]]
+        return (out, stats) if return_stats else out
 
     def generate_text(self, prompt: str, max_new_tokens: int = 100,
                       temperature: float = 0.2, repetition_penalty: float = 1.1,

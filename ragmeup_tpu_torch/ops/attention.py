@@ -6,15 +6,16 @@ against k/v ``(b·nkv, kv_len, hd)`` at the native kv-head count;
 ``flash_attention`` is its g = 1 case with q ``(bh, s, hd)``. The mask is
 causal over absolute positions 0..s-1, so keys past s (the unused tail of a
 KV cache, kv_len ≥ s) are hidden from every row. csrc/flash_attention.cu
-keeps the score tile on chip; see its header.
+keeps the score tile on chip; see its header. ``span_attention_mass`` is
+the blockwise span mass of attention provenance.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import math
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ragmeup_tpu_torch import kernels
@@ -99,3 +100,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / √d) v for (bh, s, d) q and (bh, kv_len, d) k/v: the
     g = 1 case of ``flash_attention_gqa``."""
     return flash_attention_gqa(q[:, None], k, v, causal, sm_scale)[:, 0]
+
+
+def span_attention_mass(q_span: torch.Tensor, k_full: torch.Tensor,
+                        spans: Sequence[Tuple[int, int]], q_offset: int,
+                        sm_scale: Optional[float] = None,
+                        block_k: int = 512) -> np.ndarray:
+    """Mean causal-softmax attention mass from a (small) query span to each
+    key span, computed blockwise over keys (attention provenance of long
+    threads).
+
+    q_span: (a, d) the span's post-RoPE queries of one head; k_full: (L, d)
+    all keys; spans: [(lo, hi)] key spans; q_offset: the absolute position
+    of q_span[0] (the causal mask). Two passes over ``block_k`` key blocks:
+    each query row's softmax max and sum, then the normalized weights summed
+    into the spans; memory O(a × block_k), the L×L matrix is never built.
+    A plain torch function: the JAX package computes it in XLA, outside any
+    Pallas kernel. → (len(spans),) f32 means over query rows and span
+    length."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q_span.shape[-1])
+    a = q_span.shape[0]
+    L = k_full.shape[0]
+    dev = q_span.device
+    q32 = q_span.float()
+    q_pos = q_offset + torch.arange(a, device=dev)
+    span_arr = torch.as_tensor(np.asarray(spans, np.int64).reshape(-1, 2), device=dev)
+    lo, hi = span_arr[:, 0], span_arr[:, 1]
+
+    def block(k0):
+        kb = k_full[k0:k0 + block_k].float()
+        kv_pos = k0 + torch.arange(kb.shape[0], device=dev)
+        s = (q32 @ kb.T) * sm_scale
+        return torch.where(kv_pos[None, :] <= q_pos[:, None], s, -torch.inf), kv_pos
+
+    # pass 1: each query row's softmax max and sum
+    m = torch.full((a,), -torch.inf, device=dev)
+    l = torch.zeros(a, device=dev)
+    for k0 in range(0, L, block_k):
+        s, _ = block(k0)
+        m_next = torch.maximum(m, s.max(dim=1).values)
+        l = (l * torch.exp(m - m_next)
+             + torch.exp(torch.where(torch.isfinite(s), s - m_next[:, None], -torch.inf)
+                         ).sum(dim=1))
+        m = m_next
+    l = l.clamp_min(1e-30)
+    # pass 2: the normalized weights, summed into each span
+    acc = torch.zeros(len(span_arr), device=dev)
+    for k0 in range(0, L, block_k):
+        s, kv_pos = block(k0)
+        w = torch.exp(torch.where(torch.isfinite(s), s - m[:, None], -torch.inf)) / l[:, None]
+        member = (kv_pos[None, :] >= lo[:, None]) & (kv_pos[None, :] < hi[:, None])
+        acc = acc + torch.einsum("ak,sk->s", w, member.float())
+    span_len = (hi - lo).float().clamp_min(1.0)
+    return (acc / (a * span_len)).cpu().numpy()

@@ -18,9 +18,10 @@ docs), re-designed for the device engines:
   doc, regex-extract the last number. Scores are returned as floats (the
   reference returned strings — quirk not reproduced, SURVEY.md §5.6).
 
-The port's copy of ``ragmeup_tpu/pipeline/provenance.py``: its blockwise
-attention branch (long threads) raises until ``qk_forward`` and
-``span_attention_mass`` are ported.
+The port's copy of ``ragmeup_tpu/pipeline/provenance.py``. Threads longer
+than ``blockwise_threshold`` take the blockwise branch: the last layer's
+(q, k) from ``qk_forward`` and ``ops.attention.span_attention_mass`` per
+head, so the L×L matrix is never built.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ import re
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ragmeup_tpu_torch.data.documents import Chunk
+from ragmeup_tpu_torch.ops.attention import span_attention_mass
 
 
 def compute_rerank_provenance(cross_encoder, query: str, answer: str,
@@ -127,10 +130,21 @@ def compute_attention_provenance(llm, query: str, answer: str,
         blockwise = len(ids) > blockwise_threshold
     if blockwise and a_span[1] > a_span[0]:
         # long-context path: blockwise span mass over last-layer (q, k)
-        raise NotImplementedError(
-            "blockwise attention provenance needs qk_forward and "
-            "span_attention_mass, which are not ported yet (ROADMAP queue 1 "
-            "item 4); use provenance 'rerank'")
+        q_all, k_all = llm.qk_forward(ids)  # (1, L, heads, hd)
+        q_all, k_all = (torch.from_numpy(t[0]).to(llm.device) for t in (q_all, k_all))
+        all_spans = [s for s in spans if s[1] > s[0]]
+        masses = np.zeros(len(all_spans))
+        for h in range(q_all.shape[1]):
+            masses += span_attention_mass(q_all[a_span[0]:a_span[1], h],
+                                          k_all[:, h], all_spans, q_offset=a_span[0])
+            if include_query and q_span[1] > q_span[0]:
+                masses += span_attention_mass(q_all[q_span[0]:q_span[1], h],
+                                              k_all[:, h], all_spans,
+                                              q_offset=q_span[0])
+        live = iter(masses)
+        raw = [float(next(live)) if s[1] > s[0] else 0.0 for s in spans]
+        total = sum(raw)
+        return [r / total for r in raw] if total > 0 else raw
 
     weights = llm.attention_forward(ids)
     last = weights[-1][0]  # (heads, L, L)

@@ -13,7 +13,14 @@ Counterpart of ``ragmeup_tpu/pipeline/serving.py``:
   retire independently;
 - a *wave* runs ``steps`` decode+sample iterations with the sampling state
   on the device and no host sync until one (B, steps) token fetch; waves
-  pipeline one deep (wave N+1 is enqueued before wave N's fetch).
+  pipeline one deep (wave N+1 is enqueued before wave N's fetch);
+- a *speculative wave* runs ``iters`` batched chunk forwards of width
+  ``draft``: greedy rows verify a 2-gram prompt-lookup draft from their
+  device-resident context and advance up to ``draft`` tokens a forward,
+  temperature rows one. An adaptive gate (``_spec_gate``) falls back to
+  plain waves while the measured tokens per forward stay below
+  ``spec_accept_floor`` and re-probes every ``spec_reprobe_every``
+  decisions.
 
 ``BatchedChatBackend`` puts the engine behind the ChatBackend interface: a
 worker thread owns the engine (and with it all of its CUDA work, on one
@@ -23,9 +30,6 @@ Sampling (temperature, repetition penalty, EOS) follows ``LocalLLM``.
 Temperature rows sample with ``torch.Generator``s (per sequence in
 ``step``, seeded from the seed and the wave counter in waves): sampled
 streams are the port's own, greedy streams equal the JAX package's.
-Speculative waves (2-gram drafts for greedy rows) are not ported yet: the
-backend raises NotImplementedError where the JAX package would dispatch
-one.
 """
 
 from __future__ import annotations
@@ -39,13 +43,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ragmeup_tpu_torch.models.decoder import LocalLLM, _next_pow2_int
+from ragmeup_tpu_torch.models.decoder import (LocalLLM, _next_pow2_int, draft_greedy,
+                                             penalize)
 from ragmeup_tpu_torch.ops.paged_attention import PagedKVCache
 from ragmeup_tpu_torch.ops.topk import rank_topk
 from ragmeup_tpu_torch.pipeline.llm_backends import ChatBackend, llama3_template
-
-SPEC_NOT_PORTED = ("speculative waves (greedy rows with spec_draft > 0) are not "
-                   "ported yet (ROADMAP queue 1 item 4); pass spec_draft=0")
 
 
 class _SeqState:
@@ -75,9 +77,21 @@ class ServingEngine:
     def __init__(self, llm: LocalLLM, num_pages: int = 256,
                  page_size: int = 64, max_pages_per_seq: int = 16,
                  max_batch: int = 16, topk_support: int = 64,
-                 prefill_chunk: int = 256, prefix_cache: bool = True):
+                 prefill_chunk: int = 256, prefix_cache: bool = True,
+                 spec_accept_floor: float = 1.35, spec_reprobe_every: int = 16):
+        """``spec_accept_floor``: the greedy rows' emitted tokens per spec
+        forward (an EWMA over waves) below which ``_spec_gate`` falls back
+        to plain waves, re-probing spec every ``spec_reprobe_every``
+        decisions; 0 keeps spec on whenever it is asked for."""
         self.llm = llm
         cfg = llm.cfg
+        self.spec_accept_floor = spec_accept_floor
+        self.spec_reprobe_every = max(spec_reprobe_every, 1)
+        self._spec_accept: Optional[float] = None
+        self._spec_waves = 0
+        self._spec_mode = "spec"
+        self._spec_probe_left = 0
+        self._spec_gate_iters = 0  # the re-probe tail guard's wave length
         self.page_size = page_size
         # sampling happens within the top-K support (greedy is exact: the
         # argmax is always in it)
@@ -106,8 +120,11 @@ class ServingEngine:
         self._eos = torch.tensor(sorted(llm.eos_ids) or [-1], dtype=torch.int32,
                                  device=self.device)
         self._wave_counter = 0
+        # at most one carry is live: setting one clears the other
         self._wave_state: Optional[dict] = None
+        self._spec_state: Optional[dict] = None
         self._infl_steps: Dict[object, int] = {}
+        self._spec_infl: Dict[object, int] = {}
         self._B_hwm = 0
         # per-dispatch host timings when set to a list (observability)
         self.wave_timings: Optional[list] = None
@@ -180,6 +197,7 @@ class ServingEngine:
             n, prompt_ids, vals[0].copy(), ids[0].copy(), seed, max_new_tokens,
             temperature, repetition_penalty, logits,
             self._lifetime_pages(n, max_new_tokens))
+        self._spec_track_reset()  # a new prompt re-earns speculation
 
     def _prefill_into_pages(self, seq_id, prompt_ids):
         """Chunked paged prefill of one prompt; returns the last real
@@ -324,6 +342,7 @@ class ServingEngine:
                 logits_rows[i], self._lifetime_pages(len(pids), r["max_new"]))
             if self.prefix_cache:
                 self.cache.register_prefix(r["id"], pids)
+        self._spec_track_reset()
 
     def _sample(self, st: _SeqState) -> int:
         """Sample within the top-K support (penalty + temperature)."""
@@ -345,15 +364,17 @@ class ServingEngine:
         return int(st.ids[j])
 
     def _flush_wave_state(self) -> None:
-        """Write the wave carry's per-row logits back to their sequences and
-        drop the carry. Runs before any host-side change the carry would
-        shadow (single step, retire, batch membership change)."""
-        prev = self._wave_state
-        if prev is not None:
-            for j, old_sid in enumerate(prev["sig"][0]):
-                if old_sid in self.seqs:
-                    self.seqs[old_sid].dev_logits = prev["logits"][j]
+        """Write the live carry's (wave or spec) per-row logits back to their
+        sequences and drop both carries. Runs before any host-side change
+        the carry would shadow (single step, retire, batch membership
+        change)."""
+        for prev in (self._wave_state, self._spec_state):
+            if prev is not None:
+                for j, old_sid in enumerate(prev["sig"][0]):
+                    if old_sid in self.seqs:
+                        self.seqs[old_sid].dev_logits = prev["logits"][j]
         self._wave_state = None
+        self._spec_state = None
 
     @torch.inference_mode()
     def step(self) -> int:
@@ -439,10 +460,6 @@ class ServingEngine:
             return 0
         return self._wave_collect(entry)
 
-    def _spec_dispatch(self, *args, **kwargs):
-        """Where the JAX package dispatches a speculative wave."""
-        raise NotImplementedError(SPEC_NOT_PORTED)
-
     @torch.inference_mode()
     def _wave_dispatch(self, steps: int, seed: int, allow_rebuild: bool):
         """Enqueue one wave without waiting for its tokens. Returns an entry
@@ -464,7 +481,6 @@ class ServingEngine:
         # shape; here it keeps the carry's shape stable)
         B = max(_next_pow2_int(len(active)), self._B_hwm)
         self._B_hwm = B
-        V = self.llm.cfg.vocab_size
         limit = self.max_pages_per_seq * self.page_size
         mpp = self.max_pages_per_seq
         sig = (tuple(sid for sid, _ in active), B, steps)
@@ -497,38 +513,7 @@ class ServingEngine:
             carry = prev
         else:
             self._flush_wave_state()
-            dev = self.device
-            logits = torch.zeros((B, V), dtype=torch.float32, device=dev)
-            seen = np.zeros((B, V), bool)
-            pos = np.zeros(B, np.int32)
-            emitted = np.zeros(B, np.int32)
-            done = np.ones(B, bool)  # pad rows are done for good
-            temps = np.zeros(B, np.float32)
-            rps = np.ones(B, np.float32)
-            max_new = np.zeros(B, np.int32)
-            for i, (sid, st) in enumerate(active):
-                if st.dev_logits is None:
-                    # row last advanced by the single-step path: rebuild from
-                    # the host top-K support (its next token samples as
-                    # _sample would; later tokens use full-vocab logits)
-                    full = np.full(V, -1e30, np.float32)
-                    full[np.asarray(st.ids)] = st.vals
-                    logits[i] = self._tensor(full)
-                else:
-                    logits[i] = st.dev_logits
-                if st.seen:
-                    seen[i, np.fromiter(st.seen, dtype=np.int64)] = True
-                pos[i] = st.pos
-                emitted[i] = len(st.out)
-                done[i] = False
-                temps[i] = st.temperature
-                rps[i] = st.rep_penalty
-                max_new[i] = st.max_new
-            carry = {"logits": logits, "seen": self._tensor(seen),
-                     "done": self._tensor(done), "emitted": self._tensor(emitted),
-                     "pos": self._tensor(pos), "temps": self._tensor(temps),
-                     "rps": self._tensor(rps), "max_new": self._tensor(max_new),
-                     "sampled": bool((temps > 0).any())}
+            carry = self._build_carry(active, B)
 
         t1 = time.perf_counter()
         gen = None
@@ -544,6 +529,43 @@ class ServingEngine:
         if self.wave_timings is not None:
             self.wave_timings.append({"prep": t1 - t0, "dispatch": t2 - t1})
         return {"active": active, "out": out, "steps": steps}
+
+    def _build_carry(self, active, B: int) -> dict:
+        """A wave's device carry rebuilt from host state: each active row's
+        logits, seen set, position, budget and sampling knobs; rows past the
+        active ones are pad rows, done for good."""
+        V = self.llm.cfg.vocab_size
+        logits = torch.zeros((B, V), dtype=torch.float32, device=self.device)
+        seen = np.zeros((B, V), bool)
+        pos = np.zeros(B, np.int32)
+        emitted = np.zeros(B, np.int32)
+        done = np.ones(B, bool)  # pad rows are done for good
+        temps = np.zeros(B, np.float32)
+        rps = np.ones(B, np.float32)
+        max_new = np.zeros(B, np.int32)
+        for i, (sid, st) in enumerate(active):
+            if st.dev_logits is None:
+                # row last advanced by the single-step path: rebuild from
+                # the host top-K support (its next token samples as
+                # _sample would; later tokens use full-vocab logits)
+                full = np.full(V, -1e30, np.float32)
+                full[np.asarray(st.ids)] = st.vals
+                logits[i] = self._tensor(full)
+            else:
+                logits[i] = st.dev_logits
+            if st.seen:
+                seen[i, np.fromiter(st.seen, dtype=np.int64)] = True
+            pos[i] = st.pos
+            emitted[i] = len(st.out)
+            done[i] = False
+            temps[i] = st.temperature
+            rps[i] = st.rep_penalty
+            max_new[i] = st.max_new
+        return {"logits": logits, "seen": self._tensor(seen),
+                "done": self._tensor(done), "emitted": self._tensor(emitted),
+                "pos": self._tensor(pos), "temps": self._tensor(temps),
+                "rps": self._tensor(rps), "max_new": self._tensor(max_new),
+                "sampled": bool((temps > 0).any())}
 
     def _wave_run(self, carry: dict, tables: torch.Tensor, steps: int,
                   gen: Optional[torch.Generator]):
@@ -561,11 +583,9 @@ class ServingEngine:
         page_idx = tables[:, 2 * steps:]
         rows = torch.arange(B, device=self.device)
         out = torch.full((B, steps), -1, dtype=torch.int32, device=self.device)
-        penalize = (rps != 1.0)[:, None]
+        hit = (rps != 1.0)[:, None]
         for s in range(steps):
-            penal = torch.where(logits > 0, logits / rps[:, None],
-                                logits * rps[:, None])
-            lg = torch.where(seen & penalize, penal, logits)
+            lg = penalize(logits, seen & hit, rps[:, None])
             tok = torch.argmax(lg, dim=1)
             if gen is not None:
                 u = torch.rand((B, V), generator=gen, device=self.device)
@@ -616,15 +636,6 @@ class ServingEngine:
                 st.done = True
         return sum(1 for _, st in self.seqs.items() if not st.done)
 
-    def _can_advance(self, infl: Dict[object, int]) -> bool:
-        """Some row could still emit in a new wave (host prediction; EOS is
-        unpredictable and wastes at most one wave)."""
-        limit = self.max_pages_per_seq * self.page_size
-        return any(not st.done
-                   and len(st.out) + infl.get(sid, 0) < st.max_new
-                   and st.pos + infl.get(sid, 0) + 1 < limit
-                   for sid, st in self.seqs.items())
-
     def run_wave(self, steps_per_dispatch: int = 8, seed: int = 0,
                  pipeline: bool = True) -> Dict[object, List[int]]:
         """Decode all active sequences to completion in waves. With
@@ -637,7 +648,7 @@ class ServingEngine:
             return self.results()
         q: deque = deque()
         while True:
-            if self._can_advance(self._infl_steps):
+            if self._more(use_spec=False):
                 entry = self._wave_dispatch(steps_per_dispatch, seed,
                                             allow_rebuild=not q)
                 if entry == "drain":
@@ -650,6 +661,337 @@ class ServingEngine:
                     self._wave_collect(q.popleft())
             elif q:
                 self._wave_collect(q.popleft())
+            else:
+                break
+        return self.results()
+
+
+    # -- speculative waves: up to `draft` tokens a forward for greedy rows ---------
+
+    @property
+    def spec_supported(self) -> bool:
+        """Spec waves write a chunk per row, which needs one token per pool
+        row: the port's pool always has it (ops/paged_attention.py), so this
+        is always true, and the JAX package's fallback to plain waves on
+        its packed layout has no counterpart here."""
+        return True
+
+    def spec_wave_once(self, iters: int = 4, draft: int = 8, seed: int = 0) -> int:
+        """One synchronous spec wave (dispatch + collect). Returns the
+        sequences still active."""
+        entry = self._spec_dispatch(iters, draft, seed, allow_rebuild=True)
+        if entry is None:
+            return 0
+        return self._spec_collect(entry)
+
+    def _ctx_rows(self, active, B: int) -> torch.Tensor:
+        """(B, limit) confirmed tokens (prompt + collected output) of each
+        active row, -1 after them: the drafts' source."""
+        T = self.max_pages_per_seq * self.page_size
+        ctx = np.full((B, T), -1, np.int64)
+        for i, (_, st) in enumerate(active):
+            confirmed = (list(st.prompt_ids) + list(st.out))[:T]
+            ctx[i, :len(confirmed)] = confirmed
+        return self._tensor(ctx)
+
+    @torch.inference_mode()
+    def _spec_dispatch(self, iters: int, draft: int, seed: int, allow_rebuild: bool):
+        """Enqueue one spec wave without waiting for its tokens. Returns an
+        entry for _spec_collect, None when nothing is active, or "drain"
+        when the batch membership changed while waves are in flight.
+
+        A row's advance is data-dependent, its write cover is not: each
+        row's pages are extended to its position plus the in-flight waves'
+        advance plus this wave's iters * draft (clamped by max_new and the
+        page limit), and the device sends writes past the cover to the
+        trash page, so wave N+1 can be enqueued before wave N's tokens
+        arrive; the carry (pos, emitted, ctx) flows from one to the next on
+        the device. Temperature rows sample from a generator seeded by the
+        seed and the dispatch counter, so pipelining leaves the streams as
+        they are."""
+        t0 = time.perf_counter()
+        active = [(sid, st) for sid, st in self.seqs.items()
+                  if not st.done][:self.max_batch]
+        if not active:
+            return None
+        B = max(_next_pow2_int(len(active)), self._B_hwm)
+        self._B_hwm = B
+        limit = self.max_pages_per_seq * self.page_size
+        sig = (tuple(sid for sid, _ in active), B, iters, draft)
+        prev = self._spec_state
+        infl = self._spec_infl
+        if (prev is None or prev["sig"] != sig) and not allow_rebuild:
+            return "drain"
+
+        page_idx = np.zeros((B, self.max_pages_per_seq), np.int64)
+        page_idx[:, 0] = self._trash
+        cover = np.zeros(B, np.int64)
+        for i, (sid, st) in enumerate(active):
+            room = min(infl.get(sid, 0) + iters * draft, limit - 1 - int(st.pos),
+                       st.max_new - len(st.out))
+            if room > 0:
+                self.cache.extend(sid, room)
+                self.cache.seq_len[sid] = int(st.pos)  # truth kept on host
+            cover[i] = int(st.pos) + max(room, 0)
+            plist = self.cache.seq_pages[sid]
+            page_idx[i, :len(plist)] = plist
+
+        wprev = self._wave_state
+        if prev is not None and prev["sig"] == sig:
+            carry = prev
+        elif wprev is not None and wprev["sig"][:2] == sig[:2]:
+            # wave -> spec over the same rows (a re-probe): adopt the wave
+            # carry; only ctx is new, and the host knows it, since a kind
+            # switch comes after a drain. At most one carry is live (each
+            # dispatch that sets one clears the other), so no spec carry
+            # is left to flush here.
+            assert prev is None
+            carry = {k: v for k, v in wprev.items() if k != "sig"}
+            carry["ctx"] = self._ctx_rows(active, B)
+            self._wave_state = None
+        else:
+            self._flush_wave_state()
+            carry = self._build_carry(active, B)
+            carry["ctx"] = self._ctx_rows(active, B)
+
+        t1 = time.perf_counter()
+        gen = None
+        if carry["sampled"]:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed((seed * 1_000_003 + self._wave_counter) % (2 ** 63))
+        self._wave_counter += 1
+        packed, new = self._spec_run(carry, self._tensor(cover), self._tensor(page_idx),
+                                     iters, draft, gen)
+        self._spec_state = dict(carry, **new, sig=sig)
+        for sid, _ in active:
+            infl[sid] = infl.get(sid, 0) + iters * draft
+        if self.wave_timings is not None:
+            self.wave_timings.append({"prep": t1 - t0,
+                                      "dispatch": time.perf_counter() - t1,
+                                      "spec": True})
+        return {"active": active, "packed": packed, "iters": iters, "draft": draft}
+
+    def _spec_run(self, carry: dict, cover: torch.Tensor, page_idx: torch.Tensor,
+                  iters: int, draft: int, gen: Optional[torch.Generator]):
+        """`iters` batched chunk forwards of width `draft` on the device (the
+        JAX package's _wave_spec_program); nothing here waits for the
+        device. Each iteration samples every row's pending token from the
+        carried logits as _wave_run does; a greedy row appends the 2-gram
+        draft from its context (the last match whose continuation is
+        confirmed); one chunk forward (#9's chunk mode, lengths = pos + d)
+        verifies all rows; a greedy row emits its pending token and the
+        drafts that equal the penalized argmax before them, a temperature
+        row its pending token. The next logits are those after the last
+        emitted token.
+
+        Parity: every emitted token is the penalized argmax of the logits
+        its own verify forward computed. The d-wide chunk forward and the
+        one-token decode forward round differently in their last bits, so
+        where an argmax margin is below that difference a spec and a plain
+        stream can pick different tokens.
+
+        Returns (packed (B, iters * d + 2): the emitted tokens with -1
+        holes, then pos and done, fetched at once; the new carry)."""
+        logits, seen, ctx = carry["logits"], carry["seen"], carry["ctx"]
+        done = carry["done"]
+        emitted, pos, max_new = (carry[k].long() for k in ("emitted", "pos", "max_new"))
+        temps, rps = carry["temps"], carry["rps"]
+        B, V = logits.shape
+        T = ctx.shape[1]
+        d = draft
+        ps = self.page_size
+        limit = self.max_pages_per_seq * ps
+        dev = self.device
+        rows = torch.arange(B, device=dev)
+        step_i = torch.arange(d, device=dev)
+        j = torch.arange(T - 1, device=dev)
+        out = torch.full((B, iters * d), -1, dtype=torch.long, device=dev)
+        hit = (rps != 1.0)[:, None]
+        for it in range(iters):
+            # the pending token, sampled as _wave_run samples it
+            lg = penalize(logits, seen & hit, rps[:, None])
+            t0 = torch.argmax(lg, dim=1)
+            if gen is not None:
+                u = torch.rand((B, V), generator=gen, device=dev)
+                sampled = torch.argmax(lg / temps.clamp_min(1e-6)[:, None]
+                                       - torch.log(-torch.log(u)), dim=1)
+                t0 = torch.where(temps > 0, sampled, t0)
+            is_eos0 = (t0[:, None] == self._eos[None, :]).any(dim=1)
+            live = ~done & ~is_eos0 & (emitted < max_new) & (pos + 1 < limit)
+            # the 2-gram draft from the row's context (greedy rows)
+            t1 = ctx[rows, (pos - 1).clamp_min(0)]
+            match = ((ctx[:, :-1] == t1[:, None]) & (ctx[:, 1:] == t0[:, None])
+                     & (j[None, :] <= (pos - d - 1)[:, None]))
+            m = torch.where(match, j[None, :], -1).max(dim=1).values
+            have = (m >= 0) & (temps == 0) & live
+            idxs = (m + 2).clamp(0, T - d)[:, None] + step_i[None, :d - 1]
+            cont = torch.where(have[:, None] & (idxs < pos[:, None]),
+                               ctx.gather(1, idxs), 0)
+            chunk = torch.where(live[:, None], torch.cat([t0[:, None], cont], dim=1), 0)
+            # the chunk forward: writes past the row's pre-extended cover go
+            # to the trash page (no token there is emitted or attended)
+            raw = pos[:, None] + step_i[None, :]
+            positions = raw.clamp(0, limit - 1)
+            w_ok = live[:, None] & (raw < limit) & (raw < cover[:, None])
+            w_pages = torch.where(w_ok, page_idx.gather(1, positions // ps), self._trash)
+            w_slots = torch.where(w_ok, positions % ps, 0)
+            lengths = torch.where(live, pos + d, d)
+            logits_all = self._forward(chunk, positions, page_idx, lengths, w_pages, w_slots)
+            # the batched verify: greedy-with-penalty at every position
+            greedy = draft_greedy(logits_all, seen, cont, rps)
+            acc = torch.cumprod((chunk[:, 1:] == greedy[:, :-1]).long(), dim=1)
+            a = torch.where(have, acc.sum(dim=1), 0)
+            # emission: the pending token and the accepted drafts, bounded by
+            # EOS, max_new and the page limit
+            chk_eos = (chunk[:, :, None] == self._eos[None, None, :]).any(dim=2)
+            fe = torch.where(chk_eos, step_i[None, :], d).min(dim=1).values
+            room = torch.minimum(max_new - emitted, limit - 1 - pos)
+            n_emit = torch.where(live, torch.minimum(torch.minimum(1 + a, fe), room), 0)
+            ok = step_i[None, :] < n_emit[:, None]
+            out[:, it * d:(it + 1) * d] = torch.where(ok, chunk, -1)
+            widx = raw.clamp(0, T - 1)
+            ctx.scatter_(1, widx, torch.where(ok, chunk, ctx.gather(1, widx)))
+            for i in range(d):  # one column at a time: a chunk may repeat a token
+                seen[rows, chunk[:, i]] = seen[rows, chunk[:, i]] | ok[:, i]
+            emitted = emitted + n_emit
+            pos = pos + n_emit
+            done = (done | (live & (is_eos0 | (fe <= a))) | (emitted >= max_new)
+                    | (pos + 1 >= limit) | ~live)
+            last = logits_all[rows, (n_emit - 1).clamp_min(0)]
+            logits = torch.where((n_emit > 0)[:, None], last, logits)
+        packed = torch.cat([out, pos[:, None], done[:, None].long()], dim=1)
+        return packed, {"logits": logits, "seen": seen, "done": done,
+                        "emitted": emitted, "pos": pos, "ctx": ctx}
+
+    def _spec_collect(self, entry) -> int:
+        """Fetch one in-flight spec wave's packed [tokens | pos | done] and
+        update host state; greedy rows that ran the whole wave feed the
+        gate's acceptance EWMA. Returns the sequences still active."""
+        t0 = time.perf_counter()
+        w = entry["iters"] * entry["draft"]
+        infl = self._spec_infl
+        host = entry["packed"].cpu().numpy()  # ONE fetch per wave
+        if self.wave_timings is not None:
+            self.wave_timings.append({"fetch": time.perf_counter() - t0})
+        acc_toks = acc_fwds = 0
+        for i, (sid, st) in enumerate(entry["active"]):
+            row = [int(t) for t in host[i, :w] if t >= 0]
+            st.out.extend(row)
+            st.seen.update(row)
+            st.pos = int(host[i, w])
+            if sid in self.seqs:  # not retired while in flight
+                self.cache.seq_len[sid] = st.pos
+            left = infl.get(sid, 0) - w
+            if left > 0:
+                infl[sid] = left
+            else:
+                infl.pop(sid, None)
+            st.vals = None
+            st.dev_logits = None  # carried in _spec_state until flushed
+            if host[i, w + 1]:
+                st.done = True
+            elif st.temperature == 0:
+                # rows that finished mid-wave emitted fewer for EOS or
+                # max_new, not for rejection: only whole waves are counted
+                acc_toks += len(row)
+                acc_fwds += entry["iters"]
+        if acc_fwds:
+            a = acc_toks / acc_fwds
+            prev = self._spec_accept
+            self._spec_accept = a if prev is None else 0.5 * prev + 0.5 * a
+            self._spec_waves += 1
+        return sum(1 for _, st in self.seqs.items() if not st.done)
+
+    def _spec_track_reset(self) -> None:
+        """A newly admitted prompt re-earns speculation: acceptance belongs
+        to the text being decoded, so the EWMA resets and the gate goes back
+        to spec mode."""
+        self._spec_accept = None
+        self._spec_waves = 0
+        self._spec_mode = "spec"
+        self._spec_probe_left = 0
+
+    def _spec_gate(self) -> bool:
+        """The adaptive choice, consulted once per dispatch decision: True
+        for a spec wave, False for a plain one. Spec mode drops to plain
+        once two or more waves averaged below ``spec_accept_floor`` emitted
+        tokens a forward; plain mode counts ``spec_reprobe_every`` decisions
+        down and then re-probes spec with a fresh EWMA, unless no greedy
+        row has 4 * ``_spec_gate_iters`` tokens left beyond what the waves
+        in flight will emit (a probe costs two or more waves at the
+        acceptance that demoted it). Greedy streams are the same either
+        way up to argmax near-ties at the kernels' rounding (see
+        _spec_run)."""
+        if self.spec_accept_floor <= 0:
+            return True
+        if self._spec_mode == "spec":
+            if (self._spec_accept is not None and self._spec_waves >= 2
+                    and self._spec_accept < self.spec_accept_floor):
+                self._spec_mode = "plain"
+                self._spec_probe_left = self.spec_reprobe_every
+                return False
+            return True
+        self._spec_probe_left -= 1
+        if self._spec_probe_left <= 0:
+            it = self._spec_gate_iters
+            if it and not any(
+                    not st.done and st.temperature == 0
+                    and st.max_new - len(st.out) - self._infl_steps.get(sid, 0)
+                    - self._spec_infl.get(sid, 0) >= 4 * it
+                    for sid, st in self.seqs.items()):
+                self._spec_probe_left = self.spec_reprobe_every
+                return False
+            self._spec_track_reset()
+            return True
+        return False
+
+    def _more(self, use_spec: bool) -> bool:
+        """A new wave of this kind could still help a row: its budget and
+        the page limit are not covered by the waves in flight (a host
+        prediction; EOS wastes at most one wave)."""
+        imap = self._spec_infl if use_spec else self._infl_steps
+        limit = self.max_pages_per_seq * self.page_size
+        return any(not st.done
+                   and len(st.out) + imap.get(sid, 0) < st.max_new
+                   and st.pos + imap.get(sid, 0) + 1 < limit
+                   for sid, st in self.seqs.items())
+
+    def _collect(self, kind: str, entry) -> int:
+        if kind == "spec":
+            return self._spec_collect(entry)
+        return self._wave_collect(entry)
+
+    def run_spec(self, iters: int = 4, draft: int = 8, seed: int = 0,
+                 pipeline: bool = True) -> Dict[object, List[int]]:
+        """Decode all active sequences to completion, each dispatch a spec
+        wave while a greedy row is active and the gate agrees, else a plain
+        wave of ``iters`` steps. With ``pipeline`` wave N+1 is enqueued
+        before wave N's fetch; a membership change or a kind switch drains
+        the waves in flight first. The streams do not depend on
+        ``pipeline``."""
+        self._spec_gate_iters = iters
+        q: deque = deque()
+        depth = 2 if pipeline else 1
+        while True:
+            use_spec = (any(st.temperature == 0 and not st.done
+                            for st in self.seqs.values()) and self._spec_gate())
+            if self._more(use_spec):
+                if use_spec:
+                    entry = self._spec_dispatch(iters, draft, seed, allow_rebuild=not q)
+                    kind = "spec"
+                else:
+                    entry = self._wave_dispatch(iters, seed, allow_rebuild=not q)
+                    kind = "wave"
+                if entry == "drain":
+                    self._collect(*q.popleft())
+                    continue
+                if entry is None:
+                    break
+                q.append((kind, entry))
+                if len(q) >= depth:
+                    self._collect(*q.popleft())
+            elif q:
+                self._collect(*q.popleft())
             else:
                 break
         return self.results()
@@ -671,9 +1013,10 @@ class BatchedChatBackend(ChatBackend):
                  seed: int = 0, wave_steps: int = 8, spec_draft: int = 8,
                  **engine_kwargs):
         """``wave_steps`` > 0 decodes that many tokens per dispatch (0: the
-        single-step path). ``spec_draft`` > 0 asks for speculative waves for
-        greedy rows, which are not ported: such a request fails with
-        NotImplementedError."""
+        single-step path). ``spec_draft`` > 0 decodes greedy rows in
+        speculative waves of ``wave_steps`` chunk forwards of that width,
+        while the engine's adaptive gate keeps them (``engine_kwargs``:
+        ``spec_accept_floor``, ``spec_reprobe_every``)."""
         self.llm = llm
         self.template = template
         self.assistant_token = assistant_token
@@ -725,17 +1068,18 @@ class BatchedChatBackend(ChatBackend):
         (ServingEngine.can_admit), so decoding never runs out of pages;
         excess requests wait in FIFO order.
 
-        Waves pipeline one deep. Membership changes (admission, a row
-        finishing) drain the in-flight wave first, so host state is current
-        when the batch rebuilds."""
+        Waves, plain or speculative, pipeline one deep; each in-flight
+        entry carries its kind. Membership changes (admission, a row
+        finishing) and kind switches drain the in-flight wave first, so
+        host state is current when the batch rebuilds."""
         eng = self.engine
         pending = {}          # seq_id → request dict (in the engine)
         waiting = deque()     # not admitted yet, FIFO
-        infl = deque()        # in-flight waves (pipeline depth 1)
+        infl = deque()        # in-flight (kind, wave) (pipeline depth 1)
 
         def drain_all():
             while infl:
-                eng._wave_collect(infl.popleft())
+                eng._collect(*infl.popleft())
 
         while True:
             try:
@@ -794,29 +1138,40 @@ class BatchedChatBackend(ChatBackend):
                     continue
                 try:
                     if self.wave_steps > 0:
+                        # spec drafts only help greedy rows: an all-sampled
+                        # phase takes plain waves; the gate is consulted only
+                        # where spec is otherwise eligible
                         any_greedy = any(st.temperature == 0 and not st.done
                                          for st in eng.seqs.values())
-                        if not eng._can_advance(eng._infl_steps):
+                        eng._spec_gate_iters = self.wave_steps
+                        use_spec = (self.spec_draft > 0 and any_greedy
+                                    and eng._spec_gate())
+                        if not eng._more(use_spec):
                             drain_all()
                         else:
-                            if self.spec_draft > 0 and any_greedy:
-                                eng._spec_dispatch(self.wave_steps,
-                                                   self.spec_draft, self.seed)
-                            entry = eng._wave_dispatch(self.wave_steps, self.seed,
-                                                       allow_rebuild=not infl)
+                            if use_spec:
+                                entry = eng._spec_dispatch(
+                                    self.wave_steps, self.spec_draft, self.seed,
+                                    allow_rebuild=not infl)
+                                kind = "spec"
+                            else:
+                                entry = eng._wave_dispatch(self.wave_steps, self.seed,
+                                                           allow_rebuild=not infl)
+                                kind = "wave"
                             if entry == "drain":
-                                eng._wave_collect(infl.popleft())
+                                eng._collect(*infl.popleft())
                             elif entry is None:
                                 drain_all()
                             else:
-                                infl.append(entry)
+                                infl.append((kind, entry))
                                 if len(infl) >= 2:
-                                    eng._wave_collect(infl.popleft())
+                                    eng._collect(*infl.popleft())
                     else:
                         eng.step()
                 except Exception as exc:  # fail in-flight, keep serving
                     infl.clear()
                     eng._infl_steps.clear()
+                    eng._spec_infl.clear()
                     for sid, req in list(pending.items()):
                         self._fail(req, exc)
                         try:

@@ -85,7 +85,9 @@ class RagSystem:
                 s = cfg.server
                 if s.batched_llm:
                     ekw = dict(num_pages=s.kv_pages, page_size=s.kv_page_size,
-                               prefix_cache=s.kv_prefix_cache)
+                               prefix_cache=s.kv_prefix_cache,
+                               spec_accept_floor=s.llm_spec_accept_floor,
+                               spec_reprobe_every=s.llm_spec_reprobe)
                     if s.kv_max_pages_per_seq > 0:
                         ekw["max_pages_per_seq"] = s.kv_max_pages_per_seq
                     backend = BatchedChatBackend(

@@ -366,7 +366,7 @@ def test_tiny_moe_decoder_greedy_stream_matches_jax(tiny_moe):
     j, t = tiny_moe
     ids = [int(x) for x in np.random.default_rng(1).integers(4, 512, 60)]
     want = j.generate(ids, max_new_tokens=12, temperature=0.0, speculative="off")
-    assert t.generate(ids, max_new_tokens=12, temperature=0.0) == want
+    assert t.generate(ids, max_new_tokens=12, temperature=0.0, speculative="off") == want
 
 
 def test_moe_serving_engine_matches_jax():
@@ -377,7 +377,8 @@ def test_moe_serving_engine_matches_jax():
     prompts = {"a": [5, 17, 101], "b": [9, 8, 7, 6, 5], "c": [200, 300]}
     want = {k: j.generate(v, max_new_tokens=5, speculative="off", **GREEDY)
             for k, v in prompts.items()}
-    solo = {k: t.generate(v, max_new_tokens=5, **GREEDY) for k, v in prompts.items()}
+    solo = {k: t.generate(v, max_new_tokens=5, speculative="off", **GREEDY)
+            for k, v in prompts.items()}
     kw = dict(num_pages=64, page_size=16, max_pages_per_seq=8)
     got = []
     for eng in (jserve.ServingEngine(j, spec_accept_floor=0.0, **kw),

@@ -342,7 +342,7 @@ def test_tiny_int4_moe_decoder_greedy_stream_matches_jax(tiny_int4, taken):
     j, t = tiny_int4
     ids = [int(x) for x in np.random.default_rng(1).integers(4, 512, 60)]
     want = j.generate(ids, max_new_tokens=8, temperature=0.0, speculative="off")
-    assert t.generate(ids, max_new_tokens=8, temperature=0.0) == want
+    assert t.generate(ids, max_new_tokens=8, temperature=0.0, speculative="off") == want
     assert set(taken) == {"moe_gather_int4"}
 
 
@@ -354,7 +354,8 @@ def test_int4_moe_serving_engine_matches_jax(tiny_int4, taken):
     prompts = {"a": [5, 17, 101], "b": [9, 8, 7, 6, 5], "c": [200, 300]}
     want = {k: j.generate(v, max_new_tokens=4, speculative="off", **GREEDY)
             for k, v in prompts.items()}
-    solo = {k: t.generate(v, max_new_tokens=4, **GREEDY) for k, v in prompts.items()}
+    solo = {k: t.generate(v, max_new_tokens=4, speculative="off", **GREEDY)
+            for k, v in prompts.items()}
     kw = dict(num_pages=64, page_size=16, max_pages_per_seq=8)
     got = []
     for eng in (jserve.ServingEngine(j, spec_accept_floor=0.0, **kw),

@@ -8,8 +8,8 @@ identical for a single request, concurrent requests, a mid-flight join,
 page recycling, ``step`` against waves, pipelined against unpipelined
 waves, batched against sequential prefill and prefix reuse; the chat
 backends must agree under page pressure. The port's sampled streams only
-have to be reproducible (they are its own), and greedy rows that would take
-a speculative wave are refused.
+have to be reproducible (they are its own). Speculative waves are held to
+the JAX engine in test_torch_spec.py.
 """
 
 import threading
@@ -280,18 +280,24 @@ def test_backends_match_jax_under_page_pressure(llms):
 
 def test_backend_oversized_request_and_spec_refusal(llms):
     """A request that can never fit the pool fails in chat() and the worker
-    serves on; a greedy chat that would take a speculative wave is refused
-    with NotImplementedError, a sampled one is served."""
+    serves on; a greedy chat on the default spec_draft=8 takes speculative
+    waves and equals the JAX backend's reply; a sampled one is served."""
     be = serving.BatchedChatBackend(llms[1], num_pages=8, page_size=16,
                                     max_pages_per_seq=64, wave_steps=2)
+    j_be = jserve.BatchedChatBackend(llms[0], num_pages=8, page_size=16,
+                                     max_pages_per_seq=64, wave_steps=2)
     msgs = [{"role": "user", "content": "hi"}]
     try:
         with pytest.raises(RuntimeError) as err:
             be.chat(msgs, max_new_tokens=1000, temperature=0.5)
         assert isinstance(err.value.__cause__, MemoryError)
-        with pytest.raises(RuntimeError) as err:
-            be.chat(msgs, max_new_tokens=4, temperature=0.0)
-        assert isinstance(err.value.__cause__, NotImplementedError)
+        assert be.spec_draft == 8
+        spec_waves = []
+        dispatch = be.engine._spec_dispatch
+        be.engine._spec_dispatch = lambda *a, **k: spec_waves.append(1) or dispatch(*a, **k)
+        greedy = be.chat(msgs, max_new_tokens=4, temperature=0.0)
+        assert greedy == j_be.chat(msgs, max_new_tokens=4, temperature=0.0)
+        assert spec_waves
         assert be._worker.is_alive()
         assert isinstance(be.chat(msgs, max_new_tokens=4, temperature=0.3), str)
         be.stop()
@@ -301,6 +307,7 @@ def test_backend_oversized_request_and_spec_refusal(llms):
         assert len(pages._free) + len(pages.page_digest) == pages.num_pages - 1
     finally:
         be.stop()
+        j_be.stop()
 
 
 def test_engine_counts_no_kernel_launch_on_cpu(llms):

@@ -63,7 +63,7 @@ def _config(data_dir, index_dir, config_cls=RagConfig, batched=False):
     if batched:
         # paged serving; 16-token pages keep the JAX pool at one token per
         # row (hd 16), so both engines prefill in chunks with prefix reuse.
-        # The port refuses speculative waves, so the JAX side runs without.
+        # Both run plain waves; speculative waves are held in test_torch_spec.
         cfg.server.batched_llm = True
         cfg.server.llm_spec_draft = 0
         cfg.server.kv_page_size = 16
@@ -173,7 +173,8 @@ def test_chat_matches_jax_over_two_turns(systems):
 def test_quantized_chat_matches_jax_over_two_turns(quantized_systems, monkeypatch):
     """int8 dense index (same codes in both) and int4 W4A16 decoder; the
     port's projections take the W4A16 kernel route (its plain version on
-    the CPU)."""
+    the CPU), greedy decoding at the speculative verify forward's 8 rows
+    (both packages decode speculatively at T = 0)."""
     j_sys, t_sys = quantized_systems
     assert t_sys.dense.dtype == j_sys.dense.dtype == "int8"
     np.testing.assert_array_equal(t_sys.dense._corpus_t.numpy(),
@@ -184,7 +185,7 @@ def test_quantized_chat_matches_jax_over_two_turns(quantized_systems, monkeypatc
     monkeypatch.setattr(quant_matmul, "int4_matmul_plain",
                         lambda *a: calls.append(a[0].shape) or plain(*a))
     _two_turns_match(j_sys, t_sys)
-    assert (1, 512) in calls
+    assert (8, 512) in calls
 
 
 def test_batched_chat_matches_jax_over_two_turns(batched_systems):
