@@ -22,18 +22,40 @@ Phases (any failure raises and exits non-zero):
    could take (bytes over 3.35 TB/s or operations over the peak rate of
    their type); the card's SM and memory clocks before the checks and after
    each.
-4. system, default path: full-width models with random weights drawn on
-   the card from --seed (GIST-small-shaped encoder, MiniLM-L-6-shaped
-   cross-encoder, Llama-3.1-8B-shaped int8 decoder), a generated corpus of
-   N_DOCS short documents (16 top-k tiles of 1024), RagSystem ingest →
-   embed → index, then three chat() requests on the default config (hybrid
-   0.5/0.5, MMR, bf16 index, rerank, rewrite loop, Re2, rerank provenance)
-   with MAX_NEW_TOKENS per answer; the third sends history.
-5. system, quantized path: the int8 decoder is freed; an int4 W4A16
-   Llama-3.1-8B-shaped decoder (128-row scale groups) and a RagSystem with
-   an int8 dense index over the same corpus answer three chat() requests;
-   then an int4 W4A8 decoder (512-row groups) on a second RagSystem, which
-   loads the saved int8 index artifact, answers one.
+4a. checkpoints: HF-layout checkpoint directories written under the temp
+   dir by tools/synthetic_checkpoint.py, weights drawn on the card from
+   --seed (bf16 N(0, 0.02), norms ones): a GIST-small-shaped BERT encoder,
+   a MiniLM-L-6-shaped BERT cross-encoder and Llama-3.1-8B (32 layers, 16
+   GB in four shards; if the temp disk, probed first, cannot hold it with
+   DISK_SPARE to spare, as many whole layers as fit, at least
+   CKPT_MIN_LAYERS, which is logged). Each write and each load is logged
+   with its seconds, GB and GB/s (a load also with the card's GiB
+   allocated after it); the directories are deleted at the end.
+4. system, default path: RagSystem loads all three models from those
+   directories itself (cfg.model.llm_checkpoint with the default int8
+   quantization, embedding_checkpoint, cross_encoder_checkpoint); the
+   loaded decoder's EOS ids must be {128001, 128009}, and its tensors of
+   layers 0, 15 and the last, the embedding, the final norm and the head
+   torch.equal to the generic path's quantization of the same checkpoint
+   tensors on the card (check_loaded_decoder); decode against prefill.
+   Then a generated corpus of N_DOCS short documents (16 top-k tiles of
+   1024), RagSystem ingest → embed → index, and three chat() requests on
+   the default config (hybrid 0.5/0.5, MMR, bf16 index, rerank, rewrite
+   loop, Re2, rerank provenance) with MAX_NEW_TOKENS per answer; the third
+   sends history. The same three requests then run on a decoder of the
+   same shape with random weights drawn on the card ("default random"),
+   for latencies to hold the checkpoint's against in the same call.
+5. system, quantized path: the int8 decoder is freed; a RagSystem with an
+   int8 dense index over the same corpus loads the 8B checkpoint as int4
+   W4A16 (128-row scale groups), is checked as in phase 4 and answers three
+   chat() requests; then a second RagSystem, which loads the saved int8
+   index artifact, loads it as int4 W4A8 (512-row groups), checked the
+   same way, and answers one. The 8B checkpoint is then deleted.
+5b. Mixtral checkpoint: Mixtral-8x7B-v0.1's layout at full width and two
+   layers (6.3 GB), loaded by load_local_llm in int8 and in int4, each
+   checked as in phase 4 (both layers: expert stacks, router, attention)
+   and generating 8 greedy tokens one a forward, which must launch #10
+   ("moe checkpoint int8") or #13 ("moe checkpoint int4").
 6. system, batched path (run right after phase 4, on its int8 decoder and
    index artifact): a RagSystem with server.batched_llm serves /chat
    through the paged engine (512 pages of 128 tokens per layer, 8-step
@@ -73,7 +95,7 @@ Phases (any failure raises and exits non-zero):
    provenance_method="attention" through the blockwise branch, whose
    scores must sum to 1.
 7. system, sparse-MoE path: the int4 decoders are freed; a
-   Mixtral-8x7B-shaped int8 decoder (8 experts, top-2; 47.5 GB) with the
+   Mixtral-8x7B-shaped int8 decoder with random weights drawn on the card (8 experts, top-2; 47.5 GB) with the
    bf16 index of phase 4 answers three chat() requests ("moe": decode
    through #10, prefill through the all-experts einsum); a second decoder
    over the same weights with moe_grouped="on" answers one ("moe
@@ -91,12 +113,12 @@ Phases (any failure raises and exits non-zero):
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
 Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the
-twelve runs of requests resets the kernels' launch counts just before its
-requests and reads them just after; every kernel of that run's path must
-have launched.
+fifteen runs resets the kernels' launch counts just before its requests
+and reads them just after; every kernel of that run's path must have
+launched.
 
-Prints a JSON line with the kernels' results and the clocks read before
-and after phase 3, then the card's name and power limit, and last
+Prints a JSON line with the kernels' results, the clocks read before
+and after phase 3 and the checkpoint writes and loads, then the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -104,6 +126,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import csv
 import gc
 import json
@@ -1703,37 +1726,23 @@ def write_corpus(data_dir: str, n_docs: int, seed: int) -> list:
     return texts
 
 
-def build_encoders(seed: int):
-    from ragmeup_tpu_torch.models.cross_encoder import CrossEncoder
-    from ragmeup_tpu_torch.models.encoder import BertConfig, SentenceEncoder
-    from ragmeup_tpu_torch.models.tokenizer import SimpleTokenizer
-    enc_cfg = BertConfig()                        # GIST-small shape
-    encoder = SentenceEncoder(enc_cfg, SimpleTokenizer(enc_cfg.vocab_size),
-                              seed=seed, device="cuda")
-    ce_cfg = BertConfig(num_layers=6)             # MiniLM-L-6 shape
-    cross = CrossEncoder(ce_cfg, SimpleTokenizer(ce_cfg.vocab_size),
-                         seed=seed + 1, device="cuda")
-    return encoder, cross
-
-
-def build_llm(seed: int, cfg=None, **quant):
-    """The Llama-3.1-8B-shaped decoder (int8 by default;
-    ``quantization="int4"``, ``int4_w4a8``), or the decoder of ``cfg``
-    (Mixtral-8x7B's), weights drawn and quantized on the card."""
+def build_llm(seed: int, cfg):
+    """The decoder of ``cfg`` (Llama-3.1-8B's or Mixtral-8x7B's shape),
+    weights drawn and quantized on the card; decode checked against
+    prefill."""
     import torch
-    from ragmeup_tpu_torch.models.decoder import (LlamaConfig, LocalLLM,
-                                                  init_decoder_params)
+    from ragmeup_tpu_torch.models.decoder import LocalLLM, init_decoder_params
     from ragmeup_tpu_torch.models.hf_loader import select_kernels
     from ragmeup_tpu_torch.models.tokenizer import SimpleTokenizer
     t0 = time.perf_counter()
-    llm_cfg = select_kernels(cfg or LlamaConfig.llama31_8b(**quant))
+    llm_cfg = select_kernels(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     params = init_decoder_params(llm_cfg, gen, "cuda")
     eos = (2,) if llm_cfg.num_experts else (128001, 128009)
     llm = LocalLLM(llm_cfg, SimpleTokenizer(llm_cfg.vocab_size), params=params,
                    eos_ids=eos, device="cuda")
     torch.cuda.synchronize()
-    log(f"decoder {'Mixtral-8x7B-shaped ' if llm_cfg.num_experts else ''}"
+    log(f"decoder {'Mixtral-8x7B-shaped ' if llm_cfg.num_experts else 'Llama-3.1-8B-shaped '}"
         f"{llm_cfg.quantization}{' W4A8' if llm_cfg.int4_w4a8 else ''} "
         f"built on the card in {time.perf_counter() - t0:.1f} s "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
@@ -1743,8 +1752,7 @@ def build_llm(seed: int, cfg=None, **quant):
             f"experts differ in {len(flips)} of {llm_cfg.num_layers} layers {flips}"
             + (f"; {note}" if note else ""))
     else:
-        cos = check_decoder(llm)
-        log(f"  decode step vs prefill logits cosine {cos:.5f}")
+        log(f"  decode step vs prefill logits cosine {check_decoder(llm):.5f}")
     return llm
 
 
@@ -1865,6 +1873,7 @@ def time_llm_calls(llm) -> list:
 
 # the kernels each run of requests must launch
 PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
+                "default random": ("topk", "int8_matmul", "flash_gqa"),
                 "int4 W4A16": ("topk_int8", "int4_matmul", "flash_gqa"),
                 "int4 W4A8": ("topk_int8", "int4_matmul_a8", "flash_gqa"),
                 "batched": ("topk", "int8_matmul", "paged_attention",
@@ -1878,7 +1887,9 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "moe int4": ("topk", "int4_matmul", "flash_gqa", "moe_gather_int4"),
                 "moe int4 batched": ("paged_attention", "paged_attention_chunk",
                                      "moe_grouped_int4"),
-                "moe int4 W4A8": ("topk", "int4_matmul_a8", "moe_gather_int4")}
+                "moe int4 W4A8": ("topk", "int4_matmul_a8", "moe_gather_int4"),
+                "moe checkpoint int8": ("moe_gather",),
+                "moe checkpoint int4": ("moe_gather_int4",)}
 
 
 def rag_config(data_dir: str, index_dir: str, **model):
@@ -1894,14 +1905,18 @@ def rag_config(data_dir: str, index_dir: str, **model):
     return cfg
 
 
-def open_system(cfg, encoder, cross, llm):
-    """RagSystem on the card: ingest + embed + index, or the saved artifact;
-    a stored vector must then find itself first."""
+def open_system(cfg, encoder=None, cross=None, llm=None):
+    """RagSystem on the card. The models not given are loaded by RagSystem
+    itself from cfg.model's checkpoints, each load timed (``timed_loaders``).
+    Then ingest + embed + index, or the saved artifact; a stored vector must
+    then find itself first."""
     import torch
     from ragmeup_tpu_torch.pipeline.system import RagSystem
+    with timed_loaders():
+        system = RagSystem(cfg, encoder=encoder, cross_encoder=cross, llm=llm,
+                           device="cuda", eager_load=False)
     t0 = time.perf_counter()
-    system = RagSystem(cfg, encoder=encoder, cross_encoder=cross, llm=llm,
-                       device="cuda")
+    system.load_data()
     torch.cuda.synchronize()
     log(f"RagSystem ({system.dense.dtype} index): {system.dense.n} chunks, "
         f"capacity {system.dense.capacity}, {time.perf_counter() - t0:.1f} s")
@@ -1912,6 +1927,187 @@ def open_system(cfg, encoder, cross, llm):
     if [h[0][0] for h in hits] != rows:
         raise AssertionError(f"self-retrieval failed: {hits}")
     return system
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: checkpoints written on the card and loaded by RagSystem
+# ---------------------------------------------------------------------------
+
+DISK_SPARE = 2e9        # bytes the 8B checkpoint leaves free on the temp disk
+CKPT_MIN_LAYERS = 2
+LOADERS = ("load_sentence_encoder", "load_cross_encoder", "load_local_llm")
+CHECKPOINTS = []        # every write and load: seconds, GB, GB/s, GiB allocated after
+
+
+def checkpoint_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+               if f.endswith(".safetensors")) / 1e9
+
+
+def write_checkpoint(root: str, model: str, seed: int, layers=None) -> str:
+    """One synthetic checkpoint (tools/synthetic_checkpoint.py), drawn on the
+    card; logs its seconds and GB/s."""
+    from ragmeup_tpu_torch.tools import synthetic_checkpoint
+    path = os.path.join(root, model)
+    r = synthetic_checkpoint.write_checkpoint(path, model, layers=layers, seed=seed)
+    row = {"write": model, "layers": layers, "GB": round(r["bytes"] / 1e9, 3),
+           "s": round(r["seconds"], 2), "GBps": round(r["bytes"] / 1e9 / r["seconds"], 3)}
+    CHECKPOINTS.append(row)
+    log(f"checkpoint written: {json.dumps(row)}")
+    return path
+
+
+def write_checkpoints(root: str, seed: int) -> dict:
+    """The two BERT checkpoints and the Llama-3.1-8B one, at full depth if
+    the temp disk holds it with DISK_SPARE to spare, else at as many whole
+    layers as fit (at least CKPT_MIN_LAYERS), which is logged."""
+    import shutil
+    from ragmeup_tpu_torch.tools.synthetic_checkpoint import checkpoint_bytes
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    bert = checkpoint_bytes("gist_small") + checkpoint_bytes("minilm_l6_cross")
+    rest = checkpoint_bytes("llama31_8b", 0)
+    per_layer = checkpoint_bytes("llama31_8b", 1) - rest
+    full = 32
+    layers = max(CKPT_MIN_LAYERS, min(full, int((free - DISK_SPARE - bert - rest) // per_layer)))
+    log(f"temp disk {root}: {free / 1e9:.1f} GB free; the 8B checkpoint at {layers} "
+        f"layers" + ("" if layers == full else
+                     f" (full depth needs {(rest + full * per_layer) / 1e9:.2f} GB "
+                     f"and {DISK_SPARE / 1e9:.0f} GB spare)"))
+    return {"embedding": write_checkpoint(root, "gist_small", seed),
+            "cross_encoder": write_checkpoint(root, "minilm_l6_cross", seed + 1),
+            "llm": write_checkpoint(root, "llama31_8b", seed + 2,
+                                    layers=None if layers == full else layers)}
+
+
+def with_checkpoints(cfg, ckpts: dict):
+    """cfg with all three models set to the checkpoint directories."""
+    cfg.model.embedding_checkpoint = ckpts["embedding"]
+    cfg.model.cross_encoder_checkpoint = ckpts["cross_encoder"]
+    cfg.model.llm_checkpoint = ckpts["llm"]
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_loaders():
+    """Inside: each loader RagSystem calls with a checkpoint directory is
+    timed (host clock around a synchronised call) and logged with the GB it
+    read, GB/s and the card's GiB allocated after it."""
+    import torch
+    from ragmeup_tpu_torch.pipeline import system as system_mod
+    real = {name: getattr(system_mod, name) for name in LOADERS}
+
+    def timed(name, fn):
+        def load(checkpoint_dir, *args, **kwargs):
+            if not checkpoint_dir:
+                return fn(checkpoint_dir, *args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(checkpoint_dir, *args, **kwargs)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            gb = checkpoint_gb(checkpoint_dir)
+            row = {"load": os.path.basename(checkpoint_dir), "by": name,
+                   "quantization": kwargs.get("quantization", "none"),
+                   "w4a8": kwargs.get("int4_w4a8", False), "GB": round(gb, 3),
+                   "s": round(sec, 2), "GBps": round(gb / sec, 3),
+                   "GiB_allocated": round(torch.cuda.memory_allocated() / 2**30, 2)}
+            CHECKPOINTS.append(row)
+            log(f"checkpoint loaded: {json.dumps(row)}")
+            return out
+        return load
+    for name, fn in real.items():
+        setattr(system_mod, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(system_mod, name, fn)
+
+
+def check_loaded_decoder(llm, ckpt_dir: str) -> int:
+    """The streaming loader against the generic path on the card: the
+    checkpoint's tensors of the first, middle (15 at full depth) and last
+    layers, the embedding, the final norm and the head, through
+    ``llama_params_from_hf`` (f32 on the host) and ``quantize_decoder_params``
+    on the card, must be torch.equal to the loaded model's. Returns the
+    number of tensors compared."""
+    import torch
+    from ragmeup_tpu_torch.models import hf_loader
+    from ragmeup_tpu_torch.models.safetensors import load_safetensors
+    c = llm.cfg
+    layers = sorted({0, min(15, c.num_layers - 1), c.num_layers - 1})
+    t0 = time.perf_counter()
+    host = hf_loader.llama_params_from_hf(load_safetensors(ckpt_dir), c.num_layers,
+                                          c.tie_embeddings, layers=layers)
+    want = hf_loader.quantize_decoder_params(
+        {k: v.cuda() for k, v in host.items()}, bits={"int8": 8, "int4": 4}[c.quantization],
+        int4_group=c.int4_group, head_bits=8 if c.head_quantization == "int8" else 0)
+    del host
+    got = llm.model.state_dict()
+    missing = sorted(set(want) - set(got))
+    differ = [k for k in want if k in got and not torch.equal(got[k], want[k])]
+    if missing or differ:
+        raise AssertionError(f"loaded {c.quantization} decoder against the generic path: "
+                             f"missing {missing[:4]}, differ {differ[:4]} "
+                             f"({len(differ)} of {len(want)})")
+    n = len(want)
+    del want
+    free_card()
+    log(f"  {c.quantization}{' W4A8' if c.int4_w4a8 else ''} loaded decoder: layers "
+        f"{layers}, embedding, final norm and head torch.equal to the generic path "
+        f"({n} tensors, {time.perf_counter() - t0:.1f} s)")
+    return n
+
+
+def check_8b_checkpoint(llm, ckpt_dir: str) -> None:
+    """A decoder RagSystem loaded from the 8B checkpoint: its EOS ids, the
+    streaming loader against the generic path, decode against prefill."""
+    if llm.eos_ids != {128001, 128009}:
+        raise AssertionError(f"EOS ids {llm.eos_ids} from generation_config.json")
+    check_loaded_decoder(llm, ckpt_dir)
+    log(f"  decode step vs prefill logits cosine {check_decoder(llm):.5f}; "
+        f"max_seq_len {llm.cfg.max_seq_len}, EOS {sorted(llm.eos_ids)}")
+
+
+def run_moe_checkpoint(root: str, seed: int) -> dict:
+    """A Mixtral-8x7B checkpoint at full width and two layers, loaded in int8
+    and in int4 by load_local_llm: the expert stacks and every other tensor
+    of both layers torch.equal to the generic path; one greedy generate of 8
+    tokens (one token a forward) must launch #10 or #13. The directory is
+    deleted after."""
+    import shutil
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.pipeline import system as system_mod
+    path = write_checkpoint(root, "mixtral_8x7b", seed + 3, layers=2)
+    runs = {}
+    prompt = list(range(100, 160))
+    for quantization, label in (("int8", "moe checkpoint int8"),
+                                ("int4", "moe checkpoint int4")):
+        with timed_loaders():
+            llm = system_mod.load_local_llm(path, quantization=quantization,
+                                            device="cuda")
+        check_loaded_decoder(llm, path)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = llm.generate(prompt, max_new_tokens=8, temperature=0.0, speculative="off")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        log(f"{label}: {len(out)} greedy tokens {out} in {sec * 1e3:.1f} ms; "
+            f"launch counts {counts}")
+        if not out:
+            raise AssertionError(f"{label}: no token generated")
+        missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+        runs[label] = {"counts": counts, "latency_s": [sec]}
+        del llm
+        free_card()
+    shutil.rmtree(path)
+    return runs
 
 
 def drive(label: str, system, llm, queries) -> dict:
@@ -2558,9 +2754,10 @@ def free_card() -> None:
 
 
 def run_system(seed: int) -> dict:
-    """The twelve runs of requests; returns each run's counts and latencies."""
+    """The runs of requests; returns each run's counts and latencies."""
+    import shutil
     import torch
-    encoder, cross = build_encoders(seed)
+    from ragmeup_tpu_torch.models.decoder import LlamaConfig
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "data")
@@ -2570,11 +2767,20 @@ def run_system(seed: int) -> dict:
         queries = [f"What do the notes say about {' '.join(words[:3])}?",
                    f"Which notes mention {' '.join(texts[4242].split()[:2])}?",
                    "Tell me more about that."]
+        ckpt_root = os.path.join(tmp, "checkpoints")
+        ckpts = write_checkpoints(ckpt_root, seed)
 
-        llm = build_llm(seed)
-        system = open_system(rag_config(data_dir, os.path.join(tmp, "index")),
-                             encoder, cross, llm)
+        system = open_system(with_checkpoints(
+            rag_config(data_dir, os.path.join(tmp, "index")), ckpts))
+        llm, encoder, cross = system.llm, system.encoder, system.cross_encoder
+        check_8b_checkpoint(llm, ckpts["llm"])
         runs["default"] = drive("default", system, llm, queries)
+        random_llm = build_llm(seed, LlamaConfig.llama31_8b())
+        system = open_system(rag_config(data_dir, os.path.join(tmp, "index")), encoder, cross,
+                             random_llm)
+        runs["default random"] = drive("default random", system, random_llm, queries)
+        del system, random_llm
+        free_card()
         cfg = rag_config(data_dir, os.path.join(tmp, "index"))
         cfg.server.batched_llm = True
         batched = open_system(cfg, encoder, cross, llm)
@@ -2582,35 +2788,41 @@ def run_system(seed: int) -> dict:
             f"What is {' '.join(texts[99].split()[:2])}?",
             f"Summarize the notes on {' '.join(texts[12000].split()[:3])}."]
         runs["batched"] = drive_batched(batched, first_turns)
-        del system, batched
+        del batched
         runs.update(run_greedy(seed, llm, encoder, cross, data_dir,
                                os.path.join(tmp, "index"), queries, first_turns))
         del llm
         free_card()
 
         index_q = os.path.join(tmp, "index_int8")
-        llm = build_llm(seed, quantization="int4")
-        system = open_system(rag_config(data_dir, index_q, quantization="int4"),
-                             encoder, cross, llm)
+        cfg = with_checkpoints(rag_config(data_dir, index_q, quantization="int4"), ckpts)
+        system = open_system(cfg, encoder, cross)
+        llm = system.llm
+        check_8b_checkpoint(llm, ckpts["llm"])
         runs["int4 W4A16"] = drive("int4 W4A16", system, llm, queries)
         codes = system.dense._corpus_t[:, :N_DOCS].clone()
         scales = system.dense._scales[:, :N_DOCS].clone()
         del system, llm
         free_card()
 
-        llm = build_llm(seed, quantization="int4", int4_w4a8=True)
-        system = open_system(rag_config(data_dir, index_q, quantization="int4",
-                                        int4_w4a8=True), encoder, cross, llm)
+        cfg = with_checkpoints(rag_config(data_dir, index_q, quantization="int4",
+                                          int4_w4a8=True), ckpts)
+        system = open_system(cfg, encoder, cross)
+        llm = system.llm
+        check_8b_checkpoint(llm, ckpts["llm"])
         if not (torch.equal(system.dense._corpus_t[:, :N_DOCS], codes)
                 and torch.equal(system.dense._scales[:, :N_DOCS], scales)):
             raise AssertionError("the reloaded int8 artifact changed the codes")
         runs["int4 W4A8"] = drive("int4 W4A8", system, llm, queries[1:2])
         del system, llm
         free_card()
+        shutil.rmtree(ckpts["llm"])
 
+        runs.update(run_moe_checkpoint(ckpt_root, seed))
         for phase in (run_moe, run_moe_int4):
             runs.update(phase(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
                               texts, queries))
+        shutil.rmtree(ckpt_root)
     return runs
 
 
@@ -2766,7 +2978,8 @@ def main() -> int:
                                         "kernel_graph_ms", "shapes")}}
         for name, (r, src, rep) in results.items()],
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
-                          "after_kernel_checks": clock_after}}), flush=True)
+                          "after_kernel_checks": clock_after},
+        "checkpoints": CHECKPOINTS}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

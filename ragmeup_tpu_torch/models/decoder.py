@@ -58,6 +58,7 @@ from ragmeup_tpu_torch.ops.topk import divide_exactly, rank_topk
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANTIZATIONS = ("none", "int8", "int4")
 FLASH_BLOCK = 128  # prefill takes the flash kernel when s and kv_len are multiples
+HEAD_STRIP_BYTES = 1 << 28  # the int8 head's f32 weights dequantized at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,8 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
     quantization: str = "none"  # none | int8 | int4
+    # int8 lm_head (lm_head_q + per-vocab lm_head_scale; untied heads only)
+    head_quantization: str = "none"  # none | int8
     # int4 scale group along the input dim (0 = int4_tiling's 128-class);
     # the k-tile (512) takes the output-scaled kernel route
     int4_group: int = 0
@@ -596,7 +599,11 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(LlamaBlock(c, device, c.is_moe_layer(i))
                                     for i in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, c.torch_dtype, device)
-        if not c.tie_embeddings:
+        if self.int8_head:
+            self.register_buffer("lm_head_q", torch.zeros(
+                c.hidden_size, c.vocab_size, dtype=torch.int8, device=device))
+            self.register_buffer("lm_head_scale", torch.ones(c.vocab_size, device=device))
+        elif not c.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.zeros(c.hidden_size, c.vocab_size, device=device))
         self.register_buffer("inv_freq", torch.from_numpy(
@@ -604,14 +611,34 @@ class LlamaModel(nn.Module):
             persistent=False)
         self._head_f32: Optional[torch.Tensor] = None
 
-    def head(self) -> Tuple[torch.Tensor, torch.dtype]:
-        """(head (hidden, vocab) as f32, its stored dtype). The stored head
-        may be bf16; logits are f32 sums of products of its values, so the
-        head is widened once and kept (serving never changes weights)."""
-        w = self.token_embedding.T if self.cfg.tie_embeddings else self.lm_head
-        if self._head_f32 is None:
-            self._head_f32 = w.detach().float()
-        return self._head_f32, w.dtype
+    @property
+    def int8_head(self) -> bool:
+        return self.cfg.head_quantization == "int8" and not self.cfg.tie_embeddings
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final hidden states x (..., hidden): f32 sums of
+        products of the head's values. A float head may be stored in bf16;
+        it is widened once and kept (serving never changes weights). The
+        int8 head computes as the JAX package's does: each weight
+        ``lm_head_q * lm_head_scale`` in the model dtype, then a product
+        with f32 sums. It dequantizes a strip of at most HEAD_STRIP_BYTES
+        of f32 weights at a time and keeps none, so the head that is read
+        stays the int8 one."""
+        if not self.int8_head:
+            w = self.token_embedding.T if self.cfg.tie_embeddings else self.lm_head
+            if self._head_f32 is None:
+                self._head_f32 = w.detach().float()
+            return x.to(w.dtype).float() @ self._head_f32
+        dt = self.cfg.torch_dtype
+        xf = x.to(dt).float()
+        hq, hs = self.lm_head_q, self.lm_head_scale
+        vocab = hq.shape[1]
+        out = torch.empty(x.shape[:-1] + (vocab,), dtype=torch.float32, device=x.device)
+        strip = max(1, HEAD_STRIP_BYTES // (4 * hq.shape[0]))
+        for c0 in range(0, vocab, strip):
+            w = (hq[:, c0:c0 + strip].to(dt) * hs[c0:c0 + strip].to(dt)[None, :]).float()
+            out[..., c0:c0 + strip] = xf @ w
+        return out
 
     def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
@@ -657,8 +684,7 @@ class LlamaModel(nn.Module):
             x = x[torch.arange(x.shape[0], device=x.device), head_at.long()][:, None]
         elif head_at is not None:
             x = x[:, head_at:head_at + 1]
-        head, head_dtype = self.head()
-        logits = x.to(head_dtype).float() @ head
+        logits = self.logits(x)
         if not (capture_weights or capture_qk_last):
             return logits
         out = {"logits": logits}
@@ -720,7 +746,8 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
     (an int8 expert stack one expert at a time; int4 experts are drawn one
     at a time), and the embeddings/lm_head are stored in bf16
     (``quantize_decoder_params``), so a model never exists in f32 at once;
-    routers stay f32."""
+    routers stay f32. ``head_quantization="int8"`` quantizes an untied
+    lm_head per vocab column."""
     c = cfg
     hd = c.head_dim
     quant = c.quantization != "none"
@@ -775,7 +802,11 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
         kernel(f"{p}.mlp.down_proj", c.intermediate_size, c.hidden_size)
     ones("final_norm.scale", c.hidden_size)
     if not c.tie_embeddings:
-        out["lm_head"] = draw(c.hidden_size, c.vocab_size).to(emb_dtype)
+        w = draw(c.hidden_size, c.vocab_size)
+        if c.head_quantization == "int8":
+            out["lm_head_q"], out["lm_head_scale"] = quantize_kernel_int8(w)
+        else:
+            out["lm_head"] = w.to(emb_dtype)
     return out
 
 

@@ -79,7 +79,8 @@ class RagSystem:
                     m = cfg.model
                     self.llm = load_local_llm(
                         m.llm_checkpoint, device=self.device,
-                        quantization=m.quantization, int4_w4a8=m.int4_w4a8,
+                        quantization=m.quantization,
+                        head_quantization=m.head_quantization, int4_w4a8=m.int4_w4a8,
                         int4_group=m.int4_group, max_seq_len=m.llm_max_seq_len)
                 template = resolve_chat_template(cfg.model.llm_checkpoint)
                 s = cfg.server

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``ragmeup_tpu_torch`` (nor
-``chip_smoke.py``) imports jax, flax or the JAX package, its copies of the
+``chip_smoke.py``) imports jax, flax, the JAX package, or the packages the
+card does not have (safetensors, ml_dtypes, transformers), its copies of the
 JAX package's host modules (config, data loaders and splitters, pipeline)
 behave as the originals, and its entry points run on the card unless they
 are given ``device="cpu"``.
@@ -21,7 +22,8 @@ from ragmeup_tpu_torch import RagConfig, load_config
 from ragmeup_tpu_torch.data import loaders, splitters
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "ragmeup_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ragmeup_tpu", "safetensors", "ml_dtypes",
+             "transformers")
 
 
 def _port_sources():
@@ -46,6 +48,8 @@ def _imported_modules(path):
 def test_port_never_imports_jax_or_the_jax_package():
     paths = _port_sources()
     assert len(paths) > 30
+    for new in ("models/safetensors.py", "tools/synthetic_checkpoint.py"):
+        assert os.path.join(REPO, "ragmeup_tpu_torch", new) in paths
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -116,9 +120,10 @@ def test_loaders_and_splitters_match_jax(tmp_path):
         assert len(got) > len(raw) and _summary(got) == _summary(want)
 
 
-def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch):
+def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch, tmp_path):
     """Without a card every entry point raises instead of moving to the
-    CPU; with device="cpu" it builds there."""
+    CPU, the loaders given a checkpoint directory too (before they read
+    it); with device="cpu" it builds there."""
     from ragmeup_tpu_torch.models import decoder, hf_loader, tokenizer
     from ragmeup_tpu_torch.pipeline.system import RagSystem
     from ragmeup_tpu_torch.retrieval.dense import DenseIndex
@@ -131,7 +136,10 @@ def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch):
              lambda: DenseIndex(8), lambda: BM25Index(),
              lambda: hf_loader.load_sentence_encoder(None, dim=64),
              lambda: hf_loader.load_cross_encoder(None),
-             lambda: hf_loader.load_local_llm(None))
+             lambda: hf_loader.load_local_llm(None),
+             lambda: hf_loader.load_sentence_encoder(str(tmp_path)),
+             lambda: hf_loader.load_cross_encoder(str(tmp_path)),
+             lambda: hf_loader.load_local_llm(str(tmp_path), quantization="int8"))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -274,8 +274,8 @@ def test_loaders_without_checkpoint(tmp_path):
     assert llm.cfg == decoder.LlamaConfig.tiny()
     assert hf_loader.load_local_llm(None, quantization="int4", int4_w4a8=True,
                                     max_seq_len=999, device="cpu").cfg == decoder.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError):
-        hf_loader.load_local_llm(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="config.json"):  # a directory: a checkpoint
+        hf_loader.load_local_llm(str(tmp_path), device="cpu")
     assert decoder.LlamaConfig(quantization="int4").int4_group == 0
     with pytest.raises(ValueError):
         decoder.LlamaConfig(quantization="nf4")

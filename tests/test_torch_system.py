@@ -242,11 +242,13 @@ def test_model_settings_reach_the_loader(systems, monkeypatch):
     cfg = _config(t_sys.cfg.data.data_directory, t_sys.cfg.data.index_directory)
     cfg.model.quantization, cfg.model.int4_w4a8 = "int4", True
     cfg.model.int4_group, cfg.model.llm_max_seq_len = 256, 2048
+    cfg.model.head_quantization = "int8"
     sys_ = RagSystem(cfg, encoder=t_sys.encoder, cross_encoder=t_sys.cross_encoder,
                      device="cpu", eager_load=False)
     assert {k: seen[k] for k in ("quantization", "int4_w4a8", "int4_group",
-                                 "max_seq_len")} == dict(
-        quantization="int4", int4_w4a8=True, int4_group=256, max_seq_len=2048)
+                                 "max_seq_len", "head_quantization")} == dict(
+        quantization="int4", int4_w4a8=True, int4_group=256, max_seq_len=2048,
+        head_quantization="int8")
     assert sys_.llm.cfg == decoder.LlamaConfig.tiny()  # no checkpoint: ignored
 
 
