@@ -12,7 +12,12 @@ Phases (any failure raises and exits non-zero):
    million-column corpus and at 256 queries over 65,536 columns,
    TOPK_SHAPES, with every column masked and k above the live columns,
    on both of their merge routes, each at most two launches a call and #2
-   captured in a CUDA graph);
+   captured in a CUDA graph; #8 and #9 also at the head dims and groups of
+   the checkpoint families, FAMILY_SHAPES: #8 at hd 256 with g 1 and 2 and
+   at hd 128 with g 7, #9 in both modes at hd 64, 96 and 256 and at g 7,
+   each also with a window of 512 over 2,048 tokens, softcap 50 and
+   sm_scale 1/16, each a row of the kernels line, its launches counted by
+   head dim and group);
    median times of
    both, and of one PyTorch library call computing the same function where
    there is one, from CUDA events, each after warm-up rounds until two
@@ -56,6 +61,24 @@ Phases (any failure raises and exits non-zero):
    checked as in phase 4 (both layers: expert stacks, router, attention)
    and generating 8 greedy tokens one a forward, which must launch #10
    ("moe checkpoint int8") or #13 ("moe checkpoint int4").
+5c. Gemma-2-9B checkpoint (after phase 5 deletes the 8B one): its layout
+   at full width and depth (18.5 GB; fewer layers if the temp disk, probed
+   first, cannot hold it), loaded int8 by RagSystem beside phase 4a's
+   encoders and phase 4's bf16 index, its config, EOS id and layers 0, 21
+   and 41 checked as in phase 4, decode against prefill; three default
+   requests ("gemma2": #1 and #3, the softcapped prefill through the
+   einsum, #8 never), then phase 6's batched /chat ("gemma2 batched": #9 at
+   hd 256, g 2, with softcap 50, sm_scale 1/16 and window 4096 on the even
+   layers). The directory is deleted after.
+5d. four checkpoints at full width and two layers (after phase 5b), each
+   loaded by load_local_llm, checked as in phase 5b and driven: Gemma-7B
+   int8 (8 greedy tokens after 1,024 prompt tokens: #8 at hd 256; one
+   request through the paged engine: #9 at hd 256); Phi-3-mini-4k int8 and
+   int4 (its packed tensors split; a 2,500-token prompt past its 2,047-token
+   window: the engine's prefill logits within cosine 0.99 of the dense
+   prefill's; #9 at hd 96); Qwen2.5-7B int8 (its biases equal to the
+   checkpoint's; #8 and #9 at g 7); Qwen3-30B-A3B int8 (#10, 8 slots) and
+   int4 (#13, its n = 768 route). Each directory is deleted after.
 6. system, batched path (run right after phase 4, on its int8 decoder and
    index artifact): a RagSystem with server.batched_llm serves /chat
    through the paged engine (512 pages of 128 tokens per layer, 8-step
@@ -113,9 +136,10 @@ Phases (any failure raises and exits non-zero):
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
 Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the
-fifteen runs resets the kernels' launch counts just before its requests
-and reads them just after; every kernel of that run's path must have
-launched.
+twenty-three runs resets the kernels' launch counts just before its
+requests and reads them just after; every kernel of that run's path
+(PATH_KERNELS) and every instantiation it must reach (PATH_VARIANTS) must
+have launched.
 
 Prints a JSON line with the kernels' results, the clocks read before
 and after phase 3 and the checkpoint writes and loads, then the card's name and power limit, and last
@@ -932,6 +956,56 @@ def check_int4(gen, a8: bool) -> dict:
                                       for key, (a, b) in times.items()}}
 
 
+def flash_inputs(gen, bkv, g, s, kv_len, dtype=None, hd=128):
+    """q (bkv, g, s, hd), k and v (bkv, kv_len, hd), N(0, 1) on the card."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(bkv, g, s, hd, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(bkv, kv_len, hd, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(bkv, kv_len, hd, generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def flash_held(what, q, k, v, sm_scale=None) -> float:
+    """One call of #8 against its plain version (2e-2 absolute, see
+    check_flash); the call must launch the kernel, counted under its
+    head dim and group."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import attention
+    key = f"flash_gqa hd={q.shape[3]} g={q.shape[1]}"
+    before = kernels.launch_counts()["flash_gqa"], kernels.variant_counts().get(key, 0)
+    o1 = attention.flash_attention_gqa(q, k, v, sm_scale=sm_scale)
+    after = kernels.launch_counts()["flash_gqa"], kernels.variant_counts().get(key, 0)
+    if after[0] == before[0] or after[1] == before[1]:
+        raise AssertionError(f"flash_attention_gqa {what}: the kernel did not launch")
+    o0 = attention.flash_attention_gqa_plain(q, k, v, sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    err = (o0.float() - o1.float()).abs().max().item()
+    if not (err <= 2e-2 and torch.isfinite(o1).all()):
+        raise AssertionError(f"flash_attention_gqa {what} differs by {err}")
+    return err
+
+
+def flash_timed(q, k, v) -> dict:
+    """#8's eager and graph ms, its plain version's and SDPA's, and the bound.
+    Causal: the function reads keys 0..s-1 only; 4 flops per (query, key)
+    pair and head dim (two products)."""
+    import torch
+    from ragmeup_tpu_torch.ops import attention
+    bkv, g, s, hd = q.shape
+    pairs = bkv * g * s * (s + 1) // 2
+    kq, vq = k[:, None, :s], v[:, None, :s]
+    return {"ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
+            "graph_ms": graph_ms_or_none("flash_gqa", lambda: attention.flash_attention_gqa(
+                q, k, v), reps=5),
+            "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v),
+                                  reps=5),
+            "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kq, vq, is_causal=True, enable_gqa=True), reps=5),
+            **bound(2 * nbytes(q) + nbytes(kq, vq), 4 * pairs * hd, "bf16")}
+
+
 def check_flash(gen) -> dict:
     """#8 at an 8B prefill (nkv 8, g 4, hd 128, s 1024, kv_len 2048, bf16)
     and #7, its g = 1 case, at a multi-head one (32 heads); a ragged shape
@@ -944,69 +1018,141 @@ def check_flash(gen) -> dict:
     |out| < 2. Times at both prefill buckets the paths use (s 1024 and s 256,
     kv_len 2048), each beside its bound and scaled_dot_product_attention."""
     import torch
-    from ragmeup_tpu_torch import kernels
-    from ragmeup_tpu_torch.ops import attention
-
-    def inputs(bkv, g, s, kv_len, dtype=torch.bfloat16):
-        q = torch.randn(bkv, g, s, 128, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(bkv, kv_len, 128, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(bkv, kv_len, 128, generator=gen, device="cuda").to(dtype)
-        return q, k, v
-
-    def held(what, q, k, v):
-        before = kernels.launch_counts()["flash_gqa"]
-        o1 = attention.flash_attention_gqa(q, k, v)
-        if kernels.launch_counts()["flash_gqa"] == before:
-            raise AssertionError(f"flash_attention_gqa {what}: the kernel did not launch")
-        o0 = attention.flash_attention_gqa_plain(q, k, v)
-        torch.cuda.synchronize()
-        err = (o0.float() - o1.float()).abs().max().item()
-        if not (err <= 2e-2 and torch.isfinite(o1).all()):
-            raise AssertionError(f"flash_attention_gqa {what} differs by {err}")
-        return err
-
-    def timed(q, k, v):
-        # causal: the function reads keys 0..s-1 only; 4 flops per (query,
-        # key) pair and head dim (two products)
-        bkv, g, s, _ = q.shape
-        pairs = bkv * g * s * (s + 1) // 2
-        kq, vq = k[:, None, :s], v[:, None, :s]
-        return {"ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
-                "graph_ms": graph_ms_or_none("flash_gqa", lambda: attention.flash_attention_gqa(
-                    q, k, v), reps=5),
-                "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v),
-                                      reps=5),
-                "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, kq, vq, is_causal=True, enable_gqa=True), reps=5),
-                **bound(2 * nbytes(q) + nbytes(kq, vq), 4 * pairs * 128, "bf16")}
-
-    main = inputs(8, 4, 1024, 2048)
-    err = held("g=4 s=1024", *main)
-    g1 = inputs(32, 1, 1024, 2048)
-    err = max(err, held("g=1 s=1024", *g1))
+    main = flash_inputs(gen, 8, 4, 1024, 2048)
+    err = flash_held("g=4 s=1024", *main)
+    g1 = flash_inputs(gen, 32, 1, 1024, 2048)
+    err = max(err, flash_held("g=1 s=1024", *g1))
     for g, bkv in ((4, 2), (1, 8)):
-        err = max(err, held(f"ragged g={g} s=200 kv_len=256", *inputs(bkv, g, 200, 256)))
-    f32_err = held("f32 g=4 s=200", *inputs(2, 4, 200, 256, torch.float32))
-    s256 = inputs(8, 4, 256, 2048)
-    err = max(err, held("g=4 s=256", *s256))
-    return {"max_abs_err": err, **timed(*main),
+        err = max(err, flash_held(f"ragged g={g} s=200 kv_len=256",
+                                  *flash_inputs(gen, bkv, g, 200, 256)))
+    f32_err = flash_held("f32 g=4 s=200", *flash_inputs(gen, 2, 4, 200, 256, torch.float32))
+    s256 = flash_inputs(gen, 8, 4, 256, 2048)
+    err = max(err, flash_held("g=4 s=256", *s256))
+    return {"max_abs_err": err, **flash_timed(*main),
             "shape": "bkv=8 g=4 s=1024 kv_len=2048 hd=128 bf16",
-            "g1_bkv32_s1024": timed(*g1), "g4_s256": timed(*s256), "f32_err": f32_err}
+            "g1_bkv32_s1024": flash_timed(*g1), "g4_s256": flash_timed(*s256),
+            "f32_err": f32_err}
+
+
+# (label, head_dim, query heads, kv heads) of the checkpoint families whose
+# shapes #8 and #9 take beyond hd 128 with a power-of-two group
+FAMILY_SHAPES = {"Gemma-7B": (256, 16, 16), "Gemma-2-9B": (256, 16, 8),
+                 "Qwen2.5-7B": (128, 28, 4), "Qwen2.5-0.5B": (64, 14, 2),
+                 "Phi-3-mini": (96, 32, 32)}
+
+
+def check_flash_families(gen) -> dict:
+    """#8 at Gemma-7B's prefill (hd 256, g 1: 16 kv heads, s 1024, kv_len
+    2048), Gemma-2-9B's (hd 256, g 2) and Qwen2.5-7B's (hd 128, g 7: 9
+    positions of 7 heads a block, 63 of its 64 rows); each also ragged (s
+    200, kv_len 256) and in f32 at a small shape; Gemma-2's scale
+    (query_pre_attn_scalar 256: 1/16). Tolerance as check_flash. Rows: hd
+    256 (timed at Gemma-7B's shape, Gemma-2-9B's beside it) and g 7."""
+    import torch
+    rows = {}
+    for row, labels in (("hd=256", ("Gemma-7B", "Gemma-2-9B")), ("g=7", ("Qwen2.5-7B",))):
+        err, f32_err, timed = 0.0, 0.0, {}
+        for label in labels:
+            hd, nh, nkv = FAMILY_SHAPES[label]
+            g = nh // nkv
+            main = flash_inputs(gen, nkv, g, 1024, 2048, hd=hd)
+            err = max(err, flash_held(f"{label} hd={hd} g={g} s=1024", *main),
+                      flash_held(f"{label} ragged s=200 kv_len=256",
+                                 *flash_inputs(gen, nkv, g, 200, 256, hd=hd)),
+                      flash_held(f"{label} scale 1/16", *main, sm_scale=1 / 16))
+            f32_err = max(f32_err, flash_held(
+                f"{label} f32 s=200", *flash_inputs(gen, 2, g, 200, 256, torch.float32, hd)))
+            timed[label] = dict(flash_timed(*main),
+                                shape=f"bkv={nkv} g={g} s=1024 kv_len=2048 hd={hd} bf16")
+            log(f"  flash_gqa {label}: {json.dumps(timed[label])}")
+        first = timed[labels[0]]
+        rows[row] = dict(first, max_abs_err=err, f32_err=f32_err,
+                         **{label: timed[label] for label in labels[1:]})
+    return rows
 
 
 def paged_inputs(gen, b: int, lengths, q_len: int, nh: int = 32, nkv: int = 8,
-                 P: int = 512, ps: int = 128, mp: int = 16):
-    """q (b, q_len, nh, 128) and a bf16 pool (nkv, P, ps, 128) at the 8B
-    serving shapes; each sequence's mp-page table holds distinct pages
-    scattered over the pool (entries past its length too, which the kernel
-    must not read)."""
+                 P: int = 512, ps: int = 128, mp: int = 16, hd: int = 128):
+    """q (b, q_len, nh, hd) and a bf16 pool (nkv, P, ps, hd), at the 8B
+    serving shapes by default; each sequence's mp-page table holds distinct
+    pages scattered over the pool (entries past its length too, which the
+    kernel must not read)."""
     import torch
-    q = torch.randn(b, q_len, nh, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn(nkv, P, ps, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn(nkv, P, ps, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(b, q_len, nh, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(nkv, P, ps, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(nkv, P, ps, hd, generator=gen, device="cuda").to(torch.bfloat16)
     idx = torch.randperm(P, generator=gen, device="cuda")[:b * mp].reshape(b, mp)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, k, v, idx.to(torch.int32), lens
+
+
+def paged_off(out, ref):
+    """|out - ref| and where it exceeds two bf16 ulps of the row's largest
+    |ref| (0 for an all-zero row) or is not finite."""
+    import torch
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    big = ref.abs().amax(-1, keepdim=True)
+    tol = 2.0 * torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return err, (err > tol) | ~torch.isfinite(out)
+
+
+def paged_compare(name, out, ref) -> float:
+    import torch
+    torch.cuda.synchronize()
+    err, bad = paged_off(out, ref)
+    if bad.any():
+        at = tuple(bad.nonzero()[0].tolist())
+        raise AssertionError(
+            f"{name} differs from its plain version at {at} by "
+            f"{err[at].item()}, beyond two bf16 ulps of its row's largest output")
+    return err.max().item()
+
+
+def paged_case(gen, label, b, lengths, q_len, nh=32, nkv=8, hd=128, ps=128, mp=16,
+               timed=False, pads=0, **kw):
+    """One check of #9 against its plain version (the call must launch the
+    kernel, counted under its head dim and group); with `timed`, the
+    kernel's eager and graph times, the plain version's, the bound and the
+    split count. The last `pads` rows are a spec wave's pad rows: a table of
+    page 0 but for one trash page first, shared by them all. Returns (result,
+    inputs)."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import paged_attention as pa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q, k, v, idx, lens = paged_inputs(gen, b, lengths, q_len, nh=nh, nkv=nkv, ps=ps, mp=mp,
+                                      P=max(512, b * mp), hd=hd)
+    if pads:
+        trash = idx[b - 1, 0].item()
+        idx[b - pads:] = 0
+        idx[b - pads:, 0] = trash
+    if q_len == 1:
+        q = q[:, 0].contiguous()
+        fn, plain = pa.paged_attention, pa.paged_attention_plain
+    else:
+        fn, plain = pa.paged_attention_chunk, pa.paged_attention_chunk_plain
+    name = f"{fn.__name__} {label}"
+    key = f"{fn.__name__} hd={hd} g={nh // nkv}"
+    before = kernels.variant_counts().get(key, 0)
+    out = fn(q, k, v, idx, lens, **kw)
+    if kernels.variant_counts().get(key, 0) == before:
+        raise AssertionError(f"{name}: the kernel did not launch")
+    err = paged_compare(name, out, plain(q, k, v, idx, lens, **kw))
+    splits = pa.paged_splits(mp, ps, pa.kernel_split(b, q_len, nh, nkv, ps, mp,
+                                                     torch.bfloat16, sms))
+    res = {"max_abs_err": err, "splits": splits}
+    if timed:
+        # K/V rows read once per kv head; 4 flops per (query row, key, dim)
+        pairs = sum(q_len * (n - q_len) + q_len * (q_len + 1) // 2 for n in lengths)
+        res.update(ms=median_ms(lambda: fn(q, k, v, idx, lens, **kw)),
+                   graph_ms=graph_ms(lambda: fn(q, k, v, idx, lens, **kw)),
+                   plain_ms=median_ms(lambda: plain(q, k, v, idx, lens, **kw), reps=5),
+                   **bound(2 * sum(lengths) * nkv * hd * 2 + 2 * nbytes(q) + nbytes(idx, lens),
+                           4 * pairs * nh * hd, "bf16"))
+        log(f"  {name}: {res['ms']:.4f} ms, graph {res['graph_ms']:.4f} (plain "
+            f"{res['plain_ms']:.4f}, bound {res['bound_ms']:.4f}), {splits} splits")
+    return res, (q, k, v, idx, lens)
 
 
 def check_paged(gen) -> dict:
@@ -1030,59 +1176,9 @@ def check_paged(gen) -> dict:
     shapes and the SM count). Returns the decode and the chunk entries."""
     import torch
     from ragmeup_tpu_torch.ops import paged_attention as pa
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def off(out, ref):
-        """|out - ref| and where it exceeds two bf16 ulps of the row's
-        largest |ref| (0 for an all-zero row) or is not finite."""
-        out, ref = out.float(), ref.float()
-        err = (out - ref).abs()
-        big = ref.abs().amax(-1, keepdim=True)
-        tol = 2.0 * torch.exp2(torch.floor(torch.log2(big)) - 7)
-        return err, (err > tol) | ~torch.isfinite(out)
-
-    def compare(name, out, ref):
-        torch.cuda.synchronize()
-        err, bad = off(out, ref)
-        if bad.any():
-            at = tuple(bad.nonzero()[0].tolist())
-            raise AssertionError(
-                f"{name} differs from its plain version at {at} by "
-                f"{err[at].item()}, beyond two bf16 ulps of its row's largest output")
-        return err.max().item()
-
-    def case(label, b, lengths, q_len, ps=128, mp=16, timed=False, pads=0, **kw):
-        """One check against the plain version; with `timed`, the kernel's
-        and the plain version's times, the bound and the split count. The
-        last `pads` rows are a spec wave's pad rows: a table of page 0 but
-        for one trash page first, shared by them all."""
-        q, k, v, idx, lens = paged_inputs(gen, b, lengths, q_len, ps=ps, mp=mp,
-                                          P=max(512, b * mp))
-        if pads:
-            trash = idx[b - 1, 0].item()
-            idx[b - pads:] = 0
-            idx[b - pads:, 0] = trash
-        if q_len == 1:
-            q = q[:, 0].contiguous()
-            fn, plain = pa.paged_attention, pa.paged_attention_plain
-        else:
-            fn, plain = pa.paged_attention_chunk, pa.paged_attention_chunk_plain
-        name = f"{fn.__name__} {label}"
-        err = compare(name, fn(q, k, v, idx, lens, **kw), plain(q, k, v, idx, lens, **kw))
-        splits = pa.paged_splits(mp, ps, pa.kernel_split(b, q_len, 32, 8, ps, mp,
-                                                         torch.bfloat16, sms))
-        res = {"max_abs_err": err, "splits": splits}
-        if timed:
-            # K/V rows read once per kv head; 4 flops per (query row, key, dim)
-            pairs = sum(q_len * (n - q_len) + q_len * (q_len + 1) // 2 for n in lengths)
-            res.update(ms=median_ms(lambda: fn(q, k, v, idx, lens, **kw)),
-                       graph_ms=graph_ms(lambda: fn(q, k, v, idx, lens, **kw)),
-                       plain_ms=median_ms(lambda: plain(q, k, v, idx, lens, **kw), reps=5),
-                       **bound(2 * sum(lengths) * 8 * 128 * 2 + 2 * nbytes(q) + nbytes(idx, lens),
-                               4 * pairs * 32 * 128, "bf16"))
-            log(f"  {name}: {res['ms']:.4f} ms, graph {res['graph_ms']:.4f} (plain "
-                f"{res['plain_ms']:.4f}, bound {res['bound_ms']:.4f}), {splits} splits")
-        return res, (q, k, v, idx, lens)
+    def case(*args, **kw):
+        return paged_case(gen, *args, **kw)
 
     lengths = [1, 2048, 777, 128, 129, 1500, 64, 1024]
     decode, (qd, k, v, idx, lens) = case("b=8", 8, lengths, 1, timed=True)
@@ -1090,7 +1186,7 @@ def check_paged(gen) -> dict:
     ref = pa.paged_attention_plain(qd, k, v, idx, lens)
     cut = torch.tensor([n - ((n - 1) % 128 + 1) if n > 128 else n for n in lengths],
                        dtype=torch.int32, device="cuda")
-    caught = off(pa.paged_attention_plain(qd, k, v, idx, cut), ref)[1].flatten(1).any(1)
+    caught = paged_off(pa.paged_attention_plain(qd, k, v, idx, cut), ref)[1].flatten(1).any(1)
     if not caught[lens > 128].all():
         raise AssertionError("the paged_attention tolerance passes a dropped tail page")
     decode.update(library_ms=None,  # no one PyTorch call reads a paged pool
@@ -1131,6 +1227,42 @@ def check_paged(gen) -> dict:
     return {"decode": decode, "chunk": chunk_entry}
 
 
+def check_paged_families(gen) -> dict:
+    """#9 at the families' head dims and groups (FAMILY_SHAPES): hd 64
+    (Qwen2.5-0.5B, 14/2 heads), hd 96 (Phi-3-mini, 32/32), hd 256
+    (Gemma-2-9B, 16/8) and g 7 (Qwen2.5-7B, 28/4 heads at hd 128). Each in
+    decode (8 sequences of 1 to 2048 tokens) and chunk mode (a 128-token
+    chunk for 4 sequences after 0 to 1920 tokens), timed, and each again
+    with a window below the context (512 over 2048 tokens), softcap 50 and
+    sm_scale 1/16 together; Gemma-2-9B also over 16-token pages. Tolerance
+    as check_paged. Returns {"paged_attention hd=64": ..., ...}, one entry a
+    kernel mode and shape."""
+    lengths = [1, 2048, 777, 128, 129, 1500, 64, 1024]
+    chunk_lengths = [p + 128 for p in (0, 640, 1333, 1920)]
+    gemma2 = {"window": 512, "softcap": 50.0, "sm_scale": 1 / 16}
+    rows = {}
+    for row, label in (("hd=64", "Qwen2.5-0.5B"), ("hd=96", "Phi-3-mini"),
+                       ("hd=256", "Gemma-2-9B"), ("g=7", "Qwen2.5-7B")):
+        hd, nh, nkv = FAMILY_SHAPES[label]
+        shape = dict(nh=nh, nkv=nkv, hd=hd)
+        for mode, b, lens, q_len in (("paged_attention", 8, lengths, 1),
+                                     ("paged_attention_chunk", 4, chunk_lengths, 128)):
+            tag = f"{label} hd={hd} g={nh // nkv} b={b}"
+            res = paged_case(gen, tag, b, lens, q_len, timed=True, **shape)[0]
+            extra = {"window+softcap+scale": paged_case(
+                gen, f"{tag} window=512 softcap=50 sm_scale=1/16", b, lens, q_len,
+                **shape, **gemma2)[0]}
+            if hd == 256:
+                extra["ps=16"] = paged_case(gen, f"{tag} ps=16", b, lens, q_len, ps=16,
+                                            mp=128, **shape, **gemma2)[0]
+            rows[f"{mode} {row}"] = dict(
+                res, max_abs_err=max([res["max_abs_err"]]
+                                     + [r["max_abs_err"] for r in extra.values()]),
+                library_ms=None, variants=extra,
+                shape=f"{label}: b={b} q_len={q_len} nh={nh} nkv={nkv} hd={hd} ps=128 bf16")
+    return rows
+
+
 # Mixtral-8x7B's expert projections: (k, n) of gate, up and down
 MOE_E = 8
 MOE_SHAPES = {"gate": (4096, 14336), "up": (4096, 14336), "down": (14336, 4096)}
@@ -1165,9 +1297,12 @@ def moe_compare(name: str, got, ref) -> float:
 def check_moe_gather(gen) -> dict:
     """#10 at Mixtral's int8 expert shapes (E 8; gate/up 4096 x 14336, down
     14336 x 4096), S in {2, 16} slots, bf16; float experts at a smaller
-    shape (bf16 experts with bf16 x, f32 experts with f32 x). Tolerance:
-    moe_compare. Times: one decode layer's three projections at S = 2 (two
-    routed experts, 352 MB of int8: beyond the 50 MB L2)."""
+    shape (bf16 experts with bf16 x, f32 experts with f32 x); Qwen3-30B-A3B's
+    int8 experts (E 128; gate/up 2048 x 768, down 768 x 2048: multiples of
+    128, not of 512) at its 8 decode slots. Tolerance: moe_compare. Times:
+    one decode layer's three projections at S = 2 (two routed experts, 352
+    MB of int8: beyond the 50 MB L2), and Qwen3-30B-A3B's at S = 8
+    ("qwen3_30b_a3b": 38 MB)."""
     import torch
     from ragmeup_tpu_torch.ops import moe_matmul as mm
     weights = {name: moe_experts(gen, MOE_E, k, n, "int8")
@@ -1188,22 +1323,41 @@ def check_moe_gather(gen) -> dict:
         ids = torch.randint(0, MOE_E, (16,), generator=gen, device="cuda")
         moe_compare(f"moe_gather {kind} experts", mm.moe_gather_matmul(x, w, ids),
                     mm.moe_gather_matmul_plain(x, w, ids))
-    ids = torch.tensor([5, 2], device="cuda")
+    qwen = {name: moe_experts(gen, 128, k, n, "int8")
+            for name, (k, n) in (("gate", (2048, 768)), ("up", (2048, 768)),
+                                 ("down", (768, 2048)))}
+    qids = torch.randperm(128, generator=gen, device="cuda")[:8]
+    qxs = {k: torch.randn(8, k, generator=gen, device="cuda").to(torch.bfloat16)
+           for k in (2048, 768)}
+    for name in ("gate", "down"):
+        w, s = qwen[name]
+        err = max(err, moe_compare(f"moe_gather Qwen3-30B-A3B {name} S=8",
+                                   mm.moe_gather_matmul(qxs[w.shape[1]], w, qids, s),
+                                   mm.moe_gather_matmul_plain(qxs[w.shape[1]], w, qids, s)))
+
+    def timed(weights, xs, ids):
+        slots = len(ids)
+
+        def layer(fn):
+            return lambda: [fn(xs[w.shape[1]], w, ids, s) for w, s in weights.values()]
+        moved = sum(slots * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
+                    + nbytes(xs[w.shape[1]]) + 2 * slots * w.shape[2]
+                    for w, _ in weights.values())
+        ops = sum(2 * slots * w.shape[1] * w.shape[2] for w, _ in weights.values())
+        return {"ms": median_ms(layer(mm.moe_gather_matmul), reps=10),
+                "graph_ms": graph_ms_or_none("moe_gather", layer(mm.moe_gather_matmul), reps=4),
+                "plain_ms": median_ms(layer(mm.moe_gather_matmul_plain), reps=2),
+                **bound(moved, ops, "bf16")}
     xs = {k: torch.randn(2, k, generator=gen, device="cuda").to(torch.bfloat16)
           for k in (4096, 14336)}
-
-    def layer(fn):
-        return lambda: [fn(xs[w.shape[1]], w, ids, s) for w, s in weights.values()]
-    moved = sum(2 * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
-                + nbytes(xs[w.shape[1]]) + 2 * 2 * w.shape[2] for w, _ in weights.values())
-    ops = sum(2 * 2 * w.shape[1] * w.shape[2] for w, _ in weights.values())
-    return {"max_abs_err": err, "ms": median_ms(layer(mm.moe_gather_matmul), reps=10),
-            "graph_ms": graph_ms_or_none("moe_gather", layer(mm.moe_gather_matmul), reps=4),
-            "plain_ms": median_ms(layer(mm.moe_gather_matmul_plain), reps=2),
+    qwen_times = timed(qwen, qxs, qids)
+    log(f"  moe_gather Qwen3-30B-A3B layer at S=8: {json.dumps(qwen_times)}")
+    return {"max_abs_err": err, **timed(weights, xs, torch.tensor([5, 2], device="cuda")),
             "library_ms": None,  # no one PyTorch call gathers experts and multiplies
-            **bound(moved, ops, "bf16"),
             "shape": "one Mixtral decode layer: gate, up, down at S=2 slots (experts 5, 2), "
-                     "int8 experts, bf16"}
+                     "int8 experts, bf16",
+            "qwen3_30b_a3b": dict(qwen_times, shape="one Qwen3-30B-A3B decode layer: gate, "
+                                  "up, down at S=8 slots, int8 experts, bf16")}
 
 
 def grouped_mm_ms(xs, weights, gsz):
@@ -1889,7 +2043,37 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                                      "moe_grouped_int4"),
                 "moe int4 W4A8": ("topk", "int4_matmul_a8", "moe_gather_int4"),
                 "moe checkpoint int8": ("moe_gather",),
-                "moe checkpoint int4": ("moe_gather_int4",)}
+                "moe checkpoint int4": ("moe_gather_int4",),
+                "gemma2": ("topk", "int8_matmul"),
+                "gemma2 batched": ("topk", "int8_matmul", "paged_attention",
+                                   "paged_attention_chunk"),
+                "gemma checkpoint int8": ("int8_matmul", "flash_gqa", "paged_attention",
+                                          "paged_attention_chunk"),
+                "phi3 checkpoint int8": ("int8_matmul", "paged_attention",
+                                         "paged_attention_chunk"),
+                "phi3 checkpoint int4": ("int4_matmul", "paged_attention",
+                                         "paged_attention_chunk"),
+                "qwen2 checkpoint int8": ("int8_matmul", "flash_gqa", "paged_attention",
+                                          "paged_attention_chunk"),
+                "qwen3_moe checkpoint int8": ("flash_gqa", "moe_gather"),
+                "qwen3_moe checkpoint int4": ("flash_gqa", "moe_gather_int4")}
+# the kernel instantiations (head dim, group) each run must launch
+PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
+                                    "paged_attention_chunk hd=256 g=2"),
+                 "gemma checkpoint int8": ("flash_gqa hd=256 g=1", "paged_attention hd=256 g=1",
+                                           "paged_attention_chunk hd=256 g=1"),
+                 "phi3 checkpoint int8": ("paged_attention hd=96 g=1",
+                                          "paged_attention_chunk hd=96 g=1"),
+                 "phi3 checkpoint int4": ("paged_attention hd=96 g=1",
+                                          "paged_attention_chunk hd=96 g=1"),
+                 "qwen2 checkpoint int8": ("flash_gqa hd=128 g=7", "paged_attention hd=128 g=7",
+                                           "paged_attention_chunk hd=128 g=7")}
+
+
+def missing_kernels(label: str, counts: dict, variants: dict) -> list:
+    """The kernels and instantiations of run `label`'s path that did not launch."""
+    return ([k for k in PATH_KERNELS[label] if counts[k] == 0]
+            + [k for k in PATH_VARIANTS.get(label, ()) if not variants.get(k)])
 
 
 def rag_config(data_dir: str, index_dir: str, **model):
@@ -1961,23 +2145,33 @@ def write_checkpoints(root: str, seed: int) -> dict:
     """The two BERT checkpoints and the Llama-3.1-8B one, at full depth if
     the temp disk holds it with DISK_SPARE to spare, else at as many whole
     layers as fit (at least CKPT_MIN_LAYERS), which is logged."""
-    import shutil
     from ragmeup_tpu_torch.tools.synthetic_checkpoint import checkpoint_bytes
     os.makedirs(root, exist_ok=True)
-    free = shutil.disk_usage(root).free
     bert = checkpoint_bytes("gist_small") + checkpoint_bytes("minilm_l6_cross")
-    rest = checkpoint_bytes("llama31_8b", 0)
-    per_layer = checkpoint_bytes("llama31_8b", 1) - rest
     full = 32
-    layers = max(CKPT_MIN_LAYERS, min(full, int((free - DISK_SPARE - bert - rest) // per_layer)))
-    log(f"temp disk {root}: {free / 1e9:.1f} GB free; the 8B checkpoint at {layers} "
-        f"layers" + ("" if layers == full else
-                     f" (full depth needs {(rest + full * per_layer) / 1e9:.2f} GB "
-                     f"and {DISK_SPARE / 1e9:.0f} GB spare)"))
+    layers = layers_that_fit(root, "llama31_8b", full, beside=bert)
     return {"embedding": write_checkpoint(root, "gist_small", seed),
             "cross_encoder": write_checkpoint(root, "minilm_l6_cross", seed + 1),
             "llm": write_checkpoint(root, "llama31_8b", seed + 2,
                                     layers=None if layers == full else layers)}
+
+
+def layers_that_fit(root: str, model: str, full: int, beside: float = 0.0) -> int:
+    """`full` if the temp disk holds `model` at full depth (and `beside`
+    bytes more) with DISK_SPARE to spare, else as many whole layers as fit,
+    at least CKPT_MIN_LAYERS; logged."""
+    import shutil
+    from ragmeup_tpu_torch.tools.synthetic_checkpoint import checkpoint_bytes
+    free = shutil.disk_usage(root).free
+    rest = checkpoint_bytes(model, 0)
+    per_layer = checkpoint_bytes(model, 1) - rest
+    layers = max(CKPT_MIN_LAYERS, min(full, int((free - DISK_SPARE - beside - rest)
+                                                // per_layer)))
+    log(f"temp disk {root}: {free / 1e9:.1f} GB free; {model} at {layers} layers"
+        + ("" if layers == full else
+           f" (full depth needs {(rest + full * per_layer) / 1e9:.2f} GB and "
+           f"{DISK_SPARE / 1e9:.0f} GB spare)"))
+    return layers
 
 
 def with_checkpoints(cfg, ckpts: dict):
@@ -2025,10 +2219,11 @@ def timed_loaders():
             setattr(system_mod, name, fn)
 
 
-def check_loaded_decoder(llm, ckpt_dir: str) -> int:
+def check_loaded_decoder(llm, ckpt_dir: str, middle: int = 15) -> int:
     """The streaming loader against the generic path on the card: the
-    checkpoint's tensors of the first, middle (15 at full depth) and last
-    layers, the embedding, the final norm and the head, through
+    checkpoint's tensors of the first, middle (``middle`` at full depth) and
+    last layers, the embedding, the final norm and the head (Phi-3's packed
+    tensors split first; biases and norms included), through
     ``llama_params_from_hf`` (f32 on the host) and ``quantize_decoder_params``
     on the card, must be torch.equal to the loaded model's. Returns the
     number of tensors compared."""
@@ -2036,10 +2231,15 @@ def check_loaded_decoder(llm, ckpt_dir: str) -> int:
     from ragmeup_tpu_torch.models import hf_loader
     from ragmeup_tpu_torch.models.safetensors import load_safetensors
     c = llm.cfg
-    layers = sorted({0, min(15, c.num_layers - 1), c.num_layers - 1})
+    layers = sorted({0, min(middle, c.num_layers - 1), c.num_layers - 1})
     t0 = time.perf_counter()
-    host = hf_loader.llama_params_from_hf(load_safetensors(ckpt_dir), c.num_layers,
-                                          c.tie_embeddings, layers=layers)
+    tensors = load_safetensors(ckpt_dir)
+    if any(k.endswith("self_attn.qkv_proj.weight") for k in tensors):
+        tensors = hf_loader.split_packed_tensors(tensors, c.num_heads, c.num_kv_heads,
+                                                 c.head_dim)
+    host = hf_loader.llama_params_from_hf(tensors, c.num_layers, c.tie_embeddings,
+                                          layers=layers)
+    del tensors
     want = hf_loader.quantize_decoder_params(
         {k: v.cuda() for k, v in host.items()}, bits={"int8": 8, "int4": 4}[c.quantization],
         int4_group=c.int4_group, head_bits=8 if c.head_quantization == "int8" else 0)
@@ -2100,13 +2300,188 @@ def run_moe_checkpoint(root: str, seed: int) -> dict:
             f"launch counts {counts}")
         if not out:
             raise AssertionError(f"{label}: no token generated")
-        missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
+        missing = missing_kernels(label, counts, {})
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
         runs[label] = {"counts": counts, "latency_s": [sec]}
         del llm
         free_card()
     shutil.rmtree(path)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phases 5c and 5d: the other checkpoint families
+# ---------------------------------------------------------------------------
+
+
+def run_gemma2(seed: int, root: str, data_dir: str, index_dir: str, queries, first_turns,
+               encoder, cross) -> dict:
+    """Phase 5c: Gemma-2-9B's layout at full width and depth (18.5 GB, or as
+    many layers as the temp disk holds), loaded int8 by RagSystem from
+    model.llm_checkpoint beside phase 4a's encoders and phase 4's bf16
+    index: its config (head_dim 256, softcaps 50/30, scale 1/16, window 4096
+    on the even layers, tied head) and EOS id, layers 0, 21 and 41, the
+    embedding and the norms torch.equal to the generic path, decode against
+    prefill; three default requests ("gemma2": #1 and #3; the softcapped
+    prefill takes the einsum, so #8 must not launch), then the batched
+    /chat of phase 6 ("gemma2 batched": #9 decode and chunk at hd 256, g 2,
+    with the softcap, the scale and the windows); each generation must
+    return tokens, whose text may be empty (EMPTY_TEXT_RUNS). The directory
+    is deleted after."""
+    import shutil
+    from ragmeup_tpu_torch.tools.synthetic_checkpoint import GEMMA2_9B
+    full = GEMMA2_9B["num_hidden_layers"]
+    layers = layers_that_fit(root, "gemma2_9b", full)
+    path = write_checkpoint(root, "gemma2_9b", seed + 4,
+                            layers=None if layers == full else layers)
+    cfg = rag_config(data_dir, index_dir)
+    cfg.model.llm_checkpoint = path
+    system = open_system(cfg, encoder, cross)
+    llm = system.llm
+    c = llm.cfg
+    want = {"head_dim": 256, "attn_softcap": 50.0, "final_softcap": 30.0,
+            "query_scale": 1 / 16, "post_norms": True, "tie_embeddings": True,
+            "quantization": "int8", "layer_windows": tuple(
+                4096 if i % 2 == 0 else 0 for i in range(c.num_layers))}
+    got = {k: getattr(c, k) for k in want}
+    if got != want or llm.eos_ids != {1}:
+        raise AssertionError(f"Gemma-2-9B config {got}, EOS {llm.eos_ids}")
+    check_loaded_decoder(llm, path, middle=21)
+    log(f"  decode step vs prefill logits cosine {check_decoder(llm):.5f}; max_seq_len "
+        f"{c.max_seq_len}, EOS {sorted(llm.eos_ids)}")
+    ids = GeneratedIds(llm.tokenizer)
+    runs = {"gemma2": drive("gemma2", system, llm, queries)}
+    runs["gemma2"]["generated"] = ids.check("gemma2", llm.tokenizer.n_special)
+    if runs["gemma2"]["counts"]["flash_gqa"]:
+        raise AssertionError("gemma2: the softcapped prefill launched the flash kernel")
+    del system
+    free_card()
+    cfg = rag_config(data_dir, index_dir)
+    cfg.server.batched_llm = True
+    batched = open_system(cfg, encoder, cross, llm)
+    runs["gemma2 batched"] = drive_batched(batched, first_turns, label="gemma2 batched")
+    runs["gemma2 batched"]["generated"] = ids.check("gemma2 batched",
+                                                    llm.tokenizer.n_special)
+    ids.tokenizer.decode = ids.decode
+    del batched, llm
+    free_card()
+    shutil.rmtree(path)
+    return runs
+
+
+def engine_request(llm, prompt, max_new: int = 8) -> list:
+    """One greedy request through the paged engine (128-token pages):
+    chunked prefill through #9's chunk mode, decode through its decode
+    mode."""
+    from ragmeup_tpu_torch.pipeline.serving import ServingEngine
+    eng = ServingEngine(llm, num_pages=64, page_size=128, max_pages_per_seq=32)
+    eng.add_request("r", prompt, max_new_tokens=max_new, temperature=0.0,
+                    repetition_penalty=1.0)
+    return eng.run()["r"]
+
+
+def check_phi3_window(llm, label: str) -> dict:
+    """A 2,500-token prompt past Phi-3's 2,047-token window on both routes:
+    the dense prefill (the einsum with the window's lower bound) and the
+    engine's chunked prefill (#9 with window 2047, hd 96): last-token logits
+    cosine >= 0.99, and nearer each other than the engine's to the dense
+    prefill without the window (the window must move the logits).""" 
+    import dataclasses
+    import torch
+    from ragmeup_tpu_torch.models.decoder import LocalLLM
+    from ragmeup_tpu_torch.pipeline.serving import ServingEngine
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(4, 32000, (2500,), generator=gen).tolist()
+    with torch.inference_mode():
+        dense = torch.from_numpy(llm.forward_logits(prompt)).float()
+        eng = ServingEngine(llm, num_pages=64, page_size=128, max_pages_per_seq=32)
+        paged = eng._prefill_into_pages("w", prompt).float().cpu()
+        eng.cache.free("w")
+        full = LocalLLM(dataclasses.replace(llm.cfg, sliding_window=0), llm.tokenizer,
+                        params=llm.model.state_dict(), device="cuda")
+        unwindowed = torch.from_numpy(full.forward_logits(prompt)).float()
+        del full
+    cos = torch.nn.functional.cosine_similarity(dense, paged, dim=0).item()
+    res = {"cosine": cos, "max_abs_diff": (dense - paged).abs().max().item(),
+           "unwindowed_max_abs_diff": (unwindowed - paged).abs().max().item()}
+    log(f"  {label}: 2,500-token prompt, window 2047: engine vs dense prefill "
+        f"{json.dumps(res)}")
+    if not (cos >= 0.99 and torch.isfinite(paged).all()
+            and res["max_abs_diff"] < res["unwindowed_max_abs_diff"]):
+        raise AssertionError(f"{label}: engine and dense prefill logits disagree, or the "
+                             f"window does not move them: {res}")
+    return res
+
+
+def run_family_checkpoints(root: str, seed: int) -> dict:
+    """Phase 5d: four checkpoints at full width and two layers, each loaded by
+    load_local_llm and held torch.equal to the generic path (both layers,
+    embedding, norms, head, biases), then driven like phase 5b: Gemma-7B
+    (int8): 8 greedy tokens after a 1,024-token prompt (its prefill launches
+    #8 at hd 256), one engine request (#9 at hd 256); Phi-3-mini (int8 and
+    int4): its packed tensors split, check_phi3_window, one engine request
+    (#9 at hd 96); Qwen2.5-7B (int8): its q/k/v biases f32 and equal to the
+    checkpoint's, 8 greedy tokens after 1,024 (#8 at g 7), one engine
+    request (#9 at g 7); Qwen3-30B-A3B: 8 greedy tokens one a forward in
+    int8 (#10, 8 slots) and int4 (#13: gate and up at n = 768). Each
+    directory is deleted after its runs."""
+    import shutil
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.pipeline import system as system_mod
+    gen = torch.Generator().manual_seed(seed + 9)
+    long_prompt = torch.randint(4, 30000, (1024,), generator=gen).tolist()
+    short_prompt = long_prompt[:300]
+    runs = {}
+    for offset, (model, family, quantizations) in enumerate((
+            ("gemma_7b", "gemma", ("int8",)), ("phi3_mini_4k", "phi3", ("int8", "int4")),
+            ("qwen25_7b", "qwen2", ("int8",)), ("qwen3_30b_a3b", "qwen3_moe", ("int8", "int4")))):
+        path = write_checkpoint(root, model, seed + 5 + offset, layers=2)
+        for quantization in quantizations:
+            label = f"{family} checkpoint {quantization}"
+            with timed_loaders():
+                llm = system_mod.load_local_llm(path, quantization=quantization,
+                                                device="cuda")
+            check_loaded_decoder(llm, path)
+            extra = {}
+            if family == "qwen2":
+                from ragmeup_tpu_torch.models.safetensors import load_safetensors
+                ckpt = load_safetensors(path)
+                for i in range(2):
+                    for proj in ("q_proj", "k_proj", "v_proj"):
+                        bias = getattr(llm.model.layers[i].attention, proj).bias
+                        src = ckpt[f"model.layers.{i}.self_attn.{proj}.bias"]
+                        if bias.dtype != torch.float32 or not torch.equal(
+                                bias.cpu(), src.float()):
+                            raise AssertionError(f"{label}: layer {i} {proj} bias differs")
+                del ckpt
+            if family == "phi3":
+                extra["window"] = check_phi3_window(llm, label)
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prompt = long_prompt if family in ("gemma", "qwen2") else long_prompt[:60]
+            out = llm.generate(prompt, max_new_tokens=8, temperature=0.0, speculative="off")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            served = []
+            if family != "qwen3_moe":
+                served = engine_request(llm, short_prompt)
+                torch.cuda.synchronize()
+            counts, variants = kernels.launch_counts(), kernels.variant_counts()
+            log(f"{label}: {len(out)} greedy tokens {out} in {sec * 1e3:.1f} ms after "
+                f"{len(prompt)} prompt tokens; engine {served}; launch counts {counts}; by "
+                f"head dim and group {variants}")
+            if len(out) != 8 or (family != "qwen3_moe" and len(served) != 8):
+                raise AssertionError(f"{label}: {len(out)} tokens, engine {len(served)}")
+            missing = missing_kernels(label, counts, variants)
+            if missing:
+                raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+            runs[label] = {"counts": counts, "variants": variants, "latency_s": [sec], **extra}
+            del llm
+            free_card()
+        shutil.rmtree(path)
     return runs
 
 
@@ -2135,21 +2510,58 @@ def drive(label: str, system, llm, queries) -> dict:
             + json.dumps({k: round(v, 1) for k, v in out["timings"].items()}))
         log(f"  LLM calls (prompt tokens, new tokens, ms): "
             f"{[(p, n, round(ms, 1)) for p, n, ms in llm_calls[first_call:]]}")
-    counts = kernels.launch_counts()
-    log(f"{label}: launch counts over its {len(queries)} requests: {counts}")
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
+    log(f"{label}: launch counts over its {len(queries)} requests: {counts}; by head dim "
+        f"and group: {variants}")
 
     for i, out in enumerate(outs):
         check_reply(label, i, out, first_turn=i != 2)
-    missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
+    missing = missing_kernels(label, counts, variants)
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
-    return {"counts": counts, "latency_s": latencies}
+    return {"counts": counts, "variants": variants, "latency_s": latencies}
+
+
+# Runs on a random decoder with a tied head and an embedding scaled by
+# sqrt(hidden) (Gemma-2-9B's checkpoint): the last input token's embedding
+# dominates the head's logits (9.6 against 5.1 for the next token, read on
+# an H100), so the decoder repeats the prompt's closing SimpleTokenizer
+# special id 3, which decodes to no text. run_gemma2 holds instead that each
+# generation returned its tokens (GeneratedIds).
+EMPTY_TEXT_RUNS = ("gemma2", "gemma2 batched")
+
+
+class GeneratedIds:
+    """Records the ids each reply is decoded from: wraps ``tokenizer.decode``
+    (LocalLLM.generate_text and the batched backend decode through it)."""
+
+    def __init__(self, tokenizer):
+        self.calls = []
+        self.tokenizer, self.decode = tokenizer, tokenizer.decode
+        tokenizer.decode = self
+
+    def __call__(self, ids):
+        self.calls.append([int(t) for t in ids])
+        return self.decode(ids)
+
+    def check(self, label: str, n_special: int) -> dict:
+        """Every generation returned tokens; the share of special ids."""
+        if not self.calls or not all(self.calls):
+            raise AssertionError(f"{label}: a generation returned no token: "
+                                 f"{[len(c) for c in self.calls]}")
+        toks = [t for c in self.calls for t in c]
+        res = {"generations": len(self.calls), "tokens": len(toks),
+               "special": sum(t < n_special for t in toks)}
+        log(f"{label}: generated ids {json.dumps(res)}")
+        self.calls = []
+        return res
 
 
 def check_reply(label: str, i: int, out: dict, first_turn: bool) -> None:
-    """A reply is non-empty; a fetch brings valid documents; a first turn
-    must fetch, and a follow-up that does not fetch carries no documents."""
-    if not out["reply"]:
+    """A reply is non-empty (for EMPTY_TEXT_RUNS a string); a fetch brings
+    valid documents; a first turn must fetch, and a follow-up that does not
+    fetch carries no documents."""
+    if not isinstance(out["reply"], str) or not (out["reply"] or label in EMPTY_TEXT_RUNS):
         raise AssertionError(f"{label} request {i + 1}: empty reply")
     if out["fetched_new_documents"]:
         docs = out["documents"]
@@ -2201,7 +2613,7 @@ def drive_batched(system, queries, label: str = "batched") -> dict:
     follow = system.chat("Tell me more about that.", outs[0]["history"])
     torch.cuda.synchronize()
     latencies.append(time.perf_counter() - t1)
-    counts = kernels.launch_counts()
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
     outs.append(follow)
     for i, out in enumerate(outs):
         log(f"{label} request {i + 1}: {latencies[i] * 1e3:.1f} ms, "
@@ -2221,12 +2633,13 @@ def drive_batched(system, queries, label: str = "batched") -> dict:
     log(f"{label}: wave timings {json.dumps(summary)}; prefix hits "
         f"{cache.prefix_hits} of {cache.prefix_lookups} lookups; wave batch "
         f"reached {engine._B_hwm} rows")
-    log(f"{label}: launch counts over its {n + 1} requests: {counts}")
+    log(f"{label}: launch counts over its {n + 1} requests: {counts}; by head dim and "
+        f"group: {variants}")
     if engine._B_hwm < 1 << (n - 1).bit_length():
         raise AssertionError(f"{label}: the wave batch reached {engine._B_hwm} rows, "
                              f"not {1 << (n - 1).bit_length()}: the first turns did not "
                              f"overlap")
-    missing = [k for k in PATH_KERNELS[label] if counts[k] == 0]
+    missing = missing_kernels(label, counts, variants)
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
     if cache.prefix_hits <= 0:
@@ -2239,7 +2652,8 @@ def drive_batched(system, queries, label: str = "batched") -> dict:
             or len(cache._free) + len(cache.page_digest) != cache.num_pages - 1:
         raise AssertionError(f"{label}: pages leaked after stop: {len(cache._free)} "
                              f"free, {len(cache.page_digest)} registered")
-    return {"counts": counts, "latency_s": latencies, "llm_calls": stats,
+    return {"counts": counts, "variants": variants, "latency_s": latencies,
+            "llm_calls": stats,
             "waves": summary, "prefix_hits": cache.prefix_hits, "rows": engine._B_hwm}
 
 
@@ -2818,7 +3232,10 @@ def run_system(seed: int) -> dict:
         free_card()
         shutil.rmtree(ckpts["llm"])
 
+        runs.update(run_gemma2(seed, ckpt_root, data_dir, os.path.join(tmp, "index"),
+                               queries, first_turns, encoder, cross))
         runs.update(run_moe_checkpoint(ckpt_root, seed))
+        runs.update(run_family_checkpoints(ckpt_root, seed))
         for phase in (run_moe, run_moe_int4):
             runs.update(phase(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
                               texts, queries))
@@ -2893,6 +3310,17 @@ def run_moe_int4(seed: int, encoder, cross, data_dir: str, index_dir: str, texts
     return runs
 
 
+def launches(name: str, runs: dict) -> int:
+    """A kernel's launches over the runs of requests; for an instantiation
+    row ("paged_attention hd=96", "flash_gqa g=7") those of the kernel at
+    that head dim or group."""
+    kernel, _, sel = name.partition(" ")
+    if not sel:
+        return sum(run["counts"][name] for run in runs.values())
+    return sum(n for run in runs.values() for key, n in run.get("variants", {}).items()
+               if key.split(" ")[0] == kernel and sel in key.split(" ")[1:])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2938,6 +3366,16 @@ def main() -> int:
         results[name] = (paged[mode], "ragmeup_tpu_torch/csrc/paged_attention.cu",
                          "ragmeup_tpu/ops/paged_attention.py:487")
     free_card()
+    # the instantiations the checkpoint families add: rows "kernel hd=..." /
+    # "kernel g=7", launches counted by head dim and group
+    for row, r in check_flash_families(gen).items():
+        results[f"flash_gqa {row}"] = (stamped(r), "ragmeup_tpu_torch/csrc/flash_attention.cu",
+                                       "ragmeup_tpu/ops/attention.py:156")
+    free_card()
+    for name, r in check_paged_families(gen).items():
+        results[name] = (stamped(r), "ragmeup_tpu_torch/csrc/paged_attention.cu",
+                         "ragmeup_tpu/ops/paged_attention.py:487")
+    free_card()
     results["moe_gather"] = (stamped(check_moe_gather(gen)),
                              "ragmeup_tpu_torch/csrc/moe_matmul.cu",
                              "ragmeup_tpu/ops/moe_matmul.py:47")
@@ -2971,7 +3409,7 @@ def main() -> int:
             f"{[round(x, 3) for x in run['latency_s']]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(run["counts"][name] for run in runs.values()),
+         "launches": launches(name, runs),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          **{key: r.get(key) for key in ("graph_ms", "library_graph_ms", "kernel_ms",

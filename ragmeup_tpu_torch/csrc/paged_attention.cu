@@ -5,10 +5,17 @@
 // Replaces the Pallas kernel ragmeup_tpu/ops/paged_attention.py::_paged_kernel
 // in both of its modes (q_len = 1 and q_len > 1).
 //
-//   q, out (b, q_len, nh, 128)             query rows; decode is q_len = 1
-//   k_pages, v_pages (nkv, P, ps, 128)     the pool, one token per row
+//   q, out (b, q_len, nh, HD)              query rows; decode is q_len = 1
+//   k_pages, v_pages (nkv, P, ps, HD)      the pool, one token per row
 //   page_idx (b, mp) int32                 each sequence's page table
 //   lengths (b,) int32                     tokens per sequence, chunk included
+//
+// Every kernel is a template on the head dim HD, instantiated at 64
+// (Qwen2.5-0.5B), 96 (Phi-3-mini), 128 (Llama, Mistral, Qwen) and 256
+// (Gemma). hd 96 is instantiated as it is: 6 mma k-steps and 12 16-byte
+// segments a row. The TPU kernel pads it to 128 columns for its 128-lane
+// tiling (and packs hd 64 two tokens a row); no such rule holds here, and
+// padding would read and store a third more bytes in a kernel bound by them.
 //
 // Query position i of a sequence attends key positions p < lim, with
 // lim = length - q_len + i + 1 (and p >= lim - window when window > 0, and
@@ -30,18 +37,22 @@
 // bf16 decode (rk_paged_decode_kernel; q_len = 1, g <= 8): bound by bytes
 // (4 flops per K/V byte pair). Grid (split, kv head, sequence); one block of
 // 4 warps computes the g query heads of one kv head over one split. K/V
-// tiles (64 keys x 256 bytes each) come through a two-stage cp.async ring,
-// 16 bytes a thread, into 272-byte shared rows; where ps % 64 == 0 (the
-// engine's 128-token pages) a tile is one contiguous 16 KB run of the pool
+// tiles (64 keys x 2 HD bytes each) come through a two-stage cp.async ring,
+// 16 bytes a thread, into shared rows padded by 16 bytes; where ps % 64 == 0
+// (the engine's 128-token pages) a tile is one contiguous run of the pool
 // with one page-table lookup, else each key is looked up. Scores, the online
-// softmax (warp shuffles) and P V are f32 on the CUDA cores.
+// softmax (warp shuffles) and P V are f32 on the CUDA cores; in P V a thread
+// owns column pairs tid % 64 (+ 64) over half the keys, so at HD 64 and 96
+// some threads idle there. At HD 256 the ring takes 132 KB: one block an SM.
 //
 // bf16 chunk-append (rk_paged_chunk_kernel; q_len > 1, or g > 8): bound by
 // the products. One block takes 64 query rows of one (sequence, kv head),
-// four warps of 16 rows; q stays in registers as mma A fragments; K/V come
-// through the page table into the same cp.async ring, read by ldmatrix (V by
-// ldmatrix.trans); Q K^T runs on mma.sync m16n8k16 bf16 with f32
-// accumulation. The TPU kernel keeps p in f32 for P V, so P is split into a
+// four warps of 16 rows; q stays in registers as mma A fragments (at HD 256,
+// where they and the 16 x 256 f32 accumulators would pass 255 registers, q
+// stays in shared memory, is read by ldmatrix at each k-step, and the key
+// tile halves to 32 keys); K/V come through the page table into the same
+// cp.async ring, read by ldmatrix (V by ldmatrix.trans); Q K^T runs on
+// mma.sync m16n8k16 bf16 with f32 accumulation. The TPU kernel keeps p in f32 for P V, so P is split into a
 // bf16 high part and a bf16 low part (p - high) and P V is two mmas into the
 // same f32 accumulators: p is carried to about 2^-16 relative, not rounded
 // to bf16 once. Only tiles that reach a row's limit, the pool's end or a
@@ -50,39 +61,44 @@
 //
 // f32 pools (rk_paged_kernel) keep the scalar kernel: a block of 16 or 64
 // rows walks 64-key tiles held as f32 in shared memory with scalar FMAs, in
-// one split.
+// one split (215 KB of shared memory at HD 256).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kHd = 128;
-constexpr int kKeys = 64;           // keys per tile
+constexpr int kKeys = 64;           // keys per split unit (and per decode / f32 tile)
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // bf16: K/V tiles through the page table into a cp.async ring
 // ---------------------------------------------------------------------------
 
-constexpr int kLd = kHd + 8;               // bf16 per shared row (272 bytes)
-constexpr int kTile = kKeys * kLd;         // one k or v tile
 constexpr int kThreads = 128;              // 4 warps
 
-// Issue the copies of the 64-key K and V tile at key0 into kd / vd. Keys
+template <int HD>
+struct Rows {
+  static constexpr int kLd = HD + 8;       // bf16 per shared row (16 bytes of padding)
+  static constexpr int kSeg = HD / 8;      // 16-byte segments a row
+};
+
+// Issue the copies of the KT-key K and V tile at key0 into kd / vd. Keys
 // outside [a, e) are zero-filled and not read, so p * v stays 0 there.
+template <int HD, int KT>
 __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* kd, __nv_bfloat16* vd,
                                              const __nv_bfloat16* kplane,
                                              const __nv_bfloat16* vplane,
                                              const int* table, int ps, int key0,
                                              int a, int e, int tid) {
-  const bool whole_page = ps % kKeys == 0;
+  constexpr int kLd = Rows<HD>::kLd, kSeg = Rows<HD>::kSeg;
+  const bool whole_page = ps % KT == 0;
   const int base = whole_page ? table[key0 / ps] * ps + key0 % ps : 0;
-  for (int i = tid; i < kKeys * 16; i += kThreads) {
-    const int c = i / 16, seg = i % 16;
+  for (int i = tid; i < KT * kSeg; i += kThreads) {
+    const int c = i / kSeg, seg = i % kSeg;
     const int key = key0 + c;
     const bool ok = key >= a && key < e;
     const int row = !ok ? 0 : whole_page ? base + c : table[key / ps] * ps + key % ps;
-    const size_t off = (size_t)row * kHd + seg * 8;
+    const size_t off = (size_t)row * HD + seg * 8;
     cp_async16(kd + c * kLd + seg * 8, kplane + off, ok);
     cp_async16(vd + c * kLd + seg * 8, vplane + off, ok);
   }
@@ -111,9 +127,14 @@ __device__ __forceinline__ size_t out_row(int bi, int kvh, int r, int g, int q_l
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxG = 8;
-constexpr size_t kDecSmemBytes = 4 * (size_t)kTile * sizeof(__nv_bfloat16)  // 2 x (k, v)
-                                 + (kMaxG * kHd + kMaxG * kKeys + 3 * kMaxG) * sizeof(float);
 
+template <int HD>
+constexpr size_t dec_smem_bytes() {
+  return 4 * (size_t)kKeys * Rows<HD>::kLd * sizeof(__nv_bfloat16)   // 2 x (k, v)
+         + (kMaxG * HD + kMaxG * kKeys + 3 * kMaxG) * sizeof(float);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
     const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_idx,
@@ -121,11 +142,14 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
     int keys_per_split, float sm_scale, int window, float softcap,
     float* __restrict__ ws_ml, float* __restrict__ ws_o,
     __nv_bfloat16* __restrict__ out) {
+  constexpr int kLd = Rows<HD>::kLd, kTile = kKeys * kLd;
+  constexpr int kPairs = HD / 2;                      // column pairs of a row
+  constexpr int kPP = (kPairs + kKeys - 1) / kKeys;   // pairs a thread owns in P V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kKeys][kLd]
   __nv_bfloat16* vs = ks + 2 * kTile;                              // [2][kKeys][kLd]
-  float* qs = reinterpret_cast<float*>(vs + 2 * kTile);            // [kMaxG][kHd]
-  float* pr = qs + kMaxG * kHd;                                    // [kMaxG][kKeys]
+  float* qs = reinterpret_cast<float*>(vs + 2 * kTile);            // [kMaxG][HD]
+  float* pr = qs + kMaxG * HD;                                     // [kMaxG][kKeys]
   float* al = pr + kMaxG * kKeys;                                  // [kMaxG] alpha
   float* ml = al + kMaxG;                                          // [kMaxG][2] m, l
 
@@ -145,8 +169,8 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
   if (a >= e) {
     if (tid < g) {
       if (splits == 1) {
-        for (int d = 0; d < kHd; ++d)
-          out[out_row(bi, kvh, tid, g, 1, nh) * kHd + d] = __float2bfloat16_rn(0.f);
+        for (int d = 0; d < HD; ++d)
+          out[out_row(bi, kvh, tid, g, 1, nh) * HD + d] = __float2bfloat16_rn(0.f);
       } else {
         const size_t w = ws_row(bi, kvh, tid, split, nkv, g, splits);
         ws_ml[2 * w] = -INFINITY;
@@ -156,32 +180,34 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
     return;
   }
 
-  const size_t plane = (size_t)kvh * P * ps * kHd;
+  const size_t plane = (size_t)kvh * P * ps * HD;
   const __nv_bfloat16* kplane = k_pages + plane;
   const __nv_bfloat16* vplane = v_pages + plane;
   const int t0 = a / kKeys, t1 = (e + kKeys - 1) / kKeys;
-  load_kv_tile(ks, vs, kplane, vplane, table, ps, t0 * kKeys, a, e, tid);
-  for (int i = tid; i < kMaxG * kHd; i += kThreads) {
-    const int r = i / kHd, d = i % kHd;
-    qs[i] = r < g ? to_f32(q[out_row(bi, kvh, r, g, 1, nh) * kHd + d]) : 0.f;
+  load_kv_tile<HD, kKeys>(ks, vs, kplane, vplane, table, ps, t0 * kKeys, a, e, tid);
+  for (int i = tid; i < kMaxG * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    qs[i] = r < g ? to_f32(q[out_row(bi, kvh, r, g, 1, nh) * HD + d]) : 0.f;
   }
 
   // scores: key c = tid % 64 for rows h, h + 2, h + 4, h + 6 (h = tid / 64);
-  // P V: dims 2 dp, 2 dp + 1 (dp = tid % 64) over keys kh * 32 .. + 31
+  // P V: column pairs dp + 64 j (dp = tid % 64) over keys kh * 32 .. + 31
   const int c = tid % kKeys, h = tid / kKeys;
   const int dp = tid % kKeys, kh = tid / kKeys;
   const float cap_scale = softcap > 0.f ? sm_scale / softcap : 0.f;
-  float o[kMaxG][2];
+  float o[kMaxG][kPP][2];
 #pragma unroll
-  for (int r = 0; r < kMaxG; ++r) o[r][0] = o[r][1] = 0.f;
+  for (int r = 0; r < kMaxG; ++r)
+#pragma unroll
+    for (int j = 0; j < kPP; ++j) o[r][j][0] = o[r][j][1] = 0.f;
   // warp w owns rows w and w + 4 of the softmax: m, l in every lane
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
 
   for (int t = t0; t < t1; ++t) {
     const int stage = (t - t0) & 1;
     if (t + 1 < t1) {
-      load_kv_tile(ks + (stage ^ 1) * kTile, vs + (stage ^ 1) * kTile, kplane, vplane,
-                   table, ps, (t + 1) * kKeys, a, e, tid);
+      load_kv_tile<HD, kKeys>(ks + (stage ^ 1) * kTile, vs + (stage ^ 1) * kTile, kplane,
+                              vplane, table, ps, (t + 1) * kKeys, a, e, tid);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -193,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     const __nv_bfloat16* krow = kt + c * kLd;
 #pragma unroll 4
-    for (int d8 = 0; d8 < kHd / 8; ++d8) {
+    for (int d8 = 0; d8 < HD / 8; ++d8) {
       const uint4 kw = *reinterpret_cast<const uint4*>(krow + 8 * d8);
       const float2 k01 = bf16x2_f32(kw.x), k23 = bf16x2_f32(kw.y);
       const float2 k45 = bf16x2_f32(kw.z), k67 = bf16x2_f32(kw.w);
@@ -202,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
       for (int i = 0; i < 4; ++i) {
         const int r = h + 2 * i;
         if (r < g) {
-          const float4 q0 = *reinterpret_cast<const float4*>(qs + r * kHd + 8 * d8);
-          const float4 q1 = *reinterpret_cast<const float4*>(qs + r * kHd + 8 * d8 + 4);
+          const float4 q0 = *reinterpret_cast<const float4*>(qs + r * HD + 8 * d8);
+          const float4 q1 = *reinterpret_cast<const float4*>(qs + r * HD + 8 * d8 + 4);
           s[i] = fmaf(q0.x, kf[0], s[i]); s[i] = fmaf(q0.y, kf[1], s[i]);
           s[i] = fmaf(q0.z, kf[2], s[i]); s[i] = fmaf(q0.w, kf[3], s[i]);
           s[i] = fmaf(q1.x, kf[4], s[i]); s[i] = fmaf(q1.y, kf[5], s[i]);
@@ -255,19 +281,27 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
     for (int r = 0; r < kMaxG; ++r) {
       if (r < g) {
         const float alpha = al[r];
-        o[r][0] *= alpha;
-        o[r][1] *= alpha;
+#pragma unroll
+        for (int j = 0; j < kPP; ++j) {
+          o[r][j][0] *= alpha;
+          o[r][j][1] *= alpha;
+        }
       }
     }
-#pragma unroll 4
-    for (int cc = kh * 32; cc < kh * 32 + 32; ++cc) {
-      const float2 v = bf16x2_f32(*reinterpret_cast<const uint32_t*>(vt + cc * kLd + 2 * dp));
 #pragma unroll
-      for (int r = 0; r < kMaxG; ++r) {
-        if (r < g) {
-          const float p = pr[r * kKeys + cc];
-          o[r][0] = fmaf(p, v.x, o[r][0]);
-          o[r][1] = fmaf(p, v.y, o[r][1]);
+    for (int j = 0; j < kPP; ++j) {
+      const int pair = dp + kKeys * j;
+      if (kPairs % kKeys != 0 && pair >= kPairs) break;
+#pragma unroll 4
+      for (int cc = kh * 32; cc < kh * 32 + 32; ++cc) {
+        const float2 v = bf16x2_f32(*reinterpret_cast<const uint32_t*>(vt + cc * kLd + 2 * pair));
+#pragma unroll
+        for (int r = 0; r < kMaxG; ++r) {
+          if (r < g) {
+            const float p = pr[r * kKeys + cc];
+            o[r][j][0] = fmaf(p, v.x, o[r][j][0]);
+            o[r][j][1] = fmaf(p, v.y, o[r][j][1]);
+          }
         }
       }
     }
@@ -286,27 +320,37 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
   if (kh == 1) {
 #pragma unroll
     for (int r = 0; r < kMaxG; ++r)
-      if (r < g) *reinterpret_cast<float2*>(qs + r * kHd + 2 * dp) = make_float2(o[r][0], o[r][1]);
+#pragma unroll
+      for (int j = 0; j < kPP; ++j) {
+        const int pair = dp + kKeys * j;
+        if (r < g && pair < kPairs)
+          *reinterpret_cast<float2*>(qs + r * HD + 2 * pair) = make_float2(o[r][j][0], o[r][j][1]);
+      }
   }
   __syncthreads();
   if (kh == 0) {
 #pragma unroll
     for (int r = 0; r < kMaxG; ++r) {
       if (r >= g) continue;
-      const float2 other = *reinterpret_cast<const float2*>(qs + r * kHd + 2 * dp);
-      const float o0 = o[r][0] + other.x, o1 = o[r][1] + other.y;
       const float l = ml[2 * r + 1];
-      if (splits == 1) {
-        const float inv = l == 0.f ? 1.f : __frcp_rn(l);   // no visible key: o == 0
-        *reinterpret_cast<uint32_t*>(out + out_row(bi, kvh, r, g, 1, nh) * kHd + 2 * dp) =
-            pack_bf16x2(o0 * inv, o1 * inv);
-      } else {
-        const size_t w = ws_row(bi, kvh, r, split, nkv, g, splits);
-        *reinterpret_cast<float2*>(ws_o + w * kHd + 2 * dp) = make_float2(o0, o1);
-        if (dp == 0) {
-          ws_ml[2 * w] = ml[2 * r];
-          ws_ml[2 * w + 1] = l;
+      const size_t w = ws_row(bi, kvh, r, split, nkv, g, splits);
+#pragma unroll
+      for (int j = 0; j < kPP; ++j) {
+        const int pair = dp + kKeys * j;
+        if (pair >= kPairs) continue;
+        const float2 other = *reinterpret_cast<const float2*>(qs + r * HD + 2 * pair);
+        const float o0 = o[r][j][0] + other.x, o1 = o[r][j][1] + other.y;
+        if (splits == 1) {
+          const float inv = l == 0.f ? 1.f : __frcp_rn(l);   // no visible key: o == 0
+          *reinterpret_cast<uint32_t*>(out + out_row(bi, kvh, r, g, 1, nh) * HD + 2 * pair) =
+              pack_bf16x2(o0 * inv, o1 * inv);
+        } else {
+          *reinterpret_cast<float2*>(ws_o + w * HD + 2 * pair) = make_float2(o0, o1);
         }
+      }
+      if (splits > 1 && dp == 0) {
+        ws_ml[2 * w] = ml[2 * r];
+        ws_ml[2 * w + 1] = l;
       }
     }
   }
@@ -317,7 +361,15 @@ __global__ void __launch_bounds__(kThreads) rk_paged_decode_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 64;                 // query rows per block, 16 a warp
-constexpr size_t kChunkSmemBytes = (kRows * kLd + 4 * kTile) * sizeof(__nv_bfloat16);
+
+template <int HD>
+struct ChunkShape {
+  static constexpr int kKeys = HD == 256 ? 32 : 64;   // keys per tile
+  static constexpr bool kQRegs = HD <= 128;           // q fragments held in registers
+  static constexpr int kLd = Rows<HD>::kLd;
+  static constexpr int kTile = kKeys * kLd;
+  static constexpr size_t kSmemBytes = (kRows * kLd + 4 * kTile) * sizeof(__nv_bfloat16);
+};
 
 // p as a bf16 high part and the bf16 of what it leaves, both packed in pairs
 __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
@@ -327,6 +379,7 @@ __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uin
   lo = pack_bf16x2(a - hf.x, b - hf.y);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
     const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_idx,
@@ -334,10 +387,12 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
     int keys_per_split, float sm_scale, int window, float softcap,
     float* __restrict__ ws_ml, float* __restrict__ ws_o,
     __nv_bfloat16* __restrict__ out) {
+  using S = ChunkShape<HD>;
+  constexpr int KT = S::kKeys, kLd = S::kLd, kTile = S::kTile, kSeg = Rows<HD>::kSeg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][kLd]
-  __nv_bfloat16* ks = qs + kRows * kLd;                            // [2][kKeys][kLd]
-  __nv_bfloat16* vs = ks + 2 * kTile;                              // [2][kKeys][kLd]
+  __nv_bfloat16* ks = qs + kRows * kLd;                            // [2][KT][kLd]
+  __nv_bfloat16* vs = ks + 2 * kTile;                              // [2][KT][kLd]
 
   const int split = blockIdx.x, splits = gridDim.x;
   const int kvh = blockIdx.y % nkv, bi = blockIdx.y / nkv;
@@ -369,71 +424,79 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
   const int lim_a = Ra < nrows ? length - q_len + Ra / g + 1 : 0;
   const int lim_b = Rb < nrows ? length - q_len + Rb / g + 1 : 0;
 
-  float o[16][4];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int d = 0; d < 16; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int d = 0; d < HD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
   if (a < e) {
     // row r of the block: position (row0 + r) / g, head kvh * g + (row0 + r) % g
-    for (int i = tid; i < kRows * 16; i += kThreads) {
-      const int r = i / 16, seg = i % 16;
+    for (int i = tid; i < kRows * kSeg; i += kThreads) {
+      const int r = i / kSeg, seg = i % kSeg;
       const int R = row0 + r;
       const bool ok = R < nrows;
       cp_async16(qs + r * kLd + seg * 8,
-                 q + out_row(bi, kvh, ok ? R : 0, g, q_len, nh) * kHd + seg * 8, ok);
+                 q + out_row(bi, kvh, ok ? R : 0, g, q_len, nh) * HD + seg * 8, ok);
     }
     cp_async_commit();
-    const size_t plane = (size_t)kvh * P * ps * kHd;
+    const size_t plane = (size_t)kvh * P * ps * HD;
     const __nv_bfloat16* kplane = k_pages + plane;
     const __nv_bfloat16* vplane = v_pages + plane;
-    const int t0 = a / kKeys, t1 = (e + kKeys - 1) / kKeys;
-    load_kv_tile(ks, vs, kplane, vplane, table, ps, t0 * kKeys, a, e, tid);
+    const int t0 = a / KT, t1 = (e + KT - 1) / KT;
+    load_kv_tile<HD, KT>(ks, vs, kplane, vplane, table, ps, t0 * KT, a, e, tid);
     const float scale_log2 = sm_scale * kLog2e;
     const float cap_scale = softcap > 0.f ? sm_scale / softcap : 0.f;
-    uint32_t qf[8][4];
+    const __nv_bfloat16* qrow = qs + (warp * 16 + mrow + 8 * (mat % 2)) * kLd + 8 * (mat / 2);
+    uint32_t qf[S::kQRegs ? HD / 16 : 1][4];
 
     for (int t = t0; t < t1; ++t) {
       const int stage = (t - t0) & 1;
       if (t + 1 < t1) {
-        load_kv_tile(ks + (stage ^ 1) * kTile, vs + (stage ^ 1) * kTile, kplane, vplane,
-                     table, ps, (t + 1) * kKeys, a, e, tid);
+        load_kv_tile<HD, KT>(ks + (stage ^ 1) * kTile, vs + (stage ^ 1) * kTile, kplane,
+                             vplane, table, ps, (t + 1) * KT, a, e, tid);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      if (t == t0) {
+      if constexpr (S::kQRegs) {
+        if (t == t0) {
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          ldmatrix_x4(qf[kk],
-                      qs + (warp * 16 + mrow + 8 * (mat % 2)) * kLd + 16 * kk + 8 * (mat / 2));
+          for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qrow + 16 * kk);
+        }
       }
       const __nv_bfloat16* kt = ks + stage * kTile;
       const __nv_bfloat16* vt = vs + stage * kTile;
 
-      // S = q k^T: 16 rows x 64 keys a warp, 8 n-tiles of 8 keys
-      float sc[8][4];
+      // S = q k^T: 16 rows x KT keys a warp, n-tiles of 8 keys
+      float sc[KT / 8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      for (int j = 0; j < KT / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (S::kQRegs) {
 #pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {
+          for (int el = 0; el < 4; ++el) qa[el] = qf[kk][el];
+        } else {
+          ldmatrix_x4(qa, qrow + 16 * kk);
+        }
+#pragma unroll
+        for (int jp = 0; jp < KT / 16; ++jp) {
           uint32_t bb[4];
           ldmatrix_x4(bb, kt + (16 * jp + 8 * (mat / 2) + mrow) * kLd + 16 * kk + 8 * (mat % 2));
-          mma_bf16(sc[2 * jp], qf[kk], bb[0], bb[1]);
-          mma_bf16(sc[2 * jp + 1], qf[kk], bb[2], bb[3]);
+          mma_bf16(sc[2 * jp], qa, bb[0], bb[1]);
+          mma_bf16(sc[2 * jp + 1], qa, bb[2], bb[3]);
         }
       }
 
       // scale (softcap) into the log2 domain; mask the tiles that reach a
       // limit, the pool's end or a window's start
-      const int key0 = t * kKeys;
-      const bool diag = key0 + kKeys > min(lim_first, kcap) ||
+      const int key0 = t * KT;
+      const bool diag = key0 + KT > min(lim_first, kcap) ||
                         (window > 0 && key0 < lim_last - window);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
         for (int el = 0; el < 4; ++el) {
           float x;
@@ -451,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
       // online softmax on the registers; the four lanes of a quad share rows
       float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         mx_a = fmaxf(mx_a, fmaxf(sc[j][0], sc[j][1]));
         mx_b = fmaxf(mx_b, fmaxf(sc[j][2], sc[j][3]));
       }
@@ -469,7 +532,7 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
       m_b = mn_b;
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         sc[j][0] = exp2f(sc[j][0] - mu_a);
         sc[j][1] = exp2f(sc[j][1] - mu_a);
         sc[j][2] = exp2f(sc[j][2] - mu_b);
@@ -480,7 +543,7 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
       l_a = l_a * al_a + sum_a;   // this lane's share of the row; the quad adds at the end
       l_b = l_b * al_b + sum_b;
 #pragma unroll
-      for (int d = 0; d < 16; ++d) {
+      for (int d = 0; d < HD / 8; ++d) {
         o[d][0] *= al_a;
         o[d][1] *= al_a;
         o[d][2] *= al_b;
@@ -489,14 +552,14 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
 
       // o += P V with P = high + low, both bf16: two mmas per V fragment
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < KT / 16; ++kk) {
         uint32_t ph[4], pl[4];
         split_bf16x2(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
         split_bf16x2(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
         split_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
         split_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-        for (int dp = 0; dp < 8; ++dp) {
+        for (int dp = 0; dp < HD / 16; ++dp) {
           uint32_t bb[4];
           ldmatrix_x4_trans(bb, vt + (16 * kk + 8 * (mat % 2) + mrow) * kLd + 8 * (2 * dp + mat / 2));
           mma_bf16(o[2 * dp], ph, bb[0], bb[1]);
@@ -523,15 +586,15 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
     if (splits == 1) {
       const float inv = l == 0.f ? 1.f : 1.f / l;   // no visible key: o == 0
       uint32_t* dst = reinterpret_cast<uint32_t*>(
-          out + out_row(bi, kvh, R, g, q_len, nh) * kHd + 2 * qc);
+          out + out_row(bi, kvh, R, g, q_len, nh) * HD + 2 * qc);
 #pragma unroll
-      for (int d = 0; d < 16; ++d)
+      for (int d = 0; d < HD / 8; ++d)
         dst[4 * d] = pack_bf16x2(o[d][2 * half] * inv, o[d][2 * half + 1] * inv);
     } else {
       const size_t w = ws_row(bi, kvh, R, split, nkv, nrows, splits);
-      float2* dst = reinterpret_cast<float2*>(ws_o + w * kHd + 2 * qc);
+      float2* dst = reinterpret_cast<float2*>(ws_o + w * HD + 2 * qc);
 #pragma unroll
-      for (int d = 0; d < 16; ++d) dst[4 * d] = make_float2(o[d][2 * half], o[d][2 * half + 1]);
+      for (int d = 0; d < HD / 8; ++d) dst[4 * d] = make_float2(o[d][2 * half], o[d][2 * half + 1]);
       if (qc == 0) {
         ws_ml[2 * w] = m;
         ws_ml[2 * w + 1] = l;
@@ -544,8 +607,8 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
 // the merge of the splits, in split order
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kHd) rk_paged_combine_kernel(
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD) rk_paged_combine_kernel(
     const float* __restrict__ ws_ml, const float* __restrict__ ws_o, int splits,
     int rows, int g, int q_len, int nh, int nkv, T* __restrict__ out) {
   const int row = blockIdx.x;                 // (sequence, kv head, row)
@@ -561,10 +624,10 @@ __global__ void __launch_bounds__(kHd) rk_paged_combine_kernel(
       if (m_s == -INFINITY) continue;          // a split that saw no key
       const float f = exp2f(m_s - mx);
       l += ws_ml[2 * (w0 + s) + 1] * f;
-      o += ws_o[(w0 + s) * kHd + d] * f;
+      o += ws_o[(w0 + s) * HD + d] * f;
     }
   }
-  out[out_row(bi, kvh, r, g, q_len, nh) * kHd + d] = from_f32<T>(l == 0.f ? 0.f : o / l);
+  out[out_row(bi, kvh, r, g, q_len, nh) * HD + d] = from_f32<T>(l == 0.f ? 0.f : o / l);
 }
 
 // ---------------------------------------------------------------------------
@@ -572,31 +635,32 @@ __global__ void __launch_bounds__(kHd) rk_paged_combine_kernel(
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;
-constexpr int kQkStride = kHd + 1;  // padded rows: conflict-free column reads
 constexpr int kSStride = kKeys + 1;
 
-template <int kR>
+template <int kR, int HD>
 constexpr size_t f32_smem_bytes() {
-  return ((size_t)kR * kQkStride         // q
-          + (size_t)kKeys * kQkStride    // k
-          + (size_t)kKeys * kHd          // v
+  return ((size_t)kR * (HD + 1)          // q, padded rows: conflict-free column reads
+          + (size_t)kKeys * (HD + 1)     // k
+          + (size_t)kKeys * HD           // v
           + (size_t)kR * kSStride        // scores / probabilities
           + 3 * kR) * sizeof(float)      // m, l, alpha
          + (size_t)(kKeys + kR) * sizeof(int);  // key rows, row limits
 }
 
-template <int kR>
+template <int kR, int HD>
 __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
     const float* __restrict__ q, const float* __restrict__ k_pages,
     const float* __restrict__ v_pages, const int* __restrict__ page_idx,
     const int* __restrict__ lengths, int q_len, int nh, int nkv, int P, int ps,
     int mp, float sm_scale, int window, float softcap, float* __restrict__ out) {
   constexpr int RI = kR / 16;               // rows per thread
+  constexpr int CJ = HD / 16;               // columns per thread
+  constexpr int kQkStride = HD + 1;
   extern __shared__ float smem[];
   float* qs = smem;                         // [kR][kQkStride]
   float* ks = qs + kR * kQkStride;          // [kKeys][kQkStride]
-  float* vs = ks + kKeys * kQkStride;       // [kKeys][kHd]
-  float* pr = vs + kKeys * kHd;             // [kR][kSStride]
+  float* vs = ks + kKeys * kQkStride;       // [kKeys][HD]
+  float* pr = vs + kKeys * HD;              // [kR][kSStride]
   float* m_row = pr + kR * kSStride;        // [kR]
   float* l_row = m_row + kR;
   float* a_row = l_row + kR;
@@ -615,10 +679,10 @@ __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
   const int* table = page_idx + (size_t)bi * mp;
 
   // row r of the block: position (row0 + r) / g, head kvh * g + (row0 + r) % g
-  for (int i = tid; i < kR * kHd; i += kF32Threads) {
-    const int r = i / kHd, h = i % kHd;
+  for (int i = tid; i < kR * HD; i += kF32Threads) {
+    const int r = i / HD, h = i % HD;
     const int R = row0 + r;
-    qs[r * kQkStride + h] = R < nrows ? q[out_row(bi, kvh, R, g, q_len, nh) * kHd + h] : 0.f;
+    qs[r * kQkStride + h] = R < nrows ? q[out_row(bi, kvh, R, g, q_len, nh) * HD + h] : 0.f;
   }
   if (tid < kR) {
     const int R = row0 + tid;
@@ -627,11 +691,11 @@ __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
     l_row[tid] = 0.f;
   }
 
-  float o[RI][8];
+  float o[RI][CJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < CJ; ++j) o[i][j] = 0.f;
 
   // keys this block can see: limits grow with the row index
   const int last = min(row0 + kR, nrows) - 1;
@@ -649,17 +713,17 @@ __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
       key_row[tid] = key < hi_key ? table[key / ps] * ps + key % ps : -1;
     }
     __syncthreads();
-    for (int i = tid; i < kKeys * kHd; i += kF32Threads) {
-      const int c = i / kHd, h = i % kHd;
+    for (int i = tid; i < kKeys * HD; i += kF32Threads) {
+      const int c = i / HD, h = i % HD;
       const int row = key_row[c];
       float kx = 0.f, vx = 0.f;
       if (row >= 0) {
-        const size_t src = (plane + row) * kHd + h;
+        const size_t src = (plane + row) * HD + h;
         kx = k_pages[src];
         vx = v_pages[src];
       }
       ks[c * kQkStride + h] = kx;
-      vs[c * kHd + h] = vx;
+      vs[c * HD + h] = vx;
     }
     __syncthreads();
 
@@ -670,7 +734,7 @@ __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-    for (int h = 0; h < kHd; ++h) {
+    for (int h = 0; h < HD; ++h) {
       float qv[RI], kv[4];
 #pragma unroll
       for (int i = 0; i < RI; ++i) qv[i] = qs[(ty + 16 * i) * kQkStride + h];
@@ -737,17 +801,17 @@ __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
     for (int i = 0; i < RI; ++i) {
       const float alpha = a_row[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[i][j] *= alpha;
+      for (int j = 0; j < CJ; ++j) o[i][j] *= alpha;
     }
     for (int c = 0; c < kKeys; ++c) {
-      float vv[8];
+      float vv[CJ];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vv[j] = vs[c * kHd + tx + 16 * j];
+      for (int j = 0; j < CJ; ++j) vv[j] = vs[c * HD + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
         const float p = pr[(ty + 16 * i) * kSStride + c];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) o[i][j] = fmaf(p, vv[j], o[i][j]);
+        for (int j = 0; j < CJ; ++j) o[i][j] = fmaf(p, vv[j], o[i][j]);
       }
     }
   }
@@ -760,29 +824,30 @@ __global__ void __launch_bounds__(kF32Threads) rk_paged_kernel(
     if (R >= nrows) continue;
     const float l = l_row[r];
     const float linv = l == 0.f ? 1.f : 1.f / l;   // no visible key: o == 0
-    const size_t dst = out_row(bi, kvh, R, g, q_len, nh) * kHd;
+    const size_t dst = out_row(bi, kvh, R, g, q_len, nh) * HD;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) out[dst + tx + 16 * j] = o[i][j] * linv;
+    for (int j = 0; j < CJ; ++j) out[dst + tx + 16 * j] = o[i][j] * linv;
   }
 }
 
-template <int kR>
+template <int kR, int HD>
 int launch_f32(const float* q, const float* k_pages, const float* v_pages,
                const int* page_idx, const int* lengths, int b, int q_len, int nh,
                int nkv, int P, int ps, int mp, float sm_scale, int window,
                float softcap, float* out, cudaStream_t stream) {
-  constexpr size_t bytes = f32_smem_bytes<kR>();
+  constexpr size_t bytes = f32_smem_bytes<kR, HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      rk_paged_kernel<kR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      rk_paged_kernel<kR, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int nrows = q_len * (nh / nkv);
   const dim3 grid((nrows + kR - 1) / kR, nkv, b);
-  rk_paged_kernel<kR><<<grid, kF32Threads, bytes, stream>>>(
+  rk_paged_kernel<kR, HD><<<grid, kF32Threads, bytes, stream>>>(
       q, k_pages, v_pages, page_idx, lengths, q_len, nh, nkv, P, ps, mp, sm_scale,
       window, softcap, out);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
 int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k_pages,
                 const __nv_bfloat16* v_pages, const int* page_idx, const int* lengths,
                 int b, int q_len, int nh, int nkv, int P, int ps, int mp,
@@ -795,67 +860,85 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k_pages,
   float* ws_o = splits > 1 ? workspace + (size_t)2 * b * nkv * rows * splits : nullptr;
   cudaError_t err;
   if (q_len == 1 && g <= kMaxG) {
-    err = cudaFuncSetAttribute(rk_paged_decode_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kDecSmemBytes);
+    constexpr size_t bytes = dec_smem_bytes<HD>();
+    err = cudaFuncSetAttribute(rk_paged_decode_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    rk_paged_decode_kernel<<<dim3(splits, nkv, b), kThreads, kDecSmemBytes, stream>>>(
+    rk_paged_decode_kernel<HD><<<dim3(splits, nkv, b), kThreads, bytes, stream>>>(
         q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
         sm_scale, window, softcap, ws_ml, ws_o, out);
   } else {
-    err = cudaFuncSetAttribute(rk_paged_chunk_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kChunkSmemBytes);
+    constexpr size_t bytes = ChunkShape<HD>::kSmemBytes;
+    err = cudaFuncSetAttribute(rk_paged_chunk_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const int row_tiles = (rows + kRows - 1) / kRows;
-    rk_paged_chunk_kernel<<<dim3(splits, nkv * b, row_tiles), kThreads, kChunkSmemBytes,
-                            stream>>>(
+    rk_paged_chunk_kernel<HD><<<dim3(splits, nkv * b, row_tiles), kThreads, bytes, stream>>>(
         q, k_pages, v_pages, page_idx, lengths, q_len, nh, nkv, P, ps, mp,
         keys_per_split, sm_scale, window, softcap, ws_ml, ws_o, out);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  rk_paged_combine_kernel<__nv_bfloat16><<<b * nkv * rows, kHd, 0, stream>>>(
+  rk_paged_combine_kernel<__nv_bfloat16, HD><<<b * nkv * rows, HD, 0, stream>>>(
       ws_ml, ws_o, splits, rows, g, q_len, nh, nkv, out);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// q/out (b, q_len, nh, 128); k_pages/v_pages (nkv, P, ps, 128); page_idx
-// (b, mp) int32; lengths (b,) int32; dtype 0 = float32 (one split), 1 =
-// bfloat16; window 0 = off, softcap 0 = off. bf16: keys_per_split a multiple
-// of 64, splits = ceil(mp * ps / keys_per_split); with more than one split
-// the workspace holds b * nkv * q_len * (nh / nkv) * splits * (2 + 128)
-// floats. Returns a cudaError_t.
-int rk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
-                       const void* page_idx, const void* lengths, int b,
-                       int q_len, int nh, int nkv, int P, int ps, int mp,
-                       float sm_scale, int window, float softcap, int dtype,
-                       int keys_per_split, void* workspace, void* out,
-                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* idx = static_cast<const int*>(page_idx);
-  const int* lens = static_cast<const int*>(lengths);
+template <int HD>
+int launch(const void* q, const void* k_pages, const void* v_pages, const int* idx,
+           const int* lens, int b, int q_len, int nh, int nkv, int P, int ps, int mp,
+           float sm_scale, int window, float softcap, int dtype, int keys_per_split,
+           void* workspace, void* out, cudaStream_t st) {
   if (dtype == 1) {
     if (keys_per_split <= 0 || keys_per_split % kKeys) return (int)cudaErrorInvalidValue;
-    return launch_bf16(static_cast<const __nv_bfloat16*>(q),
-                       static_cast<const __nv_bfloat16*>(k_pages),
-                       static_cast<const __nv_bfloat16*>(v_pages), idx, lens, b, q_len,
-                       nh, nkv, P, ps, mp, sm_scale, window, softcap, keys_per_split,
-                       static_cast<float*>(workspace), static_cast<__nv_bfloat16*>(out), st);
+    return launch_bf16<HD>(static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k_pages),
+                           static_cast<const __nv_bfloat16*>(v_pages), idx, lens, b, q_len,
+                           nh, nkv, P, ps, mp, sm_scale, window, softcap, keys_per_split,
+                           static_cast<float*>(workspace), static_cast<__nv_bfloat16*>(out),
+                           st);
   }
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k_pages);
   const float* vf = static_cast<const float*>(v_pages);
   float* of = static_cast<float*>(out);
   if (q_len * (nh / nkv) <= 16)
-    return launch_f32<16>(qf, kf, vf, idx, lens, b, q_len, nh, nkv, P, ps, mp, sm_scale,
-                          window, softcap, of, st);
-  return launch_f32<64>(qf, kf, vf, idx, lens, b, q_len, nh, nkv, P, ps, mp, sm_scale,
-                        window, softcap, of, st);
+    return launch_f32<16, HD>(qf, kf, vf, idx, lens, b, q_len, nh, nkv, P, ps, mp, sm_scale,
+                              window, softcap, of, st);
+  return launch_f32<64, HD>(qf, kf, vf, idx, lens, b, q_len, nh, nkv, P, ps, mp, sm_scale,
+                            window, softcap, of, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q/out (b, q_len, nh, hd); k_pages/v_pages (nkv, P, ps, hd), hd 64, 96, 128
+// or 256; page_idx (b, mp) int32; lengths (b,) int32; dtype 0 = float32 (one
+// split), 1 = bfloat16; window 0 = off, softcap 0 = off. bf16:
+// keys_per_split a multiple of 64, splits = ceil(mp * ps / keys_per_split);
+// with more than one split the workspace holds b * nkv * q_len * (nh / nkv)
+// * splits * (2 + hd) floats. Returns a cudaError_t.
+int rk_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                       const void* page_idx, const void* lengths, int b,
+                       int q_len, int nh, int nkv, int P, int ps, int mp, int hd,
+                       float sm_scale, int window, float softcap, int dtype,
+                       int keys_per_split, void* workspace, void* out,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* idx = static_cast<const int*>(page_idx);
+  const int* lens = static_cast<const int*>(lengths);
+#define RK_PAGED(HD)                                                                    \
+  if (hd == HD)                                                                         \
+    return launch<HD>(q, k_pages, v_pages, idx, lens, b, q_len, nh, nkv, P, ps, mp,    \
+                      sm_scale, window, softcap, dtype, keys_per_split, workspace, out, \
+                      st);
+  RK_PAGED(64)
+  RK_PAGED(96)
+  RK_PAGED(128)
+  RK_PAGED(256)
+#undef RK_PAGED
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

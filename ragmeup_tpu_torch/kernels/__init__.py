@@ -43,21 +43,33 @@ KERNELS = ("topk", "int8_matmul", "flash_gqa", "topk_int8", "int4_matmul",
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
+_variants: Dict[str, int] = {}
 build_log = ""  # nvcc's output of the last build (ptxas register/smem report)
 
 
-def count(name: str) -> None:
-    """Record one launch of kernel ``name``."""
+def count(name: str, variant: Optional[str] = None) -> None:
+    """Record one launch of kernel ``name``; ``variant`` (a shape the kernel
+    is instantiated or laid out for, such as ``"hd=256 g=2"``) also counts
+    it under ``"name variant"`` in :func:`variant_counts`."""
     _counts[name] += 1
+    if variant is not None:
+        key = f"{name} {variant}"
+        _variants[key] = _variants.get(key, 0) + 1
 
 
 def reset_counts() -> None:
     for name in _counts:
         _counts[name] = 0
+    _variants.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_counts)
+
+
+def variant_counts() -> Dict[str, int]:
+    """Launches by kernel and variant since the last reset."""
+    return dict(_variants)
 
 
 def _nvcc() -> str:
@@ -144,11 +156,11 @@ def lib() -> ctypes.CDLL:
             so.rk_int4_a8_decode.restype = i32
             so.rk_quantize_rows.argtypes = [vp, i32, i32, i32, vp, vp, vp]
             so.rk_quantize_rows.restype = i32
-            so.rk_flash_gqa.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32,
-                                        i32, vp, vp]
+            so.rk_flash_gqa.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                        f32, i32, vp, vp]
             so.rk_flash_gqa.restype = i32
             so.rk_paged_attention.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                              i32, i32, i32, i32, f32, i32, f32,
+                                              i32, i32, i32, i32, i32, f32, i32, f32,
                                               i32, i32, vp, vp, vp]
             so.rk_paged_attention.restype = i32
             so.rk_moe_gather.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,

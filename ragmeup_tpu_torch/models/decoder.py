@@ -14,6 +14,13 @@ reads each verify forward's greedy ids once and writes the cache at a
 host offset, so there is one sync a forward). ``attention_forward`` and
 ``qk_forward`` capture attention for provenance.
 
+The Llama-layout families of the JAX package are config branches
+(``LlamaConfig``): Qwen2's q/k/v biases, Mistral's sliding window and
+explicit head_dim, Phi-3's packed projections (split at load, or kept
+whole with ``fused_projections``), Gemma's offset norms, embedding scale
+and gelu MLP, Qwen3's per-head q/k norms, Gemma-2's norms around each
+sublayer, logit softcaps, query scale and per-layer windows.
+
 Parameters keep the JAX package's names and layouts (kernels are
 ``(in, out)``; int8 kernels ``kernel_q (in, out)`` with ``scale (out,)``;
 int4 kernels ``kernel_p (in/2, out)`` with ``gscale (in/group, out)``), so
@@ -83,10 +90,42 @@ class LlamaConfig:
     # int4_group == 512 (hf_loader.select_kernels sets it)
     int4_w4a8: bool = False
     tie_embeddings: bool = True  # Llama-3.1-8B uses an untied lm_head
+    # Q/K/V as one projection (qkv_proj) and gate/up as one (gate_up_proj):
+    # column-concatenated kernels, the same numbers
+    fused_projections: bool = False
     # the int8 decode kernel for QuantDense with at most 8 rows
     quant_kernel: bool = False
     # the causal flash kernel for prefill
     use_flash: bool = False
+    # Qwen2-class f32 biases on the q/k/v projections
+    qkv_bias: bool = False
+    # Mistral-class sliding window: the query at position p attends keys in
+    # (p - window, p]; 0 = full causal
+    sliding_window: int = 0
+    # an explicit per-head width (HF "head_dim"); 0 = hidden_size / num_heads
+    head_dim_override: int = 0
+    # the MLP's gate activation: silu | gelu_tanh (Gemma) | gelu (exact erf)
+    act_fn: str = "silu"
+    # RMSNorm multiplies by (scale + norm_offset): Gemma stores the scale less 1
+    norm_offset: float = 0.0
+    # Gemma: the embeddings times sqrt(hidden_size), rounded to the model dtype
+    embed_scale: bool = False
+    # Qwen3-class per-head RMSNorm on q and k over head_dim, before rope
+    qk_norm: bool = False
+    # Gemma-2: cap * tanh(x / cap) on the scaled attention logits, before the
+    # mask (0 = off; the flash prefill is then not taken) ...
+    attn_softcap: float = 0.0
+    # ... and on the f32 logits after the head
+    final_softcap: float = 0.0
+    # the attention scale; 0 = 1 / sqrt(head_dim) (Gemma-2:
+    # query_pre_attn_scalar ** -0.5)
+    query_scale: float = 0.0
+    # Gemma-2's block: post_attn_norm on the attention output, pre_ffw_norm
+    # and post_ffw_norm around the MLP
+    post_norms: bool = False
+    # per-layer windows (Gemma-2's alternating layers); empty = every layer
+    # takes sliding_window; an entry 0 = full attention
+    layer_windows: tuple = ()
     rope_scaling_type: str = "none"  # none | llama3 | linear
     rope_scaling_factor: float = 1.0
     rope_scaling_low_freq_factor: float = 1.0
@@ -115,7 +154,7 @@ class LlamaConfig:
 
     @property
     def head_dim(self) -> int:
-        return self.hidden_size // self.num_heads
+        return self.head_dim_override or self.hidden_size // self.num_heads
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -158,6 +197,21 @@ class LlamaConfig:
     def is_moe_layer(self, i: int) -> bool:
         return bool(self.num_experts) and (
             bool(self.moe_layers[i]) if self.moe_layers else True)
+
+    def layer_window(self, i: int) -> int:
+        """Layer i's sliding window (0 = full attention)."""
+        return self.layer_windows[i] if self.layer_windows else self.sliding_window
+
+
+def activation(name: str):
+    """The MLP's gate activation by ``LlamaConfig.act_fn``."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu_tanh":  # Gemma's gelu_pytorch_tanh
+        return lambda g: F.gelu(g, approximate="tanh")
+    if name == "gelu":
+        return lambda g: F.gelu(g, approximate="none")
+    raise ValueError(f"unsupported act_fn {name!r}")
 
 
 def int4_tiles(k: int, group: int = 0) -> Tuple[int, int]:
@@ -247,11 +301,13 @@ class QuantDense(nn.Module):
     int8: rows ≤ 8 with 512-multiple dims take the int8 kernel
     (``use_kernel``), other shapes dequantize and multiply. int4: every
     shape goes through ``int4_matmul``, which routes by shape (W4A8 with
-    ``a8``)."""
+    ``a8``). ``use_bias`` adds an f32 ``bias`` after the product under every
+    quantization, rounded back to the product's dtype."""
 
     def __init__(self, in_features: int, features: int, quantize: bool,
                  dtype: torch.dtype, use_kernel: bool = False, device=None,
-                 bits: int = 8, q_group: int = 0, a8: bool = False):
+                 bits: int = 8, q_group: int = 0, a8: bool = False,
+                 use_bias: bool = False):
         super().__init__()
         self.features = features
         self.quantize = quantize
@@ -272,6 +328,7 @@ class QuantDense(nn.Module):
         else:
             self.kernel = nn.Parameter(torch.zeros(in_features, features,
                                                    device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -289,30 +346,47 @@ class QuantDense(nn.Module):
         else:
             wd = self.kernel_q.to(self.dtype) * self.scale.to(self.dtype)[None, :]
             out = x2.to(self.dtype) @ wd
+        if self.bias is not None:
+            out = (out + self.bias).to(out.dtype)
         return out.reshape(*lead, self.features)
 
 
 def quant_dense(cfg: LlamaConfig, in_features: int, features: int,
-                device=None) -> QuantDense:
+                device=None, use_bias: bool = False) -> QuantDense:
     """A projection of the decoder with the config's quantization."""
     return QuantDense(in_features, features, cfg.quantization != "none",
                       cfg.torch_dtype, cfg.quant_kernel, device,
                       bits=4 if cfg.quantization == "int4" else 8,
-                      q_group=cfg.int4_group, a8=cfg.int4_w4a8)
+                      q_group=cfg.int4_group, a8=cfg.int4_w4a8, use_bias=use_bias)
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    """GQA attention with RoPE. ``window``: this layer's sliding window (-1
+    takes ``cfg.sliding_window``, 0 is full attention). The family branches
+    follow the config: one ``qkv_proj`` (``fused_projections``), q/k/v
+    biases, per-head ``q_norm``/``k_norm`` before rope, ``query_scale`` and
+    the logit softcap. Prefill takes the flash kernel only where its plain
+    causal softmax is the layer's: no softcap, and a window (if any) that
+    holds every key."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, window: int = -1):
         super().__init__()
         self.cfg = cfg
+        self.window = cfg.sliding_window if window < 0 else window
         c = cfg
         hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
 
-        def dense(i, o):
-            return quant_dense(c, i, o, device)
-        self.q_proj = dense(c.hidden_size, nh * hd)
-        self.k_proj = dense(c.hidden_size, nkv * hd)
-        self.v_proj = dense(c.hidden_size, nkv * hd)
+        def dense(i, o, bias=False):
+            return quant_dense(c, i, o, device, use_bias=bias)
+        if c.fused_projections:
+            self.qkv_proj = dense(c.hidden_size, (nh + 2 * nkv) * hd, c.qkv_bias)
+        else:
+            self.q_proj = dense(c.hidden_size, nh * hd, c.qkv_bias)
+            self.k_proj = dense(c.hidden_size, nkv * hd, c.qkv_bias)
+            self.v_proj = dense(c.hidden_size, nkv * hd, c.qkv_bias)
+        if c.qk_norm:
+            self.q_norm = RMSNorm(hd, c.rms_eps, c.torch_dtype, device)
+            self.k_norm = RMSNorm(hd, c.rms_eps, c.torch_dtype, device)
         self.o_proj = dense(nh * hd, c.hidden_size)
 
     def forward(self, x, cos, sin, attn_bias=None, cache=None, cache_pos=0,
@@ -320,14 +394,22 @@ class LlamaAttention(nn.Module):
         """→ (output, capture): ``capture`` True gives the softmax weights
         (b, nh, s, kv_len) from the einsum path (flash is off for it);
         ``"qk"`` gives the post-RoPE (q, k), k repeated to the query heads,
-        with flash allowed; otherwise None."""
+        with flash allowed; otherwise None. Query row i sits at position
+        ``cache_pos + i`` (the window's lower bound)."""
         c = self.cfg
         b, s, _ = x.shape
         hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
         dt = c.torch_dtype
-        q = self.q_proj(x).reshape(b, s, nh, hd)
-        k = self.k_proj(x).reshape(b, s, nkv, hd)
-        v = self.v_proj(x).reshape(b, s, nkv, hd)
+        if c.fused_projections:
+            qkv = self.qkv_proj(x)
+            q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.reshape(b, s, nh, hd)
+        k = k.reshape(b, s, nkv, hd)
+        v = v.reshape(b, s, nkv, hd)
+        if c.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         # rope rotates in f32, then back to the model dtype
         q = apply_rope(q, cos, sin).to(dt)
         k = apply_rope(k, cos, sin).to(dt)
@@ -339,10 +421,12 @@ class LlamaAttention(nn.Module):
             cv[:, cache_pos:cache_pos + s] = v
             k, v = ck, cv
         rep = nh // nkv
-        scale = 1.0 / float(np.sqrt(hd))
+        scale = c.query_scale or 1.0 / float(np.sqrt(hd))
         kv_len = k.shape[1]
+        win = self.window
         use_flash = (c.use_flash and capture is not True and s > 1
-                     and s % FLASH_BLOCK == 0 and kv_len % FLASH_BLOCK == 0)
+                     and s % FLASH_BLOCK == 0 and kv_len % FLASH_BLOCK == 0
+                     and (win == 0 or kv_len <= win) and not c.attn_softcap)
         weights = None
         if use_flash:
             # prefill: causal flash; padded keys sit past every real query
@@ -362,8 +446,16 @@ class LlamaAttention(nn.Module):
             # kv head h // rep
             q5 = q.reshape(b, s, nkv, rep, hd)
             logits = torch.einsum("bqnrd,bknd->bnrqk", q5.float(), k.float()) * scale
+            if c.attn_softcap:
+                # on the scaled logits, before the additive mask
+                logits = torch.tanh(logits / c.attn_softcap) * c.attn_softcap
             if attn_bias is not None:
                 logits = logits + attn_bias[..., None, :, :]
+            if win:
+                # the window's lower bound: keys > position - window
+                qpos = cache_pos + torch.arange(s, device=x.device)
+                keep = torch.arange(kv_len, device=x.device)[None, :] > qpos[:, None] - win
+                logits = torch.where(keep, logits, -1e30)
             weights = torch.softmax(logits, dim=-1)
             out = torch.einsum("bnrqk,bknd->bqnrd", weights.to(dt), v)
         aux = None
@@ -381,14 +473,17 @@ class LlamaAttention(nn.Module):
         causal limit."""
         k_pages, v_pages, page_idx, lengths, pages, slots = paged_state
         b, s, nh, hd = q.shape
+        c = self.cfg
+        kw = dict(window=self.window, sm_scale=c.query_scale or None,
+                  softcap=c.attn_softcap)
         if s == 1:
             paged_update_token(k_pages, k[:, 0].transpose(0, 1), pages, slots)
             paged_update_token(v_pages, v[:, 0].transpose(0, 1), pages, slots)
-            out = paged_attention(q[:, 0], k_pages, v_pages, page_idx, lengths)
+            out = paged_attention(q[:, 0], k_pages, v_pages, page_idx, lengths, **kw)
         elif pages.dim() == 2:
             paged_update_chunk(k_pages, k.permute(2, 0, 1, 3), pages, slots)
             paged_update_chunk(v_pages, v.permute(2, 0, 1, 3), pages, slots)
-            out = paged_attention_chunk(q, k_pages, v_pages, page_idx, lengths)
+            out = paged_attention_chunk(q, k_pages, v_pages, page_idx, lengths, **kw)
         else:
             # 1-D pages/slots address ONE sequence's rows; a b > 1 chunk
             # would attend unwritten K/V
@@ -396,7 +491,7 @@ class LlamaAttention(nn.Module):
                 raise ValueError("paged chunk-append with 1-D pages needs batch 1")
             paged_update_token(k_pages, k[0].transpose(0, 1), pages, slots)
             paged_update_token(v_pages, v[0].transpose(0, 1), pages, slots)
-            out = paged_attention_chunk(q, k_pages, v_pages, page_idx, lengths)
+            out = paged_attention_chunk(q, k_pages, v_pages, page_idx, lengths, **kw)
         return out.reshape(b, s, nh * hd).to(self.cfg.torch_dtype)
 
 
@@ -404,12 +499,21 @@ class LlamaMlp(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         h, f = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = quant_dense(cfg, h, f, device)
-        self.up_proj = quant_dense(cfg, h, f, device)
+        self.act = activation(cfg.act_fn)
+        self.fused = cfg.fused_projections
+        if self.fused:
+            self.gate_up_proj = quant_dense(cfg, h, 2 * f, device)
+        else:
+            self.gate_proj = quant_dense(cfg, h, f, device)
+            self.up_proj = quant_dense(cfg, h, f, device)
         self.down_proj = quant_dense(cfg, f, h, device)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.fused:
+            g, u = self.gate_up_proj(x).chunk(2, dim=-1)
+        else:
+            g, u = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(self.act(g) * u)
 
 
 class LlamaMoeMlp(nn.Module):
@@ -451,6 +555,7 @@ class LlamaMoeMlp(nn.Module):
         e, h = cfg.num_experts, cfg.hidden_size
         f = cfg.moe_intermediate_size or cfg.intermediate_size
         self.router = nn.Parameter(torch.zeros(h, e, device=device))
+        self.act = activation(cfg.act_fn)
         shapes = {"gate": (h, f), "up": (h, f), "down": (f, h)}
         for name, (i, o) in shapes.items():
             if cfg.quantization == "int4":
@@ -492,6 +597,7 @@ class LlamaMoeMlp(nn.Module):
         s_tot = t * top_k
         topw, topi = self.route(xf)
         (wg, sg), (wu, su), (wn, sn) = (self.experts(p) for p in ("gate", "up", "down"))
+        act = self.act
 
         def combine(y):
             y = y.float() * topw.reshape(s_tot, 1)
@@ -519,18 +625,18 @@ class LlamaMoeMlp(nn.Module):
                     and grouped_int4_viable(s_tot, e, f, h, tk_f, g_f, dt)):
                 # (a) batched decode: each unique routed expert read once (#14)
                 xs, gsz, inv = sorted_rows()
-                a = (F.silu(moe_grouped_matmul_int4(xs, wg, sg, gsz, tk_h, g_h))
+                a = (act(moe_grouped_matmul_int4(xs, wg, sg, gsz, tk_h, g_h))
                      * moe_grouped_matmul_int4(xs, wu, su, gsz, tk_h, g_h)).to(dt)
                 return combine(moe_grouped_matmul_int4(a, wn, sn, gsz, tk_f, g_f)[inv])
             if s_tot <= e or s_tot <= min(GATHER_MAX_SLOTS, 4 * e):
                 # (b) decode: the routed slots' packed bytes only (#13)
                 xs = xf.to(dt).repeat_interleave(top_k, dim=0)
-                a = (F.silu(moe_gather_matmul_int4(xs, wg, sg, ids, tk_h, g_h))
+                a = (act(moe_gather_matmul_int4(xs, wg, sg, ids, tk_h, g_h))
                      * moe_gather_matmul_int4(xs, wu, su, ids, tk_h, g_h)).to(dt)
                 return combine(moe_gather_matmul_int4(a, wn, sn, ids, tk_f, g_f))
         elif s_tot <= e:
             xs = xf.to(dt).repeat_interleave(top_k, dim=0)
-            a = (F.silu(moe_gather_matmul(xs, wg, ids, sg))
+            a = (act(moe_gather_matmul(xs, wg, ids, sg))
                  * moe_gather_matmul(xs, wu, ids, su)).to(dt)
             return combine(moe_gather_matmul(a, wn, ids, sn))
 
@@ -547,7 +653,7 @@ class LlamaMoeMlp(nn.Module):
                 return (next((v for v in (2048, 1024, 512) if k % v == 0), 0),
                         next((v for v in (1024, 512) if n % v == 0), 0))
             (tk_up, tn_up), (tk_dn, tn_dn) = tiles(h, wg.shape[2]), tiles(wg.shape[2], h)
-            a = (F.silu(moe_grouped_matmul(xs, wg, gsz, sg, tm, tk_up, tn_up, dedup))
+            a = (act(moe_grouped_matmul(xs, wg, gsz, sg, tm, tk_up, tn_up, dedup))
                  * moe_grouped_matmul(xs, wu, gsz, su, tm, tk_up, tn_up, dedup)).to(dt)
             y = moe_grouped_matmul(a, wn, gsz, sn, tm, tk_dn, tn_dn, dedup)
             return combine(y[inv])
@@ -564,24 +670,39 @@ class LlamaMoeMlp(nn.Module):
         cw = torch.zeros(t, e, device=x.device).scatter_add_(1, topi, topw)
         g = torch.einsum("th,ehf->etf", xb, dequant(wg, sg))
         u = torch.einsum("th,ehf->etf", xb, dequant(wu, su))
-        y = torch.einsum("etf,efh->eth", F.silu(g) * u, dequant(wn, sn))
+        y = torch.einsum("etf,efh->eth", act(g) * u, dequant(wn, sn))
         out = torch.einsum("te,eth->th", cw, y.float())
         return out.to(dt).reshape(*lead, h)
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None, moe: bool = False):
+    """Pre-norm block; with ``post_norms`` (Gemma-2) norms around each
+    sublayer: post_attn_norm on the attention output, pre_ffw_norm and
+    post_ffw_norm around the MLP."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, moe: bool = False,
+                 window: int = -1):
         super().__init__()
         dt = cfg.torch_dtype
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device)
-        self.attention = LlamaAttention(cfg, device)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device)
+        self.post_norms = cfg.post_norms
+
+        def norm():
+            return RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device, offset=cfg.norm_offset)
+        self.input_norm = norm()
+        self.attention = LlamaAttention(cfg, device, window)
+        self.post_attn_norm = norm()
+        if cfg.post_norms:
+            self.pre_ffw_norm = norm()
+            self.post_ffw_norm = norm()
         self.mlp = LlamaMoeMlp(cfg, device) if moe else LlamaMlp(cfg, device)
 
     def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None,
                 capture=False):
         h, aux = self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
                                 cache_pos, paged_state, capture)
+        if self.post_norms:
+            x = x + self.post_attn_norm(h)
+            return x + self.post_ffw_norm(self.mlp(self.pre_ffw_norm(x))), aux
         x = x + h
         return x + self.mlp(self.post_attn_norm(x)), aux
 
@@ -596,9 +717,11 @@ class LlamaModel(nn.Module):
         c = cfg
         self.token_embedding = nn.Parameter(
             torch.zeros(c.vocab_size, c.hidden_size, device=device))
-        self.layers = nn.ModuleList(LlamaBlock(c, device, c.is_moe_layer(i))
-                                    for i in range(c.num_layers))
-        self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, c.torch_dtype, device)
+        self.layers = nn.ModuleList(
+            LlamaBlock(c, device, c.is_moe_layer(i), c.layer_window(i))
+            for i in range(c.num_layers))
+        self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, c.torch_dtype, device,
+                                  offset=c.norm_offset)
         if self.int8_head:
             self.register_buffer("lm_head_q", torch.zeros(
                 c.hidden_size, c.vocab_size, dtype=torch.int8, device=device))
@@ -661,6 +784,10 @@ class LlamaModel(nn.Module):
         (b, s, nh, hd)}, as the JAX package's model returns."""
         c = self.cfg
         x = self.token_embedding[input_ids].to(c.torch_dtype)
+        if c.embed_scale:
+            # sqrt(hidden) rounded to the model dtype first, as HF rounds it
+            x = x * torch.tensor(float(np.sqrt(c.hidden_size)), dtype=c.torch_dtype,
+                                 device=x.device)
         ang = positions.float()[..., None] * self.inv_freq
         cos, sin = torch.cos(ang), torch.sin(ang)
         all_w, qk_last = [], None
@@ -685,6 +812,8 @@ class LlamaModel(nn.Module):
         elif head_at is not None:
             x = x[:, head_at:head_at + 1]
         logits = self.logits(x)
+        if c.final_softcap:
+            logits = torch.tanh(logits / c.final_softcap) * c.final_softcap
         if not (capture_weights or capture_qk_last):
             return logits
         out = {"logits": logits}
@@ -741,7 +870,7 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
                         device=None, std: float = 0.02
                         ) -> Dict[str, torch.Tensor]:
     """Random weights drawn on ``device``: N(0, std) kernels, embeddings,
-    routers and expert stacks, unit norms. With int8 or int4 quantization
+    routers and expert stacks, unit norms, zero biases (f32). With int8 or int4 quantization
     every kernel is quantized right after it is drawn, where it was drawn
     (an int8 expert stack one expert at a time; int4 experts are drawn one
     at a time), and the embeddings/lm_head are stored in bf16
@@ -770,16 +899,33 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
     def ones(name, n):
         out[name] = torch.ones(n, device=device)
 
+    def zeros(name, n):
+        out[name] = torch.zeros(n, device=device)
+
     emb_dtype = torch.bfloat16 if quant else torch.float32
     out["token_embedding"] = draw(c.vocab_size, c.hidden_size).to(emb_dtype)
+    nq, nkv = c.num_heads * hd, c.num_kv_heads * hd
     for i in range(c.num_layers):
         p = f"layers.{i}"
         ones(f"{p}.input_norm.scale", c.hidden_size)
-        kernel(f"{p}.attention.q_proj", c.hidden_size, c.num_heads * hd)
-        kernel(f"{p}.attention.k_proj", c.hidden_size, c.num_kv_heads * hd)
-        kernel(f"{p}.attention.v_proj", c.hidden_size, c.num_kv_heads * hd)
-        kernel(f"{p}.attention.o_proj", c.num_heads * hd, c.hidden_size)
+        a = f"{p}.attention"
+        if c.fused_projections:
+            kernel(f"{a}.qkv_proj", c.hidden_size, nq + 2 * nkv)
+            if c.qkv_bias:
+                zeros(f"{a}.qkv_proj.bias", nq + 2 * nkv)
+        else:
+            for name, n in (("q_proj", nq), ("k_proj", nkv), ("v_proj", nkv)):
+                kernel(f"{a}.{name}", c.hidden_size, n)
+                if c.qkv_bias:
+                    zeros(f"{a}.{name}.bias", n)
+        if c.qk_norm:
+            ones(f"{a}.q_norm.scale", hd)
+            ones(f"{a}.k_norm.scale", hd)
+        kernel(f"{a}.o_proj", nq, c.hidden_size)
         ones(f"{p}.post_attn_norm.scale", c.hidden_size)
+        if c.post_norms:
+            ones(f"{p}.pre_ffw_norm.scale", c.hidden_size)
+            ones(f"{p}.post_ffw_norm.scale", c.hidden_size)
         if c.is_moe_layer(i):
             out[f"{p}.mlp.router"] = draw(c.hidden_size, c.num_experts)
             f = c.moe_intermediate_size or c.intermediate_size
@@ -797,8 +943,11 @@ def init_decoder_params(cfg: LlamaConfig, generator: torch.Generator,
                     out[f"{p}.mlp.{name}"] = w
                 del w
             continue
-        kernel(f"{p}.mlp.gate_proj", c.hidden_size, c.intermediate_size)
-        kernel(f"{p}.mlp.up_proj", c.hidden_size, c.intermediate_size)
+        if c.fused_projections:
+            kernel(f"{p}.mlp.gate_up_proj", c.hidden_size, 2 * c.intermediate_size)
+        else:
+            kernel(f"{p}.mlp.gate_proj", c.hidden_size, c.intermediate_size)
+            kernel(f"{p}.mlp.up_proj", c.hidden_size, c.intermediate_size)
         kernel(f"{p}.mlp.down_proj", c.intermediate_size, c.hidden_size)
     ones("final_norm.scale", c.hidden_size)
     if not c.tie_embeddings:

@@ -6,9 +6,10 @@ Counterpart of ``ragmeup_tpu/models/hf_loader.py``. ``load_sentence_encoder``,
 (config.json, ``*.safetensors`` read by ``models/safetensors.py``, a
 tokenizer if it ships one) when they are given one, and otherwise build the
 configurations the JAX package builds without a checkpoint, with a
-deterministic random init. Decoders load from the ``llama`` and
-``mixtral`` layouts; the other Llama-layout families the JAX package loads
-raise ``NotImplementedError`` (ROADMAP queue 1, item 2).
+deterministic random init. Decoders load from every Llama-layout family
+the JAX package loads (``FAMILIES``: Llama, Mistral, Qwen2, Qwen3, Phi-3,
+Gemma, Gemma-2, Mixtral, Qwen3-MoE); the family's branches are
+``LlamaConfig`` fields.
 
 Torch ``nn.Linear`` weights are ``(out, in)``; the port's modules keep the
 JAX package's ``(in, out)`` kernels under its names (``convert.py``), so
@@ -47,11 +48,12 @@ from ragmeup_tpu_torch.ops.quant_matmul import quantize_int4_groupwise
 
 Tensors = Dict[str, torch.Tensor]
 
-# model_type values the JAX package loads; the port loads the first two
-JAX_FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma",
-                "gemma2", "mixtral", "qwen3_moe")
-PORTED_FAMILIES = ("llama", "mixtral")
-_OTHER_FAMILIES = "ROADMAP queue 1, item 2: checkpoint loading of the other families"
+# the Llama-layout model_type values both packages load
+FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi3", "gemma",
+            "gemma2", "mixtral", "qwen3_moe")
+# a layer's norms that are not in every family: HF name → the port's
+_EXTRA_NORMS = (("pre_feedforward_layernorm", "pre_ffw_norm"),       # gemma2
+                ("post_feedforward_layernorm", "post_ffw_norm"))
 
 
 def _strip_prefix(tensors: Tensors) -> Tensors:
@@ -199,43 +201,59 @@ def load_cross_encoder(checkpoint_dir: Optional[str], seed: int = 1,
 
 def llama_config_from_hf(checkpoint_dir: str, quantization: str = "none",
                          max_seq_len: int = 0) -> LlamaConfig:
-    """config.json → LlamaConfig for ``model_type`` llama and mixtral, with
-    the JAX package's rope scaling, context cap and MoE fields. A family or
-    a feature the JAX package loads and the port's decoder does not have
-    yet raises NotImplementedError; what the JAX package refuses raises its
-    ValueError."""
+    """config.json → LlamaConfig for every Llama-layout family of the JAX
+    package (``FAMILIES``), field by field as its ``llama_config_from_hf``
+    maps them: Qwen2's biases, Mistral's and Phi-3's sliding window (Qwen's
+    behind ``use_sliding_window``), Gemma-2's per-layer windows
+    (``layer_types``, or the even layers), softcaps and
+    ``query_pre_attn_scalar``, Gemma's tied head, offset norms and
+    embedding scale, Qwen3's q/k norms, the MoE fields of Mixtral and
+    Qwen3-MoE (``decoder_sparse_step`` / ``mlp_only_layers``), rope
+    scaling and the context cap. What the JAX package refuses (another
+    model_type, activation or rope scaling, such as Phi-3's longrope)
+    raises its ValueError."""
     c = _read_config(checkpoint_dir)
     mt = c.get("model_type", "llama")
-    if mt not in JAX_FAMILIES:
+    if mt not in FAMILIES:
         raise ValueError(
             f"unsupported model_type {mt!r} in {checkpoint_dir}/config.json "
             "(supported Llama-layout families: llama, mistral, qwen2, "
             "qwen3, phi3, gemma, gemma2, mixtral, qwen3_moe)")
+    moe_kw = {}
+    if mt == "mixtral":  # top-k of num_local_experts, always renormalized
+        moe_kw = dict(num_experts=int(c["num_local_experts"]),
+                      num_experts_per_tok=int(c["num_experts_per_tok"]),
+                      norm_topk_prob=True)
+    elif mt == "qwen3_moe":
+        step = int(c.get("decoder_sparse_step", 1))
+        only = set(c.get("mlp_only_layers") or ())
+        flags = tuple(i not in only and step > 0 and (i + 1) % step == 0
+                      for i in range(c["num_hidden_layers"]))
+        moe_kw = dict(num_experts=int(c["num_experts"]),
+                      num_experts_per_tok=int(c["num_experts_per_tok"]),
+                      moe_intermediate_size=int(c["moe_intermediate_size"]),
+                      norm_topk_prob=bool(c.get("norm_topk_prob", True)),
+                      moe_layers=() if all(flags) else flags)
+    # Qwen's window applies to every layer when use_sliding_window is set
+    # (its max_window_layers refinement is not reproduced, as in JAX)
+    sw = c.get("sliding_window") or 0
+    if mt in ("qwen2", "qwen3", "qwen3_moe") and not c.get("use_sliding_window", False):
+        sw = 0
+    layer_windows = ()
+    if mt == "gemma2" and sw:
+        lt = c.get("layer_types")
+        layer_windows = tuple(
+            (int(sw) if t == "sliding_attention" else 0 for t in lt) if lt else
+            (int(sw) if i % 2 == 0 else 0 for i in range(c["num_hidden_layers"])))
+    # Gemma's gelu and gelu_pytorch_tanh are both HF's tanh approximation
     act = c.get("hidden_activation") or c.get("hidden_act") or "silu"
-    if act not in ("silu", "gelu_pytorch_tanh", "gelu"):
+    act_map = {"silu": "silu", "gelu_pytorch_tanh": "gelu_tanh",
+               "gelu": "gelu_tanh" if mt.startswith("gemma") else "gelu"}
+    if act not in act_map:
         raise ValueError(f"unsupported hidden activation {act!r} in "
                          f"{checkpoint_dir}/config.json")
     rs = c.get("rope_scaling") or {}
     rs_type = rs.get("rope_type", rs.get("type", "none")) if rs else "none"
-    if rs_type not in ("llama3", "linear", "none", "default"):
-        raise ValueError(
-            f"unsupported rope_scaling type {rs_type!r} in "
-            f"{checkpoint_dir}/config.json (supported: llama3, linear)")
-    heads = c["num_attention_heads"]
-    missing = []
-    if mt not in PORTED_FAMILIES:
-        missing.append(f"model_type {mt!r}")
-    if c.get("attention_bias", False):
-        missing.append("attention_bias")
-    if c.get("head_dim") and int(c["head_dim"]) != c["hidden_size"] // heads:
-        missing.append(f"head_dim {c['head_dim']} (not hidden_size / heads)")
-    if c.get("sliding_window"):
-        missing.append(f"sliding_window {c['sliding_window']}")
-    if act != "silu":
-        missing.append(f"activation {act!r}")
-    if missing:
-        raise NotImplementedError(
-            f"{checkpoint_dir}: {', '.join(missing)} is not ported yet ({_OTHER_FAMILIES})")
     rs_kw = {}
     if rs_type in ("llama3", "linear"):
         rs_kw = dict(
@@ -246,28 +264,64 @@ def llama_config_from_hf(checkpoint_dir: str, quantization: str = "none",
             rope_scaling_original_max_position=int(
                 rs.get("original_max_position_embeddings",
                        c.get("max_position_embeddings", 8192))))
-    moe_kw = {}
-    if mt == "mixtral":  # top-k of num_local_experts, always renormalized
-        moe_kw = dict(num_experts=int(c["num_local_experts"]),
-                      num_experts_per_tok=int(c["num_experts_per_tok"]),
-                      norm_topk_prob=True)
+    elif rs_type not in ("none", "default"):
+        raise ValueError(
+            f"unsupported rope_scaling type {rs_type!r} in "
+            f"{checkpoint_dir}/config.json (supported: llama3, linear)")
+    gemma = mt.startswith("gemma")
     return LlamaConfig(
         **rs_kw,
         **moe_kw,
         vocab_size=c["vocab_size"],
         hidden_size=c["hidden_size"],
         num_layers=c["num_hidden_layers"],
-        num_heads=heads,
-        num_kv_heads=c.get("num_key_value_heads", heads),
+        num_heads=c["num_attention_heads"],
+        num_kv_heads=c.get("num_key_value_heads", c["num_attention_heads"]),
         intermediate_size=c["intermediate_size"],
         rope_theta=c.get("rope_theta", 10000.0),
         # the dense cache's context cap; model.llm_max_seq_len raises it
         max_seq_len=min(c.get("max_position_embeddings", 8192),
                         max_seq_len or 32768),
         rms_eps=c.get("rms_norm_eps", 1e-5),
-        tie_embeddings=c.get("tie_word_embeddings", False),
+        tie_embeddings=c.get("tie_word_embeddings", gemma),
+        qkv_bias=bool(c.get("attention_bias", mt == "qwen2")),
+        sliding_window=int(sw),
+        head_dim_override=int(c.get("head_dim") or 0),
+        act_fn=act_map[act],
+        norm_offset=1.0 if gemma else 0.0,
+        embed_scale=gemma,
+        qk_norm=mt in ("qwen3", "qwen3_moe"),
+        post_norms=mt == "gemma2",
+        attn_softcap=float(c.get("attn_logit_softcapping") or 0.0),
+        final_softcap=float(c.get("final_logit_softcapping") or 0.0),
+        query_scale=(float(c["query_pre_attn_scalar"]) ** -0.5
+                     if c.get("query_pre_attn_scalar") else 0.0),
+        layer_windows=layer_windows,
         quantization=quantization,
     )
+
+
+def split_packed_tensors(tensors: Tensors, num_heads: int, num_kv_heads: int,
+                         head_dim: int) -> Tensors:
+    """Phi-3's packed ``qkv_proj`` (rows [q; k; v]) and ``gate_up_proj``
+    (rows [gate; up]) under the standard Llama names, as row views of the
+    (out, in) tensors: no copy."""
+    qh, kvh = num_heads * head_dim, num_kv_heads * head_dim
+    out: Tensors = {}
+    for k, v in tensors.items():
+        if k.endswith("self_attn.qkv_proj.weight"):
+            base = k[:-len("qkv_proj.weight")]
+            out[base + "q_proj.weight"] = v[:qh]
+            out[base + "k_proj.weight"] = v[qh:qh + kvh]
+            out[base + "v_proj.weight"] = v[qh + kvh:]
+        elif k.endswith("mlp.gate_up_proj.weight"):
+            base = k[:-len("gate_up_proj.weight")]
+            inter = v.shape[0] // 2
+            out[base + "gate_proj.weight"] = v[:inter]
+            out[base + "up_proj.weight"] = v[inter:]
+        else:
+            out[k] = v
+    return out
 
 
 def _moe_layer_tensors(t: Tensors, p: str):
@@ -290,12 +344,35 @@ def _moe_layer_tensors(t: Tensors, p: str):
                          for name in names)
 
 
+def _layer_extras(t: Tensors, p: str, load) -> Tensors:
+    """One layer's tensors beyond the Llama set, unquantized through
+    ``load``: the q/k/v biases (Qwen2), ``q_norm``/``k_norm`` (Qwen3) and
+    Gemma-2's feed-forward norms, under the port's names."""
+    out: Tensors = {}
+    q = f"{p}attention."
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        if f"{p}self_attn.{proj}.bias" in t:
+            out[f"{q}{proj}.bias"] = load(t[f"{p}self_attn.{proj}.bias"])
+    for nrm in ("q_norm", "k_norm"):
+        if f"{p}self_attn.{nrm}.weight" in t:
+            out[f"{q}{nrm}.scale"] = load(t[f"{p}self_attn.{nrm}.weight"])
+    for hf, ours in _EXTRA_NORMS:
+        if f"{p}{hf}.weight" in t:
+            out[f"{p}{ours}.scale"] = load(t[f"{p}{hf}.weight"])
+    return out
+
+
 def llama_params_from_hf(tensors: Tensors, num_layers: int, tie_embeddings: bool,
-                         layers: Optional[Iterable[int]] = None) -> Tensors:
+                         layers: Optional[Iterable[int]] = None,
+                         fused_projections: bool = False) -> Tensors:
     """HF Llama-layout tensors → LlamaModel state dict, every tensor f32 on
     the host (torch Linear weights transposed into (in, out) kernels; MoE
-    experts stacked (E, in, out), the router (h, E)). ``layers`` converts
-    only those layers (default: all ``num_layers``)."""
+    experts stacked (E, in, out), the router (h, E); biases and norms as
+    they are). ``layers`` converts only those layers (default: all
+    ``num_layers``). ``fused_projections`` concatenates the q/k/v kernels
+    (and biases) into ``qkv_proj`` and gate/up into ``gate_up_proj``, as
+    the JAX loader does (which also leaves out q/k norms there; here they
+    stay, so a fused Qwen3 loads)."""
     t = _strip_prefix(tensors)
     out = {"token_embedding": t["embed_tokens.weight"].float(),
            "final_norm.scale": t["norm.weight"].float()}
@@ -303,8 +380,21 @@ def llama_params_from_hf(tensors: Tensors, num_layers: int, tie_embeddings: bool
         out["lm_head"] = _kernel(tensors["lm_head.weight"])
     for i in (range(num_layers) if layers is None else layers):
         p = f"layers.{i}."
-        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            out[f"{p}attention.{proj}.kernel"] = _kernel(t[f"{p}self_attn.{proj}.weight"])
+        a = f"{p}attention."
+        extras = _layer_extras(t, p, lambda w: w.float())
+        if fused_projections:
+            out[f"{a}qkv_proj.kernel"] = torch.cat(
+                [_kernel(t[f"{p}self_attn.{proj}.weight"])
+                 for proj in ("q_proj", "k_proj", "v_proj")], dim=1)
+            biases = [extras.pop(f"{a}{proj}.bias", None)
+                      for proj in ("q_proj", "k_proj", "v_proj")]
+            if biases[0] is not None:
+                out[f"{a}qkv_proj.bias"] = torch.cat(biases)
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                out[f"{a}{proj}.kernel"] = _kernel(t[f"{p}self_attn.{proj}.weight"])
+        out[f"{a}o_proj.kernel"] = _kernel(t[f"{p}self_attn.o_proj.weight"])
+        out.update(extras)
         out[f"{p}input_norm.scale"] = t[p + "input_layernorm.weight"].float()
         out[f"{p}post_attn_norm.scale"] = t[p + "post_attention_layernorm.weight"].float()
         moe = _moe_layer_tensors(t, p)
@@ -313,6 +403,11 @@ def llama_params_from_hf(tensors: Tensors, num_layers: int, tie_embeddings: bool
             out[f"{p}mlp.router"] = _kernel(rw)
             for name, ws in zip(("gate", "up", "down"), experts):
                 out[f"{p}mlp.{name}"] = torch.stack([w.float().T for w in ws])
+        elif fused_projections:
+            out[f"{p}mlp.gate_up_proj.kernel"] = torch.cat(
+                [_kernel(t[f"{p}mlp.{proj}.weight"]) for proj in ("gate_proj", "up_proj")],
+                dim=1)
+            out[f"{p}mlp.down_proj.kernel"] = _kernel(t[f"{p}mlp.down_proj.weight"])
         else:
             for proj in ("gate_proj", "up_proj", "down_proj"):
                 out[f"{p}mlp.{proj}.kernel"] = _kernel(t[f"{p}mlp.{proj}.weight"])
@@ -325,14 +420,18 @@ def _streamed(tensors: Tensors, num_layers: int, tie_embeddings: bool,
     once, in its source dtype, through ``load``, which also transposes a
     torch (out, in) weight into an (in, out) kernel there. ``dense(base,
     kernel)`` and ``experts(base, weights, load)`` (a projection's checkpoint
-    tensors, one an expert) return the state dict entries they quantize."""
+    tensors, one an expert) return the state dict entries they quantize.
+    Biases and norms move to ``dev`` in f32, unquantized."""
     t = _strip_prefix(tensors)
 
     def load(w: torch.Tensor) -> torch.Tensor:
         return w.to(dev).T.contiguous()
 
+    def f32(w: torch.Tensor) -> torch.Tensor:
+        return w.to(dev).float()
+
     out = {"token_embedding": t["embed_tokens.weight"].to(dev).to(torch.bfloat16),
-           "final_norm.scale": t["norm.weight"].to(dev).float()}
+           "final_norm.scale": f32(t["norm.weight"])}
     if not tie_embeddings and "lm_head.weight" in tensors:
         hw = tensors["lm_head.weight"]            # (vocab, h)
         if head_bits == 8:
@@ -343,8 +442,9 @@ def _streamed(tensors: Tensors, num_layers: int, tie_embeddings: bool,
         p = f"layers.{i}."
         for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
             out.update(dense(f"{p}attention.{proj}", load(t[f"{p}self_attn.{proj}.weight"])))
-        out[f"{p}input_norm.scale"] = t[p + "input_layernorm.weight"].to(dev).float()
-        out[f"{p}post_attn_norm.scale"] = t[p + "post_attention_layernorm.weight"].to(dev).float()
+        out.update(_layer_extras(t, p, f32))
+        out[f"{p}input_norm.scale"] = f32(t[p + "input_layernorm.weight"])
+        out[f"{p}post_attn_norm.scale"] = f32(t[p + "post_attention_layernorm.weight"])
         moe = _moe_layer_tensors(t, p)
         if moe is not None:
             rw, *stacks = moe
@@ -480,8 +580,9 @@ def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None,
                    quantization: str = "none", int4_w4a8: bool = False,
                    int4_group: int = 0, max_seq_len: int = 0,
                    head_quantization: str = "none"):
-    """The local chat LLM. A checkpoint directory (``llama`` or ``mixtral``
-    layout) loads with the JAX loader's settings, in its order: the flash
+    """The local chat LLM. A checkpoint directory (any of ``FAMILIES``;
+    Phi-3's packed tensors split first) loads with the JAX loader's
+    settings, in its order: the flash
     prefill when head_dim % 128 == 0, the int8 decode kernel for int8
     weights, ``int4_group``, then W4A8 with 512-row groups, the int8
     lm_head (``head_quantization``) only when the head is untied; int8 and
@@ -504,21 +605,30 @@ def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None,
     if quantization == "int4" and int4_w4a8:
         cfg = dataclasses.replace(cfg, int4_w4a8=True, int4_group=512)
     tensors = load_safetensors(checkpoint_dir)
+    if any(k.endswith("self_attn.qkv_proj.weight") for k in tensors):
+        # Phi-3's packed projections under the standard names (row views)
+        tensors = split_packed_tensors(tensors, cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim)
     if head_quantization == "int8" and not cfg.tie_embeddings:
         cfg = dataclasses.replace(cfg, head_quantization="int8")
     head_bits = 8 if cfg.head_quantization == "int8" else 0
-    if quantization == "int8":
+    if quantization == "int8" and not cfg.fused_projections:
         params = llama_int8_params_from_hf(tensors, cfg.num_layers, cfg.tie_embeddings,
                                            head_bits=head_bits, device=dev)
-    elif quantization == "int4":
+    elif quantization == "int4" and not cfg.fused_projections:
         params = llama_int4_params_from_hf(tensors, cfg.num_layers, cfg.tie_embeddings,
                                            int4_group=cfg.int4_group,
                                            head_bits=head_bits, device=dev)
     else:
+        # the generic path (and every fused layout): f32 on the host, then
+        # quantized where the weights live
         params = {k: v.to(dev) for k, v in llama_params_from_hf(
-            tensors, cfg.num_layers, cfg.tie_embeddings).items()}
-        if head_bits:
-            params = quantize_decoder_params(params, bits=0, head_bits=8)
+            tensors, cfg.num_layers, cfg.tie_embeddings,
+            fused_projections=cfg.fused_projections).items()}
+        if quantization in ("int8", "int4") or head_bits:
+            params = quantize_decoder_params(
+                params, bits={"int8": 8, "int4": 4}.get(quantization, 0),
+                int4_group=cfg.int4_group, head_bits=head_bits)
     del tensors
     tok = load_tokenizer(checkpoint_dir, cfg.vocab_size)
     return LocalLLM(cfg, tok, params=params, eos_ids=_eos_ids(checkpoint_dir),

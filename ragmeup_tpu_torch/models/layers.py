@@ -120,16 +120,21 @@ class LayerNorm(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """RMS norm in f32 with a learned scale."""
+    """RMS norm in f32 with a learned scale. ``offset`` 1.0 is the Gemma
+    convention, where the stored weight is the scale less one (HF
+    GemmaRMSNorm multiplies by ``1 + weight``)."""
 
     def __init__(self, dim: int, eps: float = 1e-6,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 offset: float = 0.0):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.offset = offset
         self.scale = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         var = x32.square().mean(dim=-1, keepdim=True)
-        return (x32 * torch.rsqrt(var + self.eps) * self.scale).to(self.dtype)
+        scale = self.scale + self.offset if self.offset else self.scale
+        return (x32 * torch.rsqrt(var + self.eps) * scale).to(self.dtype)

@@ -20,7 +20,8 @@ import torch
 
 from ragmeup_tpu_torch import kernels
 
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (128, 256)  # the head dims csrc/flash_attention.cu is built for
+MAX_GROUP = 64                 # query heads per kv head: one block's 64 rows
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,10 +57,10 @@ def flash_attention_gqa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_gqa_cuda(q, k, v, sm_scale):
     bkv, g, s, d = q.shape
     kv_len = k.shape[1]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash kernel takes head_dim {KERNEL_HEAD_DIM}, got {d}")
-    if g > 64 or g & (g - 1):
-        raise ValueError(f"flash kernel takes a power-of-two group <= 64, got {g}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"flash kernel takes a group of 1 to {MAX_GROUP} heads, got {g}")
     if k.shape != (bkv, kv_len, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
@@ -69,11 +70,11 @@ def _flash_gqa_cuda(q, k, v, sm_scale):
     kernels.require_cuda("flash_attention_gqa", q, k, v)
     out = torch.empty_like(q)
     err = kernels.lib().rk_flash_gqa(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bkv, g, s, kv_len,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bkv, g, s, kv_len, d,
         float(sm_scale), kernels.dtype_code(q.dtype), out.data_ptr(),
         kernels.stream_handle(q.device))
     kernels.check(err, "flash_attention_gqa")
-    kernels.count("flash_gqa")
+    kernels.count("flash_gqa", f"hd={d} g={g}")
     return out
 
 
@@ -83,7 +84,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query causal attention: q (b·nkv, g, s, hd), k/v
     (b·nkv, kv_len, hd) → (b·nkv, g, s, hd) in q's dtype.
 
-    CUDA tensors launch the kernel (causal only); CPU tensors take the
+    CUDA tensors launch the kernel (causal only; head_dim 128 or 256, a
+    group of 1 to 64 heads, any other shape raises); CPU tensors take the
     plain version."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -165,8 +165,10 @@ def moe_gather_matmul(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
 
     x (S, k) bf16/f32; w (E, k, n) int8 with scale (E, n), or float with
     scale None; ids (S,) expert per slot. Returns (S, n) in x's dtype.
-    The kernel route when k and n tile (512/1024) and S ≤ 64, as in the JAX
-    package; the gather fallback otherwise."""
+    The kernel route when S ≤ 64 and k and n tile (512/1024), as in the JAX
+    package, or are multiples of 128, which the JAX kernel refuses
+    (Qwen3-MoE's 768-wide experts: the kernel streams any k % 16, n % 4);
+    the gather fallback otherwise."""
     s_slots, k = x.shape
     e, kw, n = w.shape
     if kw != k or ids.shape != (s_slots,):
@@ -175,7 +177,8 @@ def moe_gather_matmul(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     _check_weights("moe_gather_matmul", w, scale)
     tile_k = tile_k or (1024 if k % 1024 == 0 else 512 if k % 512 == 0 else 0)
     tile_n = tile_n or (1024 if n % 1024 == 0 else 512 if n % 512 == 0 else 0)
-    if tile_k and tile_n and s_slots <= GATHER_MAX_SLOTS:
+    tiled = (tile_k and tile_n) or (k % 128 == 0 and n % 128 == 0)
+    if tiled and s_slots <= GATHER_MAX_SLOTS:
         if x.is_cuda:
             return _gather_cuda(x, w, ids, scale)
         return moe_gather_matmul_plain(x, w, ids, scale)

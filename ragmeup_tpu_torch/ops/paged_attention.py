@@ -19,8 +19,9 @@ Counterpart of ``ragmeup_tpu/ops/paged_attention.py``:
   the shapes and the SM count: ``lengths`` never leave the device) and
   merges each row's splits in split order.
 
-Layout: the pool is ``(nkv, P, ps, hd)`` with one token per row. The JAX
-package packs 128/hd tokens into one row or pads hd up to 128
+Layout: the pool is ``(nkv, P, ps, hd)`` with one token per row at the
+model's own head dim; the kernel is built for hd 64, 96, 128 and 256. The
+JAX package packs 128/hd tokens into one row or pads hd up to 128
 (``pages_tok_per_row``, ``store_hd``) to meet the TPU's 128-lane tiling;
 that rule does not exist on the GPU, so here ``tok_per_row`` is always 1
 and chunked prefill (which needs one token per row) is always available.
@@ -47,7 +48,7 @@ import torch
 from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.devices import resolve_device
 
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)  # the head dims csrc/paged_attention.cu is built for
 SPLIT_KEYS = 64            # csrc/paged_attention.cu: keys per tile
 DECODE_MAX_G = 8           # query heads per kv head the decode kernel takes
 CHUNK_ROWS = 64            # query rows per block of the chunk kernel
@@ -361,8 +362,8 @@ def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     """Launch csrc/paged_attention.cu on q (b, q_len, nh, hd)."""
     b, q_len, nh, hd = q.shape
     nkv, P, ps, phd = k_pages.shape
-    if hd != KERNEL_HEAD_DIM or phd != hd:
-        raise ValueError(f"{name} kernel takes head_dim {KERNEL_HEAD_DIM}, "
+    if hd not in KERNEL_HEAD_DIMS or phd != hd:
+        raise ValueError(f"{name} kernel takes head_dim {KERNEL_HEAD_DIMS}, "
                          f"got q {hd} and pages {phd}")
     if v_pages.shape != k_pages.shape or nh % nkv:
         raise ValueError(f"{name}: pages {tuple(k_pages.shape)} / "
@@ -384,17 +385,17 @@ def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     kps = kernel_split(b, q_len, nh, nkv, ps, mp, q.dtype,
                        kernels.sm_count(q.device.index))
     splits = paged_splits(mp, ps, kps)
-    # per (sequence, kv head, row, split): m and l, then the 128 sums of o
+    # per (sequence, kv head, row, split): m and l, then the hd sums of o
     ws = torch.empty(b * q_len * nh * splits * (2 + hd) if splits > 1 else 0,
                      dtype=torch.float32, device=q.device)
     err = kernels.lib().rk_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), idx.data_ptr(),
-        lens.data_ptr(), b, q_len, nh, nkv, P, ps, mp,
+        lens.data_ptr(), b, q_len, nh, nkv, P, ps, mp, hd,
         float(sm_scale), int(window), float(softcap),
         kernels.dtype_code(q.dtype), kps, ws.data_ptr(), out.data_ptr(),
         kernels.stream_handle(q.device))
     kernels.check(err, name)
-    kernels.count(name)
+    kernels.count(name, f"hd={hd} g={nh // nkv}")
     return out
 
 
@@ -404,7 +405,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """Decode-step paged attention: q (b, nh, hd); pages (nkv, P, ps, hd);
     page_indices (b, max_pages) int; lengths (b,) int → (b, nh, hd).
-    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (hd 64, 96, 128 or 256; another raises);
+    CPU tensors take the plain version."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:

@@ -2,6 +2,8 @@
 
     python3 -m ragmeup_tpu_torch.tools.synthetic_checkpoint llama31_8b --out DIR
     python3 -m ragmeup_tpu_torch.tools.synthetic_checkpoint mixtral_8x7b --out DIR --layers 2
+    python3 -m ragmeup_tpu_torch.tools.synthetic_checkpoint gemma2_9b --out DIR
+    python3 -m ragmeup_tpu_torch.tools.synthetic_checkpoint qwen3_30b_a3b --out DIR --layers 2
     python3 -m ragmeup_tpu_torch.tools.synthetic_checkpoint gist_small --out DIR
     python3 -m ragmeup_tpu_torch.tools.synthetic_checkpoint minilm_l6_cross --out DIR
 
@@ -18,14 +20,31 @@ about ``--shard-gb`` GB with a ``model.safetensors.index.json`` (one
 - ``mixtral_8x7b``: Mixtral-8x7B-v0.1's (vocab 32000, 8 experts, top-2,
   rope theta 1e6, 32768 positions, ``sliding_window`` null); 93 GB at full
   depth, 6.3 GB at two layers.
+- ``gemma2_9b``: google/gemma-2-9b's (vocab 256000, 3584 wide, 42 layers,
+  16/8 heads of 256, 14336, gelu_pytorch_tanh, softcaps 50/30,
+  query_pre_attn_scalar 256, sliding_window 4096, 8192 positions, a tied
+  head, four norms a layer); 18.49 GB.
+- ``gemma_7b``: google/gemma-7b's (vocab 256000, 3072 wide, 28 layers,
+  16/16 heads of 256, 24576, gelu, a tied head); 17.08 GB.
+- ``phi3_mini_4k``: microsoft/Phi-3-mini-4k-instruct's (vocab 32064, 3072
+  wide, 32 layers, 32/32 heads of 96, 8192, sliding_window 2047, 4096
+  positions), with its packed ``qkv_proj`` and ``gate_up_proj``; 7.64 GB.
+- ``qwen25_7b``: Qwen/Qwen2.5-7B-Instruct's (vocab 152064, 3584 wide, 28
+  layers, 28/4 heads, 18944, q/k/v biases, rope theta 1e6,
+  use_sliding_window false); 15.23 GB.
+- ``qwen3_30b_a3b``: Qwen/Qwen3-30B-A3B's (vocab 151936, 2048 wide, 48
+  layers, 32/4 heads of 128, 128 experts of 768, top-8, q_norm/k_norm; the
+  config of scripts/make_synthetic_30b_moe.py); 61.06 GB, 3.75 GB at two
+  layers.
 - ``gist_small``: a BERT encoder of GIST-small's shape (384 wide, 12
   layers, 12 heads, 1536, vocab 30522), pooler included.
 - ``minilm_l6_cross``: a BERT cross-encoder of ms-marco-MiniLM-L-6's shape
   (6 layers of the above) with a one-logit classifier.
 
-Weights are drawn N(0, 0.02) in bf16 tensor by tensor on ``--device`` (the
-card by default) from a ``torch.Generator`` seeded with ``--seed``, norms
-are ones and norm biases zeros; each tensor is written as soon as it is
+Weights and biases are drawn N(0, 0.02) in bf16 tensor by tensor on
+``--device`` (the card by default) from a ``torch.Generator`` seeded with
+``--seed``; norms are ones (zeros for Gemma, whose norms scale by one plus
+the weight, as HF initializes them) and norm biases zeros; each tensor is written as soon as it is
 drawn, so host and device hold one tensor at a time. ``--layers`` writes
 a model at full width and reduced depth. No tokenizer is written: the
 loaders then use the port's SimpleTokenizer over the config's vocabulary.
@@ -65,6 +84,53 @@ MIXTRAL_8X7B = {
     "rope_theta": 1e6, "rms_norm_eps": 1e-5, "sliding_window": None,
     "hidden_act": "silu", "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "bos_token_id": 1, "eos_token_id": 2}
+GEMMA2_9B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 3584, "intermediate_size": 14336,
+    "num_hidden_layers": 42, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "max_position_embeddings": 8192,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "attention_bias": False,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "sliding_window": 4096,
+    "cache_implementation": "hybrid", "bos_token_id": 2, "eos_token_id": 1,
+    "pad_token_id": 0, "torch_dtype": "bfloat16"}
+GEMMA_7B = {
+    "architectures": ["GemmaForCausalLM"], "model_type": "gemma",
+    "vocab_size": 256000, "hidden_size": 3072, "intermediate_size": 24576,
+    "num_hidden_layers": 28, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "head_dim": 256, "hidden_act": "gelu",
+    "max_position_embeddings": 8192, "rope_theta": 10000.0, "rope_scaling": None,
+    "rms_norm_eps": 1e-6, "attention_bias": False, "bos_token_id": 2,
+    "eos_token_id": 1, "pad_token_id": 0, "torch_dtype": "bfloat16"}
+PHI3_MINI_4K = {
+    "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+    "vocab_size": 32064, "hidden_size": 3072, "intermediate_size": 8192,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 32, "hidden_act": "silu",
+    "max_position_embeddings": 4096, "original_max_position_embeddings": 4096,
+    "rope_theta": 10000.0, "rope_scaling": None, "rms_norm_eps": 1e-5,
+    "sliding_window": 2047, "attention_bias": False, "tie_word_embeddings": False,
+    "bos_token_id": 1, "eos_token_id": 32000, "pad_token_id": 32000,
+    "torch_dtype": "bfloat16"}
+QWEN25_7B = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+    "vocab_size": 152064, "hidden_size": 3584, "intermediate_size": 18944,
+    "num_hidden_layers": 28, "num_attention_heads": 28,
+    "num_key_value_heads": 4, "hidden_act": "silu",
+    "max_position_embeddings": 32768, "max_window_layers": 28,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "sliding_window": 131072,
+    "use_sliding_window": False, "tie_word_embeddings": False,
+    "bos_token_id": 151643, "eos_token_id": 151645, "torch_dtype": "bfloat16"}
+QWEN3_30B_A3B = {
+    "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144,
+    "moe_intermediate_size": 768, "num_hidden_layers": 48,
+    "num_attention_heads": 32, "num_key_value_heads": 4, "head_dim": 128,
+    "num_experts": 128, "num_experts_per_tok": 8, "decoder_sparse_step": 1,
+    "mlp_only_layers": [], "norm_topk_prob": True,
+    "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
 GIST_SMALL = {
     "architectures": ["BertModel"], "model_type": "bert",
     "vocab_size": 30522, "hidden_size": 384, "num_hidden_layers": 12,
@@ -77,6 +143,14 @@ MINILM_L6_CROSS = dict(GIST_SMALL, architectures=["BertForSequenceClassification
 MODELS = {
     "llama31_8b": (LLAMA31_8B, {"eos_token_id": [128001, 128009]}),
     "mixtral_8x7b": (MIXTRAL_8X7B, {"bos_token_id": 1, "eos_token_id": 2}),
+    "gemma2_9b": (GEMMA2_9B, {"bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+                              "cache_implementation": "hybrid"}),
+    "gemma_7b": (GEMMA_7B, {"bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0}),
+    "phi3_mini_4k": (PHI3_MINI_4K, {"bos_token_id": 1, "eos_token_id": [32000, 32001, 32007],
+                                    "pad_token_id": 32000}),
+    "qwen25_7b": (QWEN25_7B, {"bos_token_id": 151643, "eos_token_id": [151645, 151643],
+                              "pad_token_id": 151643}),
+    "qwen3_30b_a3b": (QWEN3_30B_A3B, {"eos_token_id": 151645}),
     "gist_small": (GIST_SMALL, None),
     "minilm_l6_cross": (MINILM_L6_CROSS, None),
 }
@@ -85,19 +159,37 @@ Spec = Tuple[str, Tuple[int, ...], str]  # name, shape, "normal" | "ones" | "zer
 
 
 def decoder_specs(c: dict) -> List[Spec]:
-    """The tensors of a Llama- or Mixtral-layout decoder, in file order."""
+    """The tensors of a Llama-layout decoder in file order, as HF's models
+    of its family name them: Qwen2's q/k/v biases, Qwen3's q/k norms,
+    Phi-3's packed qkv_proj and gate_up_proj, Gemma-2's four norms a
+    layer, Gemma's zero norms, Mixtral's and Qwen3-MoE's experts (Qwen3-MoE
+    keeps the layers its sparse step and mlp_only_layers leave dense)."""
+    mt = c["model_type"]
     h, f, v = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
-    hd = h // c["num_attention_heads"]
-    kv = c["num_key_value_heads"] * hd
+    hd = c.get("head_dim") or h // c["num_attention_heads"]
+    nq, kv = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
+    norm = "zeros" if mt.startswith("gemma") else "ones"
+    bias = c.get("attention_bias", mt == "qwen2")
     specs: List[Spec] = [("model.embed_tokens.weight", (v, h), "normal")]
     for i in range(c["num_hidden_layers"]):
         p = f"model.layers.{i}."
-        specs += [(p + "input_layernorm.weight", (h,), "ones"),
-                  (p + "self_attn.q_proj.weight", (h, h), "normal"),
-                  (p + "self_attn.k_proj.weight", (kv, h), "normal"),
-                  (p + "self_attn.v_proj.weight", (kv, h), "normal"),
-                  (p + "self_attn.o_proj.weight", (h, h), "normal"),
-                  (p + "post_attention_layernorm.weight", (h,), "ones")]
+        a = p + "self_attn."
+        specs.append((p + "input_layernorm.weight", (h,), norm))
+        if mt == "phi3":
+            specs.append((a + "qkv_proj.weight", (nq + 2 * kv, h), "normal"))
+        else:
+            for proj, n in (("q_proj", nq), ("k_proj", kv), ("v_proj", kv)):
+                specs.append((f"{a}{proj}.weight", (n, h), "normal"))
+                if bias:
+                    specs.append((f"{a}{proj}.bias", (n,), "normal"))
+        if mt in ("qwen3", "qwen3_moe"):
+            specs += [(a + "q_norm.weight", (hd,), norm), (a + "k_norm.weight", (hd,), norm)]
+        specs += [(a + "o_proj.weight", (h, nq), "normal"),
+                  (p + "post_attention_layernorm.weight", (h,), norm)]
+        if mt == "gemma2":
+            specs += [(p + "pre_feedforward_layernorm.weight", (h,), norm),
+                      (p + "post_feedforward_layernorm.weight", (h,), norm)]
+        step = c.get("decoder_sparse_step", 1)
         if c.get("num_local_experts"):
             m = p + "block_sparse_moe."
             specs.append((m + "gate.weight", (c["num_local_experts"], h), "normal"))
@@ -105,12 +197,24 @@ def decoder_specs(c: dict) -> List[Spec]:
                 specs += [(f"{m}experts.{e}.w1.weight", (f, h), "normal"),
                           (f"{m}experts.{e}.w2.weight", (h, f), "normal"),
                           (f"{m}experts.{e}.w3.weight", (f, h), "normal")]
+        elif (c.get("num_experts") and i not in (c.get("mlp_only_layers") or ())
+              and step > 0 and (i + 1) % step == 0):
+            fe = c["moe_intermediate_size"]
+            m = p + "mlp."
+            specs.append((m + "gate.weight", (c["num_experts"], h), "normal"))
+            for e in range(c["num_experts"]):
+                specs += [(f"{m}experts.{e}.gate_proj.weight", (fe, h), "normal"),
+                          (f"{m}experts.{e}.up_proj.weight", (fe, h), "normal"),
+                          (f"{m}experts.{e}.down_proj.weight", (h, fe), "normal")]
+        elif mt == "phi3":
+            specs += [(p + "mlp.gate_up_proj.weight", (2 * f, h), "normal"),
+                      (p + "mlp.down_proj.weight", (h, f), "normal")]
         else:
             specs += [(p + "mlp.gate_proj.weight", (f, h), "normal"),
                       (p + "mlp.up_proj.weight", (f, h), "normal"),
                       (p + "mlp.down_proj.weight", (h, f), "normal")]
-    specs.append(("model.norm.weight", (h,), "ones"))
-    if not c.get("tie_word_embeddings", False):
+    specs.append(("model.norm.weight", (h,), norm))
+    if not c.get("tie_word_embeddings", mt.startswith("gemma")):
         specs.append(("lm_head.weight", (v, h), "normal"))
     return specs
 

@@ -11,9 +11,8 @@ alone. Held here:
   (f32, bf16, a sharded save); the writer read back by ``safe_open`` and
   ``safe_open``'s files by the reader; an unlisted dtype raises;
 - ``llama_config_from_hf`` field by field equal to JAX's (llama, llama3 rope
-  scaling, mixtral), JAX's ValueError for an unknown model_type, and
-  NotImplementedError for the families and features the port's decoder
-  does not have yet;
+  scaling, mixtral, and configs of the other families and features), JAX's
+  ValueError for an unknown model_type and an unknown rope scaling;
 - ``llama_params_from_hf`` equal to ``convert.flax_to_state_dict`` of JAX's
   tree; f32 logits against JAX's and HF's (atol 2e-4, Mixtral 3e-4, as
   JAX's own tests hold them); the int8 head's logits against JAX's;
@@ -261,7 +260,7 @@ def test_config_refusals_match_jax(tmp_path):
     rope = _config_dir(tmp_path, "yarn", model_type="llama", rope_scaling={"rope_type": "yarn"})
     with pytest.raises(ValueError, match="yarn"):
         hf_loader.llama_config_from_hf(rope)
-    # loaded by the JAX package; the port's decoder has no branch for them yet
+    # the families and features the port once refused load as JAX loads them
     for name, c in (("qwen2", dict(model_type="qwen2")),
                     ("gemma", dict(model_type="gemma", head_dim=16)),
                     ("bias", dict(model_type="llama", attention_bias=True)),
@@ -270,9 +269,10 @@ def test_config_refusals_match_jax(tmp_path):
                                     num_local_experts=4, num_experts_per_tok=2)),
                     ("gelu", dict(model_type="llama", hidden_act="gelu"))):
         d = _config_dir(tmp_path, name, **c)
-        jloader.llama_config_from_hf(d)
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            hf_loader.llama_config_from_hf(d)
+        got, want = hf_loader.llama_config_from_hf(d), jloader.llama_config_from_hf(d)
+        for field in dataclasses.fields(got):
+            assert getattr(got, field.name) == getattr(want, field.name), (name, field.name)
+        assert got.head_dim == want.head_dim, name
 
 
 # -- parameters and logits ---------------------------------------------------------

@@ -220,7 +220,8 @@ def test_paged_split_plan_on_an_h100():
         1, 1, 32, 8, 128, 16, torch.float32, H100_SMS)) == 1
 
 
-def _split_merge_plain(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0.0):
+def _split_merge_plain(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0.0,
+                       sm_scale=None):
     """The kernel's arithmetic under its plan, in f32: each split's running
     max m (log2 domain), sum l and unnormalized o over the keys of the split
     each row sees, then the combine kernel's merge in split order (a split
@@ -233,7 +234,7 @@ def _split_merge_plain(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0.
     kk = k_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
     vv = v_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
     sc = torch.einsum("bsngd,nbtd->bngst", q.reshape(b, s, nkv, g, hd).float(), kk)
-    sc = sc / np.sqrt(hd)
+    sc = sc * (sm_scale if sm_scale is not None else 1 / np.sqrt(hd))
     if softcap:
         sc = torch.tanh(sc / softcap) * softcap
     sc = sc * np.log2(np.e)
@@ -319,6 +320,62 @@ def test_paged_split_merge_matches_plain_and_jax(case, sms):
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
     if case == "decode no key":
         assert not got[0].any()
+
+
+# the checkpoint families' head dims and groups, (hd, g, nkv): hd 64 at g 7
+# (Qwen2.5-0.5B), hd 96 (Phi-3-mini), hd 256 at g 2 (Gemma-2-9B), hd 128 at
+# g 7 (Qwen2.5-7B); each with a window, a softcap and Gemma-2's 1/16 scale
+PAGED_FAMILIES = {"hd=64 g=7": (64, 7, 1), "hd=96": (96, 1, 2), "hd=256 g=2": (256, 2, 1),
+                  "hd=128 g=7": (128, 7, 1)}
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+@pytest.mark.parametrize("case", list(PAGED_FAMILIES))
+def test_paged_split_merge_at_the_families_shapes(case, mode):
+    """The split plan's emulation at each family shape against the plain
+    version and the JAX kernel (interpret mode; it runs hd 96 on a pool
+    zero-padded to 128 columns), decode and chunk (q_len 8: 56 rows of 64
+    at g 7), on 3 SMs (decode) or 64 (chunk), so that the keys split."""
+    hd, g, nkv = PAGED_FAMILIES[case]
+    q_len = 1 if mode == "decode" else 8
+    lengths = (37, 128, 1, 90) if q_len == 1 else (50, 128, 9, 100)
+    b, ps, mp = len(lengths), 16, 8
+    kw = dict(window=20, softcap=2.5, sm_scale=1 / 16)
+    rng = np.random.default_rng(hd + g)
+    k, v, idx, lens = _paged_pool(rng, b, nkv, hd, ps, b * mp + 3, lengths, mp)
+    q = rng.standard_normal((b, q_len, nkv * g, hd)).astype(np.float32)
+    row_tiles = None if q_len == 1 and g <= tpa.DECODE_MAX_G else -(-(q_len * g) // 64)
+    kps = tpa.paged_split_plan(mp, ps, b, nkv, 3 if q_len == 1 else 64, row_tiles)
+    assert tpa.paged_splits(mp, ps, kps) > 1
+    tq, tk, tv, ti, tl = (torch.from_numpy(a) for a in (q, k, v, idx, lens))
+    got = _split_merge_plain(tq, tk, tv, ti, tl, kps, **kw)
+    if q_len == 1:
+        plain = tpa.paged_attention_plain(tq[:, 0], tk, tv, ti, tl, **kw)[:, None]
+        kern = jpa.paged_attention(*(jnp.asarray(a) for a in (q[:, 0], k, v, idx, lens)),
+                                   interpret=True, **kw)
+    else:
+        plain = tpa.paged_attention_chunk_plain(tq, tk, tv, ti, tl, **kw)
+        kern = jpa.paged_attention_chunk(*(jnp.asarray(a) for a in (q, k, v, idx, lens)),
+                                         interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern).reshape(got.shape), atol=1e-5)
+
+
+def test_paged_split_plan_at_the_families_serving_shapes():
+    """The engine's shapes (16 pages of 128 tokens) of the families on 132
+    SMs: decode at 8 rows and chunk (128 tokens) at 4; the g = 7 chunk has
+    14 row tiles of 64 (896 rows)."""
+    plan = {}
+    for label, nh, nkv in (("Gemma-2-9B", 16, 8), ("Gemma-7B", 16, 16),
+                           ("Phi-3-mini", 32, 32), ("Qwen2.5-7B", 28, 4),
+                           ("Qwen2.5-0.5B", 14, 2)):
+        for mode, b, q_len in (("decode", 8, 1), ("chunk", 4, 128)):
+            plan[f"{label} {mode}"] = tpa.paged_splits(16, 128, tpa.kernel_split(
+                b, q_len, nh, nkv, 128, 16, torch.bfloat16, H100_SMS))
+    assert plan == {"Gemma-2-9B decode": 8, "Gemma-2-9B chunk": 2, "Gemma-7B decode": 5,
+                    "Gemma-7B chunk": 2, "Phi-3-mini decode": 3, "Phi-3-mini chunk": 1,
+                    "Qwen2.5-7B decode": 16, "Qwen2.5-7B chunk": 1,
+                    "Qwen2.5-0.5B decode": 32, "Qwen2.5-0.5B chunk": 2}
 
 
 def test_paged_split_merge_skips_whole_splits_outside_the_window():

@@ -115,6 +115,26 @@ def test_gather_fallback_matches_jax(kind):
         _close(moe.moe_gather_matmul(tx, tw, torch.from_numpy(ids), ts), want)
 
 
+@pytest.mark.parametrize("kind", ["int8", "float"])
+def test_gather_kernel_route_at_128_multiples(kind, monkeypatch):
+    """k and n multiples of 128 but not of 512 (Qwen3-MoE's 768-wide
+    experts, here 256 x 384 at 8 slots) take the kernel route in the port
+    (its plain version on the CPU), where the JAX package takes its
+    fallback: both sum in f32, so they agree at f32."""
+    rng = np.random.default_rng(2)
+    w, s = _experts(rng, kind, k=256, n=384)
+    x = rng.standard_normal((8, 256)).astype(np.float32)
+    ids = rng.integers(0, E, 8).astype(np.int32)
+    (jx, jw, js), (tx, tw, ts) = _pair(x, w, s, "float32")
+    calls = []
+    plain = moe.moe_gather_matmul_plain
+    monkeypatch.setattr(moe, "moe_gather_matmul_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    got = moe.moe_gather_matmul(tx, tw, torch.from_numpy(ids), ts)
+    assert calls == [1]
+    _close(got, jmoe.moe_gather_matmul(jx, jw, jnp.asarray(ids), js))
+
+
 def test_grouped_tiles_and_layout_match_jax():
     """The routing helpers decide which kernel launches: grouped_tm,
     stack_tiles and scatter_layout equal the JAX package's."""

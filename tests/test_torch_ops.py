@@ -286,6 +286,29 @@ def test_flash_attention_gqa_matches_jax(g, no_kernel_library):
     np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("d,g,s,kv_len", [(256, 1, 128, 256), (256, 2, 128, 128),
+                                           (128, 7, 128, 256), (128, 7, 72, 104)])
+def test_flash_attention_gqa_family_shapes_match_jax(d, g, s, kv_len, no_kernel_library):
+    """The head dims and groups the kernel takes beyond hd 128 and
+    power-of-two groups: Gemma's hd 256 (g 1, and Gemma-2's g 2 at its 1/16
+    scale) and Qwen2.5-7B's g 7, also at a ragged length; the plain version
+    against JAX's flash_attention_gqa (interpret mode) and its reference."""
+    q, k, v = _attn_inputs(d + g, bkv=2, g=g, s=s, kv_len=kv_len, d=d)
+    scale = 1 / 16 if g == 2 else None
+    jo = np.asarray(jattn.flash_attention_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              causal=True, sm_scale=scale,
+                                              block_q=8, block_k=8, interpret=True))
+    to = attention.flash_attention_gqa(*map(torch.from_numpy, (q, k, v)), causal=True,
+                                       sm_scale=scale).numpy()
+    np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-5)
+    kr = np.repeat(k[:, None], g, axis=1).reshape(2 * g, kv_len, d)[:, :s]
+    vr = np.repeat(v[:, None], g, axis=1).reshape(2 * g, kv_len, d)[:, :s]
+    ref = np.asarray(jattn.attention_reference(jnp.asarray(q.reshape(2 * g, s, d)),
+                                               jnp.asarray(kr), jnp.asarray(vr),
+                                               sm_scale=scale))
+    np.testing.assert_allclose(to.reshape(2 * g, s, d), ref, rtol=1e-5, atol=1e-5)
+
+
 def test_flash_attention_matches_jax(no_kernel_library):
     q, k, v = _attn_inputs(7, bkv=3, g=1)
     q = q[:, 0]

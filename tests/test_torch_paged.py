@@ -85,6 +85,38 @@ def test_chunk_plain_matches_jax(b, window, softcap):
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
+# the checkpoint families' (hd, nh, nkv): hd 64 at g 7 (Qwen2.5-0.5B), hd 96
+# (Phi-3-mini), hd 256 at g 2 (Gemma-2-9B), hd 128 at g 7 (Qwen2.5-7B)
+FAMILY_SHAPES = [(64, 7, 1), (96, 2, 2), (256, 2, 1), (128, 7, 1)]
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+@pytest.mark.parametrize("hd,nh,nkv", FAMILY_SHAPES)
+def test_family_head_dims_match_jax(hd, nh, nkv, mode):
+    """The plain versions at the head dims and groups the kernel is built
+    for beyond hd 128 and power-of-two groups, with Gemma-2's window,
+    softcap and 1/16 scale, against the JAX kernel (interpret mode) and its
+    _ref oracle."""
+    rng = np.random.default_rng(hd + nh)
+    s = 1 if mode == "decode" else 8
+    lengths = tuple(s + p for p in (40, 3, 17))
+    k, v, idx, lens = _pool(rng, 3, nh, nkv, hd, 16, 12, lengths)
+    q = rng.standard_normal((3, s, nh, hd)).astype(np.float32)
+    kw = dict(window=9, softcap=2.5, sm_scale=1 / 16)
+    if mode == "decode":
+        got = tpa.paged_attention(*_t(q[:, 0], k, v, idx, lens), **kw).numpy()
+        args = _j(q[:, 0], k, v, idx, lens)
+        kern = jpa.paged_attention(*args, interpret=True, **kw)
+        ref = jpa.paged_attention_ref(*args, **kw)
+    else:
+        got = tpa.paged_attention_chunk(*_t(q, k, v, idx, lens), **kw).numpy()
+        args = _j(q, k, v, idx, lens)
+        kern = jpa.paged_attention_chunk(*args, interpret=True, **kw)
+        ref = jpa.paged_attention_chunk_ref(*args, **kw)
+    np.testing.assert_allclose(got, np.asarray(kern), atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
 def test_chunk_of_one_equals_decode():
     rng = np.random.default_rng(2)
     k, v, idx, lens = _pool(rng, 2, 8, 2, 16, 8, 16, (21, 9))
