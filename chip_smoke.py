@@ -117,6 +117,37 @@ Phases (any failure raises and exits non-zero):
    dropped causal mask must miss SPAN_TOL; one chat() with
    provenance_method="attention" through the blockwise branch, whose
    scores must sum to 1.
+4h. the HTTP layer (right after phase 6b, on phase 4's models and copies
+   of its data and index directories, before phase 5 deletes the 8B
+   checkpoint): the port's RagServer on server/wsgi.py's threaded server
+   (127.0.0.1, a free port, in a thread), driven with urllib only.
+   "http": /health (the store's live chunks), /get_documents, three /chat
+   (two first turns, then a follow-up sending the second's history and
+   documents: contract keys, documents fetched on first turns, the
+   client's documents back when nothing is fetched), each logged beside
+   phase 4's in-process latency of the same query; a multipart
+   /add_document of a new CSV (/health grows by its chunks), /search with
+   a session id, /feedback posted and read back, /get_document (the
+   file's bytes), /delete (the added chunks), /deepeval_evaluate (one
+   pair, every score in [0, 1]), /stats, GET / (HTML) and an unknown path
+   (404). "http batched": server.batched_llm, four first turns at once
+   from four threads, then a follow-up; /stats must carry TTFT and tok/s
+   percentiles and prefix-cache lookups. GraphRAG: graph.enabled on the
+   native store (rewrite loop off), a CSV of GRAPH_ROWS uploaded over HTTP
+   becomes as many Row nodes; one /chat makes exactly one decoder call
+   more (the Cypher; random weights give none that parses, so the graph
+   adds no chunk) than the same request on a system without the graph;
+   then python -m ragmeup_tpu_torch.graph.sidecar in a subprocess answers
+   an add_instances / run round trip through the port's RemoteGraphClient.
+   The entry point: python -m ragmeup_tpu_torch.server in a subprocess,
+   configured by an env file (llm_model: the 8B checkpoint; a third copy
+   of the directories; the .env format names no encoder checkpoint, so it
+   loads the default encoders at embedding_dim 384 beside the copied
+   index), must answer /health within SERVER_UP_S and one /chat with a
+   reply; its seconds to come up, the card's free memory before it and
+   its exit code after SIGTERM are logged. Last, whether werkzeug and
+   requests are importable on the machine (a record: the port uses
+   neither).
 7. system, sparse-MoE path: the int4 decoders are freed; a
    Mixtral-8x7B-shaped int8 decoder with random weights drawn on the card (8 experts, top-2; 47.5 GB) with the
    bf16 index of phase 4 answers three chat() requests ("moe": decode
@@ -136,7 +167,7 @@ Phases (any failure raises and exits non-zero):
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
 Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the
-twenty-three runs resets the kernels' launch counts just before its
+twenty-five runs resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path
 (PATH_KERNELS) and every instantiation it must reach (PATH_VARIANTS) must
 have launched.
@@ -2034,6 +2065,9 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                             "paged_attention_chunk"),
                 "greedy": ("topk", "int8_matmul", "flash_gqa"),
                 "greedy batched": ("topk", "int8_matmul", "paged_attention_chunk"),
+                "http": ("topk", "int8_matmul", "flash_gqa"),
+                "http batched": ("topk", "int8_matmul", "paged_attention",
+                                 "paged_attention_chunk"),
                 "moe": ("topk", "int8_matmul", "flash_gqa", "moe_gather"),
                 "moe grouped": ("moe_grouped_stack", "moe_gather"),
                 "moe batched": ("paged_attention", "paged_attention_chunk",
@@ -3161,6 +3195,404 @@ def run_greedy(seed: int, llm, encoder, cross, data_dir: str, index_dir: str,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the HTTP layer
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+CHAT_KEYS = ("reply", "history", "documents", "rewritten", "question",
+             "fetched_new_documents")
+SERVER_UP_S = 240       # the entry point's server must answer /health by then
+GRAPH_ROWS = (("ada", "engineer", "london"), ("grace", "admiral", "new york"),
+              ("alan", "mathematician", "wilmslow"), ("edsger", "professor", "austin"),
+              ("barbara", "professor", "boston"), ("ken", "engineer", "murray hill"))
+
+
+def http(base: str, method: str, path: str, body=None, upload=None,
+         timeout: float = 600) -> tuple:
+    """One request through urllib: a JSON ``body`` or a multipart ``upload``
+    (filename, bytes). Returns (status, content type, body bytes, ms)."""
+    import urllib.error
+    import urllib.request
+    headers, data = {}, None
+    if upload is not None:
+        boundary = "chip-smoke-" + os.urandom(8).hex()
+        name, payload = upload
+        data = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+                f'filename="{name}"\r\nContent-Type: text/csv\r\n\r\n').encode() \
+            + payload + f"\r\n--{boundary}--\r\n".encode()
+        headers["Content-Type"] = f"multipart/form-data; boundary={boundary}"
+    elif body is not None:
+        data = json.dumps(body).encode()
+        headers["Content-Type"] = "application/json"
+    req = urllib.request.Request(base + path, data=data, headers=headers, method=method)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, ctype, raw = r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        status, ctype, raw = e.code, e.headers.get("Content-Type"), e.read()
+    return status, ctype, raw, (time.perf_counter() - t0) * 1e3
+
+
+def http_json(base: str, method: str, path: str, body=None, upload=None,
+              status: int = 200) -> tuple:
+    """``http`` that must answer ``status`` with JSON → (decoded body, ms)."""
+    got, ctype, raw, ms = http(base, method, path, body, upload)
+    if got != status or ctype != "application/json":
+        raise AssertionError(f"{method} {path}: {got} {ctype} {raw[:300]!r}; "
+                             f"want {status} with JSON")
+    return json.loads(raw), ms
+
+
+@contextlib.contextmanager
+def serving(app):
+    """``app`` on wsgi.serve (127.0.0.1, a free port) in a thread; yields
+    its base URL and shuts it down after."""
+    from ragmeup_tpu_torch.server import wsgi
+    server = wsgi.serve(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_port}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def http_copies(tmp: str, data_dir: str, index_dir: str, name: str) -> tuple:
+    """Copies of phase 4's data and index directories, so that uploads and
+    deletes leave what later phases read as it was."""
+    import shutil
+    root = os.path.join(tmp, name)
+    copies = (os.path.join(root, "data"), os.path.join(root, "index"))
+    shutil.copytree(data_dir, copies[0])
+    shutil.copytree(index_dir, copies[1])
+    return copies
+
+
+def check_http_reply(label: str, i: int, out: dict, first_turn: bool, sent_docs=None):
+    """A /chat body: the contract's keys and a non-empty reply; a fetch
+    brings documents (source, content, finite provenance), a first turn
+    must fetch, and a follow-up that fetches nothing returns the client's
+    documents."""
+    missing = [k for k in CHAT_KEYS if k not in out]
+    if missing:
+        raise AssertionError(f"{label} request {i + 1}: keys {missing} missing")
+    if not isinstance(out["reply"], str) or not out["reply"]:
+        raise AssertionError(f"{label} request {i + 1}: empty reply")
+    docs = out["documents"]
+    if out["fetched_new_documents"]:
+        if not docs or not all(d.get("s") and isinstance(d.get("c"), str)
+                               and math.isfinite(d.get("provenance", 0.0)) for d in docs):
+            raise AssertionError(f"{label} request {i + 1}: bad documents {docs[:2]}")
+    elif first_turn:
+        raise AssertionError(f"{label} request {i + 1}: a first turn must fetch")
+    elif docs != (sent_docs or []):
+        raise AssertionError(f"{label} request {i + 1}: the client's documents did not "
+                             f"round-trip")
+
+
+def http_default(base: str, system, queries, in_process_s) -> dict:
+    """Part 1 of phase 4h on the default server (see the module docstring)."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    label = "http"
+    health, _ = http_json(base, "GET", "/health")
+    if health["chunks"] != len(system.store) or health["status"] != "ok":
+        raise AssertionError(f"{label}: /health {health} for {len(system.store)} chunks")
+    names, _ = http_json(base, "GET", "/get_documents")
+    if names != sorted(f for f in os.listdir(system.cfg.data.data_directory)
+                       if f.endswith(".csv")):
+        raise AssertionError(f"{label}: /get_documents {names}")
+    kernels.reset_counts()
+    outs, ms = [], []
+    bodies = [{"prompt": queries[0]}, {"prompt": queries[1]}]
+    for i in range(3):
+        if i == 2:
+            bodies.append({"prompt": queries[2], "history": outs[1]["history"],
+                           "docs": outs[1]["documents"]})
+        out, t = http_json(base, "POST", "/chat", bodies[i])
+        torch.cuda.synchronize()
+        outs.append(out)
+        ms.append(t)
+        log(f"{label} request {i + 1}: HTTP {t:.1f} ms (phase 4 in process "
+            f"{in_process_s[i] * 1e3:.1f} ms), fetched={out['fetched_new_documents']} "
+            f"rewritten={out['rewritten']} docs={len(out['documents'])} "
+            f"reply={out['reply'][:60]!r}")
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
+    log(f"{label}: launch counts over its 3 requests: {counts}")
+    for i, out in enumerate(outs):
+        check_http_reply(label, i, out, first_turn=i != 2,
+                         sent_docs=bodies[i].get("docs"))
+    missing = missing_kernels(label, counts, variants)
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+
+    rows = [[f"upload {i}", f"zulu yankee note {i} about {w} rivers"]
+            for i, w in enumerate(("granite", "basalt", "marble", "slate"))]
+    text = "title,text\n" + "".join(f"{a},{b}\n" for a, b in rows)
+    added, t_add = http_json(base, "POST", "/add_document",
+                             upload=("uploaded rows.csv", text.encode()))
+    grown, _ = http_json(base, "GET", "/health")
+    if added["filename"] != "uploaded_rows.csv" or added["chunks"] <= 0 \
+            or grown["chunks"] != health["chunks"] + added["chunks"]:
+        raise AssertionError(f"{label}: /add_document {added}, /health {grown}")
+    search, t_search = http_json(base, "POST", "/search", {
+        "query": "Which notes mention granite rivers?", "session_id": "chip-smoke"})
+    check_http_reply(label, 3, search, first_turn=True)
+    http_json(base, "POST", "/feedback", {"chat_id": "chip-smoke", "message_offset": 2,
+                                          "feedback": 1})
+    feedback, _ = http_json(base, "GET", "/feedback?chat_id=chip-smoke")
+    if feedback != [{"chat_id": "chip-smoke", "message_offset": 2, "feedback": 1}]:
+        raise AssertionError(f"{label}: /feedback returned {feedback}")
+    status, ctype, raw, _ = http(base, "POST", "/get_document",
+                                 {"filename": "uploaded_rows.csv"})
+    if status != 200 or raw != text.encode():
+        raise AssertionError(f"{label}: /get_document {status} {ctype}: {raw[:100]!r}")
+    deleted, t_del = http_json(base, "POST", "/delete", {"filename": "uploaded_rows.csv"})
+    if deleted["count"] != added["chunks"]:
+        raise AssertionError(f"{label}: /delete {deleted} after {added}")
+    evaluated, t_eval = http_json(base, "POST", "/deepeval_evaluate",
+                                  {"sample_size": 3, "qa_pairs": 1})
+    pairs = evaluated["evaluation_results"]["pairs"]
+    scores = pairs[0]["scores"] if len(pairs) == 1 else {}
+    if not scores or not all(0.0 <= v <= 1.0 for v in scores.values()):
+        raise AssertionError(f"{label}: /deepeval_evaluate {evaluated}")
+    stats, _ = http_json(base, "GET", "/stats")
+    if stats["chat_requests"] != 3 or "chat_latency_ms_avg" not in stats:
+        raise AssertionError(f"{label}: /stats {stats}")
+    status, ctype, page, _ = http(base, "GET", "/")
+    if status != 200 or ctype != "text/html; charset=utf-8" or b"chathistory" not in page:
+        raise AssertionError(f"{label}: GET / gave {status} {ctype}")
+    http_json(base, "GET", "/no_such_route", status=404)
+    log(f"{label}: /add_document {t_add:.1f} ms ({added['chunks']} chunks), /search "
+        f"{t_search:.1f} ms, /delete {t_del:.1f} ms, /deepeval_evaluate {t_eval:.1f} ms "
+        f"scores {json.dumps({k: round(v, 4) for k, v in scores.items()})}; /stats "
+        f"chat_latency_ms_avg {stats['chat_latency_ms_avg']:.1f}")
+    return {"counts": counts, "variants": variants, "latency_s": [t / 1e3 for t in ms],
+            "routes_ms": {"add_document": t_add, "search": t_search, "delete": t_del,
+                          "deepeval_evaluate": t_eval}}
+
+
+def http_batched(base: str, backend, first_turns) -> dict:
+    """Part 2: the first turns at once from one thread each, then a
+    follow-up, through the paged engine; /stats carries its percentiles
+    and prefix-cache counters."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    label = "http batched"
+    n = len(first_turns)
+    outs, ms, errors = [None] * n, [0.0] * n, []
+
+    def one(i):
+        try:
+            outs[i], ms[i] = http_json(base, "POST", "/chat", {"prompt": first_turns[i]})
+        except Exception as exc:  # re-raised below, in the main thread
+            errors.append(exc)
+    kernels.reset_counts()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    follow, t = http_json(base, "POST", "/chat", {
+        "prompt": "Tell me more about that.", "history": outs[0]["history"],
+        "docs": outs[0]["documents"]})
+    torch.cuda.synchronize()
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
+    for i, out in enumerate(outs + [follow]):
+        check_http_reply(label, i, out, first_turn=i < n,
+                         sent_docs=outs[0]["documents"] if i == n else None)
+    stats, _ = http_json(base, "GET", "/stats")
+    gen, cache = stats.get("generation", {}), stats.get("prefix_cache", {})
+    log(f"{label}: {n} first turns at once, HTTP ms {[round(x, 1) for x in ms]}, "
+        f"follow-up {t:.1f} ms; /stats generation {json.dumps(gen)} prefix_cache "
+        f"{json.dumps(cache)}; launch counts {counts}")
+    if gen.get("completed", 0) < n + 1 or "ttft_ms_p95" not in gen \
+            or "tok_s_p50" not in gen or cache.get("lookups", 0) <= 0:
+        raise AssertionError(f"{label}: /stats {stats}")
+    missing = missing_kernels(label, counts, variants)
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+    backend.stop()
+    return {"counts": counts, "variants": variants,
+            "latency_s": [x / 1e3 for x in ms + [t]], "stats": stats}
+
+
+def http_graph(tmp: str, data_dir: str, index_dir: str, models, query: str) -> dict:
+    """Part 3: GraphRAG on the native store (a CSV upload becomes Row nodes;
+    one /chat makes exactly one decoder call more than the same request
+    without the graph: its Cypher), then the sidecar in a subprocess and
+    the port's RemoteGraphClient."""
+    from ragmeup_tpu_torch.graph.client import RemoteGraphClient
+    from ragmeup_tpu_torch.server.app import RagServer
+    encoder, cross, llm = models
+    systems = {}
+    for graph in (True, False):
+        cfg = rag_config(*http_copies(tmp, data_dir, index_dir, f"http_graph_{graph}"))
+        cfg.graph.enabled = graph
+        cfg.pipeline.use_rewrite_loop = False  # one retrieval: one Cypher call
+        systems[graph] = open_system(cfg, encoder, cross, llm)
+    table = "name,role,city\n" + "".join(",".join(r) + "\n" for r in GRAPH_ROWS)
+    calls = time_llm_calls(llm)
+    decoder_calls, graph_calls = {}, []
+    with serving(RagServer(systems[True])) as base:
+        added, _ = http_json(base, "POST", "/add_document",
+                             upload=("people.csv", table.encode()))
+        nodes = systems[True].graph.run("MATCH (r:Row) RETURN count(r) AS n")[0]["n"]
+        if nodes != len(GRAPH_ROWS) or added["chunks"] <= 0:
+            raise AssertionError(f"graph: {nodes} Row nodes after {added}")
+        for graph, system in systems.items():
+            before = len(calls)
+            if graph:
+                out, ms = http_json(base, "POST", "/chat", {"prompt": query})
+                graph_calls, graph_out = calls[before:], out
+            else:
+                out = system.chat(query)
+            decoder_calls[graph] = len(calls) - before
+            check_http_reply("graph", int(not graph), {k: out[k] for k in CHAT_KEYS},
+                             first_turn=True)
+    if decoder_calls[True] != decoder_calls[False] + 1:
+        raise AssertionError(f"graph: decoder calls with / without the graph "
+                             f"{decoder_calls}")
+    cypher = graph_calls[0]  # the graph retriever asks before the answer
+    log(f"graph: {len(GRAPH_ROWS)} Row nodes from /add_document ({added['chunks']} "
+        f"chunks); /chat {ms:.1f} ms with {decoder_calls[True]} decoder calls against "
+        f"{decoder_calls[False]} without the graph (the Cypher call: prompt {cypher[0]} "
+        f"tokens, {cypher[1]} new, {cypher[2]:.1f} ms); graph chunks in the reply: "
+        f"{sum(d['s'] == 'graph_db' for d in graph_out['documents'])}")
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ragmeup_tpu_torch.graph.sidecar", "--host", "127.0.0.1",
+         "--port", str(port), "--db", os.path.join(tmp, "sidecar_graph.json")],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    try:
+        client = RemoteGraphClient(f"http://127.0.0.1:{port}", timeout=10)
+        while True:
+            try:
+                client.schema()
+                break
+            except OSError:
+                if proc.poll() is not None or time.perf_counter() - t0 > 60:
+                    raise AssertionError(f"graph sidecar did not come up: "
+                                         f"{proc.stderr.read() if proc.poll() is not None else ''}")
+                time.sleep(0.2)
+        up = time.perf_counter() - t0
+        n = client.add_instances([{"query": "MERGE (t:Topic {name: $n})",
+                                   "parameters": {"n": "rivers"}}])
+        rows = client.run("MATCH (t:Topic) RETURN t.name")
+        client.close()
+    finally:
+        proc.terminate()
+        rc = proc.wait(timeout=30)
+    log(f"graph sidecar: up in {up:.1f} s; add_instances {n}, run {rows}; exit code {rc}")
+    if n != 1 or rows != [{"t.name": "rivers"}]:
+        raise AssertionError(f"graph sidecar round trip: {n}, {rows}")
+    return {"decoder_calls": decoder_calls, "rows": nodes, "chat_ms": ms}
+
+
+def free_port() -> int:
+    """A port that was free a moment ago (for a server in a subprocess)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_entry_point(tmp: str, data_dir: str, index_dir: str, ckpt_llm: str,
+                     query: str) -> dict:
+    """Part 4: ``python -m ragmeup_tpu_torch.server`` in a subprocess, its
+    config from an env file (the 8B checkpoint through llm_model, a third
+    copy of the directories); /health within SERVER_UP_S, one /chat."""
+    import torch
+    d, i = http_copies(tmp, data_dir, index_dir, "http_main")
+    env_file = os.path.join(tmp, "http_main", "server.env")
+    with open(env_file, "w") as f:
+        f.write(f"llm_model={ckpt_llm}\ndata_directory={d}\nvector_store_uri={i}\n"
+                f"max_new_tokens={MAX_NEW_TOKENS}\n")
+    free, total = torch.cuda.mem_get_info()
+    log(f"entry point: card memory before the start {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB")
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    out_path = os.path.join(tmp, "http_main", "server.log")
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ragmeup_tpu_torch.server", "--env-file", env_file,
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    rc, up, reply = None, None, None
+    try:
+        while up is None:
+            if proc.poll() is not None or time.perf_counter() - t0 > SERVER_UP_S:
+                break
+            try:
+                if http(base, "GET", "/health", timeout=5)[0] == 200:
+                    up = time.perf_counter() - t0
+            except OSError:
+                time.sleep(0.5)
+        if up is not None:
+            reply = http(base, "POST", "/chat", {"prompt": query})
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    with open(out_path) as f:
+        server_log = f.read().strip().splitlines()
+    log("entry point: server log: " + " | ".join(server_log[-12:]))
+    if up is None:
+        raise AssertionError(f"python -m ragmeup_tpu_torch.server did not answer /health "
+                             f"within {SERVER_UP_S} s (exit code {rc})")
+    status, ctype, raw, ms = reply
+    body = json.loads(raw) if ctype == "application/json" else {}
+    log(f"entry point: up in {up:.1f} s; /chat {status} in {ms:.1f} ms, reply "
+        f"{body.get('reply', '')[:60]!r}; exit code {rc} after SIGTERM")
+    if status != 200 or not body.get("reply"):
+        raise AssertionError(f"entry point /chat: {status} {raw[:300]!r}")
+    return {"up_s": up, "chat_ms": ms, "exit_code": rc}
+
+
+def run_http(tmp: str, data_dir: str, index_dir: str, models, ckpt_llm: str, queries,
+             first_turns, in_process_s) -> dict:
+    """Phase 4h (see the module docstring). Returns the runs "http" and
+    "http batched"."""
+    import importlib.util
+    from ragmeup_tpu_torch.server.app import RagServer
+    t_phase = time.perf_counter()
+    encoder, cross, llm = models
+    runs = {}
+    system = open_system(rag_config(*http_copies(tmp, data_dir, index_dir, "http")),
+                         encoder, cross, llm)
+    with serving(RagServer(system)) as base:
+        runs["http"] = http_default(base, system, queries, in_process_s)
+    del system
+    cfg = rag_config(*http_copies(tmp, data_dir, index_dir, "http_batched"))
+    cfg.server.batched_llm = True
+    batched = open_system(cfg, encoder, cross, llm)
+    with serving(RagServer(batched)) as base:
+        runs["http batched"] = http_batched(base, batched.backend, first_turns)
+    del batched
+    free_card()
+    graph = http_graph(tmp, data_dir, index_dir, models, queries[0])
+    del llm.generate  # time_llm_calls' wrappers
+    entry = http_entry_point(tmp, data_dir, index_dir, ckpt_llm, queries[0])
+    runs["http"].update(graph=graph, entry_point=entry)
+    log("record only (the port uses neither): werkzeug importable "
+        f"{importlib.util.find_spec('werkzeug') is not None}, requests importable "
+        f"{importlib.util.find_spec('requests') is not None}")
+    log(f"http phase: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def free_card() -> None:
     import torch
     gc.collect()
@@ -3205,6 +3637,9 @@ def run_system(seed: int) -> dict:
         del batched
         runs.update(run_greedy(seed, llm, encoder, cross, data_dir,
                                os.path.join(tmp, "index"), queries, first_turns))
+        runs.update(run_http(tmp, data_dir, os.path.join(tmp, "index"),
+                             (encoder, cross, llm), ckpts["llm"], queries, first_turns,
+                             runs["default"]["latency_s"]))
         del llm
         free_card()
 

@@ -41,6 +41,7 @@ KERNELS = ("topk", "int8_matmul", "flash_gqa", "topk_int8", "int4_matmul",
            "moe_grouped_int4", "fused_mlp_int4")
 
 _lock = threading.Lock()
+_tickets_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _variants: Dict[str, int] = {}
@@ -225,12 +226,15 @@ def ticket_words(held: dict, device, words: int):
     last-block route takes atomic tickets from them and leaves them zero;
     calls on one stream run in order, so no two launches share a word at
     once. Outgrown buffers stay referenced: a captured CUDA graph may still
-    point at them."""
+    point at them. Threads of a server share the stream and the buffers; the
+    lock keeps two of them from growing one at once (a thread would
+    otherwise get the other's smaller buffer)."""
     import torch
-    bufs = held.setdefault((device.index, stream_handle(device)), [])
-    if not bufs or bufs[-1].numel() < words:
-        bufs.append(torch.zeros(max(words, 64), dtype=torch.int32, device=device))
-    return bufs[-1]
+    with _tickets_lock:
+        bufs = held.setdefault((device.index, stream_handle(device)), [])
+        if not bufs or bufs[-1].numel() < words:
+            bufs.append(torch.zeros(max(words, 64), dtype=torch.int32, device=device))
+        return bufs[-1]
 
 
 def require_cuda(name: str, *tensors) -> None:

@@ -206,24 +206,25 @@ class CloudChatBackend(ChatBackend):
 
     def _post_json(self, url: str, body: dict, headers: Optional[dict] = None):
         """POST with bounded retry on transient statuses, honoring
-        Retry-After. Raises requests.HTTPError (with the provider's error
-        body attached) on a non-retryable or exhausted failure."""
+        Retry-After, on ``urllib.request`` (the port uses no ``requests``).
+        Raises urllib.error.HTTPError (the provider's error body readable
+        from it) on a non-retryable or exhausted failure."""
         import time
-
-        import requests
-        last = None
+        import urllib.error
+        import urllib.request
+        data = json.dumps(body).encode()
+        hdrs = {"Content-Type": "application/json", **(headers or {})}
         for attempt in range(self._MAX_ATTEMPTS):
-            r = requests.post(url, headers=headers, json=body,
-                              timeout=self.timeout)
-            if r.status_code < 400:
-                return r.json()
-            last = r
-            if r.status_code not in self._RETRY_STATUSES or \
-                    attempt == self._MAX_ATTEMPTS - 1:
-                break
-            delay = r.headers.get("Retry-After")
+            req = urllib.request.Request(url, data=data, headers=hdrs, method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=self.timeout) as r:
+                    return json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                if e.code not in self._RETRY_STATUSES or \
+                        attempt == self._MAX_ATTEMPTS - 1:
+                    raise
+                delay = e.headers.get("Retry-After")
             time.sleep(min(float(delay) if delay else 0.5 * 2 ** attempt, 30))
-        last.raise_for_status()
 
     def chat(self, messages: List[Message], max_new_tokens: int = 1000,
              temperature: float = 0.2, repetition_penalty: float = 1.1) -> str:

@@ -2,16 +2,20 @@
 
 Counterpart of ``ragmeup_tpu/pipeline/system.py``. Owns config, chunk
 store, device indexes, models and the pipeline, and exposes the lifecycle
-the HTTP server drives: startup (load the on-disk index artifact, or ingest
-the data directory, embed and persist), ``add_document``,
-``delete_document`` and ``chat``. The RAG state machine
-(``RAGPipeline``), the chat backends, the chunk store, loaders and
-splitters are the port's own copies of the JAX package's modules.
-``server.batched_llm`` serves concurrent /chat generations through the
-paged continuous-batching engine (``pipeline/serving.py``).
+the HTTP server (``server/app.py``) drives: startup (load the on-disk index
+artifact, or ingest the data directory, embed and persist),
+``add_document`` (a CSV also becomes graph rows when GraphRAG is on),
+``delete_document``, ``compact``, ``list_documents`` and ``chat``. The RAG
+state machine (``RAGPipeline``), the chat backends, the chunk store,
+loaders, splitters and the graph modules are the port's own copies of the
+JAX package's modules. ``server.batched_llm`` serves concurrent /chat
+generations through the paged continuous-batching engine
+(``pipeline/serving.py``); ``graph.enabled`` adds a ``GraphRetriever``
+over the native ``PropertyGraph`` or a remote sidecar
+(``graph.backend == "http"``).
 
 Not ported yet, and refused with NotImplementedError: mesh layouts
-(``parallel.*_axis > 1``) and the GraphRAG wiring (``graph.enabled``).
+(``parallel.*_axis > 1``).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +34,10 @@ from ragmeup_tpu_torch.data.loaders import load_directory, load_file
 from ragmeup_tpu_torch.data.splitters import make_splitter
 from ragmeup_tpu_torch.data.store import ChunkStore
 from ragmeup_tpu_torch.devices import resolve_device
+from ragmeup_tpu_torch.graph.client import RemoteGraphClient
+from ragmeup_tpu_torch.graph.retriever import (GraphRetriever, csv_to_graph,
+                                               text_to_graph_llm)
+from ragmeup_tpu_torch.graph.store import PropertyGraph
 from ragmeup_tpu_torch.models.hf_loader import (load_cross_encoder,
                                                 load_local_llm,
                                                 load_sentence_encoder)
@@ -58,9 +66,6 @@ class RagSystem:
         if p.corpus_axis > 1 or p.model_axis > 1 or p.data_axis > 1:
             raise NotImplementedError(
                 "mesh layouts are not ported yet (ROADMAP queue 1: mesh)")
-        if cfg.graph.enabled:
-            raise NotImplementedError(
-                "GraphRAG wiring is not ported yet (ROADMAP queue 1: HTTP layer)")
         self.device = resolve_device(device)
         self.encoder = encoder or load_sentence_encoder(
             cfg.model.embedding_checkpoint, dim=cfg.model.embedding_dim,
@@ -102,6 +107,18 @@ class RagSystem:
                         assistant_token=cfg.model.llm_assistant_token)
         self.backend = backend
         self.extra_retrievers = list(extra_retrievers)
+        # GraphRAG (the cloud helper's graph_retriever hook,
+        # RAGHelper_cloud.py:202-278): the native in-process store, or a
+        # remote sidecar speaking the reference contract
+        self.graph = None
+        if cfg.graph.enabled:
+            if cfg.graph.backend == "http" and cfg.graph.neo4j_location:
+                self.graph = RemoteGraphClient(cfg.graph.neo4j_location)
+            else:
+                self.graph = PropertyGraph(
+                    os.path.join(cfg.data.index_directory, "graph.json"))
+            self.extra_retrievers.append(
+                GraphRetriever(self.graph, self.backend, cfg.prompts))
 
         # index mutation is serialized; queries only read
         self._mutation_lock = threading.RLock()
@@ -196,6 +213,21 @@ class RagSystem:
     def _add_document_locked(self, path: str) -> int:
         d = self.cfg.data
         raw = load_file(path, d.json_schema, d.json_text_content, d.xml_xpath)
+        # graph upload hooks (RAGHelper.add_document, RAGHelper.py:712-737):
+        # CSVs become graph rows; other documents optionally go through LLM
+        # extraction
+        if self.graph is not None:
+            try:
+                if path.lower().endswith(".csv"):
+                    csv_to_graph(self.graph, path)
+                elif self.cfg.graph.file_upload_using_llm:
+                    for doc in raw:
+                        text_to_graph_llm(
+                            self.graph, self.backend, self.cfg.prompts,
+                            doc.content,
+                            dynamic_schema=self.cfg.graph.dynamic_schema)
+            except Exception as e:  # graph upload is best-effort
+                logger.warning("graph upload failed for %s: %s", path, e)
         chunks = filter_metadata(self._splitter().split_chunks(raw))
         rows = self.store.add(chunks)
         if rows:
@@ -218,7 +250,33 @@ class RagSystem:
             self.save()
             return len(rows)
 
+    def compact(self) -> None:
+        """Rewrite the artifacts densely (periodic maintenance): the store
+        and dense index drop tombstoned rows, BM25 is rebuilt from the live
+        texts (its postings name rows)."""
+        with self._mutation_lock:
+            mapping = self.store.compact()
+            self.dense.compact(mapping)
+            self.sparse = self._make_sparse()
+            self.sparse.add([c.content for c in self.store.live_chunks()])
+            self.save()
+            self._wire()
+
     # -- queries ----------------------------------------------------------------------
+
+    def list_documents(self) -> List[str]:
+        """Files in the data dir matching the configured types
+        (server.py:306-324 semantics) plus any indexed sources."""
+        d = self.cfg.data
+        exts = {t.lower().lstrip(".") for t in d.file_types}
+        out = set()
+        if os.path.isdir(d.data_directory):
+            for root, _dirs, files in os.walk(d.data_directory):
+                for f in files:
+                    if os.path.splitext(f)[1].lstrip(".").lower() in exts:
+                        out.add(os.path.join(root, f))
+        out.update(self.store.sources())
+        return sorted(out)
 
     def chat(self, prompt: str, history=None) -> dict:
         return self.pipeline.handle_user_interaction(prompt, history)

@@ -31,6 +31,7 @@ model_type raising JAX's ValueError; the packed tensors split as views.
 import dataclasses
 import json
 import os
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 os.environ.setdefault("USE_TF", "0")  # transformers' torch models only: skip TensorFlow
 

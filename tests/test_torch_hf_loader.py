@@ -35,6 +35,7 @@ alone. Held here:
 import dataclasses
 import json
 import os
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 os.environ.setdefault("USE_TF", "0")  # transformers' torch models only: skip TensorFlow
 

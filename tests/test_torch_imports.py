@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``ragmeup_tpu_torch`` (nor
 ``chip_smoke.py``) imports jax, flax, the JAX package, or the packages the
-card does not have (safetensors, ml_dtypes, transformers), its copies of the
+card does not have (safetensors, ml_dtypes, transformers, werkzeug,
+requests), its copies of the
 JAX package's host modules (config, data loaders and splitters, pipeline)
 behave as the originals, and its entry points run on the card unless they
 are given ``device="cpu"``.
@@ -10,6 +11,8 @@ import ast
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -20,10 +23,11 @@ from ragmeup_tpu.data import loaders as jloaders
 from ragmeup_tpu.data import splitters as jsplitters
 from ragmeup_tpu_torch import RagConfig, load_config
 from ragmeup_tpu_torch.data import loaders, splitters
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "ragmeup_tpu", "safetensors", "ml_dtypes",
-             "transformers")
+             "transformers", "werkzeug", "requests")
 
 
 def _port_sources():
@@ -48,7 +52,9 @@ def _imported_modules(path):
 def test_port_never_imports_jax_or_the_jax_package():
     paths = _port_sources()
     assert len(paths) > 30
-    for new in ("models/safetensors.py", "tools/synthetic_checkpoint.py"):
+    for new in ("models/safetensors.py", "tools/synthetic_checkpoint.py",
+                "server/app.py", "server/wsgi.py", "server/ui.py", "graph/sidecar.py",
+                "graph/client.py", "eval/generative.py"):
         assert os.path.join(REPO, "ragmeup_tpu_torch", new) in paths
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
@@ -62,6 +68,9 @@ def test_import_scan_catches_nested_imports(tmp_path):
                    "import ragmeup_tpu_torch.ops\n")
     roots = [m.split(".")[0] for m in _imported_modules(str(src))]
     assert [r for r in roots if r in FORBIDDEN] == ["ragmeup_tpu", "jax"]
+    src.write_text("import requests\nfrom werkzeug.utils import secure_filename\n")
+    assert [m.split(".")[0] for m in _imported_modules(str(src))] == \
+        ["requests", "werkzeug"]
 
 
 def test_default_config_matches_jax():
@@ -145,3 +154,9 @@ def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch, tmp_path):
             call()
     assert decoder.LocalLLM(cfg, tok, device="cpu").device.type == "cpu"
     assert DenseIndex(8, device="cpu").device.type == "cpu"
+    # the server's entry point exits non-zero with resolve_device's message
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", "ragmeup_tpu_torch.server", "--port", "0",
+                           "--env-file", str(tmp_path / "none.env")], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr

@@ -25,6 +25,7 @@ from ragmeup_tpu.ops import quant_matmul as jqm
 from ragmeup_tpu.ops import topk as jtopk
 from ragmeup_tpu_torch.models import convert, cross_encoder, decoder, encoder
 from ragmeup_tpu_torch.models import hf_loader, tokenizer
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 TEXTS = ["the quick brown fox jumps over the lazy dog",
          "quantum computing uses qubits instead of classical bits",

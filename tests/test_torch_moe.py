@@ -31,6 +31,7 @@ from ragmeup_tpu_torch.models import convert, decoder, hf_loader, tokenizer
 from ragmeup_tpu_torch.ops import moe_matmul as moe
 from ragmeup_tpu_torch.pipeline import serving
 from test_torch_system import LLM_CFG, _build_systems, _two_turns_match
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 E, K, N = 4, 1024, 512
 GREEDY = dict(temperature=0.0, repetition_penalty=1.0)

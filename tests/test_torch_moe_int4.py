@@ -34,6 +34,7 @@ from ragmeup_tpu_torch.ops import quant_matmul as qm
 from ragmeup_tpu_torch.pipeline import serving
 from test_torch_moe import _numpy_tree
 from test_torch_system import LLM_CFG_INT4, _build_systems, _two_turns_match
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 E, K, N = 4, 1024, 512
 TILE = 512

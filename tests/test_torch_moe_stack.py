@@ -31,6 +31,7 @@ from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops import moe_matmul as moe
 from test_torch_kernel_plans import H100_SMS, _EntryRecorder
 from test_torch_moe_int4 import _close
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 TM, BN, BK = 128, 128, 64
 GROUPS = {

@@ -18,6 +18,7 @@ from ragmeup_tpu.ops import quant_matmul as jqm
 from ragmeup_tpu.ops import topk as jtopk
 from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops import attention, fusion, quant_matmul, topk
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 
 @pytest.fixture

@@ -20,6 +20,7 @@ import torch
 from ragmeup_tpu.ops import paged_attention as jpa
 from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops import paged_attention as tpa
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 ATOL = 1e-5
 

@@ -16,6 +16,7 @@ from ragmeup_tpu_torch.data.documents import Chunk
 from ragmeup_tpu_torch.data.store import ChunkStore
 from ragmeup_tpu_torch.retrieval import dense, hybrid, sparse
 from ragmeup_tpu_torch.retrieval.sparse import _tail_layers
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 WORDS = ("fox dog cat bird market stock earnings tech rally quantum bits "
          "qubits classical door sleepy canine auburn quick brown lazy river "

@@ -25,6 +25,7 @@ from ragmeup_tpu.pipeline import serving as jserve
 from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.models import convert, decoder, tokenizer
 from ragmeup_tpu_torch.pipeline import serving
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 TINY = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
             num_kv_heads=2, intermediate_size=128, max_seq_len=256,

@@ -17,6 +17,7 @@ import test_torch_moe
 import test_torch_moe_int4
 from test_torch_moe import _numpy_tree
 from test_torch_spec import _both
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 
 def _moe_pair(kind):

@@ -33,6 +33,7 @@ from ragmeup_tpu_torch.models import (convert, cross_encoder, decoder, encoder,
                                       hf_loader, tokenizer)
 from ragmeup_tpu_torch.ops import quant_matmul
 from ragmeup_tpu_torch.pipeline.system import RagSystem
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -219,15 +220,39 @@ def test_index_artifact_reloads_and_crud(systems, tmp_path):
 
 
 def test_refuses_unported_deployments(systems):
+    """Mesh layouts are refused (GraphRAG is wired: test_torch_graph.py)."""
     _, t_sys, _ = systems
     cfg = t_sys.cfg
-    for section, field, value in (("parallel", "corpus_axis", 2),
-                                  ("graph", "enabled", True)):
+    for section, field, value in (("parallel", "corpus_axis", 2),):
         bad = _config(cfg.data.data_directory, cfg.data.index_directory)
         setattr(getattr(bad, section), field, value)
         with pytest.raises(NotImplementedError):
             RagSystem(bad, encoder=t_sys.encoder, cross_encoder=t_sys.cross_encoder,
                       device="cpu", eager_load=False)
+
+
+def test_http_chat_matches_jax_over_two_turns(systems):
+    """Each system behind its own RagServer (JAX's and the port's), driven
+    by werkzeug's test client: a two-turn /chat gives equal JSON, the
+    greedy replies identical and the documents equal."""
+    from werkzeug.test import Client
+    from ragmeup_tpu.server.app import RagServer as JaxRagServer
+    from ragmeup_tpu_torch.server.app import RagServer
+    j_sys, t_sys, root = systems
+    jc = Client(JaxRagServer(j_sys, ui_db=str(root / "ui_jax.db")))
+    tc = Client(RagServer(t_sys, ui_db=str(root / "ui_torch.db")))
+    bodies = {"prompt": "Where does the fox jump?"}
+    for follow_up in (False, True):
+        rj, rt = jc.post("/chat", json=bodies), tc.post("/chat", json=bodies)
+        assert rt.status_code == rj.status_code == 200
+        bj, bt = rj.get_json(), rt.get_json()
+        for dt, dj in zip(bt["documents"], bj["documents"]):
+            pt, pj = dt.pop("provenance", None), dj.pop("provenance", None)
+            assert pt == (None if pj is None else pytest.approx(pj, rel=1e-4))
+        assert bt == bj and bt["reply"]
+        assert bt["fetched_new_documents"] or follow_up
+        bodies = {"prompt": "And what about the train?", "history": bt["history"],
+                  "docs": bt["documents"]}
 
 
 def test_model_settings_reach_the_loader(systems, monkeypatch):

@@ -34,6 +34,7 @@ from ragmeup_tpu.ops import topk as jtopk
 from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.ops import topk
 from test_torch_kernel_plans import H100_SMS, _EntryRecorder
+import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 TILE = topk._TILE
 SENTINEL = (-np.inf, 2**31 - 1)
