@@ -148,6 +148,28 @@ Phases (any failure raises and exits non-zero):
    its exit code after SIGTERM are logged. Last, whether werkzeug and
    requests are importable on the machine (a record: the port uses
    neither).
+4i. retrieval at scale (right after phase 4h, on phase 4's models and
+   copies of its directories, before phase 5 deletes the 8B checkpoint),
+   the corpus sharded over SHARDS shards that all sit on cuda:0 (a mesh's
+   device list may repeat a device): (a) sharded_topk at S2 (1,048,576
+   columns, d 384, k 20) for b 1 and 32, bf16 (#1) and int8 (#2), each
+   call SHARDS launches of its kernel, ids equal to the unsharded kernel's
+   and the plain version's (#2's scores too; #1 under phase 3's near-tie
+   rule), eager and graph ms beside the unsharded kernel's; (b) IVF on
+   IVF_N clustered rows (IVF_BLOBS Gaussian blobs from a seeded
+   generator, K = sqrt(n)): fit seconds, memory_bytes and the k-means
+   score matrix's bytes, search ms and recall@20 against #1's exact ids at
+   nprobe 8 and 32 for b 1 and 32 beside #1's ms, and a full probe over
+   IVF_EXACT_N rows equal to #1 under the near-tie rule; (c) RagSystem
+   with parallel.corpus_axis = SHARDS loads phase 4's index artifact into
+   ShardedDenseIndex beside phase 4's int8 decoder: 32 queries retrieve
+   the single-device system's chunk ids, and one default /chat at
+   temperature 0 ("corpus sharded": #1, #3, #8) fetches the single-device
+   system's documents; then one /chat with retrieval.ann = "ivf" on one
+   device ("ivf": #3 and #8; the IVF view is fitted on its first search);
+   (d) STREAM_BATCHES batches of STREAM_B queries through
+   hybrid_fused_search_stream over phase 4's bf16 index and an int8 copy,
+   equal to hybrid_fused_search batch by batch, both timed.
 7. system, sparse-MoE path: the int4 decoders are freed; a
    Mixtral-8x7B-shaped int8 decoder with random weights drawn on the card (8 experts, top-2; 47.5 GB) with the
    bf16 index of phase 4 answers three chat() requests ("moe": decode
@@ -167,7 +189,7 @@ Phases (any failure raises and exits non-zero):
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
 Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the
-twenty-five runs resets the kernels' launch counts just before its
+twenty-seven runs resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path
 (PATH_KERNELS) and every instantiation it must reach (PATH_VARIANTS) must
 have launched.
@@ -708,8 +730,12 @@ def launched_kernels(fn) -> set:
 
 
 def kernels_of(fn) -> list:
-    """The rk_ kernels one call of `fn` launched (torch.profiler), sorted."""
-    return sorted({found for name in launched_kernels(fn) for found in re.findall(r"rk_\w+", name)})
+    """The rk_ kernels a call of `fn` launches (torch.profiler), sorted: the
+    union over two traced calls, since a trace on the card has dropped a
+    call's first kernel while keeping the rest (#13's mma kernel missing
+    beside its reduce). A kernel either call launched is listed."""
+    names = launched_kernels(fn) | launched_kernels(fn)
+    return sorted({found for name in names for found in re.findall(r"rk_\w+", name)})
 
 
 def check_int4_decode_short_and_routes(gen) -> dict:
@@ -1447,10 +1473,11 @@ def check_moe_grouped(gen) -> dict:
               "moe_grouped_stack": (stack_sets, {})}
 
     def launched(name, kind, fn):
-        """fn's output, after checking it launched the route's kernel once."""
+        """fn's output, after checking it launched the route's kernel once
+        a call (kernels_of traces two calls)."""
         before = kernels.launch_counts()[name]
         found = kernels_of(fn)
-        if kernels.launch_counts()[name] != before + 1 or found != [GROUPED_KERNELS[name, kind]]:
+        if kernels.launch_counts()[name] != before + 2 or found != [GROUPED_KERNELS[name, kind]]:
             raise AssertionError(f"{name} {kind}: launched {found}, not "
                                  f"{GROUPED_KERNELS[name, kind]}")
         return fn()
@@ -2068,6 +2095,8 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "http": ("topk", "int8_matmul", "flash_gqa"),
                 "http batched": ("topk", "int8_matmul", "paged_attention",
                                  "paged_attention_chunk"),
+                "corpus sharded": ("topk", "int8_matmul", "flash_gqa"),
+                "ivf": ("int8_matmul", "flash_gqa"),
                 "moe": ("topk", "int8_matmul", "flash_gqa", "moe_gather"),
                 "moe grouped": ("moe_grouped_stack", "moe_gather"),
                 "moe batched": ("paged_attention", "paged_attention_chunk",
@@ -2123,16 +2152,17 @@ def rag_config(data_dir: str, index_dir: str, **model):
     return cfg
 
 
-def open_system(cfg, encoder=None, cross=None, llm=None):
-    """RagSystem on the card. The models not given are loaded by RagSystem
-    itself from cfg.model's checkpoints, each load timed (``timed_loaders``).
-    Then ingest + embed + index, or the saved artifact; a stored vector must
-    then find itself first."""
+def open_system(cfg, encoder=None, cross=None, llm=None, devices=None):
+    """RagSystem on the card (``devices``: its mesh's, for the corpus axis).
+    The models not given are loaded by RagSystem itself from cfg.model's
+    checkpoints, each load timed (``timed_loaders``). Then ingest + embed +
+    index, or the saved artifact; a stored vector must then find itself
+    first."""
     import torch
     from ragmeup_tpu_torch.pipeline.system import RagSystem
     with timed_loaders():
         system = RagSystem(cfg, encoder=encoder, cross_encoder=cross, llm=llm,
-                           device="cuda", eager_load=False)
+                           device="cuda", eager_load=False, devices=devices)
     t0 = time.perf_counter()
     system.load_data()
     torch.cuda.synchronize()
@@ -2553,7 +2583,8 @@ def drive(label: str, system, llm, queries) -> dict:
     missing = missing_kernels(label, counts, variants)
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
-    return {"counts": counts, "variants": variants, "latency_s": latencies}
+    return {"counts": counts, "variants": variants, "latency_s": latencies,
+            "documents": [[d["pk"] for d in out["documents"]] for out in outs]}
 
 
 # Runs on a random decoder with a tied head and an embedding scaled by
@@ -3593,6 +3624,267 @@ def run_http(tmp: str, data_dir: str, index_dir: str, models, ckpt_llm: str, que
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: retrieval at scale
+# ---------------------------------------------------------------------------
+
+SHARDS = 4              # corpus shards, all on cuda:0
+IVF_N = 1 << 20         # IVF corpus rows (S2's columns)
+IVF_BLOBS = 1024        # Gaussian blobs the IVF corpus is drawn from
+IVF_SPREAD = 0.03       # a blob's per-coordinate std before normalizing
+IVF_EXACT_N = 65536     # rows of the full-probe exactness check
+IVF_K = 20
+STREAM_BATCHES, STREAM_B = 16, 32
+
+
+def card_mesh():
+    from ragmeup_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh((1, SHARDS, 1), devices=["cuda:0"] * SHARDS)
+
+
+def unit_rows(x):
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def check_sharded_topk(gen) -> dict:
+    """Phase 4i (a): sharded_topk at S2 over SHARDS shards on cuda:0, bf16
+    and int8, b 1 (row 50, whose duplicates straddle a tile end and the
+    boundary of shards 1 and 2) and 32."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import topk
+    from ragmeup_tpu_torch.parallel import sharded_index as si
+    mesh = card_mesh()
+    devs = mesh.axis_devices("corpus")
+    _, n, k = TOPK_SHAPES["S2"]
+    out = {}
+    for kind in ("bf16", "int8"):
+        q50, mask, corpus, c_scale = topk_index(gen, kind, n)
+        shards = si.split_columns(devs, corpus, 0)
+        masks = si.split_columns(devs, mask, topk.NEG_INF)
+        scales = None if c_scale is None else si.split_columns(devs, c_scale, 1.0)
+        kernel, plain = topk_calls(kind, corpus, c_scale)
+        counter = "topk" if kind == "bf16" else "topk_int8"
+        extra = unit_rows(torch.randn(31, TOPK_D, generator=gen, device="cuda"))
+        for b in (1, 32):
+            q = torch.cat([q50[None], extra[:b - 1]])
+
+            def sharded():
+                return si.sharded_topk(mesh, q, shards, k, mask=masks, scales=scales)
+            kernels.reset_counts()
+            got = sharded()
+            torch.cuda.synchronize()
+            launched = kernels.launch_counts()[counter]
+            if launched != SHARDS:
+                raise AssertionError(f"sharded {kind} b={b}: {launched} launches of "
+                                     f"{counter}, want {SHARDS}")
+            whole, want = kernel(q, k, mask), plain(q, k, mask)
+            near = kind == "bf16"
+            what = f"sharded {kind} b={b}"
+            err, swaps = topk_compare(f"{what} vs the unsharded kernel", q, corpus, mask,
+                                      got, whole, near)
+            err_p, swaps_p = topk_compare(f"{what} vs plain", q, corpus, mask, got, want, near)
+            if kind == "int8" and err:
+                raise AssertionError(f"{what}: scores differ from #2's by {err}")
+            row = {"launches_a_call": launched, "max_abs_err_vs_kernel": err,
+                   "near_tie_swaps_vs_kernel": swaps, "max_abs_err_vs_plain": err_p,
+                   "near_tie_swaps_vs_plain": swaps_p,
+                   "ms": median_ms(sharded), "graph_ms": graph_ms_or_none(what, sharded),
+                   "unsharded_ms": median_ms(lambda: kernel(q, k, mask)),
+                   "unsharded_graph_ms": graph_ms_or_none(
+                       f"unsharded {kind} b={b}", lambda: kernel(q, k, mask))}
+            log(f"phase 4i {what}: {json.dumps(row)}")
+            out[f"{kind} b={b}"] = row
+        del q50, mask, corpus, c_scale, shards, masks, scales
+        free_card()
+    return out
+
+
+def recall_at(got_rows, exact_rows) -> float:
+    return sum(len(set(g) & set(e)) for g, e in zip(got_rows, exact_rows)) / (
+        len(exact_rows) * len(exact_rows[0]))
+
+
+def check_ivf(gen) -> dict:
+    """Phase 4i (b): IVFIndex on IVF_N clustered rows against #1's exact
+    search of the same rows, and a full probe of IVF_EXACT_N rows."""
+    import torch
+    from ragmeup_tpu_torch.ops import topk
+    from ragmeup_tpu_torch.retrieval import ivf
+    centers = unit_rows(torch.randn(IVF_BLOBS, TOPK_D, generator=gen, device="cuda"))
+    labels = torch.randint(0, IVF_BLOBS, (IVF_N,), generator=gen, device="cuda")
+    v = unit_rows(centers[labels] + IVF_SPREAD * torch.randn(
+        IVF_N, TOPK_D, generator=gen, device="cuda"))
+    idx = ivf.IVFIndex(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    idx.fit(v)
+    torch.cuda.synchronize()
+    K, c_pad, _ = idx.buckets.shape
+    res = {"n": IVF_N, "clusters": K, "c_pad": c_pad, "fit_s": time.perf_counter() - t0,
+           "memory_bytes": idx.memory_bytes, "kmeans_scores_bytes": IVF_N * K * 4,
+           "fit_peak_bytes_above_inputs": torch.cuda.max_memory_allocated() - base,
+           "searches": {}}
+    log(f"phase 4i ivf fit: {json.dumps(res)}")
+    corpus = v.T.contiguous().to(torch.bfloat16)
+    mask = torch.zeros(1, IVF_N, device="cuda")
+    pick = torch.randperm(IVF_N, generator=gen, device="cuda")[:32]
+    queries = unit_rows(v[pick] + 0.01 * torch.randn(32, TOPK_D, generator=gen, device="cuda"))
+    for b in (1, 32):
+        q = queries[:b]
+        exact = topk.dense_topk(q, corpus, IVF_K, mask=mask)[1].tolist()
+        exact_ms = median_ms(lambda: topk.dense_topk(q, corpus, IVF_K, mask=mask))
+        qb = q.to(idx.buckets.dtype)
+        for nprobe in (8, 32):
+            def search():
+                return ivf._ivf_search(qb, idx.centroids, idx.buckets, idx.row_ids,
+                                       idx.valid, k=IVF_K, nprobe=nprobe)
+            rows = search()[1].tolist()
+            row = {"recall_at_20": recall_at(rows, exact),
+                   "ms": median_ms(search, reps=5, rounds=3), "exact_topk_ms": exact_ms}
+            log(f"phase 4i ivf b={b} nprobe={nprobe}: {json.dumps(row)}")
+            res["searches"][f"b={b} nprobe={nprobe}"] = row
+    del idx, corpus, mask
+    free_card()
+    sub = v[:IVF_EXACT_N].contiguous()
+    small = ivf.IVFIndex(device="cuda")
+    small.fit(sub)
+    sub_corpus = sub.T.contiguous().to(torch.bfloat16)
+    sub_mask = torch.zeros(1, IVF_EXACT_N, device="cuda")
+    q = unit_rows(sub[:8] + 0.01 * torch.randn(8, TOPK_D, generator=gen, device="cuda"))
+    s, r = ivf._ivf_search(q.to(torch.bfloat16), small.centroids, small.buckets,
+                           small.row_ids, small.valid, k=IVF_K,
+                           nprobe=small.centroids.shape[0])
+    want = topk.dense_topk(q, sub_corpus, IVF_K, mask=sub_mask)
+    err, swaps = topk_compare("ivf full probe vs #1", q, sub_corpus, sub_mask,
+                              (s, r.to(torch.int32)), want, near_ties=True)
+    if err > TOPK_NEAR_TIE:
+        raise AssertionError(f"ivf full probe: scores differ from #1's by {err}")
+    res["full_probe"] = {"n": IVF_EXACT_N, "clusters": small.centroids.shape[0],
+                         "max_abs_err": err, "near_tie_swaps": swaps}
+    log(f"phase 4i ivf full probe: {json.dumps(res['full_probe'])}")
+    del v, sub, small, sub_corpus
+    free_card()
+    return res
+
+
+def retrieval_ms(system, probes) -> float:
+    """Mean ms of the retriever's hybrid search over the probe queries
+    (query embedding included)."""
+    import torch
+    system.retriever.retrieve_rows(probes[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q in probes:
+        system.retriever.retrieve_rows(q)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(probes)
+
+
+def check_stream(system, encoder, texts) -> dict:
+    """Phase 4i (d): STREAM_BATCHES batches of STREAM_B queries through
+    hybrid_fused_search_stream, equal to hybrid_fused_search batch by
+    batch, over the system's bf16 index and an int8 copy of it; each way
+    timed on its second pass."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.retrieval.dense import DenseIndex
+    from ragmeup_tpu_torch.retrieval.hybrid import (hybrid_fused_search,
+                                                    hybrid_fused_search_stream)
+    r = system.retriever
+    n = STREAM_BATCHES * STREAM_B
+    queries = [f"Which notes mention {' '.join(texts[i * 31 % N_DOCS].split()[:3])}?"
+               for i in range(n)]
+    qv = encoder.encode(queries)
+    batches = [(queries[i:i + STREAM_B], qv[i:i + STREAM_B]) for i in range(0, n, STREAM_B)]
+    kw = dict(weights=r.weights, rrf_c=r.rrf_c, re2_prompt=r.re2_prompt,
+              search_type=r.search_type, fetch_k=r.mmr_fetch_k, mmr_lambda=r.mmr_lambda)
+    int8 = DenseIndex(system.dense.dim, dtype="int8", device="cuda")
+    int8.add(system.dense.host_vectors().astype("float32"))
+    out = {}
+    for kind, dense in (("bf16", system.dense), ("int8", int8)):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = [hybrid_fused_search(dense, system.sparse, qs, v, r.k, **kw)
+                    for qs, v in batches]
+            seq_ms = (time.perf_counter() - t0) * 1e3
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            got = list(hybrid_fused_search_stream(dense, system.sparse, batches, r.k, **kw))
+            stream_ms = (time.perf_counter() - t0) * 1e3
+        counter = "topk" if kind == "bf16" else "topk_int8"
+        launched = kernels.launch_counts()[counter]
+        if got != want or launched != STREAM_BATCHES:
+            raise AssertionError(f"stream {kind}: equal to the per-batch search "
+                                 f"{got == want}, {launched} launches of {counter}")
+        out[kind] = {"batches": STREAM_BATCHES, "queries_a_batch": STREAM_B,
+                     "stream_ms": stream_ms, "one_after_another_ms": seq_ms,
+                     "launches": launched}
+        log(f"phase 4i stream {kind}: {json.dumps(out[kind])}")
+    return out
+
+
+def run_retrieval_at_scale(seed: int, tmp: str, data_dir: str, index_dir: str, models,
+                           texts, queries) -> dict:
+    """Phase 4i (see the module docstring). Returns the runs "corpus
+    sharded" and "ivf"."""
+    import torch
+    from ragmeup_tpu_torch.parallel.sharded_index import ShardedDenseIndex
+    t_phase = time.perf_counter()
+    encoder, cross, llm = models
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    readings = {"sharded_topk": check_sharded_topk(gen), "ivf": check_ivf(gen)}
+    runs = {}
+    copies = http_copies(tmp, data_dir, index_dir, "sharded")
+    cfg = rag_config(*copies)
+    cfg.generation.temperature = 0.0
+    single = open_system(cfg, encoder, cross, llm)
+    cfg = rag_config(*copies)
+    cfg.generation.temperature = 0.0
+    cfg.parallel.corpus_axis = SHARDS
+    sharded = open_system(cfg, encoder, cross, llm, devices=["cuda:0"] * SHARDS)
+    if not (isinstance(sharded.dense, ShardedDenseIndex)
+            and len(sharded.dense._corpus_t) == SHARDS and sharded.retriever.mesh):
+        raise AssertionError("corpus_axis: the system did not shard its index")
+    probes = [f"Which notes mention {' '.join(texts[i].split()[:3])}?"
+              for i in range(0, N_DOCS, N_DOCS // 32)]
+    for q in probes:
+        a = [row for row, _ in single.retriever.retrieve_rows(q)]
+        b = [row for row, _ in sharded.retriever.retrieve_rows(q)]
+        if a != b:
+            raise AssertionError(f"corpus sharded: {q!r} retrieved {b}, one device {a}")
+    readings["retrieval_ms"] = {"one_device": retrieval_ms(single, probes),
+                                "corpus_sharded": retrieval_ms(sharded, probes)}
+    want = single.chat(queries[0])
+    runs["corpus sharded"] = drive("corpus sharded", sharded, llm, queries[:1])
+    if runs["corpus sharded"]["documents"][0] != [d["pk"] for d in want["documents"]]:
+        raise AssertionError(f"corpus sharded /chat fetched "
+                             f"{runs['corpus sharded']['documents'][0]}, one device "
+                             f"{[d['pk'] for d in want['documents']]}")
+    readings["stream"] = check_stream(single, encoder, texts)
+    del sharded, single
+    free_card()
+    cfg = rag_config(*copies)
+    cfg.retrieval.ann = "ivf"
+    ivf_sys = open_system(cfg, encoder, cross, llm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf_sys.retriever.retrieve_rows(probes[0])  # fits the view
+    torch.cuda.synchronize()
+    readings["retrieval_ms"]["ivf_first_search_with_fit"] = (time.perf_counter() - t0) * 1e3
+    readings["retrieval_ms"]["ivf"] = retrieval_ms(ivf_sys, probes)
+    runs["ivf"] = drive("ivf", ivf_sys, llm, queries[:1])
+    del ivf_sys, llm.generate  # time_llm_calls' wrappers
+    free_card()
+    log(f"phase 4i retrieval ms a query: {json.dumps(readings['retrieval_ms'])}")
+    log(f"phase 4i: {time.perf_counter() - t_phase:.1f} s")
+    runs["corpus sharded"]["readings"] = readings
+    return runs
+
+
 def free_card() -> None:
     import torch
     gc.collect()
@@ -3640,6 +3932,8 @@ def run_system(seed: int) -> dict:
         runs.update(run_http(tmp, data_dir, os.path.join(tmp, "index"),
                              (encoder, cross, llm), ckpts["llm"], queries, first_turns,
                              runs["default"]["latency_s"]))
+        runs.update(run_retrieval_at_scale(seed, tmp, data_dir, os.path.join(tmp, "index"),
+                                           (encoder, cross, llm), texts, queries))
         del llm
         free_card()
 
@@ -3852,7 +4146,8 @@ def main() -> int:
         for name, (r, src, rep) in results.items()],
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
                           "after_kernel_checks": clock_after},
-        "checkpoints": CHECKPOINTS}), flush=True)
+        "checkpoints": CHECKPOINTS,
+        "retrieval_at_scale": runs["corpus sharded"]["readings"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,6 +108,15 @@ def rank_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
     return s[..., :k], i[..., :k]
 
 
+def merge_sorted(scores: torch.Tensor, ids: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort (b, m) candidates by (-score, id) and keep k: a stable sort by
+    id, then a stable sort by -score (torch has no two-key sort)."""
+    ids_s, o1 = torch.sort(ids, dim=1, stable=True)
+    neg, o2 = torch.sort(-torch.gather(scores, 1, o1), dim=1, stable=True)
+    return -neg[:, :k], torch.gather(ids_s, 1, o2)[:, :k]
+
+
 def _rank_scores(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of materialized scores, unfilled slots as (NEG_INF, -1)."""
     s, i = rank_topk(s, k)

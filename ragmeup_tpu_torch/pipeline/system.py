@@ -14,8 +14,14 @@ generations through the paged continuous-batching engine
 over the native ``PropertyGraph`` or a remote sidecar
 (``graph.backend == "http"``).
 
-Not ported yet, and refused with NotImplementedError: mesh layouts
-(``parallel.*_axis > 1``).
+``parallel.corpus_axis > 1`` shards the dense index and the BM25 head over
+the 'corpus' axis of a mesh of ``devices`` (default: every visible card; a
+device may repeat) and serves retrieval through the sharded program
+(parallel/sharded_index.py), with ids equal to the single-device system's.
+``retrieval.ann="ivf"`` serves dense search through the IVF view. With
+``parallel.data_axis > 1`` alone the system serves on one device with no
+mesh, as the JAX package does. Not ported yet, and refused with
+NotImplementedError: the model axis (``parallel.model_axis > 1``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ from ragmeup_tpu_torch.pipeline.llm_backends import (ChatBackend,
                                                      LocalChatBackend,
                                                      resolve_chat_template)
 from ragmeup_tpu_torch.pipeline.rag import RAGPipeline
+from ragmeup_tpu_torch.parallel.mesh import make_mesh, visible_devices
+from ragmeup_tpu_torch.parallel.sharded_index import ShardedDenseIndex, make_shard_placer
 from ragmeup_tpu_torch.pipeline.serving import BatchedChatBackend
 from ragmeup_tpu_torch.retrieval.dense import DenseIndex
 from ragmeup_tpu_torch.retrieval.hybrid import HybridRetriever
@@ -57,16 +65,40 @@ logger = logging.getLogger("ragmeup_tpu_torch.system")
 class RagSystem:
     def __init__(self, cfg: RagConfig, encoder=None, cross_encoder=None,
                  llm=None, backend: Optional[ChatBackend] = None,
-                 extra_retrievers=(), eager_load: bool = True, device=None):
+                 extra_retrievers=(), eager_load: bool = True, device=None,
+                 devices=None):
         """``device``: where the indexes and any model this constructor
         builds live: CUDA unless given another (``"cpu"``); raises without
-        a card. Injected models keep their own device."""
+        a card. Injected models keep their own device. ``devices``: the
+        mesh's devices when ``parallel.corpus_axis > 1`` (default: every
+        visible card; ``["cpu"] * n`` on the CPU); the sharded indexes merge
+        on the first."""
         self.cfg = cfg
         p = cfg.parallel
-        if p.corpus_axis > 1 or p.model_axis > 1 or p.data_axis > 1:
+        if p.model_axis > 1:
             raise NotImplementedError(
-                "mesh layouts are not ported yet (ROADMAP queue 1: mesh)")
+                "parallel.model_axis > 1 is not ported yet (ROADMAP queue 1: "
+                "the model axis)")
         self.device = resolve_device(device)
+        # the corpus axis: indexes shard over 'corpus', retrieval ids equal
+        # the single-device system's
+        self.mesh = None
+        if p.corpus_axis > 1:
+            if p.corpus_axis & (p.corpus_axis - 1):
+                # BM25 head capacities are tile_n * 2^j; the sharded program
+                # splits them evenly over 'corpus'
+                raise ValueError(
+                    f"parallel.corpus_axis must be a power of two for the "
+                    f"sharded retrieval program, got {p.corpus_axis}")
+            devs = (visible_devices() if devices is None
+                    else [resolve_device(d) for d in devices])
+            if len(devs) < p.total_devices:
+                raise ValueError(
+                    f"parallel config needs {p.total_devices} devices "
+                    f"(data={p.data_axis} corpus={p.corpus_axis} "
+                    f"model={p.model_axis}); have {len(devs)}")
+            self.mesh = make_mesh((p.data_axis, p.corpus_axis, p.model_axis),
+                                  devices=devs[:p.total_devices])
         self.encoder = encoder or load_sentence_encoder(
             cfg.model.embedding_checkpoint, dim=cfg.model.embedding_dim,
             device=self.device)
@@ -135,14 +167,35 @@ class RagSystem:
     def _splitter(self):
         return make_splitter(self.cfg, embed_fn=self.encoder.encode)
 
-    def _make_dense(self) -> DenseIndex:
-        return DenseIndex(self.cfg.model.embedding_dim,
-                          dtype=self.cfg.retrieval.dense_dtype,
+    @property
+    def _corpus_sharded(self) -> bool:
+        return self.mesh is not None and self.cfg.parallel.corpus_axis > 1
+
+    def _make_dense(self):
+        r = self.cfg.retrieval
+        if self._corpus_sharded:
+            return ShardedDenseIndex(self.mesh, self.cfg.model.embedding_dim,
+                                     dtype=r.dense_dtype)
+        return DenseIndex(self.cfg.model.embedding_dim, dtype=r.dense_dtype,
                           device=self.device)
+
+    def _load_dense(self, idx_dir: str):
+        if self._corpus_sharded:
+            return ShardedDenseIndex.load(idx_dir, self.mesh)
+        return DenseIndex.load(idx_dir, device=self.device)
 
     def _make_sparse(self) -> BM25Index:
         r = self.cfg.retrieval
-        return BM25Index(k1=r.bm25_k1, b=r.bm25_b, device=self.device)
+        sparse = BM25Index(k1=r.bm25_k1, b=r.bm25_b, device=self._index_device)
+        if self._corpus_sharded:
+            sparse.shard_placer = make_shard_placer(self.mesh)
+        return sparse
+
+    @property
+    def _index_device(self) -> torch.device:
+        """Where query-side index tensors live: the mesh's first corpus
+        device when sharded, else the system's device."""
+        return self.mesh.axis_devices("corpus")[0] if self._corpus_sharded else self.device
 
     def load_data(self) -> None:
         """Artifact cache hit → load; miss → ingest + embed + persist."""
@@ -152,8 +205,10 @@ class RagSystem:
                 and BM25Index.exists(idx_dir):
             logger.info("loading index artifact from %s", idx_dir)
             self.store = ChunkStore.load(idx_dir)
-            self.dense = DenseIndex.load(idx_dir, device=self.device)
-            self.sparse = BM25Index.load(idx_dir, device=self.device)
+            self.dense = self._load_dense(idx_dir)
+            self.sparse = BM25Index.load(idx_dir, device=self._index_device)
+            if self._corpus_sharded:
+                self.sparse.shard_placer = make_shard_placer(self.mesh)
         else:
             logger.info("building index from data dir %s", d.data_directory)
             self.store = ChunkStore(idx_dir)
@@ -188,7 +243,8 @@ class RagSystem:
             reranker=self.cross_encoder if r.rerank else None,
             rerank_k=r.rerank_k,
             re2_prompt=self.cfg.prompts.re2_prompt if self.cfg.pipeline.use_re2 else None,
-            ann=r.ann)
+            mesh=self.mesh if self._corpus_sharded else None,
+            ann=r.ann, ivf_nprobe=r.ivf_nprobe, ivf_clusters=r.ivf_clusters)
         self.pipeline = RAGPipeline(
             self.cfg, self.retriever, self.backend,
             cross_encoder=self.cross_encoder, encoder=self.encoder,

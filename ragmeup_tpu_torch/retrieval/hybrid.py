@@ -1,12 +1,15 @@
 """Hybrid retrieval: sparse BM25 + dense cosine, fused with weighted RRF.
 
-Counterpart of ``ragmeup_tpu/retrieval/hybrid.py`` for one device and the
-exact dense engine. ``hybrid_fused_search`` runs, as one function on
-tensors: dense top-k (the fused kernel; for an int8 index the query is
-quantized on the device and scored by the int8 kernel) → MMR over the
-top-fetch_k candidates when ``search_type="mmr"`` → BM25 → weighted RRF,
-and brings one small result back to the host. The corpus-sharded mesh path and the IVF
-engine are not ported yet.
+Counterpart of ``ragmeup_tpu/retrieval/hybrid.py``. ``hybrid_fused_search``
+runs, as one function on tensors: dense top-k (the fused kernel; for an
+int8 index the query is quantized on the device and scored by the int8
+kernel) → MMR over the top-fetch_k candidates when ``search_type="mmr"`` →
+BM25 → weighted RRF, and brings one small result back to the host.
+``hybrid_fused_search_stream`` pipelines it over a stream of query
+batches. The retriever dispatches to the IVF view (``ann="ivf"``:
+retrieval/ivf.py, or parallel/sharded_ivf.py under a mesh), else to the
+corpus-sharded program under a mesh (parallel/sharded_index.py), else to
+``hybrid_fused_search``.
 """
 
 from __future__ import annotations
@@ -34,11 +37,9 @@ class HybridRetriever:
                  rrf_c: int = 60, search_type: str = "mmr",
                  mmr_fetch_k: int = 20, mmr_lambda: float = 0.5,
                  reranker=None, rerank_k: int = 3,
-                 re2_prompt: Optional[str] = None, ann: str = "exact"):
-        if ann != "exact":
-            raise NotImplementedError(
-                f"retrieval.ann={ann!r}: only the exact engine is ported "
-                "(ROADMAP queue 1: IVF)")
+                 re2_prompt: Optional[str] = None, mesh=None,
+                 ann: str = "exact", ivf_nprobe: int = 8,
+                 ivf_clusters: int = 0):
         self.store = store
         self.dense = dense
         self.sparse = sparse
@@ -52,11 +53,44 @@ class HybridRetriever:
         self.reranker = reranker
         self.rerank_k = rerank_k
         self.re2_prompt = re2_prompt
+        # corpus-sharded mode: dense is a ShardedDenseIndex over the mesh's
+        # 'corpus' axis and retrieval runs the sharded program
+        self.mesh = mesh
+        # ann="ivf": cluster-pruned dense search, refreshed lazily on corpus
+        # mutation; its hits fuse with BM25 by host RRF
+        if ann not in ("exact", "ivf"):
+            raise ValueError(f"retrieval.ann must be exact|ivf, got {ann!r}")
+        self.ann = ann
+        self._ivf_view = None
+        if ann == "ivf":
+            if mesh is not None:
+                from ragmeup_tpu_torch.parallel.sharded_ivf import ShardedIVFView
+                self._ivf_view = ShardedIVFView(dense, mesh, nprobe=ivf_nprobe,
+                                                n_clusters=ivf_clusters)
+            else:
+                from ragmeup_tpu_torch.retrieval.ivf import IVFDenseView
+                self._ivf_view = IVFDenseView(dense, nprobe=ivf_nprobe,
+                                              n_clusters=ivf_clusters)
 
     def retrieve_rows(self, query: str, k: Optional[int] = None) -> List[tuple]:
         """Hybrid top-k as (row, fused_score) pairs."""
         k = k or self.k
         qv = np.asarray(self.embed_query_fn([query]))
+        if self._ivf_view is not None:
+            d_hits = self._ivf_view.search(
+                qv, k, search_type=self.search_type,
+                fetch_k=self.mmr_fetch_k, mmr_lambda=self.mmr_lambda)[0]
+            s_hits = (self.sparse.search([query], k, re2_prompt=self.re2_prompt)[0]
+                      if self.sparse.live_count else [])
+            return rrf_fuse([[r for r, _ in s_hits], [r for r, _ in d_hits]],
+                            weights=self.weights, c=self.rrf_c, k=k)
+        if self.mesh is not None:
+            from ragmeup_tpu_torch.parallel.sharded_index import sharded_hybrid_search
+            return sharded_hybrid_search(
+                self.mesh, self.dense, self.sparse, [query], qv, k,
+                weights=self.weights, rrf_c=self.rrf_c,
+                re2_prompt=self.re2_prompt, search_type=self.search_type,
+                fetch_k=self.mmr_fetch_k, mmr_lambda=self.mmr_lambda)[0]
         return hybrid_fused_search(
             self.dense, self.sparse, [query], qv, k,
             weights=self.weights, rrf_c=self.rrf_c,
@@ -153,3 +187,63 @@ def hybrid_fused_search(dense: DenseIndex, sparse: BM25Index, queries, qvecs,
     fs, fi = fs.cpu().numpy(), fi.cpu().numpy()
     return [[(int(r), float(s)) for r, s in zip(fi[i], fs[i]) if r >= 0]
             for i in range(nq)]
+
+
+def hybrid_fused_search_stream(dense: DenseIndex, sparse: BM25Index, batches, k,
+                               weights=(0.5, 0.5), rrf_c: int = 60,
+                               re2_prompt=None, search_type: str = "similarity",
+                               fetch_k: int = 20, mmr_lambda: float = 0.5):
+    """Pipelined hybrid search over a stream of query batches.
+
+    ``batches``: iterable of (queries, qvecs). Dispatches batch i+1 before
+    collecting batch i, so the device→host copy of a result hides behind
+    the next batch's work: the serving-throughput shape of
+    hybrid_fused_search. Yields per-batch result lists in order.
+
+    On a card each batch's result goes by a non-blocking copy into pinned
+    host buffers of its own (kept until the batch is collected, so a batch
+    in flight is never overwritten), with an event recorded after the copy;
+    collecting a batch waits on its event only. Dispatch never reads a
+    value back to the host."""
+    def dispatch(queries, qvecs):
+        nq = len(queries)
+        q = np.asarray(qvecs, np.float32)
+        if dense.normalize:
+            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        inputs = sparse.build_query_inputs(queries, re2_prompt)
+        if inputs is None:
+            return None, nq
+        fs, fi = _hybrid_fused(
+            torch.from_numpy(q).to(dense.device), dense, sparse, inputs,
+            k=min(k, max(dense.n - len(dense.dead), 1)), nq=nq,
+            w_sparse=weights[0], w_dense=weights[1], rrf_c=rrf_c,
+            mmr=search_type == "mmr", fetch_k=min(fetch_k, dense.n),
+            mmr_lambda=mmr_lambda)
+        if not fs.is_cuda:
+            return (fs, fi, None), nq
+        hs = torch.empty(fs.shape, dtype=fs.dtype, pin_memory=True)
+        hi = torch.empty(fi.shape, dtype=fi.dtype, pin_memory=True)
+        hs.copy_(fs, non_blocking=True)
+        hi.copy_(fi, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(fs.device))
+        return (hs, hi, done), nq
+
+    def collect(packed, nq):
+        if packed is None:
+            return [[] for _ in range(nq)]
+        fs, fi, done = packed
+        if done is not None:
+            done.synchronize()
+        fs, fi = fs.numpy(), fi.numpy()
+        return [[(int(r), float(s)) for r, s in zip(fi[i], fs[i]) if r >= 0]
+                for i in range(nq)]
+
+    prev = None
+    for queries, qvecs in batches:
+        cur = dispatch(queries, qvecs)
+        if prev is not None:
+            yield collect(*prev)
+        prev = cur
+    if prev is not None:
+        yield collect(*prev)

@@ -139,6 +139,11 @@ class BM25Index:
         # uses it when the toolchain-built library is available
         self.use_native = use_native
         self._native = None
+        # optional placement hook: (name, array) -> device tensor or per-shard
+        # tensors. The corpus-sharded system sets it
+        # (parallel.sharded_index.make_shard_placer) so the head matrix and
+        # mask land split over the mesh's 'corpus' axis.
+        self.shard_placer = None
 
     def _native_analyzer(self):
         if self.use_native == "off":
@@ -277,11 +282,16 @@ class BM25Index:
             "df": df,
             "head_terms": head_terms,
             "head_row_of": head_row_of,
-            "head": torch.from_numpy(H).to(self.device),
-            "mask": torch.from_numpy(mask).to(self.device),
+            "head": self._place("head", H),
+            "mask": self._place("mask", mask),
             "avgdl": avgdl,
         }
         return self._device
+
+    def _place(self, name: str, arr: np.ndarray):
+        if self.shard_placer is not None:
+            return self.shard_placer(name, arr)
+        return torch.from_numpy(arr).to(self.device)
 
     # -- query --------------------------------------------------------------------
 
@@ -334,6 +344,13 @@ class BM25Index:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device scoring of prepared query inputs → (scores, rows) top-k."""
         dev = inputs["dev"]
+        if isinstance(dev["head"], list) or isinstance(dev["mask"], list):
+            from ragmeup_tpu_torch.parallel.sharded_index import sharded_bm25_topk
+            return sharded_bm25_topk(
+                self.shard_placer.mesh, inputs["qsel"], dev["head"], inputs["docs_cat"],
+                inputs["con_cat"], inputs["qid_cat"], dev["mask"], k=k, nq=nq,
+                cap=inputs["cap"], has_head=inputs["has_head"],
+                has_tail=inputs["has_tail"])
         return _bm25_score_topk(
             torch.from_numpy(inputs["qsel"]).to(self.device), dev["head"],
             inputs["docs_cat"], inputs["con_cat"], inputs["qid_cat"],

@@ -259,10 +259,12 @@ def test_hybrid_fused_search_unknown_terms_falls_back_to_dense():
 
 
 def test_hybrid_retriever_refuses_unported_engines():
+    """An engine neither package has raises JAX's ValueError (IVF is
+    ported: test_torch_ivf.py)."""
     store = ChunkStore()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="exact|ivf"):
         hybrid.HybridRetriever(store, dense.DenseIndex(8, device="cpu"), sparse.BM25Index(device="cpu"),
-                               lambda t: np.zeros((len(t), 8)), ann="ivf")
+                               lambda t: np.zeros((len(t), 8)), ann="hnsw")
     with pytest.raises(ValueError):
         dense.DenseIndex(8, dtype="float16", device="cpu")
 

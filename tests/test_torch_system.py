@@ -84,10 +84,13 @@ LLM_CFG_INT4 = dict(LLM_CFG, hidden_size=512, intermediate_size=1024,
                     quantization="int4")
 
 
-def _build_systems(root, llm_cfg, dense_dtype, batched=False):
+def _build_systems(root, llm_cfg, dense_dtype, batched=False, corpus_axis=1,
+                   data_axis=1):
     """(JAX RagSystem, port RagSystem) over one data directory with the same
     weights; ``llm_cfg`` with quantization="int4" quantizes the JAX
-    decoder's weights and hands the same int4 tree to both."""
+    decoder's weights and hands the same int4 tree to both. ``corpus_axis``
+    and ``data_axis`` set cfg.parallel in both (the port's mesh over "cpu"
+    repeated, JAX's over its virtual CPU devices)."""
     data = root / "data"
     data.mkdir()
     for name, text in TOPICS.items():
@@ -110,6 +113,7 @@ def _build_systems(root, llm_cfg, dense_dtype, batched=False):
         t_cfg = hf_loader.select_kernels(t_cfg)
     j_cfg = _config(str(data), str(root / "index_jax"), JaxRagConfig, batched)
     j_cfg.retrieval.dense_dtype = dense_dtype
+    j_cfg.parallel.corpus_axis, j_cfg.parallel.data_axis = corpus_axis, data_axis
     j_sys = JaxRagSystem(j_cfg, encoder=j_enc, cross_encoder=j_ce, llm=j_llm)
 
     tb = encoder.BertConfig(**bcfg)
@@ -123,8 +127,9 @@ def _build_systems(root, llm_cfg, dense_dtype, batched=False):
                              params=convert.flax_to_state_dict(params), device="cpu")
     t_cfg = _config(str(data), str(root / "index_torch"), batched=batched)
     t_cfg.retrieval.dense_dtype = dense_dtype
+    t_cfg.parallel.corpus_axis, t_cfg.parallel.data_axis = corpus_axis, data_axis
     t_sys = RagSystem(t_cfg, encoder=t_enc, cross_encoder=t_ce, llm=t_llm,
-                      device="cpu")
+                      device="cpu", devices=["cpu"] * corpus_axis * data_axis)
     return j_sys, t_sys
 
 
@@ -220,10 +225,11 @@ def test_index_artifact_reloads_and_crud(systems, tmp_path):
 
 
 def test_refuses_unported_deployments(systems):
-    """Mesh layouts are refused (GraphRAG is wired: test_torch_graph.py)."""
+    """The model axis is refused (the corpus axis is wired:
+    test_torch_parallel.py; GraphRAG: test_torch_graph.py)."""
     _, t_sys, _ = systems
     cfg = t_sys.cfg
-    for section, field, value in (("parallel", "corpus_axis", 2),):
+    for section, field, value in (("parallel", "model_axis", 2),):
         bad = _config(cfg.data.data_directory, cfg.data.index_directory)
         setattr(getattr(bad, section), field, value)
         with pytest.raises(NotImplementedError):
