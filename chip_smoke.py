@@ -170,6 +170,37 @@ Phases (any failure raises and exits non-zero):
    (d) STREAM_BATCHES batches of STREAM_B queries through
    hybrid_fused_search_stream over phase 4's bf16 index and an int8 copy,
    equal to hybrid_fused_search batch by batch, both timed.
+4j. the model axis (right after phase 4i, on phase 4's models, checkpoint
+   and copies of its directories, before phase 5 deletes the 8B
+   checkpoint), every shard on cuda:0; its requests answer in
+   TP_NEW_TOKENS tokens with the rewrite loop off (one generation a first
+   turn): (a) "tp4": RagSystem with parallel.model_axis = MODEL_SHARDS
+   loads the 8B int8 checkpoint over the model axis; its shards of three
+   layers, the embedding, the norm and the head torch.equal to
+   tp_shard_model's cut of phase 4's decoder; the one-device decoder's
+   greedy stream of TP_STEPS tokens after a TP_PROMPT-token prompt fed
+   through both decoders, the prefill's and every decode step's logits
+   within TP_CAPS["8b"] (largest and mean |difference|, cosine), each of
+   the sharded decoder's own picks the stream's token or a near-tie
+   (margin at most twice that step's gap); the GiB of both
+   LLMs' weights; three requests, whose launches by shard must be #3 at
+   5 projections a layer each decode forward (k_proj and v_proj, 256
+   local columns, take the fallback) and #8 once a layer each prefill,
+   on every shard; (b) "tp4 batched": the paged engine on per-shard pools
+   (2 kv heads a shard) with four first turns at once and a follow-up
+   (#9 decode and chunk at hd 128 g 4, equal launches on every shard);
+   (c) "ring": corpus_axis 2 x model_axis 2 over phase 4's weights, the
+   prefill logits held as in (a) and one /chat whose every prefill rings
+   (2 x 32 ring calls a prefill, #8 never; #3 on all 7 projections at 2
+   shards); (d) "moe ep int8" / "moe ep int4": Mixtral-8x7B's shape at
+   two layers drawn on the card, one device against 4 model shards (2
+   experts a shard) on the same weights: prefill logits within
+   TP_CAPS["moe"], 8 greedy tokens on one device, then on the mesh alone
+   with the counts reset just before (each decode step through the
+   expert-parallel gather, #10 or #13, on every shard), the streams
+   held; (e) "tp4 w4a16": the 8B checkpoint loaded int4 W4A16 over 4
+   shards, one request, #4 at the 5 projections that pass the local gate
+   on every shard.
 7. system, sparse-MoE path: the int4 decoders are freed; a
    Mixtral-8x7B-shaped int8 decoder with random weights drawn on the card (8 experts, top-2; 47.5 GB) with the
    bf16 index of phase 4 answers three chat() requests ("moe": decode
@@ -188,14 +219,16 @@ Phases (any failure raises and exits non-zero):
    ("moe int4 W4A8": #5 and #13's output-scaled route). #6 (the fused int4
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
 
-Each LLM call of phases 4-5 and 7-8 is timed on its own. Each of the
-twenty-seven runs resets the kernels' launch counts just before its
+Each LLM call of phases 4-5 and 7-8 is timed on its own, and a line after
+each phase gives the script's seconds so far. Each of the
+thirty-three runs resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path
 (PATH_KERNELS) and every instantiation it must reach (PATH_VARIANTS) must
 have launched.
 
 Prints a JSON line with the kernels' results, the clocks read before
-and after phase 3 and the checkpoint writes and loads, then the card's name and power limit, and last
+and after phase 3, the checkpoint writes and loads, and phases 4i's and
+4j's readings, then the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -225,8 +258,16 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(done: str) -> None:
+    """The script's seconds so far, after the phase ``done``."""
+    log(f"elapsed: {time.perf_counter() - START:.1f} s after {done}")
 
 
 def card_line() -> str:
@@ -1474,12 +1515,19 @@ def check_moe_grouped(gen) -> dict:
 
     def launched(name, kind, fn):
         """fn's output, after checking it launched the route's kernel once
-        a call (kernels_of traces two calls)."""
+        a call (kernels_of traces two calls, and a trace that came back
+        empty is taken again: the calls are counted)."""
+        calls = []
+
+        def counted():
+            calls.append(1)
+            return fn()
         before = kernels.launch_counts()[name]
-        found = kernels_of(fn)
-        if kernels.launch_counts()[name] != before + 2 or found != [GROUPED_KERNELS[name, kind]]:
-            raise AssertionError(f"{name} {kind}: launched {found}, not "
-                                 f"{GROUPED_KERNELS[name, kind]}")
+        found = kernels_of(counted)
+        launches = kernels.launch_counts()[name] - before
+        if launches != len(calls) or found != [GROUPED_KERNELS[name, kind]]:
+            raise AssertionError(f"{name} {kind}: launched {found} ({launches} launches "
+                                 f"in {len(calls)} calls), not {GROUPED_KERNELS[name, kind]}")
         return fn()
 
     out = {}
@@ -2119,7 +2167,14 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "qwen2 checkpoint int8": ("int8_matmul", "flash_gqa", "paged_attention",
                                           "paged_attention_chunk"),
                 "qwen3_moe checkpoint int8": ("flash_gqa", "moe_gather"),
-                "qwen3_moe checkpoint int4": ("flash_gqa", "moe_gather_int4")}
+                "qwen3_moe checkpoint int4": ("flash_gqa", "moe_gather_int4"),
+                "tp4": ("topk", "int8_matmul", "flash_gqa"),
+                "tp4 batched": ("topk", "int8_matmul", "paged_attention",
+                                "paged_attention_chunk"),
+                "ring": ("topk", "int8_matmul"),
+                "moe ep int8": ("int8_matmul", "moe_gather"),
+                "moe ep int4": ("int4_matmul", "moe_gather_int4"),
+                "tp4 w4a16": ("topk", "int4_matmul", "flash_gqa")}
 # the kernel instantiations (head dim, group) each run must launch
 PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
                                     "paged_attention_chunk hd=256 g=2"),
@@ -2130,7 +2185,10 @@ PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
                  "phi3 checkpoint int4": ("paged_attention hd=96 g=1",
                                           "paged_attention_chunk hd=96 g=1"),
                  "qwen2 checkpoint int8": ("flash_gqa hd=128 g=7", "paged_attention hd=128 g=7",
-                                           "paged_attention_chunk hd=128 g=7")}
+                                           "paged_attention_chunk hd=128 g=7"),
+                 "tp4": ("flash_gqa hd=128 g=4",),
+                 "tp4 batched": ("paged_attention hd=128 g=4",
+                                 "paged_attention_chunk hd=128 g=4")}
 
 
 def missing_kernels(label: str, counts: dict, variants: dict) -> list:
@@ -3884,6 +3942,382 @@ def run_retrieval_at_scale(seed: int, tmp: str, data_dir: str, index_dir: str, m
     runs["corpus sharded"]["readings"] = readings
     return runs
 
+# ---------------------------------------------------------------------------
+# phase 4j: the model axis
+# ---------------------------------------------------------------------------
+
+MODEL_SHARDS = 4        # the 8B's model-axis shards, all on cuda:0
+# caps on the sharded decoder's logits against the one-device decoder's on
+# the same weights: (largest |difference|, mean |difference|, least cosine).
+# Each psum rounds the shards' bf16 partials and sums where one device
+# rounds its product once; the gap is rounding noise, spread over the whole
+# vocabulary (largest about six times the mean), where a sharding fault
+# moves the mean with the largest. Derived before the call from the
+# prefill readings of earlier calls (PERF.md §6, PR 20), with room for the
+# decode steps' other routes (k_proj and v_proj off #3 on a shard)
+TP_CAPS = {"8b": (0.6, 0.1, 0.995),       # Llama-3.1-8B, 32 layers
+           "moe": (0.2, 0.035, 0.9995)}   # Mixtral-8x7B, 2 layers
+TP_PROMPT = 1000        # tokens of the prompt whose logits are held
+TP_STEPS = 16           # decode steps fed the one-device greedy stream
+TP_NEW_TOKENS = 8       # generation.max_new_tokens of phase 4j's requests
+
+
+def model_mesh(corpus: int, model: int):
+    from ragmeup_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh((1, corpus, model), devices=["cuda:0"] * (corpus * model))
+
+
+def by_shard() -> dict:
+    """kernels.shard_counts() as {kernel: [launches of shard 0, 1, ...]}."""
+    from ragmeup_tpu_torch import kernels
+    out = {}
+    for key, n in kernels.shard_counts().items():
+        name, _, shard = key.rpartition(" shard=")
+        row = out.setdefault(name, [])
+        row.extend([0] * (int(shard) + 1 - len(row)))
+        row[int(shard)] = n
+    return out
+
+
+def count_forwards(llm) -> dict:
+    """Count the LLM's dense-cache forwards from now on: decode steps and
+    verify forwards (at most 8 rows: #3 and #4 at decode shapes), prefills,
+    and prefills of at most 256 rows (#4's kernel route)."""
+    seen = {"forwards": 0, "prefills": 0, "prefills_le_256": 0}
+    verify, prefill = llm._verify, llm._prefill
+
+    def counted_verify(chunk, p0, caches):
+        seen["forwards"] += 1
+        return verify(chunk, p0, caches)
+
+    def counted_prefill(ids, length, cache_len):
+        seen["prefills"] += 1
+        seen["prefills_le_256"] += int(ids.shape[1] <= 256)
+        return prefill(ids, length, cache_len)
+    llm._verify, llm._prefill = counted_verify, counted_prefill
+    return seen
+
+
+def check_shard_launches(label: str, want: dict, shards: int) -> dict:
+    """The launches of this run by kernel and shard (read just after it)
+    against the counts predicted for every shard."""
+    got = by_shard()
+    log(f"{label}: launches by shard {json.dumps(got)}; predicted for each of the "
+        f"{shards} shards {json.dumps(want)}")
+    for name, n in want.items():
+        if got.get(name) != [n] * shards:
+            raise AssertionError(f"{label}: {name} launched {got.get(name)} by shard, "
+                                 f"predicted {n} on each of {shards}")
+    return got
+
+
+def weight_gib(llm) -> float:
+    """GiB of the LLM's weights (and widened heads) on the card, each
+    storage once: shards on one device share their replicated tensors."""
+    held = {}
+    for m in getattr(llm.model, "shards", [llm.model]):
+        tensors = list(m.state_dict().values())
+        if m._head_f32 is not None:
+            tensors.append(m._head_f32)
+        for t in tensors:
+            held[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(held.values()) / 2**30
+
+
+def check_shards(sharded, one, layers) -> int:
+    """The sharded LLM's tensors of ``layers``, the embedding, the final
+    norm and the head torch.equal to the shards that tp_shard_model cuts
+    from the one-device LLM's."""
+    import torch
+    from ragmeup_tpu_torch.parallel import tp
+    c = one.cfg
+    n = sharded.mesh.shape["model"]
+    specs = tp.model_param_shardings(c, sharded.mesh, shard_vocab=True)
+    full = one.model.state_dict()
+    keys = [k for k in full if not k.startswith("layers.")
+            or int(k.split(".")[1]) in layers]
+    for i, shard in enumerate(sharded.model.shards):
+        got = shard.state_dict()
+        for k in keys:
+            spec = specs[k]
+            want = (tp._shard_of(k, full[k], spec.index("model"), i, n, c)
+                    if "model" in spec else full[k])
+            if not torch.equal(got[k], want):
+                raise AssertionError(f"shard {i} of {k} differs from the one-device cut")
+    return len(keys) * n
+
+
+def logit_diff(label: str, a, b, caps) -> dict:
+    """Two logit vectors (the one-device decoder's, the sharded one's) held
+    within ``caps`` (TP_CAPS: largest and mean |difference|, cosine)."""
+    import torch
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    d = (a - b).abs()
+    res = {"max_abs_logit_diff": d.max().item(), "mean_abs_logit_diff": d.mean().item(),
+           "cosine": torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+           "max_abs_logit": a.abs().max().item()}
+    if (res["max_abs_logit_diff"] > caps[0] or res["mean_abs_logit_diff"] > caps[1]
+            or res["cosine"] < caps[2]):
+        raise AssertionError(f"{label}: sharded logits off the one-device ones: "
+                             f"{json.dumps(res)}, caps {caps}")
+    return res
+
+
+def logit_gap(label: str, one, sharded, ids, caps) -> dict:
+    """Prefill logits of ``ids`` through the sharded decoder against the
+    one-device one, within ``caps``."""
+    res = logit_diff(label, one.forward_logits(ids), sharded.forward_logits(ids), caps)
+    res.update(prompt_tokens=len(ids), caps=caps)
+    log(f"{label}: prefill logits against one device {json.dumps(res)}")
+    return res
+
+
+def teacher_forced(label: str, one, sharded, ids, n: int, caps) -> dict:
+    """The one-device decoder's greedy stream of ``n`` tokens (repetition
+    penalty 1.0; equal to its ``generate``) fed through both decoders: the
+    prefill's logits and those of each of the n - 1 decode steps (the
+    sharded decoder's per-shard dense caches) held within ``caps``. At
+    each step the sharded decoder's own greedy pick must be the stream's
+    token or a near-tie: the one-device margin between the two tokens at
+    most twice that step's largest |difference|."""
+    import torch
+    L = len(ids)
+    cache_len = one._bucket(L + n)
+    logits, runs = {}, []
+    with torch.inference_mode():
+        for name, llm in (("one", one), ("sharded", sharded)):
+            first, caches = llm._prefill(llm._padded(ids, llm._bucket(L)), L, cache_len)
+            logits[name] = [first.float()]
+            runs.append((name, llm, caches))
+        stream = []
+        for i in range(n):
+            stream.append(int(logits["one"][-1].argmax()))
+            if i < n - 1:
+                for name, llm, caches in runs:
+                    logits[name].append(llm._decode(stream[-1], L + i, caches).float())
+    want = one.generate(ids, max_new_tokens=n, temperature=0.0, repetition_penalty=1.0,
+                        speculative="off")
+    if want != stream:
+        raise AssertionError(f"{label}: the teacher-forced stream {stream} is not "
+                             f"generate's {want}")
+    steps = [logit_diff(f"{label} step {i}", a, b, caps)
+             for i, (a, b) in enumerate(zip(logits["one"], logits["sharded"]))]
+    res = {"prompt_tokens": L, "steps": n, "caps": caps,
+           "max_abs_logit_diff": [s["max_abs_logit_diff"] for s in steps],
+           "mean_abs_logit_diff": [s["mean_abs_logit_diff"] for s in steps],
+           "min_cosine": min(s["cosine"] for s in steps), "picks_equal": 0,
+           "near_ties": []}
+    for i, (a, b) in enumerate(zip(logits["one"], logits["sharded"])):
+        pick = int(b.argmax())
+        if pick == stream[i]:
+            res["picks_equal"] += 1
+            continue
+        margin = (a[stream[i]] - a[pick]).item()
+        res["near_ties"].append([i, margin])
+        if margin > 2 * steps[i]["max_abs_logit_diff"]:
+            raise AssertionError(f"{label}: the sharded pick differs at step {i} with "
+                                 f"margin {margin}, not a near-tie")
+    log(f"{label}: {n} teacher-forced steps against one device {json.dumps(res)}")
+    return res
+
+
+def greedy_parted(label: str, one, ids, want, got, gap: float) -> dict:
+    """The sharded decoder's greedy tokens ``got`` against the one-device
+    stream ``want`` on the prompt ``ids``: equal, or equal up to a first
+    difference where the one-device logits' margin between the two tokens
+    is at most twice the measured prefill gap (a near-tie)."""
+    res = {"tokens": len(want), "equal": want == got}
+    if want != got:
+        i = next((j for j in range(min(len(want), len(got))) if want[j] != got[j]), None)
+        if i is None:
+            raise AssertionError(f"{label}: greedy streams of {len(want)} and {len(got)} "
+                                 f"tokens")
+        lg = one.forward_logits(list(ids) + want[:i])
+        res.update(first_difference=i, margin=float(lg[want[i]] - lg[got[i]]))
+        if res["margin"] > 2 * gap:
+            raise AssertionError(f"{label}: greedy tokens part at {i} with margin "
+                                 f"{res['margin']}, not a near-tie")
+    log(f"{label}: {len(want)} greedy tokens against one device {json.dumps(res)}")
+    return res
+
+
+def run_moe_ep(seed: int, quantization: str) -> dict:
+    """Phase 4j (d): Mixtral-8x7B's shape at full width and two layers,
+    drawn on the card, on one device and over a 4-way model axis (2 experts
+    a shard) on the same weights: prefill logits held; 8 greedy tokens one
+    a forward on one device, then on the mesh with the launch counts reset
+    just before and read just after (the run's time and counts are the
+    mesh's alone), each decode step through the expert-parallel gather on
+    every shard (#10 for int8 experts, #13 for int4); the streams held."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.models.decoder import LlamaConfig, LocalLLM, init_decoder_params
+    from ragmeup_tpu_torch.models.hf_loader import select_kernels
+    from ragmeup_tpu_torch.models.tokenizer import SimpleTokenizer
+    label = f"moe ep {quantization}"
+    cfg = select_kernels(LlamaConfig.mixtral_8x7b(num_layers=2, quantization=quantization))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    params = init_decoder_params(cfg, gen, "cuda")
+    tok = SimpleTokenizer(cfg.vocab_size)
+    one = LocalLLM(cfg, tok, params=dict(params), eos_ids=(2,), device="cuda")
+    ep = LocalLLM(cfg, tok, params=params, eos_ids=(2,), mesh=model_mesh(1, MODEL_SHARDS))
+    prompt = list(range(100, 228))
+    res = {"logits": logit_gap(label, one, ep, prompt, TP_CAPS["moe"])}
+    kw = dict(max_new_tokens=8, temperature=0.0, repetition_penalty=1.0, speculative="off")
+    want = one.generate(prompt, **kw)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    fw = count_forwards(ep)
+    t0 = time.perf_counter()
+    got = ep.generate(prompt, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    gather = "moe_gather_int4" if quantization == "int4" else "moe_gather"
+    # each decode step, on each shard: gate, up and down of 2 layers through
+    # the gather; q_proj and o_proj of 2 layers through #3 / #4 (k_proj and
+    # v_proj have 256 local columns: the fallback); #4 also in the 128-row prefill
+    pred = {gather: 6 * fw["forwards"]}
+    if quantization == "int4":
+        pred["int4_matmul"] = 4 * (fw["forwards"] + fw["prefills_le_256"])
+    else:
+        pred["int8_matmul"] = 4 * fw["forwards"]
+    res["by_shard"] = check_shard_launches(label, pred, MODEL_SHARDS)
+    res["forwards"] = dict(fw)
+    res["greedy"] = greedy_parted(label, one, prompt, want, got,
+                                  res["logits"]["max_abs_logit_diff"])
+    del one, ep, params
+    free_card()
+    return {"counts": counts, "latency_s": [sec], "readings": res}
+
+
+def run_model_axis(seed: int, tmp: str, data_dir: str, index_dir: str, models, ckpt_llm: str,
+                   queries, first_turns) -> dict:
+    """Phase 4j (see the module docstring). Returns the runs "tp4", "tp4
+    batched", "ring", "moe ep int8", "moe ep int4" and "tp4 w4a16"."""
+    import torch
+    from ragmeup_tpu_torch.models import decoder
+    t_phase = time.perf_counter()
+    encoder, cross, llm = models
+    L = llm.cfg.num_layers
+    gen = torch.Generator().manual_seed(seed + 23)
+    ids = torch.randint(4, 30000, (TP_PROMPT,), generator=gen).tolist()
+    copies = http_copies(tmp, data_dir, index_dir, "model_axis")
+    devices = ["cuda:0"] * MODEL_SHARDS
+    readings, runs = {}, {}
+
+    def config(**parallel):
+        # the answers cut to TP_NEW_TOKENS and the rewrite loop off (one
+        # generation a first turn): the shards' layers run one after
+        # another on the one card, each decode step about four one-device
+        # steps of host work
+        cfg = rag_config(*copies)
+        cfg.generation.max_new_tokens = TP_NEW_TOKENS
+        cfg.pipeline.use_rewrite_loop = False
+        for name, value in parallel.items():
+            setattr(cfg.parallel, name, value)
+        return cfg
+
+    # (a) the 8B int8 from phase 4's checkpoint over 4 model shards
+    before = torch.cuda.memory_allocated() / 2**30
+    cfg = config(model_axis=MODEL_SHARDS)
+    cfg.model.llm_checkpoint = ckpt_llm
+    system = open_system(cfg, encoder, cross, devices=devices)
+    tp4 = system.llm
+    if not (isinstance(tp4.model, decoder.ShardedLlamaModel)
+            and len(tp4.model.shards) == MODEL_SHARDS and tp4.eos_ids == llm.eos_ids):
+        raise AssertionError("model_axis: RagSystem did not shard its LLM")
+    n = check_shards(tp4, llm, (0, L // 2, L - 1))
+    readings["tp4 teacher forced"] = teacher_forced("tp4", llm, tp4, ids, TP_STEPS,
+                                                    TP_CAPS["8b"])
+    readings["gib"] = {"one_device_llm_weights": weight_gib(llm),
+                       "tp4_llm_weights": weight_gib(tp4), "allocated_before": before,
+                       "allocated_after": torch.cuda.memory_allocated() / 2**30}
+    log(f"tp4: {n} shard tensors torch.equal to the one-device cut; GiB "
+        f"{json.dumps(readings['gib'])}")
+    fw = count_forwards(tp4)
+    runs["tp4"] = drive("tp4", system, tp4, queries)
+    # q, o, gate, up and down through #3 at every decode step; k_proj and
+    # v_proj (256 local columns) take the dequantized fallback
+    readings["tp4 by shard"] = check_shard_launches(
+        "tp4", {"int8_matmul": 5 * L * fw["forwards"], "flash_gqa": L * fw["prefills"]},
+        MODEL_SHARDS)
+    readings["tp4 forwards"] = dict(fw)
+    del tp4._verify, tp4._prefill
+
+    # (b) four concurrent requests through the engine on per-shard pools
+    cfg = config(model_axis=MODEL_SHARDS)
+    cfg.server.batched_llm = True
+    batched = open_system(cfg, encoder, cross, tp4, devices=devices)
+    if not (isinstance(batched.backend.engine.cache.k_pages[0], list)
+            and batched.backend.engine.cache.k_pages[0][0].shape[0] == 2):
+        raise AssertionError("tp4 batched: the pools are not held per shard")
+    runs["tp4 batched"] = drive_batched(batched, first_turns, label="tp4 batched")
+    got = by_shard()
+    log(f"tp4 batched: launches by shard {json.dumps(got)}")
+    for name in ("int8_matmul", "paged_attention", "paged_attention_chunk"):
+        row = got.get(name, [])
+        if len(row) != MODEL_SHARDS or len(set(row)) != 1 or row[0] % L:
+            raise AssertionError(f"tp4 batched: {name} by shard {row}")
+    readings["tp4 batched by shard"] = got
+    del batched, system, tp4
+    free_card()
+
+    # (c) the ring prefill: corpus 2 x model 2, from the one-device weights
+    ring_llm = decoder.LocalLLM(llm.cfg, llm.tokenizer, params=llm.model.state_dict(),
+                                eos_ids=llm.eos_ids, mesh=model_mesh(2, 2))
+    ring_calls = []
+    ring = decoder.ring_attention
+    decoder.ring_attention = lambda *a, **kw: (ring_calls.append(1), ring(*a, **kw))[1]
+    try:
+        readings["ring logits"] = logit_gap("ring", llm, ring_llm, ids, TP_CAPS["8b"])
+        if len(ring_calls) != 2 * L:
+            raise AssertionError(f"ring: {len(ring_calls)} ring calls in one prefill")
+        ring_sys = open_system(config(corpus_axis=2, model_axis=2), encoder, cross,
+                               ring_llm, devices=devices)
+        ring_calls.clear()
+        fw = count_forwards(ring_llm)
+        runs["ring"] = drive("ring", ring_sys, ring_llm, queries[:1])
+    finally:
+        decoder.ring_attention = ring
+    if runs["ring"]["counts"]["flash_gqa"] or len(ring_calls) != 2 * L * fw["prefills"]:
+        raise AssertionError(f"ring: flash launched {runs['ring']['counts']['flash_gqa']} "
+                             f"times, {len(ring_calls)} ring calls for {fw['prefills']} "
+                             f"prefills")
+    # at 2 shards k_proj and v_proj keep 512 local columns: all 7 on #3
+    readings["ring"] = {"ring_calls": len(ring_calls), "forwards": dict(fw),
+                        "by_shard": check_shard_launches(
+                            "ring", {"int8_matmul": 7 * L * fw["forwards"]}, 2)}
+    del ring_sys, ring_llm
+    free_card()
+
+    # (d) Mixtral-8x7B's shape, 2 experts a shard: the expert-parallel gather
+    for quantization in ("int8", "int4"):
+        run = run_moe_ep(seed, quantization)
+        readings[f"moe ep {quantization}"] = run.pop("readings")
+        runs[f"moe ep {quantization}"] = run
+
+    # (e) the 8B W4A16 from the checkpoint over 4 model shards
+    cfg = config(model_axis=MODEL_SHARDS)
+    cfg.model.llm_checkpoint = ckpt_llm
+    cfg.model.quantization = "int4"
+    system = open_system(cfg, encoder, cross, devices=devices)
+    w4 = system.llm
+    fw = count_forwards(w4)
+    runs["tp4 w4a16"] = drive("tp4 w4a16", system, w4, queries[:1])
+    # the five projections that pass the local gate at decode rows and at
+    # prefills of at most 256 rows; k_proj and v_proj take the fallback
+    readings["tp4 w4a16 by shard"] = check_shard_launches(
+        "tp4 w4a16", {"int4_matmul": 5 * L * (fw["forwards"] + fw["prefills_le_256"]),
+                      "flash_gqa": L * fw["prefills"]}, MODEL_SHARDS)
+    del system, w4
+    free_card()
+    log(f"phase 4j: {time.perf_counter() - t_phase:.1f} s")
+    runs["tp4"]["readings"] = readings
+    return runs
+
 
 def free_card() -> None:
     import torch
@@ -3927,13 +4361,21 @@ def run_system(seed: int) -> dict:
             f"Summarize the notes on {' '.join(texts[12000].split()[:3])}."]
         runs["batched"] = drive_batched(batched, first_turns)
         del batched
+        mark("phases 4 and 6")
         runs.update(run_greedy(seed, llm, encoder, cross, data_dir,
                                os.path.join(tmp, "index"), queries, first_turns))
+        mark("phase 6b")
         runs.update(run_http(tmp, data_dir, os.path.join(tmp, "index"),
                              (encoder, cross, llm), ckpts["llm"], queries, first_turns,
                              runs["default"]["latency_s"]))
+        mark("phase 4h")
         runs.update(run_retrieval_at_scale(seed, tmp, data_dir, os.path.join(tmp, "index"),
                                            (encoder, cross, llm), texts, queries))
+        mark("phase 4i")
+        runs.update(run_model_axis(seed, tmp, data_dir, os.path.join(tmp, "index"),
+                                   (encoder, cross, llm), ckpts["llm"], queries,
+                                   first_turns))
+        mark("phase 4j")
         del llm
         free_card()
 
@@ -3960,14 +4402,18 @@ def run_system(seed: int) -> dict:
         del system, llm
         free_card()
         shutil.rmtree(ckpts["llm"])
+        mark("phase 5")
 
         runs.update(run_gemma2(seed, ckpt_root, data_dir, os.path.join(tmp, "index"),
                                queries, first_turns, encoder, cross))
+        mark("phase 5c")
         runs.update(run_moe_checkpoint(ckpt_root, seed))
         runs.update(run_family_checkpoints(ckpt_root, seed))
-        for phase in (run_moe, run_moe_int4):
+        mark("phases 5b and 5d")
+        for phase, done in ((run_moe, "phase 7"), (run_moe_int4, "phase 8")):
             runs.update(phase(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
                               texts, queries))
+            mark(done)
         shutil.rmtree(ckpt_root)
     return runs
 
@@ -4069,6 +4515,7 @@ def main() -> int:
     kernels.lib()
     log(f"build: {path} in {time.perf_counter() - t0:.1f} s")
     log_ptxas(kernels.build_log)
+    mark("the build")
 
     clock_before = clocks()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4131,6 +4578,7 @@ def main() -> int:
     for name, (r, _, _) in results.items():
         log(f"kernel {name}: {json.dumps(r)}")
     free_card()
+    mark("phase 3")
 
     runs = run_system(args.seed)
     for label, run in runs.items():
@@ -4147,7 +4595,8 @@ def main() -> int:
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
                           "after_kernel_checks": clock_after},
         "checkpoints": CHECKPOINTS,
-        "retrieval_at_scale": runs["corpus sharded"]["readings"]}), flush=True)
+        "retrieval_at_scale": runs["corpus sharded"]["readings"],
+        "model_axis": runs["tp4"]["readings"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

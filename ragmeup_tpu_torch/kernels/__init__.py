@@ -12,11 +12,14 @@ package and use the plain PyTorch versions for CPU tensors.
 
 Each op wrapper calls :func:`count` once per launch of its kernel, so a run
 can show that the main path really went through the kernels
-(:func:`reset_counts` / :func:`launch_counts`).
+(:func:`reset_counts` / :func:`launch_counts`). Inside
+:func:`shard_scope` (a shard of the model axis running its part of a
+layer) a launch also counts under its shard (:func:`shard_counts`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -45,6 +48,8 @@ _tickets_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
 _variants: Dict[str, int] = {}
+_by_shard: Dict[str, int] = {}
+_scope = threading.local()  # .shard: the model-axis shard launching, or None
 build_log = ""  # nvcc's output of the last build (ptxas register/smem report)
 
 
@@ -56,12 +61,34 @@ def count(name: str, variant: Optional[str] = None) -> None:
     if variant is not None:
         key = f"{name} {variant}"
         _variants[key] = _variants.get(key, 0) + 1
+    shard = getattr(_scope, "shard", None)
+    if shard is not None:
+        key = f"{name} shard={shard}"
+        _by_shard[key] = _by_shard.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def shard_scope(index: int):
+    """Count this thread's launches under model-axis shard ``index`` too."""
+    prev = getattr(_scope, "shard", None)
+    _scope.shard = index
+    try:
+        yield
+    finally:
+        _scope.shard = prev
 
 
 def reset_counts() -> None:
     for name in _counts:
         _counts[name] = 0
     _variants.clear()
+    _by_shard.clear()
+
+
+def shard_counts() -> Dict[str, int]:
+    """Launches by kernel and model-axis shard ("name shard=i") since the
+    last reset."""
+    return dict(_by_shard)
 
 
 def launch_counts() -> Dict[str, int]:

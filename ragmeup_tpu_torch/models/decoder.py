@@ -30,8 +30,20 @@ token per sequence (batched decode) or a chunk per sequence (chunked
 prefill), written into the pool in place; ``pipeline/serving.py`` drives
 it. With ``num_experts`` > 0 the MLP is a top-k routed sparse MoE
 (``LlamaMoeMlp``, Mixtral / Qwen3-MoE class) over stacked int8, packed int4
-or float experts (``ops/moe_matmul.py``). Tensor and expert parallelism
-are not ported yet.
+or float experts (``ops/moe_matmul.py``).
+
+Under a mesh whose model axis has D > 1 shards (``LocalLLM(mesh=...)``),
+``ShardedLlamaModel`` drives D ``LlamaModel``s, one a shard, each built on
+its own device with its local widths (``ModelShard``): Megatron tensor
+parallelism (q/k/v and gate/up column-parallel on replicated input; o_proj
+and down_proj row-parallel, their partial products summed by ``psum``),
+the vocabulary sharded (a masked embedding lookup summed by ``psum``, the
+head's logits gathered), the KV caches and page pools held per shard over
+kv heads, the experts of a sparse MoE sharded over the axis (the
+expert-parallel decode gather, or the all-experts einsum on the local
+experts, combined by ``psum``), and with a corpus axis as well the ring
+prefill over the corpus devices of each model shard. The residual stream
+is replicated: each shard runs the layer on its own copy.
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ from torch import nn
 
 from ragmeup_tpu_torch.devices import resolve_device
 from ragmeup_tpu_torch.models.layers import RMSNorm
-from ragmeup_tpu_torch.ops.attention import flash_attention, flash_attention_gqa
+from ragmeup_tpu_torch.ops.attention import (flash_attention, flash_attention_gqa,
+                                             ring_attention)
 from ragmeup_tpu_torch.ops.moe_matmul import (GATHER_MAX_SLOTS, dequant_int4_stack,
                                               grouped_int4_viable, moe_gather_matmul,
                                               moe_gather_matmul_int4,
@@ -56,15 +69,21 @@ from ragmeup_tpu_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_chunk,
                                                    paged_update_chunk,
                                                    paged_update_token)
-from ragmeup_tpu_torch.ops.quant_matmul import (MAX_ROWS, int4_group_for,
-                                                int4_matmul, int4_tiling,
-                                                int8_matmul,
-                                                quantize_int4_groupwise)
+from ragmeup_tpu_torch.ops.quant_matmul import (INT4_TILE_N, MAX_ROWS,
+                                                int4_group_for, int4_matmul,
+                                                int4_tiling, int8_matmul,
+                                                quantize_int4_groupwise,
+                                                unpack_int4)
 from ragmeup_tpu_torch.ops.topk import divide_exactly, rank_topk
+from ragmeup_tpu_torch.parallel.mesh import (LOGICAL_RULES, all_gather, canonical,
+                                             local_size, psum, replicate,
+                                             vocab_sharded)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANTIZATIONS = ("none", "int8", "int4")
 FLASH_BLOCK = 128  # prefill takes the flash kernel when s and kv_len are multiples
+# the serving LLM's rules: the JAX package's, with the vocabulary over 'model'
+TP_RULES = vocab_sharded(LOGICAL_RULES)
 HEAD_STRIP_BYTES = 1 << 28  # the int8 head's f32 weights dequantized at a time
 
 
@@ -214,6 +233,24 @@ def activation(name: str):
     raise ValueError(f"unsupported act_fn {name!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """One shard of the mesh's model axis: its ``index`` of ``count``, and
+    the devices of the corpus axis that ring its prefill (more than one:
+    the sequence-parallel prefill of ``LlamaAttention``)."""
+    index: int
+    count: int
+    ring_devices: tuple = ()
+
+    def size(self, n: int, name: str) -> int:
+        """A dim of logical ``name`` and global size n on this shard."""
+        return local_size(n, name, self.count, TP_RULES)
+
+
+def _local(shard: Optional[ModelShard], n: int, name: str) -> int:
+    return n if shard is None else shard.size(n, name)
+
+
 def int4_tiles(k: int, group: int = 0) -> Tuple[int, int]:
     """(packing tile, scale group) of an int4 weight with input dim k:
     ``int4_tiling``'s, the group walked down from ``group`` when it is set
@@ -302,33 +339,67 @@ class QuantDense(nn.Module):
     (``use_kernel``), other shapes dequantize and multiply. int4: every
     shape goes through ``int4_matmul``, which routes by shape (W4A8 with
     ``a8``). ``use_bias`` adds an f32 ``bias`` after the product under every
-    quantization, rounded back to the product's dtype."""
+    quantization, rounded back to the product's dtype.
+
+    With ``shard`` (a shard of the model axis) the layer holds its local
+    part by the logical ``names`` of its (in, out) dims: column-parallel
+    (``embed`` → ``qkv``/``kv``/``mlp``) keeps its output columns and takes
+    the whole input; row-parallel (``qkv``/``mlp`` → ``embed``) keeps its
+    input rows, takes its shard of the input features and returns its
+    partial product, which the caller sums over the shards (``psum``; no
+    row-parallel layer of the decoder has a bias). The routes follow the
+    local shapes, with the JAX package's gates: int8 as on one device (the
+    kernel at ≤ 8 rows with 512-multiple local dims); int4 through
+    ``int4_matmul`` only when the global packing tile and scale group
+    divide the local k and 512 divides the local n, else the weights of
+    the shard dequantized in the model dtype and multiplied. A row shard of
+    a packed int4 weight is packed over its own rows (``int4_tiling`` of
+    its k: the byte slice itself when the global tile divides it)."""
 
     def __init__(self, in_features: int, features: int, quantize: bool,
                  dtype: torch.dtype, use_kernel: bool = False, device=None,
                  bits: int = 8, q_group: int = 0, a8: bool = False,
-                 use_bias: bool = False):
+                 use_bias: bool = False, names: Tuple[str, str] = ("embed", "embed"),
+                 shard: Optional[ModelShard] = None):
         super().__init__()
-        self.features = features
+        k_l, n_l = _local(shard, in_features, names[0]), _local(shard, features, names[1])
+        self.shard = shard
+        self.row = k_l != in_features  # a partial product over the shard's rows
+        if use_bias and self.row:
+            raise ValueError("a row-parallel QuantDense takes no bias")
+        self.features = n_l
         self.quantize = quantize
         self.dtype = dtype
         self.use_kernel = use_kernel
         self.bits = bits
         self.a8 = a8
         if quantize and bits == 4:
-            group = int4_tiles(in_features, q_group)[1]
+            self.tile_k, self.group = int4_tiles(in_features, q_group)
             self.register_buffer("kernel_p", torch.zeros(
-                in_features // 2, features, dtype=torch.int8, device=device))
+                _local(shard, in_features // 2, names[0]), n_l, dtype=torch.int8,
+                device=device))
             self.register_buffer("gscale", torch.ones(
-                in_features // group, features, device=device))
+                _local(shard, in_features // self.group, names[0]), n_l, device=device))
         elif quantize:
             self.register_buffer("kernel_q", torch.zeros(
-                in_features, features, dtype=torch.int8, device=device))
-            self.register_buffer("scale", torch.ones(features, device=device))
+                k_l, n_l, dtype=torch.int8, device=device))
+            self.register_buffer("scale", torch.ones(n_l, device=device))
         else:
-            self.kernel = nn.Parameter(torch.zeros(in_features, features,
-                                                   device=device))
-        self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
+            self.kernel = nn.Parameter(torch.zeros(k_l, n_l, device=device))
+        self.bias = nn.Parameter(torch.zeros(n_l, device=device)) if use_bias else None
+
+    def _int4_shard(self, x2: torch.Tensor) -> torch.Tensor:
+        """The int4 product of a shard: the kernel route where the JAX
+        package's local gate passes, else its fallback."""
+        k = x2.shape[1]
+        if k % self.tile_k == 0 and k % self.group == 0 and self.features % INT4_TILE_N == 0:
+            return int4_matmul(x2, self.kernel_p, self.gscale, a8=self.a8)
+        w = unpack_int4(self.kernel_p, int4_tiling(k)[0]).to(self.dtype)
+        s = self.gscale.to(self.dtype).repeat_interleave(self.group, dim=0)
+        if s.shape[0] != k:
+            # a row shard whose scale rows the axis does not divide holds them all
+            s = s[self.shard.index * k:(self.shard.index + 1) * k]
+        return x2 @ (w * s)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -336,6 +407,8 @@ class QuantDense(nn.Module):
         x2 = x.reshape(-1, d_in)
         if not self.quantize:
             out = x2 @ self.kernel.to(self.dtype)
+        elif self.bits == 4 and self.shard is not None:
+            out = self._int4_shard(x2.to(self.dtype))
         elif self.bits == 4:
             out = int4_matmul(x2.to(self.dtype), self.kernel_p, self.gscale,
                               a8=self.a8)
@@ -352,12 +425,15 @@ class QuantDense(nn.Module):
 
 
 def quant_dense(cfg: LlamaConfig, in_features: int, features: int,
-                device=None, use_bias: bool = False) -> QuantDense:
+                device=None, use_bias: bool = False,
+                names: Tuple[str, str] = ("embed", "embed"),
+                shard: Optional[ModelShard] = None) -> QuantDense:
     """A projection of the decoder with the config's quantization."""
     return QuantDense(in_features, features, cfg.quantization != "none",
                       cfg.torch_dtype, cfg.quant_kernel, device,
                       bits=4 if cfg.quantization == "int4" else 8,
-                      q_group=cfg.int4_group, a8=cfg.int4_w4a8, use_bias=use_bias)
+                      q_group=cfg.int4_group, a8=cfg.int4_w4a8, use_bias=use_bias,
+                      names=names, shard=shard)
 
 
 class LlamaAttention(nn.Module):
@@ -367,38 +443,52 @@ class LlamaAttention(nn.Module):
     biases, per-head ``q_norm``/``k_norm`` before rope, ``query_scale`` and
     the logit softcap. Prefill takes the flash kernel only where its plain
     causal softmax is the layer's: no softcap, and a window (if any) that
-    holds every key."""
+    holds every key.
 
-    def __init__(self, cfg: LlamaConfig, device=None, window: int = -1):
+    With ``shard`` the layer holds its shard's heads (nh / D query and
+    nkv / D kv heads, the group size of one device): q/k/v column-parallel,
+    the attention on the local heads, o_proj row-parallel (the output is
+    the shard's partial). The full prefill (``ring``) of a shard whose
+    corpus axis has n > 1 devices takes the ring over them when n divides
+    both lengths and the plain causal softmax is the layer's (the JAX
+    package's conditions), ahead of flash."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, window: int = -1,
+                 shard: Optional[ModelShard] = None):
         super().__init__()
         self.cfg = cfg
         self.window = cfg.sliding_window if window < 0 else window
+        self.ring_devices = shard.ring_devices if shard is not None else ()
         c = cfg
         hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
+        self.nh, self.nkv = _local(shard, nh, "qkv"), _local(shard, nkv, "kv")
 
-        def dense(i, o, bias=False):
-            return quant_dense(c, i, o, device, use_bias=bias)
+        def dense(i, o, names, bias=False):
+            return quant_dense(c, i, o, device, use_bias=bias, names=names, shard=shard)
         if c.fused_projections:
-            self.qkv_proj = dense(c.hidden_size, (nh + 2 * nkv) * hd, c.qkv_bias)
+            self.qkv_proj = dense(c.hidden_size, (nh + 2 * nkv) * hd, ("embed", "qkv"),
+                                  c.qkv_bias)
         else:
-            self.q_proj = dense(c.hidden_size, nh * hd, c.qkv_bias)
-            self.k_proj = dense(c.hidden_size, nkv * hd, c.qkv_bias)
-            self.v_proj = dense(c.hidden_size, nkv * hd, c.qkv_bias)
+            self.q_proj = dense(c.hidden_size, nh * hd, ("embed", "qkv"), c.qkv_bias)
+            self.k_proj = dense(c.hidden_size, nkv * hd, ("embed", "kv"), c.qkv_bias)
+            self.v_proj = dense(c.hidden_size, nkv * hd, ("embed", "kv"), c.qkv_bias)
         if c.qk_norm:
             self.q_norm = RMSNorm(hd, c.rms_eps, c.torch_dtype, device)
             self.k_norm = RMSNorm(hd, c.rms_eps, c.torch_dtype, device)
-        self.o_proj = dense(nh * hd, c.hidden_size)
+        self.o_proj = dense(nh * hd, c.hidden_size, ("qkv", "embed"))
 
     def forward(self, x, cos, sin, attn_bias=None, cache=None, cache_pos=0,
-                paged_state=None, capture=False):
+                paged_state=None, capture=False, ring=False):
         """→ (output, capture): ``capture`` True gives the softmax weights
         (b, nh, s, kv_len) from the einsum path (flash is off for it);
         ``"qk"`` gives the post-RoPE (q, k), k repeated to the query heads,
         with flash allowed; otherwise None. Query row i sits at position
-        ``cache_pos + i`` (the window's lower bound)."""
+        ``cache_pos + i`` (the window's lower bound). ``ring``: this is the
+        full prefill from position 0 (the ring derives positions from the
+        block index)."""
         c = self.cfg
         b, s, _ = x.shape
-        hd, nh, nkv = c.head_dim, c.num_heads, c.num_kv_heads
+        hd, nh, nkv = c.head_dim, self.nh, self.nkv
         dt = c.torch_dtype
         if c.fused_projections:
             qkv = self.qkv_proj(x)
@@ -424,11 +514,26 @@ class LlamaAttention(nn.Module):
         scale = c.query_scale or 1.0 / float(np.sqrt(hd))
         kv_len = k.shape[1]
         win = self.window
+        plain_softmax = (win == 0 or kv_len <= win) and not c.attn_softcap
+        ring_n = len(self.ring_devices)
+        use_ring = (ring and ring_n > 1 and s > 1 and plain_softmax and not capture
+                    and s % ring_n == 0 and kv_len % ring_n == 0)
         use_flash = (c.use_flash and capture is not True and s > 1
                      and s % FLASH_BLOCK == 0 and kv_len % FLASH_BLOCK == 0
-                     and (win == 0 or kv_len <= win) and not c.attn_softcap)
+                     and plain_softmax)
         weights = None
-        if use_flash:
+        if use_ring:
+            # sequence-parallel prefill: heads folded head-major into dim 0,
+            # the sequence split over the corpus devices; padded keys sit
+            # past every real query row, so the causal mask hides them
+            kr = k.repeat_interleave(rep, dim=2)
+            vr = v.repeat_interleave(rep, dim=2)
+            of = ring_attention(q.permute(2, 0, 1, 3).reshape(nh * b, s, hd),
+                                kr.permute(2, 0, 1, 3).reshape(nh * b, kv_len, hd),
+                                vr.permute(2, 0, 1, 3).reshape(nh * b, kv_len, hd),
+                                self.ring_devices, causal=True, sm_scale=scale)
+            out = of.reshape(nh, b, s, hd).permute(1, 2, 0, 3)
+        elif use_flash:
             # prefill: causal flash; padded keys sit past every real query
             # row, so the causal mask subsumes the padding mask (the additive
             # bias is not read, as in the JAX flash path)
@@ -496,17 +601,21 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMlp(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    """The gated MLP; with ``shard``, gate/up column-parallel and down_proj
+    row-parallel (the output is the shard's partial)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, shard: Optional[ModelShard] = None):
         super().__init__()
         h, f = cfg.hidden_size, cfg.intermediate_size
         self.act = activation(cfg.act_fn)
         self.fused = cfg.fused_projections
+        up, down = ("embed", "mlp"), ("mlp", "embed")
         if self.fused:
-            self.gate_up_proj = quant_dense(cfg, h, 2 * f, device)
+            self.gate_up_proj = quant_dense(cfg, h, 2 * f, device, names=up, shard=shard)
         else:
-            self.gate_proj = quant_dense(cfg, h, f, device)
-            self.up_proj = quant_dense(cfg, h, f, device)
-        self.down_proj = quant_dense(cfg, f, h, device)
+            self.gate_proj = quant_dense(cfg, h, f, device, names=up, shard=shard)
+            self.up_proj = quant_dense(cfg, h, f, device, names=up, shard=shard)
+        self.down_proj = quant_dense(cfg, f, h, device, names=down, shard=shard)
 
     def forward(self, x):
         if self.fused:
@@ -547,12 +656,19 @@ class LlamaMoeMlp(nn.Module):
     ``gate_s``/``up_s``/``down_s`` (E, out); int4 ``gate_p``/``up_p``/
     ``down_p`` (E, in/2, out) with ``gate_gs``/``up_gs``/``down_gs``
     (E, in/group, out); float ``gate``/``up``/``down``. Nothing here reads a
-    device value on the host."""
+    device value on the host.
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    With ``shard`` the layer holds E / D experts and E / D router columns;
+    ``shard_partial`` computes its share from the gathered router logits
+    (the JAX package's mesh routes): the expert-parallel decode gather
+    when S ≤ E / D, else the all-experts einsum on the local experts."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, shard: Optional[ModelShard] = None):
         super().__init__()
         self.cfg = cfg
-        e, h = cfg.num_experts, cfg.hidden_size
+        self.shard = shard
+        h = cfg.hidden_size
+        e = _local(shard, cfg.num_experts, "expert")
         f = cfg.moe_intermediate_size or cfg.intermediate_size
         self.router = nn.Parameter(torch.zeros(h, e, device=device))
         self.act = activation(cfg.act_fn)
@@ -579,13 +695,98 @@ class LlamaMoeMlp(nn.Module):
             return getattr(self, f"{name}_q"), getattr(self, f"{name}_s")
         return getattr(self, name), None
 
-    def route(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """xf (t, h) → (top-k weights (t, k) f32, expert ids (t, k))."""
-        probs = torch.softmax(xf.float() @ self.router.float(), dim=-1)
+    def router_logits(self, xf: torch.Tensor) -> torch.Tensor:
+        """xf (t, h) → f32 router logits (t, E) (a shard: its E / D columns)."""
+        return xf.float() @ self.router.float()
+
+    def route(self, xf: torch.Tensor, logits: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xf (t, h), or the router ``logits`` over every expert → (top-k
+        weights (t, k) f32, expert ids (t, k))."""
+        if logits is None:
+            logits = self.router_logits(xf)
+        probs = torch.softmax(logits, dim=-1)
         topw, topi = rank_topk(probs, self.cfg.num_experts_per_tok)
         if self.cfg.norm_topk_prob:
             topw = topw / topw.sum(dim=-1, keepdim=True)
         return topw, topi
+
+    def dequant(self, w: torch.Tensor, s: Optional[torch.Tensor]) -> torch.Tensor:
+        """A stack in the model dtype: int4 unpacked and group-scaled, int8
+        times its per-channel scales, float cast."""
+        c = self.cfg
+        if c.quantization == "int4":
+            return dequant_int4_stack(w, s, *int4_tiles(2 * w.shape[1], c.int4_group),
+                                      c.torch_dtype)
+        w = w.to(c.torch_dtype)
+        return w if s is None else w * s[:, None, :].to(c.torch_dtype)
+
+    def gathered(self, xs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """The slot rows xs (S, h) through the experts ``ids`` (S,) of this
+        layer's stacks, gathered: #13 for int4 experts, #10 otherwise →
+        (S, h) in the model dtype."""
+        c = self.cfg
+        dt, act = c.torch_dtype, self.act
+        (wg, sg), (wu, su), (wn, sn) = (self.experts(p) for p in ("gate", "up", "down"))
+        if c.quantization == "int4":
+            (tk_h, g_h), (tk_f, g_f) = (int4_tiles(c.hidden_size, c.int4_group),
+                                        int4_tiles(wg.shape[2], c.int4_group))
+            a = (act(moe_gather_matmul_int4(xs, wg, sg, ids, tk_h, g_h))
+                 * moe_gather_matmul_int4(xs, wu, su, ids, tk_h, g_h)).to(dt)
+            return moe_gather_matmul_int4(a, wn, sn, ids, tk_f, g_f)
+        a = (act(moe_gather_matmul(xs, wg, ids, sg))
+             * moe_gather_matmul(xs, wu, ids, su)).to(dt)
+        return moe_gather_matmul(a, wn, ids, sn)
+
+    def all_experts(self, xf: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor,
+                    lo: int = 0) -> torch.Tensor:
+        """Every expert of this layer's stacks on every token of xf (t, h)
+        in the model dtype (int4 stacks dequantized first), combined with
+        their f32 one-hot routing weights: the experts are global ids
+        [lo, lo + E here) → (t, h) f32. A plain product outside any kernel,
+        as in the JAX package."""
+        wg, sg = self.experts("gate")
+        xb = xf.to(self.cfg.torch_dtype)
+        cw = torch.zeros(xf.shape[0], self.cfg.num_experts, device=xf.device
+                         ).scatter_add_(1, topi, topw)
+        g = torch.einsum("th,ehf->etf", xb, self.dequant(wg, sg))
+        u = torch.einsum("th,ehf->etf", xb, self.dequant(*self.experts("up")))
+        y = torch.einsum("etf,efh->eth", self.act(g) * u, self.dequant(*self.experts("down")))
+        return torch.einsum("te,eth->th", cw[:, lo:lo + wg.shape[0]], y.float())
+
+    def shard_partial(self, x: torch.Tensor, logits: torch.Tensor):
+        """This shard's share of the layer under the model axis: x (..., h)
+        replicated, ``logits`` the router logits over every expert (the
+        shards' columns gathered). → (f32 partial, finish): the caller sums
+        the shards' partials (``psum``) and applies ``finish``.
+
+        S = t·top_k ≤ E / D: the expert-parallel decode gather. The routed
+        ids are rebased into the shard's range [lo, lo + E / D); the shard
+        runs the gather kernel (#10 for int8 and float experts, #13 for
+        int4) on its own experts, slots routed elsewhere clamp to local
+        expert 0 with a combine weight of 0; the partial is the weighted
+        slot outputs (S, h), summed over top_k after the psum. Otherwise the
+        all-experts einsum on the local experts."""
+        c = self.cfg
+        top_k, h, dt = c.num_experts_per_tok, c.hidden_size, c.torch_dtype
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, h)
+        t = xf.shape[0]
+        s_tot = t * top_k
+        topw, topi = self.route(xf, logits)
+        e_l = self.router.shape[1]
+        lo = self.shard.index * e_l
+        if s_tot <= e_l:
+            ids = topi.reshape(s_tot)
+            mine = (ids >= lo) & (ids < lo + e_l)
+            y = self.gathered(xf.to(dt).repeat_interleave(top_k, dim=0),
+                              torch.where(mine, ids - lo, 0))
+            part = y.float() * torch.where(mine, topw.reshape(s_tot), 0.0)[:, None]
+
+            def finish(y):
+                return y.reshape(t, top_k, h).sum(dim=1).to(dt).reshape(*lead, h)
+            return part, finish
+        return self.all_experts(xf, topw, topi, lo), lambda y: y.to(dt).reshape(*lead, h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -628,17 +829,9 @@ class LlamaMoeMlp(nn.Module):
                 a = (act(moe_grouped_matmul_int4(xs, wg, sg, gsz, tk_h, g_h))
                      * moe_grouped_matmul_int4(xs, wu, su, gsz, tk_h, g_h)).to(dt)
                 return combine(moe_grouped_matmul_int4(a, wn, sn, gsz, tk_f, g_f)[inv])
-            if s_tot <= e or s_tot <= min(GATHER_MAX_SLOTS, 4 * e):
-                # (b) decode: the routed slots' packed bytes only (#13)
-                xs = xf.to(dt).repeat_interleave(top_k, dim=0)
-                a = (act(moe_gather_matmul_int4(xs, wg, sg, ids, tk_h, g_h))
-                     * moe_gather_matmul_int4(xs, wu, su, ids, tk_h, g_h)).to(dt)
-                return combine(moe_gather_matmul_int4(a, wn, sn, ids, tk_f, g_f))
-        elif s_tot <= e:
-            xs = xf.to(dt).repeat_interleave(top_k, dim=0)
-            a = (act(moe_gather_matmul(xs, wg, ids, sg))
-                 * moe_gather_matmul(xs, wu, ids, su)).to(dt)
-            return combine(moe_gather_matmul(a, wn, ids, sn))
+        if s_tot <= e or (quant4 and s_tot <= min(GATHER_MAX_SLOTS, 4 * e)):
+            # decode: the routed slots' weights only ((b) for int4: packed bytes)
+            return combine(self.gathered(xf.to(dt).repeat_interleave(top_k, dim=0), ids))
 
         dedup = c.moe_grouped == "auto" and e < s_tot <= 4 * e
         if not quant4 and (c.moe_grouped == "on" or dedup):
@@ -658,77 +851,80 @@ class LlamaMoeMlp(nn.Module):
             y = moe_grouped_matmul(a, wn, gsz, sn, tm, tk_dn, tn_dn, dedup)
             return combine(y[inv])
 
-        # every expert on every token, then the f32 one-hot combine (a plain
-        # product outside any kernel, as in the JAX package); int4 stacks
-        # dequantize in the model dtype first (prefill)
-        def dequant(w, s):
-            if quant4:
-                return dequant_int4_stack(w, s, *int4_tiles(2 * w.shape[1], c.int4_group), dt)
-            w = w.to(dt)
-            return w if s is None else w * s[:, None, :].to(dt)
-        xb = xf.to(dt)
-        cw = torch.zeros(t, e, device=x.device).scatter_add_(1, topi, topw)
-        g = torch.einsum("th,ehf->etf", xb, dequant(wg, sg))
-        u = torch.einsum("th,ehf->etf", xb, dequant(wu, su))
-        y = torch.einsum("etf,efh->eth", act(g) * u, dequant(wn, sn))
-        out = torch.einsum("te,eth->th", cw, y.float())
-        return out.to(dt).reshape(*lead, h)
+        # (c) for int4: every stack dequantized, as at prefill
+        return self.all_experts(xf, topw, topi).to(dt).reshape(*lead, h)
 
 
 class LlamaBlock(nn.Module):
     """Pre-norm block; with ``post_norms`` (Gemma-2) norms around each
     sublayer: post_attn_norm on the attention output, pre_ffw_norm and
-    post_ffw_norm around the MLP."""
+    post_ffw_norm around the MLP. ``forward`` is the attention on
+    ``input_norm``, ``add_attention``, the MLP on ``mlp_input`` and
+    ``add_mlp``; ``ShardedLlamaModel`` runs the same steps with its sums
+    between them."""
 
     def __init__(self, cfg: LlamaConfig, device=None, moe: bool = False,
-                 window: int = -1):
+                 window: int = -1, shard: Optional[ModelShard] = None):
         super().__init__()
         dt = cfg.torch_dtype
         self.post_norms = cfg.post_norms
+        self.moe = moe
 
         def norm():
             return RMSNorm(cfg.hidden_size, cfg.rms_eps, dt, device, offset=cfg.norm_offset)
         self.input_norm = norm()
-        self.attention = LlamaAttention(cfg, device, window)
+        self.attention = LlamaAttention(cfg, device, window, shard)
         self.post_attn_norm = norm()
         if cfg.post_norms:
             self.pre_ffw_norm = norm()
             self.post_ffw_norm = norm()
-        self.mlp = LlamaMoeMlp(cfg, device) if moe else LlamaMlp(cfg, device)
+        self.mlp = (LlamaMoeMlp(cfg, device, shard) if moe
+                    else LlamaMlp(cfg, device, shard))
+
+    def add_attention(self, x, h):
+        return x + (self.post_attn_norm(h) if self.post_norms else h)
+
+    def mlp_input(self, x):
+        return self.pre_ffw_norm(x) if self.post_norms else self.post_attn_norm(x)
+
+    def add_mlp(self, x, m):
+        return x + (self.post_ffw_norm(m) if self.post_norms else m)
 
     def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None,
-                capture=False):
+                capture=False, ring=False):
         h, aux = self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
-                                cache_pos, paged_state, capture)
-        if self.post_norms:
-            x = x + self.post_attn_norm(h)
-            return x + self.post_ffw_norm(self.mlp(self.pre_ffw_norm(x))), aux
-        x = x + h
-        return x + self.mlp(self.post_attn_norm(x)), aux
+                                cache_pos, paged_state, capture, ring)
+        x = self.add_attention(x, h)
+        return self.add_mlp(x, self.mlp(self.mlp_input(x))), aux
 
 
 class LlamaModel(nn.Module):
     """Causal LM over a dense KV cache (prefill: full prompt from position
-    0; decode: one token at ``cache_pos``)."""
+    0; decode: one token at ``cache_pos``). With ``shard``: one shard's
+    part of the model axis (its local widths; the vocabulary rows of the
+    embedding and the head sharded when the axis divides them), driven by
+    ``ShardedLlamaModel``."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, shard: Optional[ModelShard] = None):
         super().__init__()
         self.cfg = cfg
         c = cfg
+        self.shard = shard
+        vocab = _local(shard, c.vocab_size, "vocab")
         self.token_embedding = nn.Parameter(
-            torch.zeros(c.vocab_size, c.hidden_size, device=device))
+            torch.zeros(vocab, c.hidden_size, device=device))
         self.layers = nn.ModuleList(
-            LlamaBlock(c, device, c.is_moe_layer(i), c.layer_window(i))
+            LlamaBlock(c, device, c.is_moe_layer(i), c.layer_window(i), shard)
             for i in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_eps, c.torch_dtype, device,
                                   offset=c.norm_offset)
         if self.int8_head:
             self.register_buffer("lm_head_q", torch.zeros(
-                c.hidden_size, c.vocab_size, dtype=torch.int8, device=device))
-            self.register_buffer("lm_head_scale", torch.ones(c.vocab_size, device=device))
+                c.hidden_size, vocab, dtype=torch.int8, device=device))
+            self.register_buffer("lm_head_scale", torch.ones(vocab, device=device))
         elif not c.tie_embeddings:
             self.lm_head = nn.Parameter(
-                torch.zeros(c.hidden_size, c.vocab_size, device=device))
+                torch.zeros(c.hidden_size, vocab, device=device))
         self.register_buffer("inv_freq", torch.from_numpy(
             rope_inv_freq(c.head_dim, c.rope_theta, cfg=c)).to(device),
             persistent=False)
@@ -737,6 +933,52 @@ class LlamaModel(nn.Module):
     @property
     def int8_head(self) -> bool:
         return self.cfg.head_quantization == "int8" and not self.cfg.tie_embeddings
+
+    def embed_rows(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``input_ids`` in the embedding's dtype. A
+        shard holding the vocabulary rows [lo, lo + V / D) gives its own
+        rows and zeros elsewhere, so the sum over the shards is the lookup."""
+        emb = self.token_embedding
+        if emb.shape[0] == self.cfg.vocab_size:
+            return emb[input_ids]
+        local = input_ids - self.shard.index * emb.shape[0]
+        mine = (local >= 0) & (local < emb.shape[0])
+        rows = emb[local.clamp(0, emb.shape[0] - 1)]
+        return torch.where(mine[..., None], rows, torch.zeros((), dtype=emb.dtype,
+                                                               device=emb.device))
+
+    def embedded(self, rows: torch.Tensor) -> torch.Tensor:
+        """Embedding rows → the first hidden states (model dtype; Gemma's
+        scale by sqrt(hidden) rounded to the model dtype first, as HF
+        rounds it)."""
+        c = self.cfg
+        x = rows.to(c.torch_dtype)
+        if c.embed_scale:
+            x = x * torch.tensor(float(np.sqrt(c.hidden_size)), dtype=c.torch_dtype,
+                                 device=x.device)
+        return x
+
+    def rope(self, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """cos and sin at ``positions`` ((s,) or (b, s))."""
+        ang = positions.float()[..., None] * self.inv_freq
+        return torch.cos(ang), torch.sin(ang)
+
+    def select_rows(self, x: torch.Tensor, head_at) -> torch.Tensor:
+        """The rows the head reads: all, one offset, or (b,) per-row offsets."""
+        if isinstance(head_at, torch.Tensor):
+            return x[torch.arange(x.shape[0], device=x.device), head_at.long()][:, None]
+        if head_at is not None:
+            return x[:, head_at:head_at + 1]
+        return x
+
+    def empty_caches(self, batch: int, cache_len: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Zeroed dense KV caches, per layer (k, v) of (batch, cache_len, nkv, hd)."""
+        c = self.cfg
+        dev = self.token_embedding.device
+        nkv = self.layers[0].attention.nkv
+        return [tuple(torch.zeros((batch, cache_len, nkv, c.head_dim), dtype=c.torch_dtype,
+                                  device=dev) for _ in range(2))
+                for _ in range(c.num_layers)]
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits of the final hidden states x (..., hidden): f32 sums of
@@ -769,9 +1011,12 @@ class LlamaModel(nn.Module):
                 cache_pos: int = 0, head_at=None,
                 paged_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 paged_meta: Optional[tuple] = None, skip_head: bool = False,
-                capture_weights: bool = False, capture_qk_last: bool = False):
+                capture_weights: bool = False, capture_qk_last: bool = False,
+                ring: bool = False):
         """→ f32 logits (b, s, vocab), or (b, 1, vocab) at ``head_at`` (an
         int, or a (b,) tensor of per-row offsets). positions: (s,) or (b, s).
+        ``ring``: the full prefill from position 0, which may take the ring
+        (a shard with corpus devices; see ``LlamaAttention``).
 
         ``paged_caches`` (per layer (k_pages, v_pages)) with ``paged_meta``
         (page_idx, lengths, pages, slots) attends the paged pool and writes
@@ -783,13 +1028,8 @@ class LlamaModel(nn.Module):
         kv_len), "qk_last": the last layer's post-RoPE (q, k), each
         (b, s, nh, hd)}, as the JAX package's model returns."""
         c = self.cfg
-        x = self.token_embedding[input_ids].to(c.torch_dtype)
-        if c.embed_scale:
-            # sqrt(hidden) rounded to the model dtype first, as HF rounds it
-            x = x * torch.tensor(float(np.sqrt(c.hidden_size)), dtype=c.torch_dtype,
-                                 device=x.device)
-        ang = positions.float()[..., None] * self.inv_freq
-        cos, sin = torch.cos(ang), torch.sin(ang)
+        x = self.embedded(self.embed_rows(input_ids))
+        cos, sin = self.rope(positions)
         all_w, qk_last = [], None
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
@@ -799,19 +1039,181 @@ class LlamaModel(nn.Module):
             cap = capture_weights
             if capture_qk_last and i == c.num_layers - 1:
                 cap = "qk"
-            x, aux = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate, cap)
+            x, aux = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate, cap, ring)
             if cap == "qk":
                 qk_last = aux
             elif capture_weights:
                 all_w.append(aux)
         if skip_head:
             return None
-        x = self.final_norm(x)
-        if isinstance(head_at, torch.Tensor):
-            x = x[torch.arange(x.shape[0], device=x.device), head_at.long()][:, None]
-        elif head_at is not None:
-            x = x[:, head_at:head_at + 1]
-        logits = self.logits(x)
+        logits = self.logits(self.select_rows(self.final_norm(x), head_at))
+        if c.final_softcap:
+            logits = torch.tanh(logits / c.final_softcap) * c.final_softcap
+        if not (capture_weights or capture_qk_last):
+            return logits
+        out = {"logits": logits}
+        if capture_weights:
+            out["attn_weights"] = all_w
+        if capture_qk_last:
+            out["qk_last"] = qk_last
+        return out
+
+
+def sharded_mesh(mesh) -> bool:
+    """Whether ``LocalLLM`` shards over ``mesh``: a model axis of more than
+    one shard, or a corpus axis of more than one device (the ring)."""
+    return mesh is not None and (mesh.shape["model"] > 1 or mesh.shape["corpus"] > 1)
+
+
+class ShardedLlamaModel(nn.Module):
+    """The decoder over the model axis of a mesh: one ``LlamaModel`` a
+    shard, each on its own device (``mesh.axis_devices("model")``; a device
+    may repeat) with its own contiguous weights (``parallel/tp.py``'s
+    ``tp_shard_model``). The same call as ``LlamaModel``'s: inputs and
+    results on the first shard's device.
+
+    Each layer runs once a shard on local widths, the residual stream
+    replicated: the attention (q/k/v column-parallel, the shard's heads,
+    its dense cache or page pool), ``psum`` of the o_proj partials,
+    ``add_attention``; the MLP on ``mlp_input`` (dense: gate/up columns,
+    down_proj rows; MoE: the router's columns gathered, then the shard's
+    experts) and ``psum`` of its partials, ``add_mlp``. The norms and the
+    residual adds run once per distinct device (shards on one device share
+    them). The embedding is a
+    masked lookup per shard summed by ``psum`` (one shard contributes each
+    row, so the sum is exact), the head's logits per shard are gathered
+    along the vocabulary, the captured attention along the heads. With a
+    corpus axis of n > 1 devices the full prefill of each model shard rings
+    over the n devices at corpus index 0..n-1 of its column.
+
+    Caches are per layer a pair of per-shard lists: (k of each shard, v of
+    each shard), dense (``empty_caches``) or paged (``PagedKVCache(mesh=)``).
+    Kernel launches count by shard (``kernels.shard_scope``)."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, shard_states: Sequence[Dict[str, torch.Tensor]]):
+        super().__init__()
+        n = mesh.shape["model"]
+        dense_mlp = not all(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+        bad = [f"{name}={size}" for name, size in (
+            ("num_heads", cfg.num_heads), ("num_kv_heads", cfg.num_kv_heads),
+            ("intermediate_size", cfg.intermediate_size if dense_mlp else 0),
+            ("num_experts", cfg.num_experts)) if size % n]
+        if bad:
+            raise ValueError(f"the model axis ({n}) must divide {', '.join(bad)}")
+        if len(shard_states) != n:
+            raise ValueError(f"{len(shard_states)} shard states for a {n}-way model axis")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.devices = [canonical(d) for d in mesh.axis_devices("model")]
+        ring = mesh.devices[0]  # (corpus, model) at data index 0
+        shards = []
+        for i, state in enumerate(shard_states):
+            spec = ModelShard(i, n, tuple(canonical(d) for d in ring[:, i])
+                              if ring.shape[0] > 1 else ())
+            with torch.device("meta"):
+                model = LlamaModel(cfg, shard=spec)
+            model.load_state_dict(state, strict=True, assign=True)
+            model.inv_freq = torch.from_numpy(
+                rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg=cfg)).to(self.devices[i])
+            shards.append(model.requires_grad_(False).eval())
+        self.shards = nn.ModuleList(shards)
+        self.vocab_sharded = shards[0].token_embedding.shape[0] != cfg.vocab_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def empty_caches(self, batch: int, cache_len: int) -> list:
+        per_shard = [m.empty_caches(batch, cache_len) for m in self.shards]
+        return [tuple([s[i][j] for s in per_shard] for j in range(2))
+                for i in range(self.cfg.num_layers)]
+
+    def _each(self, mods, fn, *per_shard):
+        """[fn(i, mods[i], *(a[i] for a in per_shard))] over the shards, the
+        launches of each counted under its index."""
+        from ragmeup_tpu_torch import kernels
+        out = []
+        for i, mod in enumerate(mods):
+            with kernels.shard_scope(i):
+                out.append(fn(i, mod, *(a[i] for a in per_shard)))
+        return out
+
+    def _replicated(self, mods, fn, *per_shard):
+        """``_each`` for work on the replicated stream (norms, residual
+        adds, rope): its inputs and weights are the same on every shard, so
+        it runs once per distinct device and the shards there share it."""
+        held, out = {}, []
+        for i, dev in enumerate(self.devices):
+            if dev not in held:
+                held[dev] = fn(i, mods[i], *(a[i] for a in per_shard))
+            out.append(held[dev])
+        return out
+
+    def forward(self, input_ids: torch.Tensor, positions: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None, caches: Optional[list] = None,
+                cache_pos: int = 0, head_at=None, paged_caches: Optional[list] = None,
+                paged_meta: Optional[tuple] = None, skip_head: bool = False,
+                capture_weights: bool = False, capture_qk_last: bool = False,
+                ring: bool = False):
+        """``LlamaModel.forward`` over the shards (see the class)."""
+        c = self.cfg
+        devs = self.devices
+        shards = list(self.shards)
+
+        def put(t):
+            return replicate(t, devs) if isinstance(t, torch.Tensor) else [t] * len(devs)
+        ids, pos, bias, at = put(input_ids), put(positions), put(attn_bias), put(head_at)
+        meta = [put(m) for m in paged_meta] if paged_meta is not None else None
+        rows = self._each(shards, lambda i, m, t: m.embed_rows(t), ids)
+        if self.vocab_sharded:
+            rows = psum(rows)
+        x = self._replicated(shards, lambda i, m, r: m.embedded(r), rows)
+        rope = self._replicated(shards, lambda i, m, p: m.rope(p), pos)
+        all_w, qk_last = [], None
+        for li in range(c.num_layers):
+            blocks = [m.layers[li] for m in shards]
+            cap = capture_weights
+            if capture_qk_last and li == c.num_layers - 1:
+                cap = "qk"
+
+            def attend(i, blk, xi, cs, b):
+                cache = (caches[li][0][i], caches[li][1][i]) if caches is not None else None
+                pstate = None
+                if paged_caches is not None:
+                    pstate = (paged_caches[li][0][i], paged_caches[li][1][i]) + tuple(
+                        t[i] for t in meta)
+                return blk.attention(xi, cs[0], cs[1], b, cache, cache_pos, pstate, cap, ring)
+            xn = self._replicated(blocks, lambda i, blk, xi: blk.input_norm(xi), x)
+            hs = self._each(blocks, attend, xn, rope, bias)
+            h = psum([hi for hi, _ in hs])
+            x = self._replicated(blocks, lambda i, blk, xi, hi: blk.add_attention(xi, hi), x, h)
+            xm = self._replicated(blocks, lambda i, blk, xi: blk.mlp_input(xi), x)
+            if blocks[0].moe:
+                # the router's columns gathered, then each shard's experts
+                logits = all_gather(self._each(
+                    blocks, lambda i, blk, xi: blk.mlp.router_logits(xi.reshape(-1, c.hidden_size)),
+                    xm), dim=-1)
+                parts = self._each(blocks, lambda i, blk, xi, lg: blk.mlp.shard_partial(xi, lg),
+                                   xm, logits)
+                finish = parts[0][1]
+                mo = [finish(y) for y in psum([part for part, _ in parts])]
+            else:
+                mo = psum(self._each(blocks, lambda i, blk, xi: blk.mlp(xi), xm))
+            x = self._replicated(blocks, lambda i, blk, xi, mi: blk.add_mlp(xi, mi), x, mo)
+            if cap == "qk":
+                qk_last = tuple(torch.cat([aux[j].to(devs[0]) for _, aux in hs], dim=2)
+                                for j in range(2))
+            elif capture_weights:
+                all_w.append(torch.cat([aux.to(devs[0]) for _, aux in hs], dim=1))
+        if skip_head:
+            return None
+        xf = self._replicated(shards, lambda i, m, xi, a: m.select_rows(m.final_norm(xi), a),
+                              x, at)
+        # a replicated head: shard 0's logits are every shard's
+        head = self._each(shards, lambda i, m, xi: m.logits(xi)
+                          if self.vocab_sharded or i == 0 else None, xf)
+        logits = (all_gather(head, dim=-1, devices=devs[:1])[0] if self.vocab_sharded
+                  else head[0])
         if c.final_softcap:
             logits = torch.tanh(logits / c.final_softcap) * c.final_softcap
         if not (capture_weights or capture_qk_last):
@@ -993,14 +1395,40 @@ class LocalLLM:
 
     def __init__(self, cfg: LlamaConfig, tokenizer,
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 seed: int = 0, eos_ids: Sequence[int] = (), device=None):
+                 seed: int = 0, eos_ids: Sequence[int] = (), device=None,
+                 mesh=None):
         """``params``: a state dict (``init_decoder_params``,
         ``convert.flax_to_state_dict``); its tensors are adopted as they are
         (dtype and device). None draws ``init_decoder_params`` from
-        ``seed`` on ``device``."""
+        ``seed`` on ``device``.
+
+        ``mesh`` (``parallel.mesh.make_mesh``) with a model axis of D > 1,
+        or a corpus axis of more than one device: tensor-parallel inference
+        (``ShardedLlamaModel``) on the mesh's first device (``device`` is
+        not read). num_kv_heads must be a multiple of D. ``params`` is then
+        a state dict that ``parallel.tp.tp_shard_model`` shards (drawn on
+        the first device when None), or its result, a list of the shards'
+        state dicts. Generation is unchanged: the caches are held per
+        shard, and the prefill rings over the corpus axis when it has more
+        than one device."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.eos_ids = set(int(e) for e in eos_ids)
+        self.mesh = None
+        if sharded_mesh(mesh):
+            from ragmeup_tpu_torch.parallel.tp import tp_shard_model
+            assert cfg.num_kv_heads % mesh.shape["model"] == 0, (
+                f"num_kv_heads={cfg.num_kv_heads} not divisible by model "
+                f"axis {mesh.shape['model']}")
+            self.mesh = mesh
+            self.device = canonical(mesh.axis_devices("model")[0])
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                params = init_decoder_params(cfg, gen, self.device)
+            if not isinstance(params, list):
+                params = tp_shard_model(params, cfg, mesh)
+            self.model = ShardedLlamaModel(cfg, mesh, params)
+            return
         self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -1018,18 +1446,14 @@ class LocalLLM:
     def _prefill(self, ids: torch.Tensor, length: int, cache_len: int):
         """ids: (1, L) padded prompt; length: real prompt length. Returns
         (logits of the last real token (vocab,), caches of cache_len)."""
-        c = self.cfg
         L = ids.shape[1]
         dev = self.device
         kmask = torch.where(torch.arange(cache_len, device=dev) < length,
                             0.0, -1e30)[None, None, None, :]
         bias = causal_bias(L, cache_len, device=dev) + kmask
-        caches = [tuple(torch.zeros((1, cache_len, c.num_kv_heads, c.head_dim),
-                                    dtype=c.torch_dtype, device=dev)
-                        for _ in range(2))
-                  for _ in range(c.num_layers)]
+        caches = self.model.empty_caches(1, cache_len)
         logits = self.model(ids, torch.arange(L, device=dev), attn_bias=bias,
-                            caches=caches, cache_pos=0, head_at=length - 1)
+                            caches=caches, cache_pos=0, head_at=length - 1, ring=True)
         return logits[0, 0], caches
 
     def _decode(self, token, pos: int, caches):
@@ -1047,7 +1471,8 @@ class LocalLLM:
         dev = self.device
         ids = (chunk if isinstance(chunk, torch.Tensor)
                else torch.tensor(list(chunk), device=dev))[None]
-        kv_len = caches[0][0].shape[1]
+        k0 = caches[0][0]
+        kv_len = (k0[0] if isinstance(k0, list) else k0).shape[1]  # per-shard lists under a mesh
         positions = torch.arange(p0, p0 + ids.shape[1], device=dev)
         bias = torch.where(torch.arange(kv_len, device=dev)[None, :]
                            <= positions[:, None], 0.0, -1e30)[None, None]

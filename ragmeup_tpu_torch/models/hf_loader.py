@@ -40,11 +40,12 @@ from ragmeup_tpu_torch.models.cross_encoder import CrossEncoder, CrossEncoderMod
 from ragmeup_tpu_torch.models.decoder import (LlamaConfig, LocalLLM, int4_tiles,
                                               quantize_experts_int4,
                                               quantize_experts_int8,
-                                              quantize_kernel_int8)
+                                              quantize_kernel_int8, sharded_mesh)
 from ragmeup_tpu_torch.models.encoder import BertConfig, BertEncoder, SentenceEncoder
 from ragmeup_tpu_torch.models.safetensors import load_safetensors
 from ragmeup_tpu_torch.models.tokenizer import load_tokenizer
 from ragmeup_tpu_torch.ops.quant_matmul import quantize_int4_groupwise
+from ragmeup_tpu_torch.parallel.mesh import canonical
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -579,7 +580,7 @@ def _eos_ids(checkpoint_dir: str) -> list:
 def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None,
                    quantization: str = "none", int4_w4a8: bool = False,
                    int4_group: int = 0, max_seq_len: int = 0,
-                   head_quantization: str = "none"):
+                   head_quantization: str = "none", mesh=None):
     """The local chat LLM. A checkpoint directory (any of ``FAMILIES``;
     Phi-3's packed tensors split first) loads with the JAX loader's
     settings, in its order: the flash
@@ -589,12 +590,20 @@ def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None,
     int4 weights through the streaming loaders on ``device``, unquantized
     ones through the generic path. The tokenizer and EOS ids come from the
     checkpoint. Without a checkpoint: the tiny deterministic random-init
-    model of the JAX package, which ignores the checkpoint settings."""
+    model of the JAX package, which ignores the checkpoint settings.
+
+    ``mesh`` (a model axis > 1): the weights load onto the mesh's first
+    device as above and are cut into the shards' state dicts one weight at
+    a time (``tp_shard_model(consume=True)``), so the whole model and its
+    shards are never both resident; the LLM is ``LocalLLM(mesh=mesh)``."""
     if not _is_checkpoint(checkpoint_dir):
         cfg = LlamaConfig.tiny()
         tok = load_tokenizer(None, cfg.vocab_size)
-        return LocalLLM(cfg, tok, seed=seed, device=device)
-    dev = resolve_device(device)
+        return LocalLLM(cfg, tok, seed=seed, device=device, mesh=mesh)
+    if not sharded_mesh(mesh):
+        mesh = None
+    dev = (resolve_device(device) if mesh is None
+           else canonical(mesh.axis_devices("model")[0]))
     cfg = llama_config_from_hf(checkpoint_dir, quantization, max_seq_len=max_seq_len)
     if cfg.head_dim % 128 == 0:
         cfg = dataclasses.replace(cfg, use_flash=True)
@@ -631,5 +640,8 @@ def load_local_llm(checkpoint_dir: Optional[str], seed: int = 0, device=None,
                 int4_group=cfg.int4_group, head_bits=head_bits)
     del tensors
     tok = load_tokenizer(checkpoint_dir, cfg.vocab_size)
+    if mesh is not None:
+        from ragmeup_tpu_torch.parallel.tp import tp_shard_model
+        params = tp_shard_model(params, cfg, mesh, consume=True)
     return LocalLLM(cfg, tok, params=params, eos_ids=_eos_ids(checkpoint_dir),
-                    device=dev)
+                    device=dev, mesh=mesh)

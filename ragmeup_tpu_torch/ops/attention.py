@@ -7,19 +7,22 @@ against k/v ``(b·nkv, kv_len, hd)`` at the native kv-head count;
 causal over absolute positions 0..s-1, so keys past s (the unused tail of a
 KV cache, kv_len ≥ s) are hidden from every row. csrc/flash_attention.cu
 keeps the score tile on chip; see its header. ``span_attention_mass`` is
-the blockwise span mass of attention provenance.
+the blockwise span mass of attention provenance. ``ring_attention`` is the
+sequence-parallel prefill over a list of devices (plain PyTorch, as the JAX
+package computes it in XLA).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ragmeup_tpu_torch import kernels
 
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the ring's causal mask
 KERNEL_HEAD_DIMS = (128, 256)  # the head dims csrc/flash_attention.cu is built for
 MAX_GROUP = 64                 # query heads per kv head: one block's 64 rows
 
@@ -156,3 +159,70 @@ def span_attention_mass(q_span: torch.Tensor, k_full: torch.Tensor,
         acc = acc + torch.einsum("ak,sk->s", w, member.float())
     span_len = (hi - lo).float().clamp_min(1.0)
     return (acc / (a * span_len)).cpu().numpy()
+
+
+# -- ring attention (context parallelism over a list of devices) -------------------
+
+def ring_attention_local(q_blocks: Sequence[torch.Tensor], k_blocks: Sequence[torch.Tensor],
+                         v_blocks: Sequence[torch.Tensor], causal: bool = True,
+                         sm_scale: Optional[float] = None) -> List[torch.Tensor]:
+    """The ring's per-shard bodies, run in turn by one process. Shard i
+    holds the query block q_blocks[i] (bh, sq, d) and starts with the K/V
+    block i (bh, skv, d), all on its device. At step t it attends the block
+    that came from shard (i - t) mod n with online-softmax statistics in
+    f32 (masked scores at MASK_VALUE, the row max m, the sum l, the output
+    o), then hands the block on to shard i + 1. After n steps every shard
+    has attended its queries over the whole sequence; a row with no key
+    (l == 0) gives zeros. → each shard's (bh, sq, d) output in q's dtype."""
+    n = len(q_blocks)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q_blocks[0].shape[-1])
+    state = []
+    for i, q in enumerate(q_blocks):
+        bh, sq, d = q.shape
+        state.append([torch.full((bh, sq, 1), -torch.inf, device=q.device),
+                      torch.zeros((bh, sq, 1), device=q.device),
+                      torch.zeros((bh, sq, d), device=q.device)])
+    kb, vb = list(k_blocks), list(v_blocks)
+    for step in range(n):
+        for i, q in enumerate(q_blocks):
+            m, l, o = state[i]
+            src = (i - step) % n
+            sq, skv = q.shape[1], kb[i].shape[1]
+            s = torch.einsum("bqd,bkd->bqk", q.float(), kb[i].float()) * sm_scale
+            if causal:
+                q_pos = i * sq + torch.arange(sq, device=q.device)
+                kv_pos = src * skv + torch.arange(skv, device=q.device)
+                s = torch.where(kv_pos[None, None, :] <= q_pos[None, :, None], s, MASK_VALUE)
+            m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_next)
+            p = torch.exp(s - m_next)
+            state[i] = [m_next, alpha * l + p.sum(dim=-1, keepdim=True),
+                        alpha * o + torch.einsum("bqk,bkd->bqd", p, vb[i].float())]
+        # shard i + 1 receives shard i's block
+        kb = [kb[(i - 1) % n].to(q_blocks[i].device) for i in range(n)]
+        vb = [vb[(i - 1) % n].to(q_blocks[i].device) for i in range(n)]
+    out = []
+    for q, (_, l, o) in zip(q_blocks, state):
+        linv = torch.where(l == 0.0, 1.0, 1.0 / l)
+        out.append((o * linv).to(q.dtype))
+    return out
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   devices: Sequence, causal: bool = True,
+                   sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of (bh, s, d) q over (bh, kv_len, d) k/v with the sequence
+    split over ``devices`` (n blocks, s and kv_len multiples of n; a device
+    may repeat): each block goes to its device, the K/V blocks rotate
+    through the ring (``ring_attention_local``), and the outputs are
+    concatenated on q's device. Equal to single-device attention."""
+    n = len(devices)
+    if q.shape[1] % n or k.shape[1] % n:
+        raise ValueError(f"ring over {n} devices needs seq lengths ({q.shape[1]}, "
+                         f"{k.shape[1]}) divisible by {n}")
+
+    def split(t):
+        return [blk.to(dev) for blk, dev in zip(t.chunk(n, dim=1), devices)]
+    outs = ring_attention_local(split(q), split(k), split(v), causal, sm_scale)
+    return torch.cat([o.to(q.device) for o in outs], dim=1)

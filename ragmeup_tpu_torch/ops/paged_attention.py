@@ -60,22 +60,41 @@ _CHUNK_BLOCKS_PER_SM = 1
 
 class PagedKVCache:
     """Host-managed page pool. Device tensors ``k_pages[layer]`` /
-    ``v_pages[layer]`` of shape (nkv, num_pages, page_size, hd)."""
+    ``v_pages[layer]`` of shape (nkv, num_pages, page_size, hd).
+
+    With ``mesh`` (a model axis of D shards): the pools are held per shard
+    over kv heads, ``k_pages[layer]`` a list of D tensors (nkv / D,
+    num_pages, page_size, hd), each on its shard's device. The host
+    bookkeeping is unchanged: page ids are global, and every shard keeps
+    the same page layout for its own heads."""
 
     def __init__(self, num_pages: int, page_size: int, num_kv_heads: int,
                  head_dim: int, num_layers: int, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None):
         self.num_pages = num_pages
         self.page_size = page_size
         self.nkv = num_kv_heads
         self.hd = head_dim
         self.num_layers = num_layers
-        dev = resolve_device(device)
-        shape = (num_kv_heads, num_pages, page_size, head_dim)
-        self.k_pages = [torch.zeros(shape, dtype=dtype, device=dev)
-                        for _ in range(num_layers)]
-        self.v_pages = [torch.zeros(shape, dtype=dtype, device=dev)
-                        for _ in range(num_layers)]
+        self.mesh = mesh
+        if mesh is not None:
+            n = mesh.shape["model"]
+            if num_kv_heads % n:
+                raise ValueError(f"num_kv_heads={num_kv_heads} not divisible by "
+                                 f"model axis {n}")
+            shape = (num_kv_heads // n, num_pages, page_size, head_dim)
+
+            def pools():
+                return [[torch.zeros(shape, dtype=dtype, device=d)
+                         for d in mesh.axis_devices("model")] for _ in range(num_layers)]
+            self.k_pages, self.v_pages = pools(), pools()
+        else:
+            dev = resolve_device(device)
+            shape = (num_kv_heads, num_pages, page_size, head_dim)
+            self.k_pages = [torch.zeros(shape, dtype=dtype, device=dev)
+                            for _ in range(num_layers)]
+            self.v_pages = [torch.zeros(shape, dtype=dtype, device=dev)
+                            for _ in range(num_layers)]
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
         self.seq_pages: dict = {}   # seq_id → [page ids]
         self.seq_len: dict = {}     # seq_id → tokens used

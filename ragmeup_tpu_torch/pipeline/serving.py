@@ -22,6 +22,9 @@ Counterpart of ``ragmeup_tpu/pipeline/serving.py``:
   ``spec_accept_floor`` and re-probes every ``spec_reprobe_every``
   decisions.
 
+Under a mesh (``LocalLLM(mesh=...)``) the pools are held per shard of the
+model axis over kv heads, and each shard writes and attends its own heads.
+
 ``BatchedChatBackend`` puts the engine behind the ChatBackend interface: a
 worker thread owns the engine (and with it all of its CUDA work, on one
 stream); /chat threads only enqueue and wait.
@@ -99,9 +102,13 @@ class ServingEngine:
         self.max_pages_per_seq = max_pages_per_seq
         self.max_batch = max_batch
         self.device = llm.device
+        # a model-sharded LLM (parallel.model_axis > 1) serves from pools held
+        # per shard over kv heads; tables, admission and sampling are the same
+        self.mesh = getattr(llm, "mesh", None)
         self.cache = PagedKVCache(num_pages, page_size, cfg.num_kv_heads,
                                   cfg.head_dim, cfg.num_layers,
-                                  dtype=cfg.torch_dtype, device=self.device)
+                                  dtype=cfg.torch_dtype, device=self.device,
+                                  mesh=self.mesh)
         # reserved trash page: batch-padding rows write here harmlessly
         self.cache.allocate("__pad__", 1)
         self._trash = self.cache.seq_pages["__pad__"][0]

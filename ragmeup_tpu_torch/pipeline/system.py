@@ -18,10 +18,13 @@ over the native ``PropertyGraph`` or a remote sidecar
 the 'corpus' axis of a mesh of ``devices`` (default: every visible card; a
 device may repeat) and serves retrieval through the sharded program
 (parallel/sharded_index.py), with ids equal to the single-device system's.
-``retrieval.ann="ivf"`` serves dense search through the IVF view. With
+``retrieval.ann="ivf"`` serves dense search through the IVF view.
+``parallel.model_axis > 1`` loads the local LLM tensor-parallel over the
+'model' axis of the same mesh (``LocalLLM(mesh=...)``: sharded weights, KV
+caches and page pools, the ring prefill when the corpus axis is > 1 too);
+with ``corpus_axis == 1`` the indexes stay on one device. With
 ``parallel.data_axis > 1`` alone the system serves on one device with no
-mesh, as the JAX package does. Not ported yet, and refused with
-NotImplementedError: the model axis (``parallel.model_axis > 1``).
+mesh, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -70,20 +73,18 @@ class RagSystem:
         """``device``: where the indexes and any model this constructor
         builds live: CUDA unless given another (``"cpu"``); raises without
         a card. Injected models keep their own device. ``devices``: the
-        mesh's devices when ``parallel.corpus_axis > 1`` (default: every
-        visible card; ``["cpu"] * n`` on the CPU); the sharded indexes merge
-        on the first."""
+        mesh's devices when ``parallel.corpus_axis > 1`` or
+        ``parallel.model_axis > 1`` (default: every visible card; a device
+        may repeat; ``["cpu"] * n`` on the CPU); the sharded indexes merge
+        on the first, and the model-sharded LLM serves from it."""
         self.cfg = cfg
         p = cfg.parallel
-        if p.model_axis > 1:
-            raise NotImplementedError(
-                "parallel.model_axis > 1 is not ported yet (ROADMAP queue 1: "
-                "the model axis)")
         self.device = resolve_device(device)
         # the corpus axis: indexes shard over 'corpus', retrieval ids equal
-        # the single-device system's
+        # the single-device system's; the model axis: the LLM shards over
+        # 'model'
         self.mesh = None
-        if p.corpus_axis > 1:
+        if p.corpus_axis > 1 or p.model_axis > 1:
             if p.corpus_axis & (p.corpus_axis - 1):
                 # BM25 head capacities are tile_n * 2^j; the sharded program
                 # splits them evenly over 'corpus'
@@ -118,7 +119,8 @@ class RagSystem:
                         m.llm_checkpoint, device=self.device,
                         quantization=m.quantization,
                         head_quantization=m.head_quantization, int4_w4a8=m.int4_w4a8,
-                        int4_group=m.int4_group, max_seq_len=m.llm_max_seq_len)
+                        int4_group=m.int4_group, max_seq_len=m.llm_max_seq_len,
+                        mesh=self.mesh if p.model_axis > 1 else None)
                 template = resolve_chat_template(cfg.model.llm_checkpoint)
                 s = cfg.server
                 if s.batched_llm:

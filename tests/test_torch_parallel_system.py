@@ -5,10 +5,12 @@ the virtual CPU devices of tests/conftest.py): retrieval equal to JAX's
 mesh-backed system and to the port's single-device one through add,
 delete, compact and an artifact reload (bf16 and int8 indexes, hash
 embeddings); a tiny real decoder's two /chat turns equal JAX's (replies,
-documents, provenance, history); and with parallel.data_axis = 2 alone
-both serve on one device with no mesh. corpus_axis 3, a device list too
-short and the model axis raise as in JAX. A file of its own beside
-test_torch_parallel.py, so that neither is a parallel run's long pole.
+documents, provenance, history), also with parallel.model_axis = 2 beside
+the corpus axis (each decoder over its package's mesh); and with
+parallel.data_axis = 2 alone both serve on one device with no mesh.
+corpus_axis 3 and a device list too short raise as in JAX; the model
+axis builds JAX's mesh. A file of its own beside test_torch_parallel.py,
+so that neither is a parallel run's long pole.
 """
 
 import os
@@ -116,7 +118,7 @@ def test_corpus_sharded_system_crud_and_reload_match_jax(tmp_path, dense_dtype):
 
 def test_corpus_axis_rules_match_jax(tmp_path):
     """corpus_axis 3 and a device list too short raise JAX's ValueErrors;
-    the model axis stays refused."""
+    the model axis builds JAX's mesh (its LLM: test_torch_tp*.py)."""
     from ragmeup_tpu_torch import RagConfig, RagSystem
     from ragmeup_tpu_torch.pipeline.llm_backends import StaticChatBackend
     from ragmeup_tpu.config import RagConfig as JaxRagConfig
@@ -139,22 +141,29 @@ def test_corpus_axis_rules_match_jax(tmp_path):
         build("torch", ["cpu"] * 2, corpus_axis=4)
     with pytest.raises(ValueError, match=r"needs 16 devices .*have 8"):
         build("jax", corpus_axis=16)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        build("torch", ["cpu"] * 2, model_axis=2)
+    assert (build("torch", ["cpu"] * 2, model_axis=2).mesh.shape
+            == build("jax", model_axis=2).mesh.shape == {"data": 1, "corpus": 1, "model": 2})
     s = build("torch", ["cpu"] * 8, corpus_axis=4, data_axis=2)
     assert s.mesh.shape == {"data": 2, "corpus": 4, "model": 1}
 
 
-@pytest.mark.parametrize("axes", [dict(corpus_axis=4), dict(data_axis=2)],
-                         ids=["corpus_axis=4", "data_axis=2"])
+@pytest.mark.parametrize("axes", [dict(corpus_axis=4), dict(data_axis=2),
+                                  dict(corpus_axis=4, model_axis=2)],
+                         ids=["corpus_axis=4", "data_axis=2", "corpus_axis=4,model_axis=2"])
 def test_chat_matches_jax_over_two_turns(tmp_path, axes):
     """A tiny real decoder behind both systems: with the corpus axis at 4
-    (JAX's mesh-backed system against the port's sharded one) and with
-    the data axis alone at 2 (both serve on one device, no mesh), two
+    (JAX's mesh-backed system against the port's sharded one), with the
+    data axis alone at 2 (both serve on one device, no mesh), and with
+    the model axis at 2 beside the corpus axis (each decoder over its
+    package's (1, 4, 2) mesh: tensor-parallel, the ring prefill), two
     /chat turns agree: replies, documents, provenance and history."""
     j_sys, t_sys = _build_systems(tmp_path, LLM_CFG, "float32", **axes)
     if "corpus_axis" in axes:
         assert isinstance(t_sys.dense, tsi.ShardedDenseIndex) and j_sys.mesh is not None
     else:
         assert t_sys.mesh is None and j_sys.mesh is None
+    if "model_axis" in axes:
+        assert t_sys.mesh.shape == dict(j_sys.mesh.shape) == {"data": 1, "corpus": 4,
+                                                              "model": 2}
+        assert len(t_sys.llm.model.shards) == 2 and j_sys.llm.mesh is not None
     _two_turns_match(j_sys, t_sys)

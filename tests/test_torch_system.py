@@ -85,12 +85,14 @@ LLM_CFG_INT4 = dict(LLM_CFG, hidden_size=512, intermediate_size=1024,
 
 
 def _build_systems(root, llm_cfg, dense_dtype, batched=False, corpus_axis=1,
-                   data_axis=1):
+                   data_axis=1, model_axis=1):
     """(JAX RagSystem, port RagSystem) over one data directory with the same
     weights; ``llm_cfg`` with quantization="int4" quantizes the JAX
-    decoder's weights and hands the same int4 tree to both. ``corpus_axis``
-    and ``data_axis`` set cfg.parallel in both (the port's mesh over "cpu"
-    repeated, JAX's over its virtual CPU devices)."""
+    decoder's weights and hands the same int4 tree to both. ``corpus_axis``,
+    ``data_axis`` and ``model_axis`` set cfg.parallel in both (the port's
+    mesh over "cpu" repeated, JAX's over its virtual CPU devices); with
+    ``model_axis`` > 1 each decoder is built over its package's mesh of
+    those axes."""
     data = root / "data"
     data.mkdir()
     for name, text in TOPICS.items():
@@ -111,9 +113,18 @@ def _build_systems(root, llm_cfg, dense_dtype, batched=False, corpus_axis=1,
                               jtok.SimpleTokenizer(llm_cfg["vocab_size"]),
                               params=params)
         t_cfg = hf_loader.select_kernels(t_cfg)
+    axes = (data_axis, corpus_axis, model_axis)
+    t_kw = dict(device="cpu")
+    if model_axis > 1:
+        from ragmeup_tpu.parallel.mesh import make_mesh as jmake_mesh
+        from ragmeup_tpu_torch.parallel.mesh import make_mesh
+        j_llm = jdec.LocalLLM(j_llm.cfg, j_llm.tokenizer, params=params,
+                              mesh=jmake_mesh(axes))
+        t_kw = dict(mesh=make_mesh(axes, devices=["cpu"] * int(np.prod(axes))))
     j_cfg = _config(str(data), str(root / "index_jax"), JaxRagConfig, batched)
     j_cfg.retrieval.dense_dtype = dense_dtype
     j_cfg.parallel.corpus_axis, j_cfg.parallel.data_axis = corpus_axis, data_axis
+    j_cfg.parallel.model_axis = model_axis
     j_sys = JaxRagSystem(j_cfg, encoder=j_enc, cross_encoder=j_ce, llm=j_llm)
 
     tb = encoder.BertConfig(**bcfg)
@@ -124,12 +135,13 @@ def _build_systems(root, llm_cfg, dense_dtype, batched=False, corpus_axis=1,
         tb, tokenizer.SimpleTokenizer(tb.vocab_size),
         model=convert.cross_encoder_from_flax(tb, _numpy_tree(j_ce.params)))
     t_llm = decoder.LocalLLM(t_cfg, tokenizer.SimpleTokenizer(llm_cfg["vocab_size"]),
-                             params=convert.flax_to_state_dict(params), device="cpu")
+                             params=convert.flax_to_state_dict(params), **t_kw)
     t_cfg = _config(str(data), str(root / "index_torch"), batched=batched)
     t_cfg.retrieval.dense_dtype = dense_dtype
     t_cfg.parallel.corpus_axis, t_cfg.parallel.data_axis = corpus_axis, data_axis
+    t_cfg.parallel.model_axis = model_axis
     t_sys = RagSystem(t_cfg, encoder=t_enc, cross_encoder=t_ce, llm=t_llm,
-                      device="cpu", devices=["cpu"] * corpus_axis * data_axis)
+                      device="cpu", devices=["cpu"] * int(np.prod(axes)))
     return j_sys, t_sys
 
 
@@ -225,16 +237,30 @@ def test_index_artifact_reloads_and_crud(systems, tmp_path):
 
 
 def test_refuses_unported_deployments(systems):
-    """The model axis is refused (the corpus axis is wired:
-    test_torch_parallel.py; GraphRAG: test_torch_graph.py)."""
+    """The model axis is served (``parallel.model_axis = 2`` loads the LLM
+    over the mesh; test_torch_tp*.py hold it to JAX); what it cannot serve
+    is refused: a model axis that does not divide the kv heads (as the JAX
+    package asserts), fewer devices than the axes need, and a corpus axis
+    that is not a power of two (the corpus axis: test_torch_parallel.py;
+    GraphRAG: test_torch_graph.py)."""
     _, t_sys, _ = systems
     cfg = t_sys.cfg
-    for section, field, value in (("parallel", "model_axis", 2),):
-        bad = _config(cfg.data.data_directory, cfg.data.index_directory)
-        setattr(getattr(bad, section), field, value)
-        with pytest.raises(NotImplementedError):
-            RagSystem(bad, encoder=t_sys.encoder, cross_encoder=t_sys.cross_encoder,
-                      device="cpu", eager_load=False)
+
+    def system(devices, **parallel):
+        c = _config(cfg.data.data_directory, cfg.data.index_directory)
+        for field, value in parallel.items():
+            setattr(c.parallel, field, value)
+        return RagSystem(c, encoder=t_sys.encoder, cross_encoder=t_sys.cross_encoder,
+                         device="cpu", devices=devices, eager_load=False)
+    served = system(["cpu"] * 2, model_axis=2)
+    assert served.mesh.shape == {"data": 1, "corpus": 1, "model": 2}
+    assert served.llm.mesh is served.mesh and len(served.llm.model.shards) == 2
+    with pytest.raises(AssertionError, match="not divisible by model axis 4"):
+        system(["cpu"] * 4, model_axis=4)  # the tiny LLM's 2 kv heads
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        system(["cpu"] * 2, model_axis=2, corpus_axis=2)
+    with pytest.raises(ValueError, match="power of two"):
+        system(["cpu"] * 6, model_axis=2, corpus_axis=3)
 
 
 def test_http_chat_matches_jax_over_two_turns(systems):
