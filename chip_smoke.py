@@ -1394,27 +1394,49 @@ def moe_compare(name: str, got, ref) -> float:
 
 def check_moe_gather(gen) -> dict:
     """#10 at Mixtral's int8 expert shapes (E 8; gate/up 4096 x 14336, down
-    14336 x 4096), S in {2, 16} slots, bf16; float experts at a smaller
-    shape (bf16 experts with bf16 x, f32 experts with f32 x); Qwen3-30B-A3B's
-    int8 experts (E 128; gate/up 2048 x 768, down 768 x 2048: multiples of
-    128, not of 512) at its 8 decode slots. Tolerance: moe_compare. Times:
+    14336 x 4096), S in {2, 16} slots, bf16, and at S = 2 with both slots
+    on one expert (a slot's block offsets the weights by its own id: shared
+    experts hide a wrong base); float experts at a smaller shape (bf16
+    experts with bf16 x, f32 experts with f32 x); Qwen3-30B-A3B's int8
+    experts (E 128; gate/up 2048 x 768, down 768 x 2048: multiples of 128,
+    not of 512) at its 8 decode slots. Tolerance: moe_compare. One launch a
+    call (the launch counter), and a CUDA graph of the split-K call (its
+    strips' last blocks elected by ticket words the call leaves zeroed)
+    replayed twice: both replays equal the eager output bit for bit. Times:
     one decode layer's three projections at S = 2 (two routed experts, 352
     MB of int8: beyond the 50 MB L2), and Qwen3-30B-A3B's at S = 8
     ("qwen3_30b_a3b": 38 MB)."""
     import torch
+    from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
     weights = {name: moe_experts(gen, MOE_E, k, n, "int8")
                for name, (k, n) in MOE_SHAPES.items()}
     err = 0.0
-    for slots in (2, 16):
+    for slots, shared in ((2, False), (16, False), (2, True)):
         ids = torch.randint(0, MOE_E, (slots,), generator=gen, device="cuda")
-        ids[:2] = torch.tensor([5, 2])
+        ids[:2] = torch.tensor([5, 5] if shared else [5, 2])
         for name in ("gate", "down"):
             w, s = weights[name]
             x = torch.randn(slots, w.shape[1], generator=gen, device="cuda").to(torch.bfloat16)
-            err = max(err, moe_compare(f"moe_gather {name} S={slots}",
-                                       mm.moe_gather_matmul(x, w, ids, s),
+            before = kernels.launch_counts()["moe_gather"]
+            got = mm.moe_gather_matmul(x, w, ids, s)
+            if kernels.launch_counts()["moe_gather"] != before + 1:
+                raise AssertionError(f"moe_gather {name} S={slots}: not one launch a call")
+            err = max(err, moe_compare(f"moe_gather {name} S={slots} ids {ids.tolist()}", got,
                                        mm.moe_gather_matmul_plain(x, w, ids, s)))
+            if name == "down" and shared:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    replayed = mm.moe_gather_matmul(x, w, ids, s)
+                outs = []
+                for _ in range(2):
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    outs.append(replayed.clone())
+                if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], got)):
+                    raise AssertionError("moe_gather: CUDA-graph replays differ from each "
+                                         "other or from the eager call")
+                del graph
     for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         w, _ = moe_experts(gen, MOE_E, 1024, 2048, kind)
         x = torch.randn(16, 1024, generator=gen, device="cuda").to(dtype)
@@ -1479,7 +1501,7 @@ def grouped_mm_ms(xs, weights, gsz):
 
 
 # the kernel each grouped route launches (torch.profiler names)
-GROUPED_KERNELS = {("moe_grouped", "bf16"): "rk_moe_grouped_wmma_kernel",
+GROUPED_KERNELS = {("moe_grouped", "bf16"): "rk_moe_grouped_mma_kernel",
                    ("moe_grouped_stack", "bf16"): "rk_moe_stack_wgmma_kernel",
                    ("moe_grouped", "f32"): "rk_moe_grouped_f32_kernel",
                    ("moe_grouped_stack", "f32"): "rk_moe_grouped_f32_kernel"}
@@ -1487,21 +1509,26 @@ GROUPED_KERNELS = {("moe_grouped", "bf16"): "rk_moe_grouped_wmma_kernel",
 
 def check_moe_grouped(gen) -> dict:
     """#11 on the dedup route (16 slots sorted by expert, expert 2 with no
-    rows, 16-row tiles, no_stack) and #12 on the full-stack route (a
-    prefill chunk of 1032 rows over all 8 experts, 128-row tiles; and a
-    second set of 1032 rows with an empty group, a one-row group and exact
-    multiples of 128), at Mixtral's int8 expert shapes, bf16; both routes
-    also with bf16 experts and with f32 experts and activations at a
-    smaller shape, and #12 at k = 1152 (18 k-steps, not a whole number of
-    rings). Held to the plain version of the whole grouped product (no
-    padded layout) with moe_compare; each call must launch its route's
-    kernel (GROUPED_KERNELS, from the profiler). Times: one layer's three
-    projections on each route (the whole function, host scatter included),
-    and each route's kernel alone on the padded layout scatter_layout gives
-    (kernel_ms, and kernel_graph_ms from a CUDA graph); for #12 also
-    csrc/moe_matmul.cu's WMMA kernel on the same layout, the design it
-    replaced (wmma_kernel_graph_ms). Bounds count the experts this data
-    routes to and its real rows."""
+    rows, no_stack; and 32 rows with a group of 17, three 8-row tiles of
+    one expert over two passes) and #12 on the full-stack route (a prefill
+    chunk of 1032 rows over all 8 experts, 128-row tiles; and a second set
+    of 1032 rows with an empty group, a one-row group and exact multiples
+    of 128), at Mixtral's int8 expert shapes, bf16; both routes also with
+    bf16 experts and with f32 experts and activations at a smaller shape,
+    and #12 at k = 1152 (18 k-steps, not a whole number of rings); #11's
+    kernel split over k (down at 512 columns: 5 slices, the strips' last
+    blocks adding them) and a CUDA graph of that call replayed twice, both
+    replays equal to the eager call bit for bit. Held to the plain version
+    of the whole grouped product (no padded layout) with moe_compare; each
+    call must launch its route's kernel once (GROUPED_KERNELS, from the
+    profiler; the launch counter). Times: one layer's three projections on
+    each route (the whole function), and each route's kernel alone
+    (kernel_ms, and kernel_graph_ms from a CUDA graph): #11's grouped-rows
+    kernel on the sorted rows, #12's on the padded layout scatter_layout
+    gives. #11 is also timed over bf16 experts (the row "moe_grouped
+    w=bf16"), beside torch._grouped_mm on the same stacks, which computes
+    the same function there (its library_ms). Bounds count the experts
+    this data routes to and its real rows."""
     import torch
     from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
@@ -1509,7 +1536,8 @@ def check_moe_grouped(gen) -> dict:
                for name, (k, n) in MOE_SHAPES.items()}
     stack_sets = [torch.tensor([100, 180, 90, 150, 120, 132, 160, 100]),
                   torch.tensor([128, 0, 1, 255, 17, 384, 130, 117])]
-    routes = {"moe_grouped": ([torch.tensor([3, 2, 0, 4, 1, 2, 3, 1])],
+    routes = {"moe_grouped": ([torch.tensor([3, 2, 0, 4, 1, 2, 3, 1]),
+                               torch.tensor([3, 2, 0, 17, 1, 2, 3, 4])],
                               dict(tm=16, tile_k=2048, tile_n=1024, no_stack=True)),
               "moe_grouped_stack": (stack_sets, {})}
 
@@ -1554,6 +1582,31 @@ def check_moe_grouped(gen) -> dict:
             got = launched(name, "bf16" if dtype == torch.bfloat16 else "f32",
                            lambda: mm.moe_grouped_matmul(x, w, gsz, **fkw))
             moe_compare(f"{name} {kind} experts", got, mm.moe_grouped_matmul_plain(x, w, gsz))
+        if name == "moe_grouped":
+            # split-K on the card: 512 columns of down leave 32 (strip, expert)
+            # blocks, so k is cut and each strip's last block adds the slices
+            # (ticket words); a CUDA graph of the call replayed twice
+            w, s = moe_experts(gen, MOE_E, 14336, 512, "int8")
+            x = torch.randn(m, 14336, generator=gen, device="cuda").to(torch.bfloat16)
+            slices = len(mm.grouped_rows_slices(14336, mm.grouped_rows_plan(
+                m, MOE_E, 14336, 512, w.dtype, kernels.sm_count(0))))
+            if slices < 2:
+                raise AssertionError(f"{name}: the split-K check cut k into {slices} slice")
+            got = launched(name, "bf16", lambda: mm.grouped_rows(x, w, s, gsz))
+            moe_compare(f"{name} split-K ({slices} slices)", got,
+                        mm.moe_grouped_matmul_plain(x, w, gsz, s))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = mm.grouped_rows(x, w, s, gsz)
+            outs = []
+            for _ in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                outs.append(replayed.clone())
+            if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], got)):
+                raise AssertionError(f"{name}: CUDA-graph replays differ from each other or "
+                                     "from the eager call")
+            del graph, w, x
         if name == "moe_grouped_stack":
             w, s = moe_experts(gen, MOE_E, 1152, 2048, "int8")
             x = torch.randn(m, 1152, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1568,30 +1621,31 @@ def check_moe_grouped(gen) -> dict:
         moved = sum(used * (w.shape[1] * w.shape[2] + 4 * w.shape[2])
                     + nbytes(xs[w.shape[1]]) + 2 * m * w.shape[2] for w, _ in weights.values())
         ops = sum(2 * m * w.shape[1] * w.shape[2] for w, _ in weights.values())
-        # the kernel alone, on the padded layout the function hands it
+        # the kernel alone: #11's on the sorted rows, #12's on the padded
+        # layout the function hands it
         tm = kw.get("tm", 128)
-        padded = {k: mm.scatter_layout(x, gsz, tm, MOE_E) for k, x in xs.items()}
-        rows = {k: mm.tile_rows(gsz, p[2], tm) for k, p in padded.items()}
+        stack = name == "moe_grouped_stack"
+        if stack:
+            padded = {k: mm.scatter_layout(x, gsz, tm, MOE_E) for k, x in xs.items()}
+            rows = {k: mm.tile_rows(gsz, p[2], tm) for k, p in padded.items()}
 
-        def on_padded(stack):
-            def run():
+            def alone():
                 for w, s in weights.values():
                     xp, _, texp, used_rows = padded[w.shape[1]]
-                    mm.grouped_padded(xp, w, s, texp, used_rows, tm, stack=stack,
+                    mm.grouped_padded(xp, w, s, texp, used_rows, tm, stack=True,
                                       rows=rows[w.shape[1]])
-            return run
-        stack = name == "moe_grouped_stack"
+        else:
+            def alone():
+                for w, s in weights.values():
+                    mm.grouped_rows(xs[w.shape[1]], w, s, gsz)
         before = kernels.launch_counts()[name]
-        on_padded(stack)()
+        alone()
         if kernels.launch_counts()[name] != before + len(weights):
-            raise AssertionError(f"{name}: the padded calls took another route")
-        kernel_alone = {"kernel_ms": median_ms(on_padded(stack), reps=5),
-                        "kernel_graph_ms": graph_ms_or_none(f"{name} kernel", on_padded(stack),
-                                                            reps=4)}
-        if stack:   # the design it replaced, csrc/moe_matmul.cu's WMMA kernel, same layout
-            kernel_alone["wmma_kernel_graph_ms"] = graph_ms_or_none(
-                "moe_grouped wmma kernel", on_padded(False), reps=2)
-        del padded
+            raise AssertionError(f"{name}: the kernel's own calls took another route")
+        kernel_alone = {"kernel_ms": median_ms(alone, reps=5),
+                        "kernel_graph_ms": graph_ms_or_none(f"{name} kernel", alone, reps=4)}
+        if stack:
+            del padded
         out[name] = {
             **kernel_alone,
             "max_abs_err": err,
@@ -1604,7 +1658,68 @@ def check_moe_grouped(gen) -> dict:
             **bound(moved, ops, "bf16"),
             "shape": f"one Mixtral layer: gate, up, down over {m} rows sorted by expert, "
                      f"group sizes {gsz.tolist()}, int8 experts, bf16"}
+        if not stack:
+            out["moe_grouped w=bf16"] = grouped_bf16_experts(gen, xs, gsz, kw, m, used)
     return out
+
+
+def grouped_bf16_experts(gen, xs, gsz, kw, m: int, used: int) -> dict:
+    """#11 over bf16 Mixtral experts (2.8 GB of stacks) on the dedup
+    route: held to the plain version, the function and the kernel alone
+    timed, and torch._grouped_mm on the same bf16 stacks (column-major
+    copies, made outside the timing), which computes the same function:
+    each bf16 weight times bf16 rows, f32 sums, one rounding."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import moe_matmul as mm
+    weights = {name: moe_experts(gen, MOE_E, k, n, "bfloat16")
+               for name, (k, n) in MOE_SHAPES.items()}
+    err = 0.0
+    for w, _ in weights.values():
+        before = kernels.launch_counts()["moe_grouped"]
+        got = mm.moe_grouped_matmul(xs[w.shape[1]], w, gsz, None, **kw)
+        if kernels.launch_counts()["moe_grouped"] != before + 1:
+            raise AssertionError("moe_grouped bf16 experts: not one launch a call")
+        err = max(err, moe_compare("moe_grouped bf16 experts", got,
+                                   mm.moe_grouped_matmul_plain(xs[w.shape[1]], w, gsz)))
+
+    def layer(fn):
+        return lambda: [fn(xs[w.shape[1]], w, gsz, None, **kw) for w, _ in weights.values()]
+    moved = sum(used * w.shape[1] * w.shape[2] * 2 + nbytes(xs[w.shape[1]])
+                + 2 * m * w.shape[2] for w, _ in weights.values())
+    ops = sum(2 * m * w.shape[1] * w.shape[2] for w, _ in weights.values())
+    library = library_graph = None
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(gsz, 0).to(torch.int32)
+        stacks = [w.transpose(1, 2).contiguous().transpose(1, 2) for w, _ in weights.values()]
+        try:
+            def run():
+                return [torch._grouped_mm(xs[w.shape[1]], w, offs=offs) for w in stacks]
+            moe_compare("torch._grouped_mm bf16 experts", run()[2],
+                        mm.moe_grouped_matmul_plain(xs[stacks[2].shape[1]],
+                                                    weights["down"][0], gsz))
+            library = median_ms(run, reps=5)
+            library_graph = graph_ms_or_none("torch._grouped_mm", run, reps=4)
+        except Exception as exc:  # the yardstick is optional; its refusal is logged
+            log(f"  torch._grouped_mm refused: {str(exc).splitlines()[0][:120]}")
+        del stacks
+    r = {"max_abs_err": err,
+         "ms": median_ms(layer(mm.moe_grouped_matmul), reps=5),
+         "graph_ms": graph_ms_or_none("moe_grouped bf16 experts",
+                                      layer(mm.moe_grouped_matmul), reps=4),
+         "kernel_ms": median_ms(lambda: [mm.grouped_rows(xs[w.shape[1]], w, None, gsz)
+                                         for w, _ in weights.values()], reps=5),
+         "kernel_graph_ms": graph_ms_or_none("moe_grouped bf16 experts kernel", lambda: [
+             mm.grouped_rows(xs[w.shape[1]], w, None, gsz) for w, _ in weights.values()],
+             reps=4),
+         "plain_ms": median_ms(layer(lambda x, w, g, s, **_: mm.moe_grouped_matmul_plain(
+             x, w, g, s)), reps=2),
+         "library_ms": library, "library_graph_ms": library_graph,
+         **bound(moved, ops, "bf16"),
+         "shape": f"one Mixtral layer: gate, up, down over {m} rows sorted by expert, "
+                  f"group sizes {gsz.tolist()}, bf16 experts, bf16"}
+    del weights
+    return r
 
 
 def int4_experts(gen, e: int, k: int, n: int, group: int):
@@ -2539,7 +2654,8 @@ def check_phi3_window(llm, label: str) -> dict:
 def run_family_checkpoints(root: str, seed: int) -> dict:
     """Phase 5d: four checkpoints at full width and two layers, each loaded by
     load_local_llm and held torch.equal to the generic path (both layers,
-    embedding, norms, head, biases), then driven like phase 5b: Gemma-7B
+    embedding, norms, head, biases), then driven like phase 5b (Qwen3's int8
+    MoE layer traced first: a decode step must launch #10's kernel): Gemma-7B
     (int8): 8 greedy tokens after a 1,024-token prompt (its prefill launches
     #8 at hd 256), one engine request (#9 at hd 256); Phi-3-mini (int8 and
     int4): its packed tensors split, check_phi3_window, one engine request
@@ -2580,6 +2696,8 @@ def run_family_checkpoints(root: str, seed: int) -> dict:
                 del ckpt
             if family == "phi3":
                 extra["window"] = check_phi3_window(llm, label)
+            if family == "qwen3_moe" and quantization == "int8":
+                moe_layer_kernels(llm, 1, "rk_moe_gather_stream_kernel")
             kernels.reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4426,6 +4544,25 @@ def eight_first_turns(texts, queries) -> list:
         for i in (12000, 15000)]
 
 
+def moe_layer_kernels(llm, tokens: int, want: str) -> list:
+    """The rk_ kernels the decoder's first MoE MLP launches
+    (torch.profiler) on `tokens` random rows: one token is a decode step
+    (the per-slot gather, #10), 8 a batched wave (the dedup route, #11).
+    Raises unless `want` is among them."""
+    import torch
+    from ragmeup_tpu_torch.models.decoder import LlamaMoeMlp
+    mlp = next(layer.mlp for layer in llm.model.layers if isinstance(layer.mlp, LlamaMoeMlp))
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    x = torch.randn(1, tokens, llm.cfg.hidden_size, generator=gen, device="cuda").to(
+        llm.cfg.torch_dtype)
+    with torch.inference_mode():
+        found = kernels_of(lambda: mlp(x))
+    log(f"  an MoE layer at {tokens} token(s) launches {found}")
+    if want not in found:
+        raise AssertionError(f"an MoE layer at {tokens} token(s) launched {found}, not {want}")
+    return found
+
+
 def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
             queries) -> dict:
     """Phase 7 on the Mixtral-8x7B-shaped int8 decoder (47.5 GB), with the
@@ -4439,6 +4576,10 @@ def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
     llm = build_llm(seed, LlamaConfig.mixtral_8x7b())
     system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
     runs["moe"] = drive("moe", system, llm, queries)
+    # the kernels "moe" (a decode step) and "moe batched" (a wave of 8 rows)
+    # run in an MoE layer of this decoder
+    moe_layer_kernels(llm, 1, "rk_moe_gather_stream_kernel")
+    moe_layer_kernels(llm, 8, "rk_moe_grouped_mma_kernel")
     grouped = LocalLLM(dataclasses.replace(llm.cfg, moe_grouped="on"), llm.tokenizer,
                        params=llm.model.state_dict(), eos_ids=llm.eos_ids, device="cuda")
     system = open_system(rag_config(data_dir, index_dir), encoder, cross, grouped)
@@ -4558,6 +4699,7 @@ def main() -> int:
     free_card()
     grouped = {name: stamped(r) for name, r in check_moe_grouped(gen).items()}
     for name, src, rep in (("moe_grouped", "moe_matmul.cu", 123),
+                           ("moe_grouped w=bf16", "moe_matmul.cu", 123),
                            ("moe_grouped_stack", "moe_stack.cu", 220)):
         results[name] = (grouped[name], f"ragmeup_tpu_torch/csrc/{src}",
                          f"ragmeup_tpu/ops/moe_matmul.py:{rep}")

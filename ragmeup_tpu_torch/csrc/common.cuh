@@ -1,10 +1,12 @@
 // Helpers shared by the kernels under csrc/: conversions between the
 // activation types (float, bf16) and f32, the rounding of a dequantized
-// weight to the activation type, the signed nibbles of packed int4 (one at
+// weight to the activation type, int8 weights as exact f32 or bf16 values
+// without the conversion unit, the signed nibbles of packed int4 (one at
 // a time, or two at once as exact bf16 integers without the conversion
-// unit), the 16-byte read-only weight load, and the sm_80+ instructions
-// the tensor-core kernels are built from (16-byte cp.async into shared
-// memory, ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8).
+// unit), the 16-byte read-only weight load, the sm_80+ instructions the
+// tensor-core kernels are built from (16-byte cp.async into shared memory,
+// ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8), and the atomic ticket
+// that elects the last block of a split-K strip.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -127,6 +129,42 @@ __device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t t) {
 __device__ __forceinline__ uint32_t scale_pair(uint32_t q, float s) {
   return pack_bf16x2(__fmul_rn(__uint_as_float(q << 16), s),
                      __fmul_rn(__uint_as_float(q & 0xFFFF0000u), s));
+}
+
+// byte b (0..3) of a word whose sign bits were flipped (w ^ 0x80808080), as
+// a float: b + 128 under the exponent of 2^23 (one PRMT), 2^23 + 128 off
+__device__ __forceinline__ float i8_at(uint32_t flipped, int b) {
+  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | b)) - 8388736.f;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// The int8 bytes at bits 0-7 and 16-23 of t as an exact bf16x2: bf16 bits
+// 0x4300 | (b & 0x7f) are 128 + (b & 0x7f), and 0x4300 | (b & 0x80) are 128,
+// or 256 where b's sign bit is set, so their difference is b.
+__device__ __forceinline__ uint32_t s8x2_bf16x2(uint32_t t) {
+  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u);
+}
+
+// Whether this block is the last of the `arrivals` blocks of its strip to
+// finish; if so every partial of the strip is visible to it. The last resets
+// the ticket, so the words read zero at every launch and graph replay.
+__device__ __forceinline__ bool last_of_strip(unsigned* ticket, unsigned arrivals, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(ticket, 1u) == arrivals - 1;
+    if (last) atomicExch(ticket, 0u);  // every other block has taken its ticket
+    *flag = last;
+  }
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
 }
 
 }  // namespace

@@ -467,23 +467,6 @@ __device__ __forceinline__ void write_rows(const float (&d)[8][4], int m,
   }
 }
 
-// Whether this block is the last of the `arrivals` blocks of its strip to
-// finish; if so every partial of the strip is visible to it. The last resets
-// the ticket, so the words read zero at every launch and graph replay.
-__device__ __forceinline__ bool last_of_strip(unsigned* ticket, unsigned arrivals, int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const bool last = atomicAdd(ticket, 1u) == arrivals - 1;
-    if (last) atomicExch(ticket, 0u);  // every other block has taken its ticket
-    *flag = last;
-  }
-  __syncthreads();
-  if (!*flag) return false;
-  __threadfence();
-  return true;
-}
-
 __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }

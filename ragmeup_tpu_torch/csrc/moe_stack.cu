@@ -77,19 +77,6 @@ struct StackTile {
   static_assert(kStages >= 2, "the ring refills a stage no wgmma reads");
 };
 
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&d);
-}
-
-// The int8 bytes at bits 0-7 and 16-23 of t as an exact bf16x2: bf16 bits
-// 0x4300 | (b & 0x7f) are 128 + (b & 0x7f), and 0x4300 | (b & 0x80) are 128,
-// or 256 where b's sign bit is set, so their difference is b.
-__device__ __forceinline__ uint32_t s8x2_bf16x2(uint32_t t) {
-  return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u);
-}
-
 // One register of ldmatrix.trans over an int8 tile: bytes 0, 1 are k row 2c
 // at columns 2g, 2g + 1, bytes 2, 3 k row 2c + 1 at the same columns. Out:
 // the k pair of column 2g (even) and of column 2g + 1 (odd).

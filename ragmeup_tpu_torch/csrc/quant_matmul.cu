@@ -43,11 +43,6 @@ constexpr int kColsPerBlock = 32 * kColsPerLane;         // 512
 constexpr int kRedFloats = kWarps * kColsPerBlock;        // warp sums of one x row
 constexpr int kMaxXsFloats = 12288;                       // 48 KB of staged x
 
-// byte b (0..3) of a word whose sign bits were flipped, as a float
-__device__ __forceinline__ float i8_at(uint32_t flipped, int b) {
-  return __int_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540u | b)) - 8388736.f;
-}
-
 template <int M>
 __device__ __forceinline__ void x_row(const float* xs, float (&xv)[M]) {
   if constexpr (M % 4 == 0) {

@@ -192,10 +192,13 @@ def lib() -> ctypes.CDLL:
                                               i32, i32, vp, vp, vp]
             so.rk_paged_attention.restype = i32
             so.rk_moe_gather.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                         i32, vp, vp, vp]
+                                         i32, vp, vp, vp, vp]
             so.rk_moe_gather.restype = i32
+            so.rk_moe_grouped_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                               i32, vp, vp, vp, vp]
+            so.rk_moe_grouped_rows.restype = i32
             so.rk_moe_grouped.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                          i32, i32, vp, vp]
+                                          i32, vp, vp]
             so.rk_moe_grouped.restype = i32
             so.rk_moe_grouped_stack.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                                 i32, vp, vp]

@@ -8,24 +8,32 @@ per-expert per-output-channel scales ``(E, n)``, or float with
 TPU kernels' ``w.astype(x.dtype)``), products and sums are f32, the scale
 multiplies the sum, and the result rounds once to x's dtype.
 
-- ``moe_gather_matmul`` (decode, at most 64 slots): ``out[s] = x[s] @
-  (w[ids[s]] · scale[ids[s]])``, reading only the routed experts' bytes
-  (csrc/moe_matmul.cu, kernel ``moe_gather``). Shapes that do not tile take
-  a gather + einsum that dequantizes in x's dtype first, as the JAX
-  fallback does.
+- ``moe_gather_matmul`` (decode, at most 64 slots; #10, counted as
+  ``moe_gather``): ``out[s] = x[s] @ (w[ids[s]] · scale[ids[s]])``, reading
+  only the routed experts' bytes (csrc/moe_matmul.cu). bf16 x streams 16
+  bytes of a weight row a lane, one slot's expert a block (its id read on
+  the device), k cut by ``gather_plan``; the slices' f32 partials are added
+  in slice order by the last block of each strip, one launch a call. f32 x
+  keeps the first kernel and its reduce launch (``gather_slice_for``).
+  Shapes that do not tile take a gather + einsum that dequantizes in x's
+  dtype first, as the JAX fallback does.
 - ``moe_grouped_matmul`` (batched decode past the slot gate, prefill under
   ``moe_grouped="on"``): rows sorted by expert, ``gsz[e]`` rows for expert
-  e. Groups pad to ``tm``-row tiles so every tile reads one expert's
-  weights (``scatter_layout``); long row sets chunk as the JAX package
-  chunks them. The JAX package's choice between its per-tile kernel and
-  its full-stack kernel is kept and picks the counter: ``moe_grouped``
-  (#11, the dedup route) or ``moe_grouped_stack`` (#12). #12 with bf16
-  rows in 128-row tiles over int8 or bf16 experts runs its own kernel
-  (csrc/moe_stack.cu), which skips each tile's padding rows
-  (``tile_rows``, handed to every #12 call); every other grouped call runs
-  csrc/moe_matmul.cu's (``stack_kernel_takes`` says which). Non-tiling
-  shapes and short row sets take a grouped product that dequantizes in x's
-  dtype first (the JAX ``ragged_dot`` fallback).
+  e; long row sets chunk as the JAX package chunks them. The JAX package's
+  choice between its per-tile kernel and its full-stack kernel is kept and
+  picks the counter: ``moe_grouped`` (#11, the dedup route) or
+  ``moe_grouped_stack`` (#12). bf16 rows run the grouped-rows kernel
+  (``grouped_rows``) on the sorted rows as they lie, with the group sizes
+  on the device and no padded copy: one block a (strip, k slice, expert)
+  walks its group's rows, k cut by ``grouped_rows_plan``, the slices added
+  in slice order by the last block of each strip. #12 with bf16 rows in
+  128-row tiles over int8 or bf16 experts runs its own kernel
+  (csrc/moe_stack.cu), and f32 rows run csrc/moe_matmul.cu's f32 kernel;
+  both take the padded layout of ``tm``-row tiles (``scatter_layout``), #12
+  each tile's real rows (``tile_rows``). ``grouped_kernel_call`` says which
+  kernel takes a call. Non-tiling shapes and short row sets take a grouped
+  product that dequantizes in x's dtype first (the JAX ``ragged_dot``
+  fallback).
 
 Packed-int4 experts ``w_p (E, k/2, n)`` (``pack_int4`` per expert) with
 group scales ``gscale (E, k/group, n)``, each route with the TPU kernels'
@@ -52,8 +60,9 @@ integers per k-tile and adds the tiles times their scales in f32.
   stack in x's dtype.
 
 On a kernel route a CUDA tensor launches the kernel (or raises) and a CPU
-tensor takes the kernel's plain version. Nothing on the CUDA routes reads
-a device value on the host. The grouped kernel's backward is not ported
+tensor takes the kernel's plain version (bf16 over the k slices an H100's
+plan gives, ``PLAN_SMS``). Nothing on the CUDA routes reads a device value
+on the host. The grouped kernel's backward is not ported
 (ROADMAP).
 """
 
@@ -70,14 +79,31 @@ from ragmeup_tpu_torch.ops.quant_matmul import (INT4_TILE_N, _add_in_tile_order,
                                                 unpack_int4)
 
 GATHER_MAX_SLOTS = 64      # the JAX gate of the gather kernel
-_COLS_PER_BLOCK = 512      # csrc/moe_matmul.cu gather: 128 threads x 4 columns
-_GROUPED_BN = 128          # csrc/moe_matmul.cu grouped: columns per block
-_GROUPED_BK = 64           # csrc/moe_matmul.cu grouped: k per step
+_F32_COLS_PER_BLOCK = 512  # csrc/moe_matmul.cu f32 gather: 128 threads x 4 columns
+_GATHER_ROW_STEP = 64      # csrc/moe_matmul.cu bf16 gather: 8 warps x two 4-row batches
+_GATHER_XS_FLOATS = 12288  # csrc/moe_matmul.cu bf16 gather: x's staged slice
+_ROWS_STEP = 16            # csrc/moe_matmul.cu grouped rows: k rows a warp's step
+_ROWS_WARPS = 8            # csrc/moe_matmul.cu grouped rows: warps a block
+_GROUPED_BN = 128          # csrc/moe_matmul.cu f32 grouped: columns per block
+_GROUPED_BK = 64           # csrc/moe_matmul.cu f32 grouped: k a call's rows come in
 _STACK_TM = 128            # csrc/moe_stack.cu: rows a tile
 _STACK_BN = 128            # csrc/moe_stack.cu: columns a strip
 _STACK_BK = 64             # csrc/moe_stack.cu: k a ring stage
 _STACK_BLOCKS_PER_SM = 2   # csrc/moe_stack.cu: blocks an SM holds (its persistent grid)
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ESIZE = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
+# blocks an SM that the bf16 gather's and the grouped-rows kernel's split-K
+# aim at (tools/split_k_sweep.py times 1-8 and 1-16 at Mixtral's and
+# Qwen3-30B-A3B's decode shapes): the gather two, the grouped-rows kernel
+# one (a Mixtral layer's down whole measured faster than in slices)
+_GATHER_BLOCKS_PER_SM = 2
+_GROUPED_BLOCKS_PER_SM = 1
+# the SMs a CPU tensor's plain version plans for: an H100's, so the CPU
+# route adds the same k slices in the same order as the card
+PLAN_SMS = 132
+# (device index, stream) -> zeroed ticket words (kernels.ticket_words)
+_GATHER_TICKETS: dict = {}
+_GROUPED_TICKETS: dict = {}
 
 
 def _check_weights(name: str, w: torch.Tensor, scale: Optional[torch.Tensor]):
@@ -88,18 +114,29 @@ def _check_weights(name: str, w: torch.Tensor, scale: Optional[torch.Tensor]):
                          f"{tuple(w.shape)}")
 
 
+def _slice_sums(xf: torch.Tensor, wf: torch.Tensor, slices) -> torch.Tensor:
+    """f32 products of xf (B, m, k) with wf (B, k, n) summed over each k
+    slice, the slices added in order (a kernel's split-K partials)."""
+    acc = None
+    for k0, k1 in slices:
+        part = torch.bmm(xf[:, :, k0:k1], wf[:, k0:k1])
+        acc = part if acc is None else acc + part
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Per-slot expert gather (#10)
 # ---------------------------------------------------------------------------
 
 def moe_gather_matmul_plain(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
-                            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            scale: Optional[torch.Tensor] = None,
+                            k_slices=None) -> torch.Tensor:
     """Plain PyTorch version of the gather kernel: f32 products of x with
-    the slot's expert cast to x's dtype, an f32 sum, the scale, one
-    rounding."""
+    the slot's expert cast to x's dtype, an f32 sum (over ``k_slices``
+    ``[(k0, k1)]``, added in order, where given), the scale, one rounding."""
     idx = ids.long()
     wd = w.index_select(0, idx).to(x.dtype).float()              # (S, k, n)
-    acc = torch.bmm(x.float()[:, None, :], wd)[:, 0]
+    acc = _slice_sums(x.float()[:, None, :], wd, k_slices or [(0, x.shape[1])])[:, 0]
     if scale is not None:
         acc = acc * scale.index_select(0, idx).float()
     return acc.to(x.dtype)
@@ -121,9 +158,10 @@ def _target_blocks(device_index: int) -> int:
 
 
 def gather_slice_for(k: int, n: int, slots: int, target_blocks: int) -> int:
-    """Split-K slice of the gather kernel: the longest divisor of k (at most
-    256) that still gives ``target_blocks`` blocks over all slots."""
-    col_blocks = -(-n // _COLS_PER_BLOCK) * slots
+    """Split-K slice of the f32-row gather kernel: the longest divisor of k
+    (at most 256) that still gives ``target_blocks`` blocks over all
+    slots."""
+    col_blocks = -(-n // _F32_COLS_PER_BLOCK) * slots
     divisors = [s for s in (256, 128, 64, 32, 16) if k % s == 0]
     if not divisors:
         raise ValueError(f"moe_gather kernel: k={k} not a multiple of 16")
@@ -133,11 +171,36 @@ def gather_slice_for(k: int, n: int, slots: int, target_blocks: int) -> int:
     return divisors[-1]
 
 
+def gather_strip(w_dtype: torch.dtype) -> int:
+    """Columns of a bf16-row gather block: 32 lanes x one 16-byte load of
+    a weight row (512 int8, 256 bf16 or 128 f32 columns)."""
+    return 32 * (16 // _ESIZE[w_dtype])
+
+
+def gather_plan(slots: int, k: int, n: int, w_dtype: torch.dtype, sm_count: int) -> int:
+    """Split-K plan of the bf16-row gather kernel: the k rows of a slice
+    (slice i covers ``[i * k_slice, min(k, (i + 1) * k_slice))``). k is cut
+    into as few slices as give ``_GATHER_BLOCKS_PER_SM`` blocks on every SM
+    over all (strip, slot) pairs, each a whole number of the 8 warps'
+    double-buffered iterations of two 4-row batches (which may round to
+    fewer slices), and no longer than x's staging buffer."""
+    strips = -(-n // gather_strip(w_dtype))
+    slices = max(1, -(-_GATHER_BLOCKS_PER_SM * sm_count // (strips * slots)))
+    k_slice = -(-k // slices)
+    return min(-(-k_slice // _GATHER_ROW_STEP) * _GATHER_ROW_STEP, _GATHER_XS_FLOATS)
+
+
+def gather_slices(k: int, k_slice: int):
+    """[(k0, k1)] of each slice in the order the kernel adds them."""
+    return [(k0, min(k, k0 + k_slice)) for k0 in range(0, k, k_slice)]
+
+
 def _gather_cuda(x, w, ids, scale):
     s_slots, k = x.shape
     n = w.shape[2]
-    if n % 4:
-        raise ValueError(f"moe_gather kernel: n % 4 == 0 (got n={n})")
+    bf16 = x.dtype == torch.bfloat16
+    if n % 16:
+        raise ValueError(f"moe_gather kernel: n % 16 == 0 (got n={n})")
     x = x.contiguous()
     ids = ids.to(torch.int32).contiguous()
     tensors = [x, w, ids]
@@ -145,14 +208,24 @@ def _gather_cuda(x, w, ids, scale):
         scale = scale.float().contiguous()
         tensors.append(scale)
     kernels.require_cuda("moe_gather", *tensors)
-    ks = gather_slice_for(k, n, s_slots, _target_blocks(x.device.index))
-    partial = torch.empty((k // ks, s_slots, n), dtype=torch.float32, device=x.device)
     out = torch.empty((s_slots, n), dtype=x.dtype, device=x.device)
+    tickets = None
+    if bf16:
+        ks = gather_plan(s_slots, k, n, w.dtype, kernels.sm_count(x.device.index))
+        slices = -(-k // ks)
+        partial = torch.empty((slices, s_slots, n) if slices > 1 else (0,),
+                              dtype=torch.float32, device=x.device)
+        if slices > 1:
+            tickets = kernels.ticket_words(_GATHER_TICKETS, x.device,
+                                           s_slots * -(-n // gather_strip(w.dtype)))
+    else:
+        ks = gather_slice_for(k, n, s_slots, _target_blocks(x.device.index))
+        partial = torch.empty((k // ks, s_slots, n), dtype=torch.float32, device=x.device)
     err = kernels.lib().rk_moe_gather(
         x.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
         ids.data_ptr(), s_slots, k, n, ks, kernels.dtype_code(x.dtype),
-        _W_CODES[w.dtype], partial.data_ptr(), out.data_ptr(),
-        kernels.stream_handle(x.device))
+        _W_CODES[w.dtype], partial.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        out.data_ptr(), kernels.stream_handle(x.device))
     kernels.check(err, "moe_gather")
     kernels.count("moe_gather")
     return out
@@ -167,8 +240,9 @@ def moe_gather_matmul(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     scale None; ids (S,) expert per slot. Returns (S, n) in x's dtype.
     The kernel route when S ≤ 64 and k and n tile (512/1024), as in the JAX
     package, or are multiples of 128, which the JAX kernel refuses
-    (Qwen3-MoE's 768-wide experts: the kernel streams any k % 16, n % 4);
-    the gather fallback otherwise."""
+    (Qwen3-MoE's 768-wide experts); the gather fallback otherwise. On the
+    CPU the kernel route is the plain version, bf16 x over the k slices the
+    card's plan gives (``gather_plan`` on an H100's SMs)."""
     s_slots, k = x.shape
     e, kw, n = w.shape
     if kw != k or ids.shape != (s_slots,):
@@ -181,7 +255,10 @@ def moe_gather_matmul(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     if tiled and s_slots <= GATHER_MAX_SLOTS:
         if x.is_cuda:
             return _gather_cuda(x, w, ids, scale)
-        return moe_gather_matmul_plain(x, w, ids, scale)
+        slices = None
+        if x.dtype == torch.bfloat16:
+            slices = gather_slices(k, gather_plan(s_slots, k, n, w.dtype, PLAN_SMS))
+        return moe_gather_matmul_plain(x, w, ids, scale, slices)
     return _gather_fallback(x, w, ids, scale)
 
 
@@ -231,7 +308,7 @@ def scatter_layout(xs: torch.Tensor, gsz: torch.Tensor, tm: int, e: int):
     row on hold padding only."""
     m, k = xs.shape
     dev = xs.device
-    mp = -(-(m + e * (tm - 1)) // tm) * tm
+    mp = _padded_rows(m, e, tm)
     gsz = gsz.to(device=dev, dtype=torch.int64)
     csum = torch.cumsum(gsz, 0)
     pgs = (gsz + (tm - 1)) // tm * tm
@@ -245,10 +322,15 @@ def scatter_layout(xs: torch.Tensor, gsz: torch.Tensor, tm: int, e: int):
     return xp, dst, texp, pcs[-1:]
 
 
+def _padded_rows(m: int, e: int, tm: int) -> int:
+    """scatter_layout's row count: every group padded to whole tiles."""
+    return -(-(m + e * (tm - 1)) // tm) * tm
+
+
 def grouped_padded_plain(xp: torch.Tensor, w: torch.Tensor,
                          scale: Optional[torch.Tensor], texp: torch.Tensor,
                          tm: int) -> torch.Tensor:
-    """Plain PyTorch version of the grouped kernel on the padded layout:
+    """Plain PyTorch version of the grouped kernels on the padded layout:
     each m-tile times its expert cast to x's dtype, f32 products and sums,
     the scale, one rounding."""
     mp, k = xp.shape
@@ -261,15 +343,18 @@ def grouped_padded_plain(xp: torch.Tensor, w: torch.Tensor,
 
 
 def moe_grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor, gsz: torch.Tensor,
-                             scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                             scale: Optional[torch.Tensor] = None,
+                             k_slices=None) -> torch.Tensor:
     """Plain PyTorch version of the whole grouped product, with the
     kernel's arithmetic and without the padded layout: each group's rows
-    times its expert (the group sizes are read on the host)."""
+    times its expert, the f32 sum over ``k_slices`` added in order where
+    given (the group sizes are read on the host)."""
     out = torch.empty((xs.shape[0], w.shape[2]), dtype=xs.dtype, device=xs.device)
     lo = 0
     for ex, g in enumerate(gsz.tolist()):
         if g:
-            acc = xs[lo:lo + g].float() @ w[ex].to(xs.dtype).float()
+            acc = _slice_sums(xs[None, lo:lo + g].float(), w[ex:ex + 1].to(xs.dtype).float(),
+                              k_slices or [(0, xs.shape[1])])[0]
             if scale is not None:
                 acc = acc * scale[ex].float()
             out[lo:lo + g] = acc.to(xs.dtype)
@@ -311,7 +396,8 @@ def stack_kernel_takes(tm: int, k: int, n: int, x_dtype: torch.dtype,
                        w_dtype: torch.dtype) -> bool:
     """True when #12's call runs csrc/moe_stack.cu's kernel: bf16 rows in
     128-row tiles, int8 or bf16 experts, k in 64-deep steps, n in 128-column
-    strips. f32 rows or experts, and other tiles, run csrc/moe_matmul.cu's."""
+    strips. Other bf16 calls run the grouped-rows kernel, f32 rows
+    csrc/moe_matmul.cu's f32 kernel on the padded layout."""
     return (tm == _STACK_TM and x_dtype == torch.bfloat16
             and w_dtype in (torch.int8, torch.bfloat16)
             and k % _STACK_BK == 0 and n % _STACK_BN == 0)
@@ -355,10 +441,13 @@ def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool, rows):
     if stack and stack_kernel_takes(tm, k, n, xp.dtype, w.dtype):
         return _stack_cuda(xp, w, scale, texp, rows, used)
     name = "moe_grouped_stack" if stack else "moe_grouped"
+    if xp.dtype != torch.float32:
+        raise ValueError(f"{name}: the padded layout's csrc/moe_matmul.cu kernel takes f32 "
+                         f"rows (bf16 rows run grouped_rows), got {xp.dtype}")
     if k % _GROUPED_BK or n % _GROUPED_BN:
         raise ValueError(f"{name} kernel: k % {_GROUPED_BK} and n % {_GROUPED_BN} "
                          f"must be 0 (got k={k}, n={n})")
-    if tm not in (8, 16, 32, 64, 128) or (xp.dtype == torch.bfloat16 and tm < 16):
+    if tm not in (8, 16, 32, 64, 128):
         raise ValueError(f"{name} kernel: tm={tm} for {xp.dtype}")
     texp = texp.to(torch.int32).contiguous()
     used = used.to(torch.int32).contiguous()
@@ -370,8 +459,7 @@ def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool, rows):
     out = torch.empty((mp, n), dtype=xp.dtype, device=xp.device)
     err = kernels.lib().rk_moe_grouped(
         xp.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
-        texp.data_ptr(), used.data_ptr(), mp, k, n, tm,
-        kernels.dtype_code(xp.dtype), _W_CODES[w.dtype], out.data_ptr(),
+        texp.data_ptr(), used.data_ptr(), mp, k, n, tm, _W_CODES[w.dtype], out.data_ptr(),
         kernels.stream_handle(xp.device))
     kernels.check(err, name)
     kernels.count(name)
@@ -381,14 +469,14 @@ def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool, rows):
 def grouped_padded(xp: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
                    texp: torch.Tensor, used: torch.Tensor, tm: int,
                    stack: bool, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The grouped kernel on the padded layout: (mp, k) rows, tile i of
+    """The grouped kernels on the padded layout: (mp, k) rows, tile i of
     ``tm`` rows times expert ``texp[i]``. ``stack`` marks the JAX package's
     full-stack route (#12, counted as ``moe_grouped_stack``), which takes
     each tile's count of real rows ``rows`` (``tile_rows``); otherwise the
     per-tile route (#11, ``moe_grouped``). Where ``stack_kernel_takes``
     holds, #12 runs csrc/moe_stack.cu's kernel, which leaves the padding
-    rows' outputs unwritten; the other calls run csrc/moe_matmul.cu's. Only
-    real rows may be read back."""
+    rows' outputs unwritten; f32 rows run csrc/moe_matmul.cu's f32 kernel.
+    Only real rows may be read back."""
     if stack and rows is None:
         raise ValueError("moe_grouped_stack: the full-stack route takes each tile's "
                          "real rows (tile_rows)")
@@ -397,14 +485,115 @@ def grouped_padded(xp: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tens
     return grouped_padded_plain(xp, w, scale, texp, tm)
 
 
-def _pad_scatter_call(xs, w, scale, gsz, tm, no_stack):
+def grouped_rows_strip(w_dtype: torch.dtype) -> int:
+    """Columns of a grouped-rows block: 8 lane groups x one 16-byte load of
+    a weight row (128 int8, 64 bf16 or 32 f32 columns)."""
+    return 8 * (16 // _ESIZE[w_dtype])
+
+
+def grouped_rows_plan(m: int, e: int, k: int, n: int, w_dtype: torch.dtype,
+                      sm_count: int) -> int:
+    """Split-K plan of the grouped-rows kernel: the 16-row steps of a
+    slice. The fewest slices (each as even as whole steps allow, at least a
+    step for each of the 8 warps) that give ``_GROUPED_BLOCKS_PER_SM``
+    blocks to every SM, counting a block for each (strip, expert) pair the
+    rows can fill: min(E, m) groups (the live ones are a device value,
+    never read on the host)."""
+    steps = k // _ROWS_STEP
+    blocks = min(e, m) * (n // grouped_rows_strip(w_dtype))
+    most = max(1, steps // _ROWS_WARPS)
+    for slices in range(1, most + 1):
+        per = -(-steps // slices)
+        if blocks * -(-steps // per) >= _GROUPED_BLOCKS_PER_SM * sm_count:
+            return per
+    return -(-steps // most)
+
+
+def grouped_rows_slices(k: int, steps_per_slice: int):
+    """The plan's k ranges [(k0, k1)], in the order their partials are added."""
+    step = steps_per_slice * _ROWS_STEP
+    return [(k0, min(k0 + step, k)) for k0 in range(0, k, step)]
+
+
+def _grouped_rows_cuda(xs, w, scale, gsz, name):
+    m, k = xs.shape
+    e, _, n = w.shape
+    strip = grouped_rows_strip(w.dtype)
+    if k % _ROWS_STEP or n % strip:
+        raise ValueError(f"{name} kernel: k % {_ROWS_STEP} and n % {strip} must be 0 "
+                         f"(got k={k}, n={n})")
+    xs = xs.contiguous()
+    gsz = gsz.to(device=xs.device, dtype=torch.int64).contiguous()
+    tensors = [xs, w, gsz]
+    if scale is not None:
+        scale = scale.float().contiguous()
+        tensors.append(scale)
+    kernels.require_cuda(name, *tensors)
+    per = grouped_rows_plan(m, e, k, n, w.dtype, kernels.sm_count(xs.device.index))
+    slices = -(-(k // _ROWS_STEP) // per)
+    partial = tickets = None
+    if slices > 1:
+        partial = torch.empty((slices, m, n), dtype=torch.float32, device=xs.device)
+        tickets = kernels.ticket_words(_GROUPED_TICKETS, xs.device, e * (n // strip))
+    out = torch.empty((m, n), dtype=xs.dtype, device=xs.device)
+    err = kernels.lib().rk_moe_grouped_rows(
+        xs.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
+        gsz.data_ptr(), m, e, k, n, per, _W_CODES[w.dtype],
+        None if partial is None else partial.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+        kernels.stream_handle(xs.device))
+    kernels.check(err, name)
+    kernels.count(name, "w=bf16" if w.dtype == torch.bfloat16 else None)
+    return out
+
+
+def grouped_rows(xs: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+                 gsz: torch.Tensor, name: str = "moe_grouped") -> torch.Tensor:
+    """The grouped-rows kernel (bf16 rows): xs (m, k) sorted by expert as
+    they lie, ``gsz[e]`` rows for expert e (summing to m, on the device),
+    no padded copy; counted under ``name``. On the CPU its plain version
+    over the plan's k slices on an H100's SMs, added in the same order."""
+    if xs.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the grouped-rows kernel takes bf16 rows, got {xs.dtype}")
+    if xs.is_cuda:
+        return _grouped_rows_cuda(xs, w, scale, gsz, name)
+    m, k = xs.shape
+    e, _, n = w.shape
+    per = grouped_rows_plan(m, e, k, n, w.dtype, PLAN_SMS)
+    return moe_grouped_matmul_plain(xs, w, gsz, scale, grouped_rows_slices(k, per))
+
+
+def rows_kernel_takes(tm: int, k: int, n: int, x_dtype: torch.dtype,
+                      w_dtype: torch.dtype, stack: bool) -> bool:
+    """True when a kernel-route grouped call runs the grouped-rows kernel:
+    bf16 rows, unless the full-stack route's call is csrc/moe_stack.cu's."""
+    return x_dtype == torch.bfloat16 and not (
+        stack and stack_kernel_takes(tm, k, n, x_dtype, w_dtype))
+
+
+def grouped_kernel_call(xs: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+                        gsz: torch.Tensor, tm: int, stack: bool) -> torch.Tensor:
+    """One kernel-route call of the grouped GEMM, counted under ``stack``'s
+    route (#12 ``moe_grouped_stack`` or #11 ``moe_grouped``). bf16 rows run
+    the grouped-rows kernel on the rows as they lie, unless the full-stack
+    route's call is csrc/moe_stack.cu's (``stack_kernel_takes``); that one
+    and f32 rows take the padded layout of ``tm``-row tiles
+    (``scatter_layout``), the stack kernel each tile's real rows
+    (``tile_rows``)."""
     e, k, n = w.shape
+    if rows_kernel_takes(tm, k, n, xs.dtype, w.dtype, stack):
+        return grouped_rows(xs, w, scale, gsz, "moe_grouped_stack" if stack else "moe_grouped")
     xp, dst, texp, used = scatter_layout(xs, gsz, tm, e)
-    st = None if no_stack else stack_tiles(xp.shape[0], e, k, n, w.element_size(),
-                                           xs.element_size())
-    rows = None if st is None else tile_rows(gsz, texp, tm)
-    yp = grouped_padded(xp, w, scale, texp, used, tm, stack=st is not None, rows=rows)
-    return yp.index_select(0, dst)
+    rows = tile_rows(gsz, texp, tm) if stack else None
+    return grouped_padded(xp, w, scale, texp, used, tm, stack=stack,
+                          rows=rows).index_select(0, dst)
+
+
+def _grouped_chunk(xs, w, scale, gsz, tm, no_stack):
+    e, k, n = w.shape
+    st = None if no_stack else stack_tiles(_padded_rows(xs.shape[0], e, tm), e, k, n,
+                                           w.element_size(), xs.element_size())
+    return grouped_kernel_call(xs, w, scale, gsz, tm, stack=st is not None)
 
 
 def _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack):
@@ -414,7 +603,7 @@ def _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack):
     m = xs.shape[0]
     chunk = max(tm, mp_cap - w.shape[0] * (tm - 1))
     if m <= chunk:
-        return _pad_scatter_call(xs, w, scale, gsz, tm, no_stack)
+        return _grouped_chunk(xs, w, scale, gsz, tm, no_stack)
     gsz = gsz.to(device=xs.device, dtype=torch.int64)
     csum = torch.cumsum(gsz, 0)
     outs = []
@@ -422,8 +611,7 @@ def _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack):
         hi = min(lo + chunk, m)
         g_hi = torch.clamp(csum, lo, hi)
         g_lo = torch.clamp(csum - gsz, lo, hi)
-        outs.append(_pad_scatter_call(xs[lo:hi], w, scale, g_hi - g_lo, tm,
-                                      no_stack))
+        outs.append(_grouped_chunk(xs[lo:hi], w, scale, g_hi - g_lo, tm, no_stack))
     return torch.cat(outs, dim=0)
 
 
@@ -437,10 +625,11 @@ def moe_grouped_matmul(xs: torch.Tensor, w: torch.Tensor, gsz: torch.Tensor,
     xs (M, k); w (E, k, n) int8 with scale (E, n), or float with scale
     None; gsz (E,) summing to M. Routes as the JAX package does: the
     fallback when k or n does not tile (or ``tile_k``/``tile_n`` say so) or
-    M < tm/2; otherwise the kernel over the padded layout, chunked, on the
-    full-stack route (#12) unless ``no_stack`` or the JAX stack tiles do not
-    fit, else the per-tile route (#11). ``no_stack`` is the batched-decode
-    dedup route: only the routed experts' tiles are read."""
+    M < tm/2; otherwise the kernel, chunked, on the full-stack route (#12)
+    unless ``no_stack`` or the JAX stack tiles do not fit, else the
+    per-tile route (#11). ``no_stack`` is the batched-decode dedup route:
+    only the routed experts' bytes are read (``grouped_kernel_call`` says
+    which kernel takes a call)."""
     m, k = xs.shape
     e, kw, n = w.shape
     if kw != k or gsz.shape != (e,):

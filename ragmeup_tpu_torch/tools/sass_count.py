@@ -28,19 +28,26 @@ the whole kernel and for its main loop (the backward branch whose body
 holds the most of those HADD2/HFMA2s or IMMAs, or for #12 the innermost
 one around HGMMAs, a k loop: the prologue's and
 epilogue's conversions, such as the output's packing to bf16, fall
-outside it). Prints the card's name and power limit, then one JSON line
-per instantiation.
+outside it). The int8 expert kernels of csrc/moe_matmul.cu (#10's and
+#11's, bf16 activations over int8 experts) count their weight bytes by
+the instruction each weight passes through once: an FFMA in the gather
+(one slot's row), an I2F or I2FP in the WMMA grouped kernel, two a bf16 pair in
+the mma.sync grouped kernel (``s8x2_bf16x2``); their main loop is the
+backward branch that holds the most of those. ``--tree DIR`` (the tool run by
+its path) reads the library built from the checkout at DIR (a parent's,
+unpacked from ``git archive``). Prints the card's name and power limit, then one JSON line per
+instantiation.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
 import shutil
 import subprocess
-
-from ragmeup_tpu_torch import kernels
+import sys
 
 KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel",
            "rk_moe_gather_int4_decode_kernel", "rk_moe_gather_int4_mma_kernel",
@@ -48,6 +55,12 @@ KERNELS = ("rk_int4_decode_kernel", "rk_int4_decode_mma_kernel",
            "rk_mlp4_gate_up_mma_kernel", "rk_mlp4_down_mma_kernel")
 INTEGER_KERNELS = ("rk_int4_a8_decode_kernel",)   # packed bytes counted by IMMA
 STACK_KERNELS = ("rk_moe_stack_wgmma_kernel",)    # int8 weights: 2 a bf16 pair
+# int8 expert kernels (bf16 x, int8 w): the instruction each weight passes
+# through once, and the weights it stands for ("HPAIR": a bf16 HADD2/HFMA2)
+EXPERT_KERNELS = {"rk_moe_gather_partial_kernel": ("FFMA", 1),
+                  "rk_moe_gather_stream_kernel": ("FFMA", 1),
+                  "rk_moe_grouped_wmma_kernel": ("I2F|I2FP", 1),
+                  "rk_moe_grouped_mma_kernel": ("HPAIR", 2)}
 BYTES_PER_IMMA = 8
 CONVERSIONS = ("I2F", "I2FP", "F2F", "F2FP", "F2I")
 _INSTRUCTION = re.compile(
@@ -55,6 +68,7 @@ _INSTRUCTION = re.compile(
 
 
 def _tool(name: str) -> str:
+    from ragmeup_tpu_torch import kernels
     for cand in (shutil.which(name),
                  os.path.join(os.path.dirname(kernels._nvcc()), name)):
         if cand and os.path.exists(cand):
@@ -126,15 +140,26 @@ def main_loop(code, marker=_is_nibble_pair, innermost: bool = False) -> list:
     return max(ranges, key=lambda r: r[2])[3] if ranges else []
 
 
-def summarize(ops: dict, integer: bool = False, stack: bool = False) -> dict:
+def _expert_marker(opcode: str):
+    if opcode == "HPAIR":
+        return _is_nibble_pair
+    return lambda op: op.split(".")[0] in opcode.split("|")
+
+
+def summarize(ops: dict, integer: bool = False, stack: bool = False,
+              expert=None) -> dict:
     """Counts of one body of code; packed bytes from its bf16 nibble pairs
     or, for the W4A8 kernel (`integer`), from its IMMAs; for #12's stack
     kernel (`stack`) the int8 weights its bf16 pairs convert (two a pair)
-    and its wgmmas (HGMMA)."""
+    and its wgmmas (HGMMA); for an int8 expert kernel (`expert`, its
+    EXPERT_KERNELS entry) the weights its marker instructions stand for."""
     pairs = sum(n for op, n in ops.items() if _is_nibble_pair(op))
     imma = sum(n for op, n in ops.items() if _is_imma(op))
     hgmma = sum(n for op, n in ops.items() if _is_hgmma(op))
     bytes_ = BYTES_PER_IMMA * imma if integer else 2 * pairs if stack else pairs
+    if expert is not None:
+        marker, per_mark = expert
+        bytes_ = per_mark * sum(n for op, n in ops.items() if _expert_marker(marker)(op))
     conv = {op: n for op, n in ops.items() if op.split(".")[0] in CONVERSIONS}
     total = sum(ops.values())
 
@@ -145,6 +170,8 @@ def summarize(ops: dict, integer: bool = False, stack: bool = False) -> dict:
             "prmt": sum(n for op, n in ops.items() if op.split(".")[0] == "PRMT"),
             "lop3": sum(n for op, n in ops.items() if op.split(".")[0] == "LOP3"),
             "ldg_128": sum(n for op, n in ops.items() if op.startswith("LDG") and "128" in op),
+            "ldg": sum(n for op, n in ops.items() if op.startswith("LDG")),
+            "hmma": sum(n for op, n in ops.items() if op.startswith("HMMA")),
             "conversions": conv,
             "conversions_per_packed_byte": per(sum(conv.values())),
             "instructions_per_packed_byte": per(total)}
@@ -154,23 +181,38 @@ def decode_kernel_counts(library: str) -> list:
     """[{kernel, counts...}] of the decode kernels in the library at `library`."""
     sass = subprocess.run([_tool("cuobjdump"), "-sass", library],
                           capture_output=True, text=True, check=True).stdout
+    names = KERNELS + tuple(EXPERT_KERNELS)
     functions = {name: code for name, code in instructions(sass).items()
-                 if any(kernel in name for kernel in KERNELS)}
+                 if any(kernel in name for kernel in names)}
     if not functions:
-        raise RuntimeError(f"no {' or '.join(KERNELS)} in the SASS of {library}")
+        raise RuntimeError(f"no {' or '.join(names)} in the SASS of {library}")
     rows = []
     for name, pretty in zip(functions, _demangle(list(functions))):
+        expert = next((v for kernel, v in EXPERT_KERNELS.items() if kernel in name), None)
+        if expert is not None and ("signed char" not in pretty
+                                   or ("gather" in name and "__nv_bfloat16" not in pretty)):
+            continue    # the int8 expert kernels' bf16-x, int8-w instantiations only
         integer = any(kernel in name for kernel in INTEGER_KERNELS)
         stack = any(kernel in name for kernel in STACK_KERNELS)
-        marker = _is_imma if integer else _is_hgmma if stack else _is_nibble_pair
+        marker = (_expert_marker(expert[0]) if expert else _is_imma if integer
+                  else _is_hgmma if stack else _is_nibble_pair)
         loop = main_loop(functions[name], marker, innermost=stack)
         rows.append({"kernel": pretty,
-                     **summarize(opcode_counts(functions[name]), integer, stack),
-                     "main_loop": summarize(opcode_counts(loop), integer, stack)})
+                     **summarize(opcode_counts(functions[name]), integer, stack, expert),
+                     "main_loop": summarize(opcode_counts(loop), integer, stack, expert)})
     return rows
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=None, help="checkout whose kernels to read (run "
+                    "the tool by its path, python3 ragmeup_tpu_torch/tools/sass_count.py)")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree or os.path.join(os.path.dirname(__file__), "..", ".."))
+    sys.path.insert(0, tree)
+    from ragmeup_tpu_torch import kernels
+    if os.path.abspath(kernels.CSRC) != os.path.join(tree, "ragmeup_tpu_torch", "csrc"):
+        raise SystemExit(f"sass_count: imported {kernels.__file__}, not {tree}'s")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip() or "no card", flush=True)

@@ -25,14 +25,26 @@ target is timed in turn with the split counts it gives:
   (``moe_matmul.int4_gather_plan``, the same constant), over one
   Mixtral-8x7B decode layer's gate, up and down at 2 slots (experts 5 and
   2 of 8), groups 128 and 512, 1 to 4 blocks an SM;
+- #10 on bf16 rows (csrc/moe_matmul.cu ``rk_moe_gather_stream_kernel``,
+  ``moe_matmul.gather_plan``, ``_GATHER_BLOCKS_PER_SM``) over one
+  Mixtral-8x7B decode layer at 2 slots (experts 5 and 2) and one
+  Qwen3-30B-A3B layer (E 128, 2048 x 768 and 768 x 2048) at 8 slots, 1, 2,
+  3, 4, 6 and 8 blocks an SM;
+- #11's grouped-rows kernel (csrc/moe_matmul.cu
+  ``rk_moe_grouped_mma_kernel``, ``moe_matmul.grouped_rows_plan``,
+  ``_GROUPED_BLOCKS_PER_SM``) over one Mixtral-8x7B layer on the dedup
+  route at 16 rows (groups 3, 2, 0, 4, 1, 2, 3, 1), gate/up and down apart,
+  1 to 16 blocks an SM;
 - #9 (csrc/paged_attention.cu, ``paged_split_plan``,
   ``_DECODE_BLOCKS_PER_SM`` and ``_CHUNK_BLOCKS_PER_SM``) at the 8B serving
   shapes: decode at 8, 4 and 1 sequences, the 128-token chunk at 4 and 1;
-  #3, #4, #5, #13 and #9 from a CUDA graph's replay, since their wrappers'
-  host cost exceeds their device time.
+  #3, #4, #5, #13, #10, #11 and #9 from a CUDA graph's replay, since
+  their wrappers' host cost exceeds their device time.
 
 Medians of five rounds after warm-up. Prints the card's name and power
-limit, then one JSON line per kernel.
+limit, then one JSON line per kernel. Arguments name the sweeps to run
+(``gather``, ``grouped_rows``, ``grouped_int4``, ``int8``, ``int4_decode``,
+``int4_a8``, ``gather_int4``, ``paged``); none runs them all.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import sys
 
 import torch
 
@@ -213,6 +226,67 @@ def sweep_gather_int4(gen, sms: int) -> dict:
     return out
 
 
+def _int8_experts(gen, e: int, shapes: dict) -> list:
+    return [(torch.randint(-127, 128, (e, k, n), generator=gen, device="cuda",
+                           dtype=torch.int8),
+             torch.rand(e, n, generator=gen, device="cuda") * 2e-4 + 1e-4)
+            for k, n in shapes.values()]
+
+
+def sweep_gather(gen, sms: int) -> dict:
+    qwen = {"gate": (2048, 768), "up": (2048, 768), "down": (768, 2048)}
+    cases = {"mixtral s2": (_int8_experts(gen, 8, SHAPES), torch.tensor([5, 2], device="cuda")),
+             "qwen3 s8": (_int8_experts(gen, 128, qwen),
+                          torch.randperm(128, generator=gen, device="cuda")[:8])}
+    xs = {(k, len(ids)): torch.randn(len(ids), k, generator=gen, device="cuda")
+          .to(torch.bfloat16) for ws, ids in cases.values() for w, _ in ws
+          for k in (w.shape[1],)}
+    default = mm._GATHER_BLOCKS_PER_SM
+    out = {"kernel": "moe_gather", "default_target": default}
+    try:
+        for target in (1, 2, 3, 4, 6, 8):
+            mm._GATHER_BLOCKS_PER_SM = target
+            row = {}
+            for label, (ws, ids) in cases.items():
+                row[label] = {
+                    "layer_graph_ms": _graph_ms(lambda ws=ws, ids=ids: [
+                        mm.moe_gather_matmul(xs[w.shape[1], len(ids)], w, ids, s)
+                        for w, s in ws], reps=4),
+                    "slices": [len(mm.gather_slices(w.shape[1], mm.gather_plan(
+                        len(ids), w.shape[1], w.shape[2], w.dtype, sms))) for w, _ in ws]}
+            out[f"target{target}"] = row
+    finally:
+        mm._GATHER_BLOCKS_PER_SM = default
+    return out
+
+
+def sweep_grouped_rows(gen, sms: int) -> dict:
+    gsz = torch.tensor([3, 2, 0, 4, 1, 2, 3, 1], device="cuda")
+    weights = dict(zip(SHAPES, _int8_experts(gen, 8, SHAPES)))
+    xs = {k: torch.randn(16, k, generator=gen, device="cuda").to(torch.bfloat16)
+          for k in (4096, 14336)}
+    default = mm._GROUPED_BLOCKS_PER_SM
+    out = {"kernel": "moe_grouped", "group_sizes": gsz.tolist(), "default_target": default}
+    try:
+        for target in TARGETS:
+            mm._GROUPED_BLOCKS_PER_SM = target
+            row = {}
+            for names in (("gate", "up"), ("down",)):
+                def run(names=names):
+                    for p in names:
+                        w, s = weights[p]
+                        mm.grouped_rows(xs[w.shape[1]], w, s, gsz)
+                k, n = SHAPES[names[0]]
+                row["/".join(names)] = {
+                    "graph_ms": _graph_ms(run, reps=4),
+                    "slices": len(mm.grouped_rows_slices(k, mm.grouped_rows_plan(
+                        16, 8, k, n, torch.int8, sms)))}
+            out[f"target{target}"] = row
+    finally:
+        mm._GROUPED_BLOCKS_PER_SM = default
+    return out
+
+
 def sweep_paged(gen, sms: int) -> dict:
     def pool(b, lengths, q_len):
         q = torch.randn(b, q_len, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
@@ -253,9 +327,13 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = kernels.sm_count(0)
-    for sweep in (sweep_grouped_int4, sweep_int8, sweep_int4_decode, sweep_int4_a8,
-                  sweep_gather_int4, sweep_paged):
-        print(json.dumps(sweep(gen, sms)), flush=True)
+    sweeps = {"gather": sweep_gather, "grouped_rows": sweep_grouped_rows,
+              "grouped_int4": sweep_grouped_int4, "int8": sweep_int8,
+              "int4_decode": sweep_int4_decode, "int4_a8": sweep_int4_a8,
+              "gather_int4": sweep_gather_int4, "paged": sweep_paged}
+    for name in sys.argv[1:] or list(sweeps):
+        print(json.dumps(sweeps[name](gen, sms)), flush=True)
+        torch.cuda.empty_cache()
         torch.cuda.empty_cache()
     return 0
 

@@ -1265,3 +1265,365 @@ def test_fused_mlp_wrapper_passes_the_plan(m, dtype, route, monkeypatch):
         assert (held[0] == 0).all() and rec.calls[1][1][22] == tickets == held[0].data_ptr()
     assert kernels.launch_counts()["fused_mlp_int4"] == 2
     kernels.reset_counts()
+
+
+# ---------------------------------------------------------------------------
+# #10: the int8 expert gather's stream on bf16 rows (gather_plan)
+# ---------------------------------------------------------------------------
+
+QWEN3_MOE = {"gate": (2048, 768), "down": (768, 2048)}
+GATHER_TINY = {"tiny": (1024, 512), "narrow": (256, 384)}
+W_DTYPES = [torch.int8, torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("slots", [1, 2, 8, 16, 64])
+@pytest.mark.parametrize("wdtype", W_DTYPES)
+@pytest.mark.parametrize("shape", list({**MIXTRAL, **QWEN3_MOE, **GATHER_TINY}))
+def test_gather_plan_covers_k_in_whole_batches(shape, wdtype, slots, sms):
+    """The slices cover k once, in order, each a whole number of the 8
+    warps' double-buffered iterations (two 4-row batches) but the last,
+    none longer than x's 12,288-float staging buffer; as few as give the
+    plan's blocks on every SM (``_GATHER_BLOCKS_PER_SM``) over the (strip,
+    slot) pairs, each cut to whole iterations (which may round to
+    fewer)."""
+    k, n = {**MIXTRAL, **QWEN3_MOE, **GATHER_TINY}[shape]
+    ks = moe.gather_plan(slots, k, n, wdtype, sms)
+    assert ks % 64 == 0 and 64 <= ks <= 12288
+    ranges = moe.gather_slices(k, ks)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+    assert all(k1 - k0 == ks for k0, k1 in ranges[:-1]) and 0 < ranges[-1][1] - ranges[-1][0]
+    strips = -(-n // moe.gather_strip(wdtype))
+    wanted = max(1, -(-moe._GATHER_BLOCKS_PER_SM * sms // (strips * slots)))
+    assert ks == min(12288, -(-(-(-k // wanted)) // 64) * 64)
+    assert len(ranges) <= wanted or ks == 12288
+
+
+@pytest.mark.parametrize("wdtype", W_DTYPES)
+@pytest.mark.parametrize("n", [768, 512, 2048, 14336, 96])
+def test_gather_strips_cover_every_column_once(n, wdtype):
+    """The kernel's lanes (strip x, lane l: columns x * strip + l * cols ..
+    + cols, idle from n on) cover each column once: at Qwen3-30B-A3B's 768
+    the last 512-column strip of int8 experts is ragged, half its lanes
+    idle."""
+    strip = moe.gather_strip(wdtype)
+    cols = strip // 32
+    assert cols * {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}[wdtype] == 16
+    seen = np.zeros(n, np.int64)
+    idle = 0
+    for x in range(-(-n // strip)):
+        for lane in range(32):
+            c0 = x * strip + lane * cols
+            if c0 >= n:
+                idle += 1
+                continue
+            seen[c0:c0 + cols] += 1
+    assert (seen == 1).all()
+    if n == 768 and wdtype == torch.int8:
+        assert idle == 16
+
+
+def test_gather_plan_on_an_h100():
+    """Two blocks an SM: a Mixtral decode layer at 2 slots in 5 slices of
+    832 rows for gate/up (28 strips), 16 of 896 for down (8 strips); 16
+    slots leave gate/up whole; Qwen3-30B-A3B at 8 slots: 16 slices of 128
+    rows (2 strips, the second ragged) and 6 for down."""
+    def slices(slots, k, n):
+        return len(moe.gather_slices(k, moe.gather_plan(slots, k, n, torch.int8, H100_SMS)))
+    assert {name: slices(2, k, n) for name, (k, n) in MIXTRAL.items()} == \
+        {"gate": 5, "up": 5, "down": 16}
+    assert {name: slices(16, k, n) for name, (k, n) in MIXTRAL.items()} == \
+        {"gate": 1, "up": 1, "down": 3}
+    assert {name: slices(8, k, n) for name, (k, n) in QWEN3_MOE.items()} == \
+        {"gate": 16, "down": 6}
+
+
+def _gather_stream_model(x, w, ids, scale, k_slice):
+    """The bf16 gather kernel's sums: per slice, each of 8 warps' runs of
+    rows in f32, the warps added in order, the slices added in order (the
+    strip's last block), then the scale and one rounding to bf16."""
+    wf = w.index_select(0, ids.long()).to(x.dtype).float()
+    xf = x.float()
+    acc = None
+    for k0, k1 in moe.gather_slices(x.shape[1], k_slice):
+        per_warp = -(-(k1 - k0) // 8)
+        part = None
+        for j0 in range(k0, k1, per_warp):
+            j1 = min(k1, j0 + per_warp)
+            run = torch.einsum("sk,skn->sn", xf[:, j0:j1], wf[:, j0:j1])
+            part = run if part is None else part + run
+        acc = part if acc is None else acc + part
+    if scale is not None:
+        acc = acc * scale.index_select(0, ids.long()).float()
+    return acc.to(x.dtype)
+
+
+@pytest.mark.parametrize("sms", [1, 8, H100_SMS])
+@pytest.mark.parametrize("kind", ["int8", "bfloat16", "float32"])
+def test_gather_stream_model_matches_plain_and_jax(kind, sms):
+    """The model of the kernel's sums under the plan, over 5 slots with
+    two pairs on one expert each, against the plain version over the same
+    slices and JAX's gather (interpret mode), within one bf16 ulp."""
+    k, n = GATHER_TINY["tiny"]
+    rng = np.random.default_rng(sms)
+    if kind == "int8":
+        w = rng.integers(-127, 128, (4, k, n)).astype(np.int8)
+        s = (rng.random((4, n)) * 2e-2 + 1e-2).astype(np.float32)
+    else:
+        w, s = (rng.standard_normal((4, k, n)) * 0.02).astype(np.float32), None
+    x = rng.standard_normal((5, k)).astype(np.float32)
+    ids = np.asarray([3, 1, 3, 1, 0], np.int32)
+    tw = torch.from_numpy(w)
+    if kind == "bfloat16":
+        tw = tw.to(torch.bfloat16)
+        w = np.asarray(jnp.asarray(w, jnp.bfloat16))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    ts = None if s is None else torch.from_numpy(s)
+    ks = moe.gather_plan(5, k, n, tw.dtype, sms)
+    got = _gather_stream_model(tx, tw, torch.from_numpy(ids), ts, ks)
+    plain = moe.moe_gather_matmul_plain(tx, tw, torch.from_numpy(ids), ts,
+                                        moe.gather_slices(k, ks))
+    want = jmoe.moe_gather_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                                  jnp.asarray(ids), None if s is None else jnp.asarray(s))
+    _close(got, plain.float().numpy(), "bfloat16")
+    _close(got, np.asarray(want.astype(jnp.float32)), "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# #11: the grouped-rows kernel (grouped_rows_plan, its fragments and sums)
+# ---------------------------------------------------------------------------
+
+ROWS_TINY = {"tiny": (1024, 512), "short k": (160, 256)}
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("m,e", [(9, 8), (16, 8), (32, 8), (3, 8), (512, 128)])
+@pytest.mark.parametrize("wdtype", W_DTYPES)
+@pytest.mark.parametrize("shape", list({**MIXTRAL, **QWEN3_MOE, **ROWS_TINY}))
+def test_grouped_rows_plan_covers_k_in_whole_steps(shape, wdtype, m, e, sms):
+    """The slices cover k once, in order, in whole 16-row steps, at least a
+    step for each of the 8 warps where k has them; as few as give the
+    plan's blocks on every SM (``_GROUPED_BLOCKS_PER_SM``) over the (strip,
+    expert) pairs min(E, m) groups can fill, or as many as the warps
+    allow."""
+    k, n = {**MIXTRAL, **QWEN3_MOE, **ROWS_TINY}[shape]
+    strip = moe.grouped_rows_strip(wdtype)
+    assert n % strip == 0
+    per = moe.grouped_rows_plan(m, e, k, n, wdtype, sms)
+    steps = k // 16
+    ranges = moe.grouped_rows_slices(k, per)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+    assert all((k1 - k0) % 16 == 0 and k1 > k0 for k0, k1 in ranges)
+    assert len(ranges) == -(-steps // per)
+    assert per >= min(8, steps) or len(ranges) == 1
+    blocks = min(e, m) * (n // strip)
+    most = max(1, steps // 8)
+    if len(ranges) > 1:   # no fewer slices would have met the target
+        fewer = len(ranges) - 1
+        assert blocks * -(-steps // -(-steps // fewer)) < moe._GROUPED_BLOCKS_PER_SM * sms
+    assert (blocks * len(ranges) >= moe._GROUPED_BLOCKS_PER_SM * sms
+            or len(ranges) >= -(-steps // -(-steps // most)))
+
+
+def test_grouped_rows_plan_on_an_h100():
+    """One block an SM: a Mixtral layer on the dedup route (9-32 rows, 8
+    experts) on 132 SMs whole (8 x 112 blocks for gate and up, 8 x 32 for
+    down); 512 columns of down in 5 slices of 180 steps (8 x 4 x 5
+    blocks); bf16 experts (64-column strips) whole; Qwen3's up at 512 rows
+    whole (128 x 6 blocks)."""
+    for m in (9, 16, 32):
+        got = {name: len(moe.grouped_rows_slices(k, moe.grouped_rows_plan(
+            m, 8, k, n, torch.int8, H100_SMS))) for name, (k, n) in MIXTRAL.items()}
+        assert got == {"gate": 1, "up": 1, "down": 1}
+    assert moe.grouped_rows_plan(16, 8, 14336, 512, torch.int8, H100_SMS) == 180
+    assert {name: len(moe.grouped_rows_slices(k, moe.grouped_rows_plan(
+        16, 8, k, n, torch.bfloat16, H100_SMS))) for name, (k, n) in MIXTRAL.items()} == \
+        {"gate": 1, "up": 1, "down": 1}
+    assert moe.grouped_rows_plan(512, 128, 2048, 768, torch.int8, H100_SMS) == 128
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    """PRMT (__byte_perm) without the sign-replicating mode."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _bf16_bits(v: float) -> int:
+    return int(np.float32(v).view(np.uint32)) >> 16
+
+
+def _from_bf16(bits: int) -> float:
+    return float(np.uint32(bits << 16).view(np.float32))
+
+
+def _s8x2_pair(t: int):
+    """common.cuh s8x2_bf16x2: the bytes at bits 0-7 and 16-23 of t as
+    bf16 (low half, high half), by 0x4300 | (b & 0x7f) - 0x4300 | (b & 0x80)."""
+    out = []
+    for half in (t & 0xFFFF, t >> 16):
+        a = _from_bf16((half & 0x7F) | 0x4300)
+        b = _from_bf16((half & 0x80) | 0x4300)
+        out.append(a - b)
+    return out
+
+
+def _word(row_bytes: np.ndarray, q: int) -> int:
+    return int(row_bytes[4 * q:4 * q + 4].view(np.uint32)[0])
+
+
+def _a_frag(rows, i: int, wdtype):
+    """csrc/moe_matmul.cu a_frag: MMA i's four A registers as (low, high)
+    bf16 values, from a lane's 4 k rows of 16 bytes each."""
+    if wdtype == torch.int8:
+        sel = 0x7632 if i % 2 else 0x5410
+        t01 = _byte_perm(_word(rows[0], i // 2), _word(rows[1], i // 2), sel)
+        t23 = _byte_perm(_word(rows[2], i // 2), _word(rows[3], i // 2), sel)
+        return [_s8x2_pair(t01), _s8x2_pair(t01 >> 8), _s8x2_pair(t23), _s8x2_pair(t23 >> 8)]
+    if wdtype == torch.bfloat16:
+        def pair(x, y, sel):
+            t = _byte_perm(x, y, sel)
+            return [_from_bf16(t & 0xFFFF), _from_bf16(t >> 16)]
+        return [pair(_word(rows[0], i), _word(rows[1], i), 0x5410),
+                pair(_word(rows[0], i), _word(rows[1], i), 0x7632),
+                pair(_word(rows[2], i), _word(rows[3], i), 0x5410),
+                pair(_word(rows[2], i), _word(rows[3], i), 0x7632)]
+
+    def rnd(r, q):
+        return float(torch.tensor(float(rows[r][4 * q:4 * q + 4].view(np.float32)[0]))
+                     .to(torch.bfloat16).float())
+    return [[rnd(0, 2 * i), rnd(1, 2 * i)], [rnd(0, 2 * i + 1), rnd(1, 2 * i + 1)],
+            [rnd(2, 2 * i), rnd(3, 2 * i)], [rnd(2, 2 * i + 1), rnd(3, 2 * i + 1)]]
+
+
+@pytest.mark.parametrize("wdtype", W_DTYPES)
+def test_grouped_rows_fragments_hold_the_columns_the_epilogue_writes(wdtype):
+    """One 16-deep step of a warp, lane by lane: lane 4g + c loads k rows
+    4c .. 4c + 3 at its 16 bytes of columns; a_frag makes each MMA's A
+    fragment (mma.sync m16n8k16's layout: rows g and g + 8, k pairs 2c and
+    2c + 8), x's B fragment is the row's k values 4c .. 4c + 3 (one 8-byte
+    load), and the epilogue writes d0..d3 to rows 2c, 2c + 1 at columns
+    2i, 2i + 1 of the lane group's. The result is x @ w (each weight cast
+    to bf16) exactly, for small integers."""
+    rng = np.random.default_rng(11)
+    cols = 16 // {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}[wdtype]
+    strip = 8 * cols
+    assert strip == moe.grouped_rows_strip(wdtype)
+    if wdtype == torch.int8:
+        w = rng.integers(-128, 128, (16, strip)).astype(np.int8)
+    else:
+        w = (rng.integers(-64, 64, (16, strip)) / 8).astype(np.float32)
+    wbytes = (w if wdtype != torch.bfloat16 else
+              torch.from_numpy(w).to(torch.bfloat16).view(torch.int16).numpy()).view(np.uint8)
+    x = rng.integers(-8, 8, (8, 16)).astype(np.float32)
+    red = np.full((8, strip), np.nan)
+    for i in range(cols // 2):
+        a = np.zeros((16, 16))
+        b = np.zeros((16, 8))
+        lanes = {}
+        for lane in range(32):
+            g, c = lane // 4, lane % 4
+            rows = [wbytes[4 * c + r, g * 16:(g + 1) * 16] for r in range(4)]
+            frag = _a_frag(rows, i, wdtype)
+            for reg, (r0, k0) in enumerate(((g, 2 * c), (g + 8, 2 * c), (g, 2 * c + 8),
+                                            (g + 8, 2 * c + 8))):
+                a[r0, k0:k0 + 2] = frag[reg]
+            b[[2 * c, 2 * c + 1, 2 * c + 8, 2 * c + 9], g] = x[g, 4 * c:4 * c + 4]
+            lanes[lane] = (g, c)
+        d = a @ b
+        for lane, (g, c) in lanes.items():
+            d0, d1, d2, d3 = d[g, 2 * c], d[g, 2 * c + 1], d[g + 8, 2 * c], d[g + 8, 2 * c + 1]
+            red[2 * c, g * cols + 2 * i:g * cols + 2 * i + 2] = (d0, d2)
+            red[2 * c + 1, g * cols + 2 * i:g * cols + 2 * i + 2] = (d1, d3)
+    want = x @ torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(red, want)
+
+
+def _grouped_rows_model(xs, w, scale, gsz, per):
+    """The grouped-rows kernel's control flow and sums: block (slice,
+    expert) finds its group's first row from the sizes before it, exits on
+    an empty group, walks the group in passes of 16 rows (two 8-row tiles),
+    each of 8 warps summing its interleaved 16-row steps in f32, the warps
+    added in order; one slice writes the output, more write partials that
+    the last block adds in slice order; the scale, one rounding. Every
+    output row must be written exactly once."""
+    m, k = xs.shape
+    e, _, n = w.shape
+    steps = k // 16
+    slices = -(-steps // per)
+    xf, wf = xs.float(), w.to(xs.dtype).float()
+    out = torch.full((m, n), float("nan"))
+    writes = torch.zeros(m, dtype=torch.int64)
+    partial = torch.full((slices, m, n), float("nan"))
+    sizes = gsz.tolist()
+    for ex in range(e):
+        start = sum(sizes[:ex])
+        length = min(sizes[ex], m - start)
+        if length <= 0:
+            continue
+        srow = None if scale is None else scale[ex].float()
+        for y in range(slices):
+            s0, s1 = y * per, min(steps, (y + 1) * per)
+            for p0 in range(0, length, 16):
+                tiles = min(2, -(-(length - p0) // 8))
+                rows = torch.arange(p0, min(length, p0 + 8 * tiles)) + start
+                acc = torch.zeros(len(rows), n)
+                for warp in range(8):
+                    run = torch.zeros(len(rows), n)
+                    for s in range(s0 + warp, s1, 8):
+                        run += xf[rows, s * 16:(s + 1) * 16] @ wf[ex, s * 16:(s + 1) * 16]
+                    acc += run
+                if slices == 1:
+                    out[rows] = acc * srow if srow is not None else acc
+                    writes[rows] += 1
+                else:
+                    partial[y, rows] = acc
+        if slices > 1:
+            rows = slice(start, start + length)
+            acc = partial[0, rows].clone()
+            for y in range(1, slices):
+                acc += partial[y, rows]
+            out[rows] = acc * srow if srow is not None else acc
+            writes[rows] += 1
+    assert (writes == 1).all()
+    return out.to(xs.dtype)
+
+
+ROWS_GROUPS = {"16 rows": [3, 2, 0, 4, 1, 2, 3, 1], "32 rows": [3, 2, 0, 17, 1, 2, 3, 4],
+               "one group": [0, 0, 0, 0, 0, 0, 32, 0], "9 rows": [1, 1, 1, 1, 1, 1, 1, 2]}
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS])
+@pytest.mark.parametrize("kind", ["int8", "bfloat16"])
+@pytest.mark.parametrize("groups", list(ROWS_GROUPS))
+def test_grouped_rows_model_matches_plain_and_jax(groups, kind, sms):
+    """The model of the kernel under its plan (E 8; an empty group, a group
+    of 17 rows over three tiles and two passes, one group of every row)
+    against the plain version over the same slices and JAX's
+    moe_grouped_matmul on its dedup route (interpret mode), within one bf16
+    ulp of the largest output."""
+    k, n = ROWS_TINY["tiny"]
+    gsz = np.asarray(ROWS_GROUPS[groups], np.int32)
+    m = int(gsz.sum())
+    rng = np.random.default_rng(m + sms)
+    if kind == "int8":
+        w = rng.integers(-127, 128, (8, k, n)).astype(np.int8)
+        s = (rng.random((8, n)) * 2e-2 + 1e-2).astype(np.float32)
+    else:
+        w = np.asarray(jnp.asarray(rng.standard_normal((8, k, n)) * 0.02, jnp.bfloat16))
+        s = None
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tw = torch.from_numpy(w) if kind == "int8" else \
+        torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16)
+    ts = None if s is None else torch.from_numpy(s)
+    tg = torch.from_numpy(gsz)
+    per = moe.grouped_rows_plan(m, 8, k, n, tw.dtype, sms)
+    got = _grouped_rows_model(tx, tw, ts, tg, per)
+    plain = moe.moe_grouped_matmul_plain(tx, tw, tg, ts, moe.grouped_rows_slices(k, per))
+    want = jmoe.moe_grouped_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w),
+                                   jnp.asarray(gsz), None if s is None else jnp.asarray(s),
+                                   tm=16, tile_k=1024, tile_n=512, no_stack=True)
+    _close(got, plain.float().numpy(), "bfloat16")
+    _close(got, np.asarray(want.astype(jnp.float32)), "bfloat16")

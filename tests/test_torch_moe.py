@@ -73,12 +73,12 @@ def routes(monkeypatch):
     """Records each grouped kernel call's counter name (CPU tensors take the
     plain version, so nothing is counted)."""
     seen = []
-    real = moe.grouped_padded
+    real = moe.grouped_kernel_call
 
-    def spy(xp, w, scale, texp, used, tm, stack, rows=None):
+    def spy(xs, w, scale, gsz, tm, stack):
         seen.append("moe_grouped_stack" if stack else "moe_grouped")
-        return real(xp, w, scale, texp, used, tm, stack, rows)
-    monkeypatch.setattr(moe, "grouped_padded", spy)
+        return real(xs, w, scale, gsz, tm, stack)
+    monkeypatch.setattr(moe, "grouped_kernel_call", spy)
     return seen
 
 
@@ -209,6 +209,65 @@ def test_grouped_fallback_untiled_matches_jax(routes):
     want = jmoe.moe_grouped_matmul(jx, jw, jnp.asarray(gsz), js)
     _close(moe.moe_grouped_matmul(tx, tw, torch.from_numpy(gsz), ts), want)
     assert routes == []
+
+
+# E 8 on the dedup route: 16 and 32 rows, an empty group, a group longer
+# than an 8-row tile (and than a 16-row pass), every row in one group
+DEDUP_GROUPS = {"16 rows": [3, 2, 0, 4, 1, 2, 3, 1], "32 rows": [3, 2, 0, 17, 1, 2, 3, 4],
+                "one group": [0, 0, 0, 0, 0, 32, 0, 0]}
+
+
+@pytest.mark.parametrize("kind", ["int8", "bfloat16"])
+@pytest.mark.parametrize("groups", list(DEDUP_GROUPS))
+def test_grouped_rows_route_matches_jax(groups, kind, routes):
+    """The dedup route with bf16 rows takes the grouped-rows kernel on the
+    sorted rows (its plain version on the CPU: each group's rows over the
+    k slices an H100's plan gives, added in slice order), counted as #11,
+    against JAX's moe_grouped_matmul on the same route (interpret mode),
+    within one bf16 ulp of the largest output."""
+    gsz = np.asarray(DEDUP_GROUPS[groups], np.int32)
+    m = int(gsz.sum())
+    rng = np.random.default_rng(m)
+    w, s = _experts(rng, "int8" if kind == "int8" else "float", e=8)
+    if kind == "bfloat16":
+        w = np.asarray(jnp.asarray(w, jnp.bfloat16)).astype(np.float32)
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    (jx, jw, js), (tx, tw, ts) = _pair(x, w, s, "bfloat16")
+    if kind == "bfloat16":
+        jw, tw = jw.astype(jnp.bfloat16), tw.to(torch.bfloat16)
+    kw = dict(tm=16, tile_k=1024, tile_n=512, no_stack=True)
+    tg = torch.from_numpy(gsz)
+    got = moe.moe_grouped_matmul(tx, tw, tg, ts, **kw)
+    assert routes == ["moe_grouped"] and got.dtype == torch.bfloat16
+    per = moe.grouped_rows_plan(m, 8, K, N, tw.dtype, moe.PLAN_SMS)
+    assert len(moe.grouped_rows_slices(K, per)) > 1
+    assert torch.equal(got, moe.moe_grouped_matmul_plain(tx, tw, tg, ts,
+                                                         moe.grouped_rows_slices(K, per)))
+    _close(got, jmoe.moe_grouped_matmul(jx, jw, jnp.asarray(gsz), js, **kw), "bfloat16")
+
+
+@pytest.mark.parametrize("kind", ["int8", "bfloat16"])
+def test_gather_shared_experts_match_jax(kind):
+    """bf16 rows over 5 slots, two of them on expert 5 and two on expert 2
+    (a slot's block offsets its expert by its id on the device: shared
+    experts hide a wrong base): the CPU route (the plain version over the
+    k slices an H100's plan gives) against JAX's gather (interpret mode),
+    within one bf16 ulp of the largest output."""
+    rng = np.random.default_rng(5)
+    w, s = _experts(rng, "int8" if kind == "int8" else "float", e=8)
+    if kind == "bfloat16":
+        w = np.asarray(jnp.asarray(w, jnp.bfloat16)).astype(np.float32)
+    x = rng.standard_normal((5, K)).astype(np.float32)
+    ids = np.asarray([5, 2, 5, 7, 2], np.int32)
+    (jx, jw, js), (tx, tw, ts) = _pair(x, w, s, "bfloat16")
+    if kind == "bfloat16":
+        jw, tw = jw.astype(jnp.bfloat16), tw.to(torch.bfloat16)
+    got = moe.moe_gather_matmul(tx, tw, torch.from_numpy(ids), ts)
+    ks = moe.gather_plan(5, K, N, tw.dtype, moe.PLAN_SMS)
+    assert len(moe.gather_slices(K, ks)) > 1
+    assert torch.equal(got, moe.moe_gather_matmul_plain(tx, tw, torch.from_numpy(ids), ts,
+                                                        moe.gather_slices(K, ks)))
+    _close(got, jmoe.moe_gather_matmul(jx, jw, jnp.asarray(ids), js), "bfloat16")
 
 
 # ---------------------------------------------------------------------------

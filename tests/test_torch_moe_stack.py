@@ -56,15 +56,17 @@ ROUTES = {
     "int8 stack, k tail": (torch.bfloat16, torch.int8, 128, True, 1152, 256,
                            "rk_moe_grouped_stack", "moe_grouped_stack"),
     "f32 experts stack": (torch.bfloat16, torch.float32, 128, True, 1024, 512,
-                          "rk_moe_grouped", "moe_grouped_stack"),
+                          "rk_moe_grouped_rows", "moe_grouped_stack"),
     "f32 rows stack": (torch.float32, torch.int8, 128, True, 1024, 512,
                        "rk_moe_grouped", "moe_grouped_stack"),
     "stack at tm 64": (torch.bfloat16, torch.int8, 64, True, 1024, 512,
-                       "rk_moe_grouped", "moe_grouped_stack"),
+                       "rk_moe_grouped_rows", "moe_grouped_stack"),
     "dedup (#11)": (torch.bfloat16, torch.int8, 16, False, 1024, 512,
-                    "rk_moe_grouped", "moe_grouped"),
+                    "rk_moe_grouped_rows", "moe_grouped"),
     "dedup at tm 128": (torch.bfloat16, torch.int8, 128, False, 1024, 512,
-                        "rk_moe_grouped", "moe_grouped"),
+                        "rk_moe_grouped_rows", "moe_grouped"),
+    "f32 rows dedup": (torch.float32, torch.int8, 8, False, 1024, 512,
+                       "rk_moe_grouped", "moe_grouped"),
 }
 
 
@@ -84,20 +86,28 @@ def library(monkeypatch):
 def test_grouped_wrapper_routes_by_shape_and_dtype(case, library):
     """stack with bf16 rows in 128-row tiles over int8 or bf16 experts
     reaches rk_moe_grouped_stack (texp, the tiles' real rows, used, k, n,
-    the experts' type, the persistent grid); f32 rows or
-    experts, other tiles and the dedup route reach rk_moe_grouped. Each call
-    counts one launch under its route's counter."""
+    the experts' type, the persistent grid); other bf16 calls (f32
+    experts, other tiles, the dedup route) reach rk_moe_grouped_rows on the
+    sorted rows (m, E, k, n, the plan's steps a slice, the experts' type);
+    f32 rows reach rk_moe_grouped on the padded layout. Each call counts
+    one launch under its route's counter."""
     dtype, wdtype, tm, stack, k, n, entry, counter = ROUTES[case]
     takes = stack and moe.stack_kernel_takes(tm, k, n, dtype, wdtype)
     assert takes == (entry == "rk_moe_grouped_stack")
+    on_rows = moe.rows_kernel_takes(tm, k, n, dtype, wdtype, stack)
+    assert on_rows == (entry == "rk_moe_grouped_rows")
     gsz = torch.tensor([130, 0, 37, 89])
     x = torch.zeros(int(gsz.sum()), k, dtype=dtype)
-    xp, _, texp, used = moe.scatter_layout(x, gsz, tm, 4)
     w = torch.zeros(4, k, n, dtype=wdtype)
     scale = torch.ones(4, n) if wdtype == torch.int8 else None
-    rows = moe.tile_rows(gsz, texp, tm)
-    out = moe._grouped_cuda(xp, w, scale, texp, used, tm, stack, rows)
-    assert out.shape == (xp.shape[0], n) and out.dtype == dtype
+    if on_rows:
+        out = moe._grouped_rows_cuda(x, w, scale, gsz, counter)
+        assert out.shape == (x.shape[0], n) and out.dtype == dtype
+    else:
+        xp, _, texp, used = moe.scatter_layout(x, gsz, tm, 4)
+        rows = moe.tile_rows(gsz, texp, tm)
+        out = moe._grouped_cuda(xp, w, scale, texp, used, tm, stack, rows)
+        assert out.shape == (xp.shape[0], n) and out.dtype == dtype
     assert [name for name, _ in library.calls] == [entry]
     counts = kernels.launch_counts()
     assert counts[counter] == 1 and sum(counts.values()) == 1
@@ -106,6 +116,10 @@ def test_grouped_wrapper_routes_by_shape_and_dtype(case, library):
         mp = xp.shape[0]
         assert args[6:10] == (k, n, 2 if wdtype == torch.int8 else 1,
                               moe.stack_grid(mp, n, H100_SMS))
+        assert (args[2] is None) == (scale is None)
+    elif entry == "rk_moe_grouped_rows":
+        per = moe.grouped_rows_plan(x.shape[0], 4, k, n, wdtype, H100_SMS)
+        assert args[4:10] == (x.shape[0], 4, k, n, per, moe._W_CODES[wdtype])
         assert (args[2] is None) == (scale is None)
     else:
         assert args[5:9] == (xp.shape[0], k, n, tm)
