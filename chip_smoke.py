@@ -218,17 +218,38 @@ Phases (any failure raises and exits non-zero):
    waves through #14); a W4A8 int4 decoder (512-row groups) answers one
    ("moe int4 W4A8": #5 and #13's output-scaled route). #6 (the fused int4
    MLP) is on no path, as in the JAX package: phase 3 checks it alone.
+9. training (after phase 8, the encoders freed): train/train.py's
+   make_decoder_train_step at full width, f32 weights computed in bf16,
+   TRAIN_STEPS AdamW steps on a seeded TRAIN_B x TRAIN_S batch, each
+   logged with its loss, grad norm, ms and tokens/s, and the peak GiB
+   allocated; the losses finite and falling. "train 8b": the
+   Llama-3.1-8B shape at two layers (no CUDA kernel of the port is on its
+   path: the einsum attention, float projections); save_train_state at
+   the last step (GB and seconds written and read), latest_checkpoint
+   its step_N, one more step, then a fresh template restored from the
+   checkpoint takes the same step (loss within TRAIN_RESUME_REL, every
+   weight after it within TRAIN_RESUME_ATOL of the uninterrupted run's:
+   the AdamW moments and step count restored); the restored weights quantized int8 and served through LocalLLM for
+   TRAIN_SERVE_TOKENS greedy tokens ("train serve": #8, #3); the
+   directory deleted. "train moe": Mixtral-8x7B's shape at one layer,
+   moe_grouped="on": each expert projection's forward and dx through the
+   grouped-rows kernel over the f32 stacks on #12's route (variant
+   w=f32), the aux loss at least 1 - 1e-5, the router moved. Then the
+   grouped GEMM's backward (ops/moe_matmul.GroupedKernelPath) at those
+   shapes against autograd through its plain version, within BWD_TOL,
+   with its times beside the plain ones and torch._grouped_mm's on bf16
+   stacks (the kernels line's "moe_grouped_stack w=f32" row).
 
 Each LLM call of phases 4-5 and 7-8 is timed on its own, and a line after
 each phase gives the script's seconds so far. Each of the
-thirty-three runs resets the kernels' launch counts just before its
+thirty-six runs resets the kernels' launch counts just before its
 requests and reads them just after; every kernel of that run's path
 (PATH_KERNELS) and every instantiation it must reach (PATH_VARIANTS) must
 have launched.
 
 Prints a JSON line with the kernels' results, the clocks read before
-and after phase 3, the checkpoint writes and loads, and phases 4i's and
-4j's readings, then the card's name and power limit, and last
+and after phase 3, the checkpoint writes and loads, and phases 4i's, 4j's
+and 9's readings, then the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -2289,7 +2310,10 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "ring": ("topk", "int8_matmul"),
                 "moe ep int8": ("int8_matmul", "moe_gather"),
                 "moe ep int4": ("int4_matmul", "moe_gather_int4"),
-                "tp4 w4a16": ("topk", "int4_matmul", "flash_gqa")}
+                "tp4 w4a16": ("topk", "int4_matmul", "flash_gqa"),
+                "train 8b": (),
+                "train moe": ("moe_grouped_stack",),
+                "train serve": ("int8_matmul", "flash_gqa")}
 # the kernel instantiations (head dim, group) each run must launch
 PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
                                     "paged_attention_chunk hd=256 g=2"),
@@ -2303,7 +2327,8 @@ PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
                                            "paged_attention_chunk hd=128 g=7"),
                  "tp4": ("flash_gqa hd=128 g=4",),
                  "tp4 batched": ("paged_attention hd=128 g=4",
-                                 "paged_attention_chunk hd=128 g=4")}
+                                 "paged_attention_chunk hd=128 g=4"),
+                 "train moe": ("moe_grouped_stack w=f32",)}
 
 
 def missing_kernels(label: str, counts: dict, variants: dict) -> list:
@@ -4532,6 +4557,10 @@ def run_system(seed: int) -> dict:
             runs.update(phase(seed, encoder, cross, data_dir, os.path.join(tmp, "index"),
                               texts, queries))
             mark(done)
+        del encoder, cross
+        free_card()
+        runs.update(run_training(seed, ckpt_root))
+        mark("phase 9")
         shutil.rmtree(ckpt_root)
     return runs
 
@@ -4623,6 +4652,347 @@ def run_moe_int4(seed: int, encoder, cross, data_dir: str, index_dir: str, texts
     runs["moe int4 W4A8"] = drive("moe int4 W4A8", system, llm, queries[1:2])
     del system, llm
     free_card()
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 512   # a train batch: rows and tokens a row
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4             # the JAX package's default decoder learning rate
+TRAIN_RESUME_REL = 1e-5     # the resumed step's loss against the uninterrupted step's
+TRAIN_RESUME_ATOL = 1e-7    # the weights after it (a lost moment moves them ~TRAIN_LR)
+BWD_TOL = 1e-2              # the grouped backward against plain autograd, relative to
+#                             the plain result's largest |value| (bf16 outputs, f32 sums
+#                             in another order)
+TRAIN_SERVE_TOKENS = 8
+
+
+def train_batch(gen, vocab: int) -> dict:
+    """TRAIN_B rows of TRAIN_S token ids drawn on the card; the second row's
+    last quarter masked out of the loss."""
+    import torch
+    ids = torch.randint(0, vocab, (TRAIN_B, TRAIN_S), generator=gen, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, TRAIN_S * 3 // 4:] = 0
+    return {"ids": ids, "mask": mask}
+
+
+def train_steps(label: str, state, step, batch, n: int):
+    """n steps, each timed to its end: its metrics, ms and tokens/s."""
+    import torch
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        r = {k: float(v) for k, v in metrics.items()}
+        r.update(ms=round(sec * 1e3, 1),
+                 tokens_per_s=round(batch["ids"].numel() / sec, 1))
+        log(f"{label} step {state.step}: {json.dumps(r)}")
+        out.append(r)
+    losses = [r["loss"] for r in out]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} not finite and falling")
+    return state, out
+
+
+def train_run(label: str, steps: list, counts: dict, variants: dict, **readings) -> dict:
+    """A run of train steps in the shape of the /chat runs (its seconds a
+    step as latency_s), every kernel of its path launched."""
+    missing = missing_kernels(label, counts, variants)
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the path: {missing}")
+    log(f"{label}: launch counts over its {len(steps)} steps: "
+        f"{ {k: v for k, v in counts.items() if v} }; by variant: {variants}")
+    return {"counts": counts, "variants": variants, "latency_of": "seconds a train step",
+            "latency_s": [r["ms"] / 1e3 for r in steps], "readings": dict(readings, steps=steps)}
+
+
+def run_train_8b(seed: int, root: str) -> dict:
+    """Phase 9 (1) and (4): the Llama-3.1-8B-shaped decoder at full width
+    and two layers, f32 weights computed in bf16, TRAIN_STEPS AdamW steps
+    ("train 8b": no CUDA kernel of the port is on this path: the einsum
+    attention, float projections); saved at the last step, one more step
+    taken, then a fresh template restored from the checkpoint takes the
+    same step (its loss within TRAIN_RESUME_REL, every weight after it
+    within TRAIN_RESUME_ATOL of the uninterrupted run's); the restored weights
+    quantized int8 and served through LocalLLM for TRAIN_SERVE_TOKENS
+    greedy tokens ("train serve": #8 prefill, #3 decode)."""
+    import shutil
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.models.decoder import LlamaConfig, LocalLLM
+    from ragmeup_tpu_torch.models.hf_loader import quantize_decoder_params, select_kernels
+    from ragmeup_tpu_torch.models.tokenizer import SimpleTokenizer
+    from ragmeup_tpu_torch.train import checkpoint
+    from ragmeup_tpu_torch.train.train import make_decoder_train_step
+    runs = {}
+    cfg = LlamaConfig.llama31_8b(num_layers=2, quantization="none")
+    batch = train_batch(torch.Generator(device="cuda").manual_seed(seed + 41), cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step = make_decoder_train_step(cfg, learning_rate=TRAIN_LR, seed=seed,
+                                          device="cuda")
+    n_params = sum(t.numel() for t in state.params.values())
+    log(f"train 8b: {n_params / 1e9:.3f} B f32 parameters built in "
+        f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_B} x {TRAIN_S}")
+    kernels.reset_counts()
+    state, steps = train_steps("train 8b", state, step, batch, TRAIN_STEPS)
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train 8b: peak {peak:.2f} GiB allocated")
+    ckpt = os.path.join(root, "train_8b")
+    t0 = time.perf_counter()
+    path = checkpoint.save_train_state(ckpt, state)
+    save_s = time.perf_counter() - t0
+    gb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+    latest = checkpoint.latest_checkpoint(ckpt)
+    if not latest or not latest.endswith(f"step_{TRAIN_STEPS}"):
+        raise AssertionError(f"train 8b: latest checkpoint {latest}")
+    state, straight = step(state, batch)
+    straight = float(straight["loss"])
+    want = state.params  # the uninterrupted run's weights after its next step
+    del state, step
+    free_card()
+    tpl, step2 = make_decoder_train_step(cfg, learning_rate=TRAIN_LR, seed=seed + 1,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_train_state(path, tpl)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if restored.step != TRAIN_STEPS:
+        raise AssertionError(f"train 8b: restored step {restored.step}")
+    after, resumed = step2(restored, batch)
+    resumed = float(resumed["loss"])
+    rel = abs(resumed - straight) / abs(straight)
+    # the step's update reads the restored AdamW moments and step count
+    drift = max((after.params[k] - w).abs().max().item() for k, w in want.items())
+    del after, want
+    log(f"train 8b: checkpoint {gb:.2f} GB written in {save_s:.1f} s "
+        f"({gb / save_s:.2f} GB/s), read onto the card in {load_s:.1f} s "
+        f"({gb / load_s:.2f} GB/s); step {TRAIN_STEPS + 1} loss uninterrupted "
+        f"{straight:.6f}, resumed {resumed:.6f} (relative {rel:.2e}); the weights "
+        f"after it: largest |resumed - uninterrupted| {drift:.3e} "
+        f"(tolerance {TRAIN_RESUME_ATOL})")
+    if rel > TRAIN_RESUME_REL or drift > TRAIN_RESUME_ATOL:
+        raise AssertionError(f"train 8b: resumed loss {resumed} against {straight}, "
+                             f"weights {drift} apart")
+    runs["train 8b"] = train_run(
+        "train 8b", steps, counts, variants, params_b=round(n_params / 1e9, 4),
+        peak_gib=round(peak, 2), checkpoint_gb=round(gb, 3), save_s=round(save_s, 2),
+        load_s=round(load_s, 2), loss_uninterrupted=straight, loss_resumed=resumed,
+        resumed_weights_max_abs_diff=drift)
+    qparams = quantize_decoder_params({k: v.detach() for k, v in restored.params.items()},
+                                      bits=8)
+    del tpl, step2, restored
+    free_card()
+    shutil.rmtree(ckpt)
+    qcfg = select_kernels(LlamaConfig.llama31_8b(num_layers=2))
+    llm = LocalLLM(qcfg, SimpleTokenizer(qcfg.vocab_size), params=qparams, device="cuda")
+    prompt = list(range(1000, 1128))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    ids = llm.generate(prompt, max_new_tokens=TRAIN_SERVE_TOKENS, temperature=0.0,
+                       speculative="off")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
+    log(f"train serve: {len(ids)} greedy tokens from the restored weights (int8) in "
+        f"{sec * 1e3:.1f} ms: {list(ids)}")
+    if len(ids) != TRAIN_SERVE_TOKENS:
+        raise AssertionError(f"train serve: {len(ids)} tokens")
+    missing = missing_kernels("train serve", counts, variants)
+    if missing:
+        raise AssertionError(f"train serve: kernels never launched on the path: {missing}")
+    runs["train serve"] = {"counts": counts, "variants": variants, "latency_s": [sec],
+                           "latency_of": f"seconds of {TRAIN_SERVE_TOKENS} greedy tokens"}
+    del llm, qparams
+    free_card()
+    return runs
+
+
+def rel_err(got, want) -> tuple:
+    """(largest |got - want|, that over the largest |want|)."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d, d / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_grouped_backward(gen) -> dict:
+    """Phase 9 (3): ``GroupedKernelPath`` at one Mixtral layer's training
+    shapes (TRAIN_B x TRAIN_S tokens, top-2: 2,048 bf16 rows over 8 f32
+    stacks, up 4096 x 14336 and down 14336 x 4096), forward, dx and dw held
+    to autograd through the plain version (``moe_grouped_matmul_plain``)
+    on the same inputs within BWD_TOL; the kernels each call launches
+    (profiler); eager and graph times of the forward, graph times of dx
+    alone and of the whole backward (dx on the transposed copy made in the
+    call, and dw), eager times of forward + backward through autograd, of
+    the plain forward and of the plain forward + backward (it reads the
+    group sizes on the host, so no graph); and, as a yardstick,
+    ``torch._grouped_mm`` on the stacks cast to bf16 (the same function
+    over bf16 stacks; none computes it over f32 stacks, which it refuses)."""
+    import torch
+    from ragmeup_tpu_torch.ops import moe_matmul as mm
+    e, h, f = MOE_E, 4096, 14336
+    m = 2 * TRAIN_B * TRAIN_S
+    ids = torch.randint(0, e, (m,), generator=gen, device="cuda")
+    gsz = torch.bincount(ids, minlength=e)
+    offs = torch.cumsum(gsz, 0).to(torch.int32)
+    shapes, worst = {}, (0.0, 0.0)
+    fast = dict(reps=2, rounds=3, warm_rounds=3)
+    for proj, (k, n) in (("up", (h, f)), ("down", (f, h))):
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        w = torch.randn(e, k, n, generator=gen, device="cuda") * 0.02
+        dy = (torch.randn(m, n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = mm.moe_grouped_matmul(xk, wk, gsz)
+        if "GroupedKernelPath" not in type(y.grad_fn).__name__:
+            raise AssertionError(f"grouped backward {proj}: {type(y.grad_fn).__name__}")
+        y.backward(dy)
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yp = mm.moe_grouped_matmul_plain(xp, wp, gsz)
+        yp.backward(dy)
+        errs = {"forward": rel_err(y, yp), "dx": rel_err(xk.grad, xp.grad),
+                "dw": rel_err(wk.grad, wp.grad)}
+        log(f"  grouped backward {proj}: largest |error| (relative to the plain result's "
+            f"largest |value|): " + ", ".join(f"{name} {a:.3e} ({r:.2e})"
+                                              for name, (a, r) in errs.items())
+            + f"; tolerance {BWD_TOL} relative")
+        for name, (a, r) in errs.items():
+            if r > BWD_TOL:
+                raise AssertionError(f"grouped backward {proj} {name}: {r} > {BWD_TOL}")
+            worst = max(worst, (a, r))
+        del xk, wk, xp, wp, y, yp
+        wt = w.transpose(1, 2).contiguous()
+
+        def fwd():
+            return mm.moe_grouped_matmul(x, w, gsz)
+
+        def dx():
+            return mm.moe_grouped_matmul(dy, wt, gsz)
+
+        def bwd():
+            return (mm.moe_grouped_matmul(dy, w.transpose(1, 2).contiguous(), gsz),
+                    mm.grouped_weight_grad(x, dy, gsz, e))
+
+        xg, wg_ = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def plain_fwd_bwd():
+            return torch.autograd.grad(mm.moe_grouped_matmul_plain(xg, wg_, gsz), (xg, wg_), dy)
+
+        def fn_fwd_bwd():
+            return torch.autograd.grad(mm.moe_grouped_matmul(xg, wg_, gsz), (xg, wg_), dy)
+
+        r = {"rows": m, "k": k, "n": n, "groups": gsz.tolist(),
+             "errors": {name: {"abs": a, "rel": rr} for name, (a, rr) in errs.items()},
+             "forward_kernels": kernels_of(fwd), "dx_kernels": kernels_of(dx),
+             "forward_ms": median_ms(fwd, **fast),
+             "forward_graph_ms": graph_ms_or_none(f"{proj} forward", fwd, reps=2),
+             "dx_graph_ms": graph_ms_or_none(f"{proj} dx", dx, reps=2),
+             "backward_graph_ms": graph_ms_or_none(f"{proj} backward", bwd, reps=2),
+             "fwd_bwd_ms": median_ms(fn_fwd_bwd, **fast),
+             "plain_forward_ms": median_ms(lambda: mm.moe_grouped_matmul_plain(x, w, gsz),
+                                           **fast),
+             "plain_fwd_bwd_ms": median_ms(plain_fwd_bwd, **fast),
+             # forward: rows, f32 stacks and bf16 outputs once; bf16 MMAs
+             **{f"forward_{key}": v for key, v in bound(
+                 nbytes(x, w) + m * n * 2, 2 * m * k * n, "bf16").items()},
+             # backward: what the function needs, w, x and dy read, dx and
+             # dw (f32) written; dx's and dw's routed products, bf16 MMAs
+             # with f32 sums (the transposed copy and dw's E-fold one-hot
+             # product are this design's, not the function's)
+             **{f"backward_{key}": v for key, v in bound(
+                 nbytes(w, x, dy) + m * k * 2 + w.numel() * 4,
+                 2 * 2 * m * k * n, "bf16").items()}}
+        wb = w.to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+        wbt = w.transpose(1, 2).to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
+        r["grouped_mm_bf16_forward_ms"] = grouped_mm_time(x, wb, offs)
+        r["grouped_mm_bf16_dx_ms"] = grouped_mm_time(dy, wbt, offs)
+        log(f"  grouped backward {proj}: " + json.dumps(
+            {key: v for key, v in r.items() if key not in ("groups", "errors")}))
+        shapes[proj] = r
+        del x, w, dy, wt, xg, wg_, wb, wbt
+        free_card()
+    up = shapes["up"]
+    return {"max_abs_err": worst[0], "max_rel_err": worst[1], "tolerance_rel": BWD_TOL,
+            "ms": up["forward_ms"], "graph_ms": up["forward_graph_ms"],
+            "plain_ms": up["plain_forward_ms"], "bound_ms": up["forward_bound_ms"],
+            "bound_by": up["forward_bound_by"], "library_ms": None,
+            "library_none": "torch._grouped_mm takes bf16 operands: no library call "
+                            "computes the product over f32 stacks (its bf16-stack time "
+                            "is in shapes)", "shapes": shapes}
+
+
+def grouped_mm_time(xs, w, offs):
+    """torch._grouped_mm on bf16 stacks (a yardstick), or None where the
+    card's torch lacks or refuses it (logged)."""
+    import torch
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    try:
+        return median_ms(lambda: torch._grouped_mm(xs, w, offs=offs), reps=2, rounds=3,
+                         warm_rounds=3)
+    except Exception as exc:  # the yardstick is optional; its refusal is logged
+        log(f"  torch._grouped_mm refused: {str(exc).splitlines()[0][:120]}")
+        return None
+
+
+def run_train_moe(seed: int) -> dict:
+    """Phase 9 (2): Mixtral-8x7B's shape at full width and one layer, f32
+    weights computed in bf16, moe_grouped="on": TRAIN_STEPS AdamW steps
+    ("train moe": each expert projection's forward and dx through the
+    grouped kernels over the f32 stacks, #12's route, counted as
+    moe_grouped_stack w=f32); the aux loss at least 1 - 1e-5, the router
+    moved."""
+    import torch
+    from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.models.decoder import LlamaConfig
+    from ragmeup_tpu_torch.train.train import make_decoder_train_step
+    cfg = LlamaConfig.mixtral_8x7b(num_layers=1, quantization="none", moe_grouped="on")
+    batch = train_batch(torch.Generator(device="cuda").manual_seed(seed + 43), cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step = make_decoder_train_step(cfg, learning_rate=TRAIN_LR, seed=seed + 42,
+                                          device="cuda")
+    n_params = sum(t.numel() for t in state.params.values())
+    log(f"train moe: {n_params / 1e9:.3f} B f32 parameters built in "
+        f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_B} x {TRAIN_S}")
+    router0 = state.params["layers.0.mlp.router"].detach().clone()
+    kernels.reset_counts()
+    state, steps = train_steps("train moe", state, step, batch, TRAIN_STEPS)
+    counts, variants = kernels.launch_counts(), kernels.variant_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = (state.params["layers.0.mlp.router"] - router0).abs().max().item()
+    log(f"train moe: peak {peak:.2f} GiB allocated; the router moved by {moved:.3e}")
+    if min(r["aux_loss"] for r in steps) < 1.0 - 1e-5 or not moved > 0:
+        raise AssertionError(f"train moe: aux {[r['aux_loss'] for r in steps]}, "
+                             f"router moved {moved}")
+    # each step: gate, up and down, forward and dx, each at least one launch
+    if counts["moe_grouped_stack"] < 6 * TRAIN_STEPS:
+        raise AssertionError(f"train moe: {counts['moe_grouped_stack']} grouped launches")
+    del state, step, router0
+    free_card()
+    return {"train moe": train_run("train moe", steps, counts, variants,
+                                   params_b=round(n_params / 1e9, 4), peak_gib=round(peak, 2),
+                                   router_moved=moved)}
+
+
+def run_training(seed: int, root: str) -> dict:
+    """Phase 9: the 8B train steps and their checkpoint round trip and
+    serving, the Mixtral train steps, and the grouped backward's check."""
+    import torch
+    t0 = time.perf_counter()
+    runs = run_train_8b(seed, root)
+    runs.update(run_train_moe(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 44)
+    runs["train moe"]["grouped_backward"] = check_grouped_backward(gen)
+    free_card()
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -4723,8 +5093,13 @@ def main() -> int:
     mark("phase 3")
 
     runs = run_system(args.seed)
+    # phase 9's row: the grouped GEMM over a train step's f32 stacks (the
+    # grouped-rows kernel under #12's route), launched by "train moe"
+    results["moe_grouped_stack w=f32"] = (runs["train moe"].pop("grouped_backward"),
+                                          "ragmeup_tpu_torch/csrc/moe_matmul.cu",
+                                          "ragmeup_tpu/ops/moe_matmul.py:220")
     for label, run in runs.items():
-        log(f"{label}: /chat latency per request (s): "
+        log(f"{label}: {run.get('latency_of', '/chat latency per request (s)')}: "
             f"{[round(x, 3) for x in run['latency_s']]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4738,7 +5113,9 @@ def main() -> int:
                           "after_kernel_checks": clock_after},
         "checkpoints": CHECKPOINTS,
         "retrieval_at_scale": runs["corpus sharded"]["readings"],
-        "model_axis": runs["tp4"]["readings"]}), flush=True)
+        "model_axis": runs["tp4"]["readings"],
+        "training": {label: runs[label]["readings"] for label in ("train 8b", "train moe")}}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -268,8 +268,15 @@ def ticket_words(held: dict, device, words: int):
 
 
 def require_cuda(name: str, *tensors) -> None:
-    """Shape-independent checks every wrapper makes before a launch."""
+    """Shape-independent checks every wrapper makes before a launch. A
+    kernel's output has no autograd edge, so a launch that a gradient
+    would have to pass through raises instead of detaching it (the grouped
+    GEMM's ``GroupedKernelPath`` launches with autograd off)."""
+    import torch
     dev = tensors[0].device
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it under "
+                           f"torch.no_grad() or on tensors that need no gradient")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")

@@ -699,14 +699,20 @@ class LlamaMoeMlp(nn.Module):
         """xf (t, h) → f32 router logits (t, E) (a shard: its E / D columns)."""
         return xf.float() @ self.router.float()
 
-    def route(self, xf: torch.Tensor, logits: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def route(self, xf: torch.Tensor, logits: Optional[torch.Tensor] = None,
+              records: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """xf (t, h), or the router ``logits`` over every expert → (top-k
-        weights (t, k) f32, expert ids (t, k))."""
+        weights (t, k) f32, expert ids (t, k)). ``records`` (a train step's
+        collector) gets the softmax ``router_probs`` (t, E) and the ids
+        ``router_topi`` appended, as the JAX layer sows them; the weights
+        keep their autograd edge to the router through the sort."""
         if logits is None:
             logits = self.router_logits(xf)
         probs = torch.softmax(logits, dim=-1)
         topw, topi = rank_topk(probs, self.cfg.num_experts_per_tok)
+        if records is not None:
+            records.setdefault("router_probs", []).append(probs)
+            records.setdefault("router_topi", []).append(topi)
         if self.cfg.norm_topk_prob:
             topw = topw / topw.sum(dim=-1, keepdim=True)
         return topw, topi
@@ -754,7 +760,8 @@ class LlamaMoeMlp(nn.Module):
         y = torch.einsum("etf,efh->eth", self.act(g) * u, self.dequant(*self.experts("down")))
         return torch.einsum("te,eth->th", cw[:, lo:lo + wg.shape[0]], y.float())
 
-    def shard_partial(self, x: torch.Tensor, logits: torch.Tensor):
+    def shard_partial(self, x: torch.Tensor, logits: torch.Tensor,
+                      records: Optional[dict] = None):
         """This shard's share of the layer under the model axis: x (..., h)
         replicated, ``logits`` the router logits over every expert (the
         shards' columns gathered). → (f32 partial, finish): the caller sums
@@ -773,7 +780,7 @@ class LlamaMoeMlp(nn.Module):
         xf = x.reshape(-1, h)
         t = xf.shape[0]
         s_tot = t * top_k
-        topw, topi = self.route(xf, logits)
+        topw, topi = self.route(xf, logits, records)
         e_l = self.router.shape[1]
         lo = self.shard.index * e_l
         if s_tot <= e_l:
@@ -788,7 +795,7 @@ class LlamaMoeMlp(nn.Module):
             return part, finish
         return self.all_experts(xf, topw, topi, lo), lambda y: y.to(dt).reshape(*lead, h)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, records: Optional[dict] = None) -> torch.Tensor:
         c = self.cfg
         e, top_k, h = c.num_experts, c.num_experts_per_tok, c.hidden_size
         dt = c.torch_dtype
@@ -796,7 +803,7 @@ class LlamaMoeMlp(nn.Module):
         xf = x.reshape(-1, h)
         t = xf.shape[0]
         s_tot = t * top_k
-        topw, topi = self.route(xf)
+        topw, topi = self.route(xf, records=records)
         (wg, sg), (wu, su), (wn, sn) = (self.experts(p) for p in ("gate", "up", "down"))
         act = self.act
 
@@ -891,11 +898,12 @@ class LlamaBlock(nn.Module):
         return x + (self.post_ffw_norm(m) if self.post_norms else m)
 
     def forward(self, x, cos, sin, attn_bias, cache, cache_pos, paged_state=None,
-                capture=False, ring=False):
+                capture=False, ring=False, records=None):
         h, aux = self.attention(self.input_norm(x), cos, sin, attn_bias, cache,
                                 cache_pos, paged_state, capture, ring)
         x = self.add_attention(x, h)
-        return self.add_mlp(x, self.mlp(self.mlp_input(x))), aux
+        xm = self.mlp_input(x)
+        return self.add_mlp(x, self.mlp(xm, records) if self.moe else self.mlp(xm)), aux
 
 
 class LlamaModel(nn.Module):
@@ -983,7 +991,8 @@ class LlamaModel(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """f32 logits of the final hidden states x (..., hidden): f32 sums of
         products of the head's values. A float head may be stored in bf16;
-        it is widened once and kept (serving never changes weights). The
+        it is widened once and kept (serving never changes weights), unless
+        it takes a gradient (a train step's head is read as it stands). The
         int8 head computes as the JAX package's does: each weight
         ``lm_head_q * lm_head_scale`` in the model dtype, then a product
         with f32 sums. It dequantizes a strip of at most HEAD_STRIP_BYTES
@@ -991,6 +1000,8 @@ class LlamaModel(nn.Module):
         stays the int8 one."""
         if not self.int8_head:
             w = self.token_embedding.T if self.cfg.tie_embeddings else self.lm_head
+            if w.requires_grad:
+                return x.to(w.dtype).float() @ w.float()
             if self._head_f32 is None:
                 self._head_f32 = w.detach().float()
             return x.to(w.dtype).float() @ self._head_f32
@@ -1012,11 +1023,14 @@ class LlamaModel(nn.Module):
                 paged_caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 paged_meta: Optional[tuple] = None, skip_head: bool = False,
                 capture_weights: bool = False, capture_qk_last: bool = False,
-                ring: bool = False):
+                ring: bool = False, router_records: Optional[dict] = None):
         """→ f32 logits (b, s, vocab), or (b, 1, vocab) at ``head_at`` (an
         int, or a (b,) tensor of per-row offsets). positions: (s,) or (b, s).
         ``ring``: the full prefill from position 0, which may take the ring
         (a shard with corpus devices; see ``LlamaAttention``).
+        ``router_records`` (a dict) collects each MoE layer's router state
+        in layer order (``LlamaMoeMlp.route``): a train step's load-balancing
+        loss reads it; nothing is held when it is None.
 
         ``paged_caches`` (per layer (k_pages, v_pages)) with ``paged_meta``
         (page_idx, lengths, pages, slots) attends the paged pool and writes
@@ -1039,7 +1053,8 @@ class LlamaModel(nn.Module):
             cap = capture_weights
             if capture_qk_last and i == c.num_layers - 1:
                 cap = "qk"
-            x, aux = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate, cap, ring)
+            x, aux = layer(x, cos, sin, attn_bias, cache, cache_pos, pstate, cap, ring,
+                           router_records)
             if cap == "qk":
                 qk_last = aux
             elif capture_weights:
@@ -1088,9 +1103,16 @@ class ShardedLlamaModel(nn.Module):
 
     Caches are per layer a pair of per-shard lists: (k of each shard, v of
     each shard), dense (``empty_caches``) or paged (``PagedKVCache(mesh=)``).
-    Kernel launches count by shard (``kernels.shard_scope``)."""
+    Kernel launches count by shard (``kernels.shard_scope``).
 
-    def __init__(self, cfg: LlamaConfig, mesh, shard_states: Sequence[Dict[str, torch.Tensor]]):
+    ``trainable`` keeps the shards' weights as parameters that take
+    gradients (a train step's model; serving freezes them). A weight that
+    the model axis replicates is one parameter per shard, the shards on one
+    device sharing its storage: each copy gets the gradient of the work it
+    fed, and the train step sums them into one (``train.train``)."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, shard_states: Sequence[Dict[str, torch.Tensor]],
+                 trainable: bool = False):
         super().__init__()
         n = mesh.shape["model"]
         dense_mlp = not all(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
@@ -1115,7 +1137,7 @@ class ShardedLlamaModel(nn.Module):
             model.load_state_dict(state, strict=True, assign=True)
             model.inv_freq = torch.from_numpy(
                 rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg=cfg)).to(self.devices[i])
-            shards.append(model.requires_grad_(False).eval())
+            shards.append(model if trainable else model.requires_grad_(False).eval())
         self.shards = nn.ModuleList(shards)
         self.vocab_sharded = shards[0].token_embedding.shape[0] != cfg.vocab_size
 
@@ -1154,8 +1176,10 @@ class ShardedLlamaModel(nn.Module):
                 cache_pos: int = 0, head_at=None, paged_caches: Optional[list] = None,
                 paged_meta: Optional[tuple] = None, skip_head: bool = False,
                 capture_weights: bool = False, capture_qk_last: bool = False,
-                ring: bool = False):
-        """``LlamaModel.forward`` over the shards (see the class)."""
+                ring: bool = False, router_records: Optional[dict] = None):
+        """``LlamaModel.forward`` over the shards (see the class); every
+        shard routes on the gathered router logits alike, so shard 0's
+        router state is the one ``router_records`` collects."""
         c = self.cfg
         devs = self.devices
         shards = list(self.shards)
@@ -1193,8 +1217,8 @@ class ShardedLlamaModel(nn.Module):
                 logits = all_gather(self._each(
                     blocks, lambda i, blk, xi: blk.mlp.router_logits(xi.reshape(-1, c.hidden_size)),
                     xm), dim=-1)
-                parts = self._each(blocks, lambda i, blk, xi, lg: blk.mlp.shard_partial(xi, lg),
-                                   xm, logits)
+                parts = self._each(blocks, lambda i, blk, xi, lg: blk.mlp.shard_partial(
+                    xi, lg, router_records if i == 0 else None), xm, logits)
                 finish = parts[0][1]
                 mo = [finish(y) for y in psum([part for part, _ in parts])]
             else:

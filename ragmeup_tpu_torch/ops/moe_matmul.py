@@ -62,8 +62,17 @@ integers per k-tile and adds the tiles times their scales in f32.
 On a kernel route a CUDA tensor launches the kernel (or raises) and a CPU
 tensor takes the kernel's plain version (bf16 over the k slices an H100's
 plan gives, ``PLAN_SMS``). Nothing on the CUDA routes reads a device value
-on the host. The grouped kernel's backward is not ported
-(ROADMAP).
+on the host.
+
+With float experts and a gradient asked for, the kernel route of
+``moe_grouped_matmul`` is an autograd Function (the JAX package's
+``_grouped_kernel_path`` custom VJP): the forward is the route above; dx
+is the same route run on the transposed stacks (a contiguous copy of each
+stack a backward), and dw the one-hot product ``"me,mk,mn->ekn"`` summed in
+f32 and cast to w's dtype (``grouped_weight_grad``, a plain product outside
+the kernels, as JAX computes it in XLA). Every other CUDA route has no
+backward: ``kernels.require_cuda`` refuses a launch that autograd would
+have to go through.
 """
 
 from __future__ import annotations
@@ -543,7 +552,9 @@ def _grouped_rows_cuda(xs, w, scale, gsz, name):
         None if tickets is None else tickets.data_ptr(), out.data_ptr(),
         kernels.stream_handle(xs.device))
     kernels.check(err, name)
-    kernels.count(name, "w=bf16" if w.dtype == torch.bfloat16 else None)
+    # bf16 stacks (serving) and f32 stacks (a train step's master weights)
+    # count apart from int8 ones
+    kernels.count(name, {torch.bfloat16: "w=bf16", torch.float32: "w=f32"}.get(w.dtype))
     return out
 
 
@@ -615,6 +626,39 @@ def _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack):
     return torch.cat(outs, dim=0)
 
 
+def grouped_weight_grad(xs: torch.Tensor, dy: torch.Tensor, gsz: torch.Tensor,
+                        e: int) -> torch.Tensor:
+    """dw of the grouped GEMM: ``"me,mk,mn->ekn"`` over each row's one-hot
+    group (rows past the groups in none), f32 products and sums → (E, k, n)
+    f32. Every expert multiplies every row: E times the routed FLOPs."""
+    csum = torch.cumsum(gsz.to(device=xs.device, dtype=torch.int64), 0)
+    eid = torch.searchsorted(csum, torch.arange(xs.shape[0], device=xs.device), right=True)
+    mask = (eid[:, None] == torch.arange(e, device=xs.device)).float()
+    return torch.einsum("me,mk,mn->ekn", mask, xs.float(), dy.float())
+
+
+class GroupedKernelPath(torch.autograd.Function):
+    """The kernel route of ``moe_grouped_matmul`` over float experts, with
+    the JAX package's custom VJP: dx through the same route on the
+    transposed stacks, dw from ``grouped_weight_grad`` in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, xs, w, gsz, tm: int, mp_cap: int, no_stack: bool):
+        ctx.save_for_backward(xs, w, gsz)
+        return _grouped_forward(xs, w, None, gsz, tm, mp_cap, no_stack)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w, gsz = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = moe_grouped_matmul(dy, w.transpose(1, 2).contiguous(), gsz).to(xs.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_weight_grad(xs, dy, gsz, w.shape[0]).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
 def moe_grouped_matmul(xs: torch.Tensor, w: torch.Tensor, gsz: torch.Tensor,
                        scale: Optional[torch.Tensor] = None, tm: int = 0,
                        tile_k: int = 0, tile_n: int = 0,
@@ -629,7 +673,9 @@ def moe_grouped_matmul(xs: torch.Tensor, w: torch.Tensor, gsz: torch.Tensor,
     unless ``no_stack`` or the JAX stack tiles do not fit, else the
     per-tile route (#11). ``no_stack`` is the batched-decode dedup route:
     only the routed experts' bytes are read (``grouped_kernel_call`` says
-    which kernel takes a call)."""
+    which kernel takes a call). Float experts with a gradient asked for
+    take the kernel route through ``GroupedKernelPath``; the fallback is
+    plain PyTorch and differentiable as it stands."""
     m, k = xs.shape
     e, kw, n = w.shape
     if kw != k or gsz.shape != (e,):
@@ -647,6 +693,8 @@ def moe_grouped_matmul(xs: torch.Tensor, w: torch.Tensor, gsz: torch.Tensor,
         mp_cap = 2048
     if not (tile_k and tile_n) or m < tm // 2:
         return _grouped_fallback(xs, w, gsz, scale)
+    if scale is None and torch.is_grad_enabled() and (xs.requires_grad or w.requires_grad):
+        return GroupedKernelPath.apply(xs, w, gsz, tm, mp_cap, no_stack)
     return _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack)
 
 

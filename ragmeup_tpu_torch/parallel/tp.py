@@ -9,11 +9,13 @@ vocabulary over 'model' as serving does), replicates any dim the axis does
 not divide (``_drop_indivisible``), and cuts a state dict into one state
 dict a shard (``tp_shard_model``), each shard's tensors contiguous on its
 own device, for ``models/decoder.py``'s ``ShardedLlamaModel``.
+``tp_gather_model`` puts the shards back together into one state dict (a
+checkpoint written under the model axis restores on one device).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -129,6 +131,55 @@ def _shard_of(key: str, t: torch.Tensor, dim: int, i: int, n: int,
     return t.narrow(dim, i * size, size)
 
 
+def shard_param(key: str, t: torch.Tensor, spec: Spec, cfg: LlamaConfig, devices
+                ) -> List[torch.Tensor]:
+    """Weight ``key`` (or a tensor of its shape, such as an optimizer's
+    moment) cut by its ``spec`` into one tensor a shard of ``devices``: a
+    sharded one a new contiguous tensor on the shard's device, a replicated
+    one held once per distinct device."""
+    if "model" not in spec:
+        return replicate(t, devices)
+    dim = spec.index("model")
+    n = len(devices)
+    out = []
+    for i in range(n):
+        piece = _shard_of(key, t, dim, i, n, cfg)
+        out.append(torch.empty(piece.shape, dtype=piece.dtype,
+                               device=devices[i]).copy_(piece))
+    return out
+
+
+def unshard_param(key: str, parts: Sequence[torch.Tensor], spec: Spec, cfg: LlamaConfig,
+                  device=None) -> torch.Tensor:
+    """The inverse of ``shard_param`` for float weights (a train state's):
+    the shards' parts of ``key`` as one tensor on ``device`` (default: the
+    first part's), a fused projection's sections put back as they were
+    cut."""
+    device = parts[0].device if device is None else device
+    if "model" not in spec:
+        return parts[0].to(device)
+    dim = spec.index("model")
+    parts = [p.to(device) for p in parts]
+    n = len(parts)
+    sections = _sections(key, cfg)
+    if sections is not None:
+        pieces = [p.split([sec // n for sec in sections], dim=dim) for p in parts]
+        return torch.cat([torch.cat([pc[j] for pc in pieces], dim=dim)
+                          for j in range(len(sections))], dim=dim)
+    if key.endswith("kernel_p") and dim == 0:
+        raise ValueError(f"{key}: a packed int4 row shard is not put back together")
+    return torch.cat(parts, dim=dim)
+
+
+def tp_gather_model(shards: Sequence[Mapping[str, torch.Tensor]], cfg: LlamaConfig, mesh,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """One state dict from the shards' (``tp_shard_model``'s inverse), on
+    ``device`` (default: the first shard's device)."""
+    specs = model_param_shardings(cfg, mesh, shard_vocab=True)
+    return {key: unshard_param(key, [s[key] for s in shards], spec, cfg, device)
+            for key, spec in specs.items()}
+
+
 def tp_shard_model(params: Mapping, cfg: LlamaConfig, mesh,
                    consume: bool = False) -> List[Dict[str, torch.Tensor]]:
     """One state dict a shard of the mesh's model axis, from the decoder's
@@ -147,19 +198,11 @@ def tp_shard_model(params: Mapping, cfg: LlamaConfig, mesh,
         raise KeyError(f"state dict and decoder differ: missing "
                        f"{sorted(set(specs) - set(params))[:4]}, unexpected "
                        f"{sorted(set(params) - set(specs))[:4]}")
-    n = mesh.shape["model"]
     devs = [canonical(d) for d in mesh.axis_devices("model")]
-    out: List[Dict[str, torch.Tensor]] = [{} for _ in range(n)]
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in devs]
     for key, spec in specs.items():
         t = params.pop(key) if consume else params[key]
-        if "model" not in spec:
-            for i, ti in enumerate(replicate(t, devs)):
-                out[i][key] = ti
-            continue
-        dim = spec.index("model")
-        for i in range(n):
-            piece = _shard_of(key, t, dim, i, n, cfg)
-            out[i][key] = torch.empty(piece.shape, dtype=piece.dtype,
-                                      device=devs[i]).copy_(piece)
+        for i, ti in enumerate(shard_param(key, t, spec, cfg, devs)):
+            out[i][key] = ti
         del t
     return out

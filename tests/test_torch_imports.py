@@ -54,7 +54,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(paths) > 30
     for new in ("models/safetensors.py", "tools/synthetic_checkpoint.py",
                 "server/app.py", "server/wsgi.py", "server/ui.py", "graph/sidecar.py",
-                "graph/client.py", "eval/generative.py"):
+                "graph/client.py", "eval/generative.py", "train/__init__.py",
+                "train/train.py", "train/checkpoint.py", "parallel/dcn.py",
+                "tools/dcn_dryrun.py"):
         assert os.path.join(REPO, "ragmeup_tpu_torch", new) in paths
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
@@ -133,8 +135,10 @@ def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch, tmp_path):
     """Without a card every entry point raises instead of moving to the
     CPU, the loaders given a checkpoint directory too (before they read
     it); with device="cpu" it builds there."""
-    from ragmeup_tpu_torch.models import decoder, hf_loader, tokenizer
+    from ragmeup_tpu_torch.models import decoder, encoder, hf_loader, tokenizer
+    from ragmeup_tpu_torch.parallel import dcn
     from ragmeup_tpu_torch.pipeline.system import RagSystem
+    from ragmeup_tpu_torch.train import make_decoder_train_step, make_encoder_train_step
     from ragmeup_tpu_torch.retrieval.dense import DenseIndex
     from ragmeup_tpu_torch.retrieval.sparse import BM25Index
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -148,12 +152,17 @@ def test_entry_points_need_a_card_unless_given_the_cpu(monkeypatch, tmp_path):
              lambda: hf_loader.load_local_llm(None),
              lambda: hf_loader.load_sentence_encoder(str(tmp_path)),
              lambda: hf_loader.load_cross_encoder(str(tmp_path)),
-             lambda: hf_loader.load_local_llm(str(tmp_path), quantization="int8"))
+             lambda: hf_loader.load_local_llm(str(tmp_path), quantization="int8"),
+             lambda: make_decoder_train_step(cfg),
+             lambda: make_encoder_train_step(encoder.BertConfig.tiny()),
+             lambda: dcn.initialize_slice("tcp://localhost:1", 1, 0))
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert decoder.LocalLLM(cfg, tok, device="cpu").device.type == "cpu"
     assert DenseIndex(8, device="cpu").device.type == "cpu"
+    state, _ = make_decoder_train_step(cfg, device="cpu")
+    assert state.params["token_embedding"].device.type == "cpu"
     # the server's entry point exits non-zero with resolve_device's message
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-m", "ragmeup_tpu_torch.server", "--port", "0",
