@@ -202,7 +202,8 @@ Phases (any failure raises and exits non-zero):
    shards, one request, #4 at the 5 projections that pass the local gate
    on every shard.
 7. system, sparse-MoE path: the int4 decoders are freed; a
-   Mixtral-8x7B-shaped int8 decoder with random weights drawn on the card (8 experts, top-2; 47.5 GB) with the
+   Mixtral-8x7B-shaped int8 decoder at MOE_SMOKE_LAYERS of its 32 layers
+   with random weights drawn on the card (8 experts, top-2; 24 GB) with the
    bf16 index of phase 4 answers three chat() requests ("moe": decode
    through #10, prefill through the all-experts einsum); a second decoder
    over the same weights with moe_grouped="on" answers one ("moe
@@ -211,7 +212,7 @@ Phases (any failure raises and exits non-zero):
    of 8 rows, 16 (token, expert) slots, through #11). Decode against
    prefill compares the last token's routed experts layer by layer.
 8. system, int4 sparse-MoE path: the int8 Mixtral decoder is freed; the
-   same shape with packed int4 experts (group 128; about 25 GB) answers
+   same shape with packed int4 experts (group 128; about 13 GB) answers
    three chat() requests ("moe int4": decode through #13, prefill through
    the stacks dequantized in bf16), then serves eight first turns at once
    and a follow-up through the paged engine ("moe int4 batched": 8-row
@@ -232,9 +233,11 @@ Phases (any failure raises and exits non-zero):
    the AdamW moments and step count restored); the restored weights quantized int8 and served through LocalLLM for
    TRAIN_SERVE_TOKENS greedy tokens ("train serve": #8, #3); the
    directory deleted. "train moe": Mixtral-8x7B's shape at one layer,
-   moe_grouped="on": each expert projection's forward and dx through the
-   grouped-rows kernel over the f32 stacks on #12's route (variant
-   w=f32), the aux loss at least 1 - 1e-5, the router moved. Then the
+   moe_grouped="on": each expert projection's forward and dx through #12's
+   stack kernel over the f32 stacks (variants w=f32 and dx w=f32: dx reads
+   the stacks as they lie), dw through csrc/moe_wgrad.cu
+   (moe_grouped_wgrad), the aux loss at least 1 - 1e-5, the router
+   moved. Then the
    grouped GEMM's backward (ops/moe_matmul.GroupedKernelPath) at those
    shapes against autograd through its plain version, within BWD_TOL,
    with its times beside the plain ones and torch._grouped_mm's on bf16
@@ -798,6 +801,21 @@ def kernels_of(fn) -> list:
     beside its reduce). A kernel either call launched is listed."""
     names = launched_kernels(fn) | launched_kernels(fn)
     return sorted({found for name in names for found in re.findall(r"rk_\w+", name)})
+
+
+def kernels_of_retraced(fn, tries: int = 3) -> list:
+    """kernels_of(fn) for a call that launches an rk_ kernel on every
+    route, taken again while a trace names none, up to `tries` times: the
+    device tracing has missed every rk_ kernel of such a call, both traces
+    of it (an MoE layer after the "moe" run had launched #10 18,048 times;
+    phase 9's dw and its grouped-rows call over f32 stacks, which the
+    launch counts show running)."""
+    found = []
+    for _ in range(tries):
+        found = kernels_of(fn)
+        if found:
+            break
+    return found
 
 
 def check_int4_decode_short_and_routes(gen) -> dict:
@@ -1384,6 +1402,9 @@ def check_paged_families(gen) -> dict:
 
 # Mixtral-8x7B's expert projections: (k, n) of gate, up and down
 MOE_E = 8
+# phases 7 and 8 draw the random Mixtral decoders at this many of its 32
+# layers (full width): the script's time limit
+MOE_SMOKE_LAYERS = 16
 MOE_SHAPES = {"gate": (4096, 14336), "up": (4096, 14336), "down": (14336, 4096)}
 
 
@@ -2312,7 +2333,7 @@ PATH_KERNELS = {"default": ("topk", "int8_matmul", "flash_gqa"),
                 "moe ep int4": ("int4_matmul", "moe_gather_int4"),
                 "tp4 w4a16": ("topk", "int4_matmul", "flash_gqa"),
                 "train 8b": (),
-                "train moe": ("moe_grouped_stack",),
+                "train moe": ("moe_grouped_stack", "moe_grouped_wgrad"),
                 "train serve": ("int8_matmul", "flash_gqa")}
 # the kernel instantiations (head dim, group) each run must launch
 PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
@@ -2328,7 +2349,7 @@ PATH_VARIANTS = {"gemma2 batched": ("paged_attention hd=256 g=2",
                  "tp4": ("flash_gqa hd=128 g=4",),
                  "tp4 batched": ("paged_attention hd=128 g=4",
                                  "paged_attention_chunk hd=128 g=4"),
-                 "train moe": ("moe_grouped_stack w=f32",)}
+                 "train moe": ("moe_grouped_stack w=f32", "moe_grouped_stack dx w=f32")}
 
 
 def missing_kernels(label: str, counts: dict, variants: dict) -> list:
@@ -4577,7 +4598,7 @@ def moe_layer_kernels(llm, tokens: int, want: str) -> list:
     """The rk_ kernels the decoder's first MoE MLP launches
     (torch.profiler) on `tokens` random rows: one token is a decode step
     (the per-slot gather, #10), 8 a batched wave (the dedup route, #11).
-    Raises unless `want` is among them."""
+    Raises unless `want` is among them (kernels_of_retraced)."""
     import torch
     from ragmeup_tpu_torch.models.decoder import LlamaMoeMlp
     mlp = next(layer.mlp for layer in llm.model.layers if isinstance(layer.mlp, LlamaMoeMlp))
@@ -4585,7 +4606,7 @@ def moe_layer_kernels(llm, tokens: int, want: str) -> list:
     x = torch.randn(1, tokens, llm.cfg.hidden_size, generator=gen, device="cuda").to(
         llm.cfg.torch_dtype)
     with torch.inference_mode():
-        found = kernels_of(lambda: mlp(x))
+        found = kernels_of_retraced(lambda: mlp(x))
     log(f"  an MoE layer at {tokens} token(s) launches {found}")
     if want not in found:
         raise AssertionError(f"an MoE layer at {tokens} token(s) launched {found}, not {want}")
@@ -4594,7 +4615,8 @@ def moe_layer_kernels(llm, tokens: int, want: str) -> list:
 
 def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
             queries) -> dict:
-    """Phase 7 on the Mixtral-8x7B-shaped int8 decoder (47.5 GB), with the
+    """Phase 7 on the Mixtral-8x7B-shaped int8 decoder (MOE_SMOKE_LAYERS
+    layers, 24 GB), with the
     bf16 index of phase 4: three requests on the default config; one on a
     second decoder over the same weights (shared storage) with
     moe_grouped="on"; eight first turns at once through the paged engine,
@@ -4602,7 +4624,7 @@ def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
     import dataclasses
     from ragmeup_tpu_torch.models.decoder import LlamaConfig, LocalLLM
     runs = {}
-    llm = build_llm(seed, LlamaConfig.mixtral_8x7b())
+    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(num_layers=MOE_SMOKE_LAYERS))
     system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
     runs["moe"] = drive("moe", system, llm, queries)
     # the kernels "moe" (a decode step) and "moe batched" (a wave of 8 rows)
@@ -4628,7 +4650,7 @@ def run_moe(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
 def run_moe_int4(seed: int, encoder, cross, data_dir: str, index_dir: str, texts,
                  queries) -> dict:
     """Phase 8 on the Mixtral-8x7B-shaped decoder with packed int4 experts
-    (group 128; about 25 GB), with the bf16 index of phase 4: three
+    (group 128; MOE_SMOKE_LAYERS layers, about 13 GB), with the bf16 index of phase 4: three
     requests on the default config ("moe int4": decode through #13); the
     paged engine on the same decoder with eight first turns at once and a
     follow-up ("moe int4 batched": 8-row waves through #14); then a W4A8
@@ -4636,7 +4658,8 @@ def run_moe_int4(seed: int, encoder, cross, data_dir: str, index_dir: str, texts
     one ("moe int4 W4A8")."""
     from ragmeup_tpu_torch.models.decoder import LlamaConfig
     runs = {}
-    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(quantization="int4"))
+    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(num_layers=MOE_SMOKE_LAYERS,
+                                                   quantization="int4"))
     system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
     runs["moe int4"] = drive("moe int4", system, llm, queries)
     del system
@@ -4647,7 +4670,8 @@ def run_moe_int4(seed: int, encoder, cross, data_dir: str, index_dir: str, texts
                                              label="moe int4 batched")
     del batched, llm
     free_card()
-    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(quantization="int4", int4_w4a8=True))
+    llm = build_llm(seed, LlamaConfig.mixtral_8x7b(num_layers=MOE_SMOKE_LAYERS,
+                                                   quantization="int4", int4_w4a8=True))
     system = open_system(rag_config(data_dir, index_dir), encoder, cross, llm)
     runs["moe int4 W4A8"] = drive("moe int4 W4A8", system, llm, queries[1:2])
     del system, llm
@@ -4826,16 +4850,24 @@ def rel_err(got, want) -> tuple:
 def check_grouped_backward(gen) -> dict:
     """Phase 9 (3): ``GroupedKernelPath`` at one Mixtral layer's training
     shapes (TRAIN_B x TRAIN_S tokens, top-2: 2,048 bf16 rows over 8 f32
-    stacks, up 4096 x 14336 and down 14336 x 4096), forward, dx and dw held
-    to autograd through the plain version (``moe_grouped_matmul_plain``)
-    on the same inputs within BWD_TOL; the kernels each call launches
-    (profiler); eager and graph times of the forward, graph times of dx
-    alone and of the whole backward (dx on the transposed copy made in the
-    call, and dw), eager times of forward + backward through autograd, of
-    the plain forward and of the plain forward + backward (it reads the
-    group sizes on the host, so no graph); and, as a yardstick,
-    ``torch._grouped_mm`` on the stacks cast to bf16 (the same function
-    over bf16 stacks; none computes it over f32 stacks, which it refuses)."""
+    stacks, up 4096 x 14336 and down 14336 x 4096). Forward, dx and dw
+    through autograd held to autograd through the plain version
+    (``moe_grouped_matmul_plain``), and each kernel call alone to its
+    plain version on the same inputs: the forward (#12's stack kernel over
+    f32 stacks), dx on the stacks as they lie (its dx orientation) against
+    the plain product over the transposed copy, dw (csrc/moe_wgrad.cu)
+    against ``grouped_weight_grad_plain``, each within BWD_TOL. Every
+    kernel each call launches (profiler; dx must launch no copy: its peak
+    allocation stays below a quarter of the stacks' bytes). Times: the
+    forward eager and in a graph; dx, dw and the backward (dx and dw) in a
+    graph; forward + backward through autograd, the plain forward and the
+    plain forward + backward eager (the plain version reads the group sizes
+    on the host); the yardsticks ``torch._grouped_mm`` on stacks cast to
+    bf16 ahead (the same function over bf16 stacks), the cast alone, a
+    cast into the layout that call takes plus the call in a graph, and
+    ``_grouped_mm``'s wgrad (x^T dy over the groups, bf16 output: not the
+    same function). Last, #11's grouped-rows kernel over f32 stacks at 16
+    rows (the dedup route still reaches it) against its plain version."""
     import torch
     from ragmeup_tpu_torch.ops import moe_matmul as mm
     e, h, f = MOE_E, 4096, 14336
@@ -4844,6 +4876,7 @@ def check_grouped_backward(gen) -> dict:
     gsz = torch.bincount(ids, minlength=e)
     offs = torch.cumsum(gsz, 0).to(torch.int32)
     shapes, worst = {}, (0.0, 0.0)
+    wg_worst = (0.0, 0.0)
     fast = dict(reps=2, rounds=3, warm_rounds=3)
     for proj, (k, n) in (("up", (h, f)), ("down", (f, h))):
         x = (torch.randn(m, k, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
@@ -4859,6 +4892,27 @@ def check_grouped_backward(gen) -> dict:
         yp.backward(dy)
         errs = {"forward": rel_err(y, yp), "dx": rel_err(xk.grad, xp.grad),
                 "dw": rel_err(wk.grad, wp.grad)}
+        del xk, wk, xp, wp, y, yp
+        wt = w.transpose(1, 2)
+
+        def fwd():
+            return mm.moe_grouped_matmul(x, w, gsz)
+
+        def dx():
+            return mm.moe_grouped_matmul(dy, wt, gsz)
+
+        def dw():
+            return mm.grouped_weight_grad(x, dy, gsz, e)
+
+        def bwd():
+            return dx(), dw()
+        # each call alone against its plain version on the same inputs
+        errs["forward kernel"] = rel_err(fwd(), mm.moe_grouped_matmul_plain(x, w, gsz))
+        errs["dx kernel"] = rel_err(dx(), mm.moe_grouped_matmul_plain(dy, wt.contiguous(), gsz))
+        wgot = dw()
+        wwant = mm.grouped_weight_grad_plain(x, dy, gsz, e)
+        errs["dw kernel"] = rel_err(wgot, wwant)
+        del wgot, wwant
         log(f"  grouped backward {proj}: largest |error| (relative to the plain result's "
             f"largest |value|): " + ", ".join(f"{name} {a:.3e} ({r:.2e})"
                                               for name, (a, r) in errs.items())
@@ -4867,19 +4921,17 @@ def check_grouped_backward(gen) -> dict:
             if r > BWD_TOL:
                 raise AssertionError(f"grouped backward {proj} {name}: {r} > {BWD_TOL}")
             worst = max(worst, (a, r))
-        del xk, wk, xp, wp, y, yp
-        wt = w.transpose(1, 2).contiguous()
-
-        def fwd():
-            return mm.moe_grouped_matmul(x, w, gsz)
-
-        def dx():
-            return mm.moe_grouped_matmul(dy, wt, gsz)
-
-        def bwd():
-            return (mm.moe_grouped_matmul(dy, w.transpose(1, 2).contiguous(), gsz),
-                    mm.grouped_weight_grad(x, dy, gsz, e))
-
+        wg_worst = max(wg_worst, errs["dw kernel"])
+        # dx reads the stacks as they lie: no copy of them
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dx()
+        torch.cuda.synchronize()
+        dx_peak = torch.cuda.max_memory_allocated() - base
+        if dx_peak >= w.numel() * w.element_size() // 4:
+            raise AssertionError(f"grouped backward {proj}: dx allocated {dx_peak} bytes, "
+                                 f"a copy of the stacks")
         xg, wg_ = x.clone().requires_grad_(), w.clone().requires_grad_()
 
         def plain_fwd_bwd():
@@ -4888,24 +4940,36 @@ def check_grouped_backward(gen) -> dict:
         def fn_fwd_bwd():
             return torch.autograd.grad(mm.moe_grouped_matmul(xg, wg_, gsz), (xg, wg_), dy)
 
+        every = {name: sorted(launched_kernels(call) | launched_kernels(call))
+                 for name, call in (("forward", fwd), ("dx", dx), ("dw", dw))}
         r = {"rows": m, "k": k, "n": n, "groups": gsz.tolist(),
              "errors": {name: {"abs": a, "rel": rr} for name, (a, rr) in errs.items()},
-             "forward_kernels": kernels_of(fwd), "dx_kernels": kernels_of(dx),
+             "forward_kernels": kernels_of_retraced(fwd), "dx_kernels": kernels_of_retraced(dx),
+             "dw_kernels": kernels_of_retraced(dw), "launched": every,
+             "dx_peak_bytes": dx_peak,
              "forward_ms": median_ms(fwd, **fast),
              "forward_graph_ms": graph_ms_or_none(f"{proj} forward", fwd, reps=2),
              "dx_graph_ms": graph_ms_or_none(f"{proj} dx", dx, reps=2),
+             "dw_ms": median_ms(dw, **fast),
+             "dw_graph_ms": graph_ms_or_none(f"{proj} dw", dw, reps=2),
              "backward_graph_ms": graph_ms_or_none(f"{proj} backward", bwd, reps=2),
              "fwd_bwd_ms": median_ms(fn_fwd_bwd, **fast),
              "plain_forward_ms": median_ms(lambda: mm.moe_grouped_matmul_plain(x, w, gsz),
                                            **fast),
+             "plain_dw_ms": median_ms(lambda: mm.grouped_weight_grad_plain(x, dy, gsz, e),
+                                      **fast),
              "plain_fwd_bwd_ms": median_ms(plain_fwd_bwd, **fast),
-             # forward: rows, f32 stacks and bf16 outputs once; bf16 MMAs
+             # forward (and dx): rows, f32 stacks and bf16 outputs once; bf16
+             # MMAs
              **{f"forward_{key}": v for key, v in bound(
                  nbytes(x, w) + m * n * 2, 2 * m * k * n, "bf16").items()},
+             # dw: rows and gradients read, the f32 dw written; the routed
+             # products on bf16 MMAs
+             **{f"dw_{key}": v for key, v in bound(
+                 nbytes(x, dy) + w.numel() * 4, 2 * m * k * n, "bf16").items()},
              # backward: what the function needs, w, x and dy read, dx and
              # dw (f32) written; dx's and dw's routed products, bf16 MMAs
-             # with f32 sums (the transposed copy and dw's E-fold one-hot
-             # product are this design's, not the function's)
+             # with f32 sums
              **{f"backward_{key}": v for key, v in bound(
                  nbytes(w, x, dy) + m * k * 2 + w.numel() * 4,
                  2 * 2 * m * k * n, "bf16").items()}}
@@ -4913,11 +4977,35 @@ def check_grouped_backward(gen) -> dict:
         wbt = w.transpose(1, 2).to(torch.bfloat16).transpose(1, 2).contiguous().transpose(1, 2)
         r["grouped_mm_bf16_forward_ms"] = grouped_mm_time(x, wb, offs)
         r["grouped_mm_bf16_dx_ms"] = grouped_mm_time(dy, wbt, offs)
+        del wb, wbt
+        r["cast_graph_ms"] = graph_ms_or_none("cast", lambda: w.to(torch.bfloat16), reps=2)
+        r["cast_grouped_mm_graph_ms"] = cast_grouped_mm_graph_ms(x, w, offs)
+        r["grouped_mm_wgrad_bf16_ms"] = grouped_mm_time(x.t(), dy, offs)
         log(f"  grouped backward {proj}: " + json.dumps(
-            {key: v for key, v in r.items() if key not in ("groups", "errors")}))
+            {key: v for key, v in r.items() if key not in ("groups", "errors", "launched")}))
+        log(f"  grouped backward {proj} kernels launched: {json.dumps(every)}")
         shapes[proj] = r
-        del x, w, dy, wt, xg, wg_, wb, wbt
+        del x, w, dy, wt, xg, wg_
         free_card()
+    # #11's grouped-rows kernel over f32 stacks: the dedup route (a float
+    # MoE decoder's batched decode) still reaches it, at 16 rows
+    w = torch.randn(e, h, f, generator=gen, device="cuda") * 0.02
+    xs16 = (torch.randn(16, h, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    g16 = torch.tensor([3, 2, 0, 4, 1, 2, 3, 1], device="cuda")
+
+    def rows_f32():
+        return mm.grouped_rows(xs16, w, None, g16)
+    a, rr = rel_err(rows_f32(), mm.moe_grouped_matmul_plain(xs16, w, g16))
+    shapes["grouped_rows_f32"] = {"rows": 16, "k": h, "n": f, "max_abs_err": a,
+                                  "max_rel_err": rr, "kernels": kernels_of_retraced(rows_f32),
+                                  "graph_ms": graph_ms_or_none("grouped rows f32", rows_f32,
+                                                               reps=2)}
+    log(f"  grouped rows over f32 stacks: {json.dumps(shapes['grouped_rows_f32'])}")
+    if rr > BWD_TOL or "rk_moe_grouped_mma_kernel" not in shapes["grouped_rows_f32"]["kernels"]:
+        raise AssertionError(f"grouped rows over f32 stacks: {shapes['grouped_rows_f32']}")
+    worst = max(worst, (a, rr))
+    del w, xs16
+    free_card()
     up = shapes["up"]
     return {"max_abs_err": worst[0], "max_rel_err": worst[1], "tolerance_rel": BWD_TOL,
             "ms": up["forward_ms"], "graph_ms": up["forward_graph_ms"],
@@ -4925,7 +5013,34 @@ def check_grouped_backward(gen) -> dict:
             "bound_by": up["forward_bound_by"], "library_ms": None,
             "library_none": "torch._grouped_mm takes bf16 operands: no library call "
                             "computes the product over f32 stacks (its bf16-stack time "
-                            "is in shapes)", "shapes": shapes}
+                            "and the cast plus it are in shapes)", "shapes": shapes,
+            "wgrad": {"max_abs_err": wg_worst[0], "max_rel_err": wg_worst[1],
+                      "tolerance_rel": BWD_TOL, "ms": up["dw_ms"],
+                      "graph_ms": up["dw_graph_ms"], "plain_ms": up["plain_dw_ms"],
+                      "bound_ms": up["dw_bound_ms"], "bound_by": up["dw_bound_by"],
+                      "library_ms": None,
+                      "library_none": "torch._grouped_mm's wgrad writes bf16, not f32 (its "
+                                      "time is in the stack row's shapes)",
+                      "shapes": {proj: {key: shapes[proj][key] for key in (
+                          "rows", "k", "n", "dw_kernels", "dw_ms", "dw_graph_ms",
+                          "plain_dw_ms", "dw_bound_ms", "dw_bound_by",
+                          "grouped_mm_wgrad_bf16_ms")} for proj in ("up", "down")}}}
+
+
+def cast_grouped_mm_graph_ms(x, w, offs):
+    """The library route over f32 stacks, in a graph: one copy casts the
+    stacks to bf16 in the (n, k) layout torch._grouped_mm takes, then that
+    call (a yardstick), or None (logged) where the card's torch lacks it."""
+    import torch
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    e, k, n = w.shape
+    wb = torch.empty((e, n, k), dtype=torch.bfloat16, device=w.device)
+
+    def call():
+        wb.copy_(w.transpose(1, 2))
+        return torch._grouped_mm(x, wb.transpose(1, 2), offs=offs)
+    return graph_ms_or_none("cast + _grouped_mm", call, reps=2)
 
 
 def grouped_mm_time(xs, w, offs):
@@ -4945,10 +5060,10 @@ def grouped_mm_time(xs, w, offs):
 def run_train_moe(seed: int) -> dict:
     """Phase 9 (2): Mixtral-8x7B's shape at full width and one layer, f32
     weights computed in bf16, moe_grouped="on": TRAIN_STEPS AdamW steps
-    ("train moe": each expert projection's forward and dx through the
-    grouped kernels over the f32 stacks, #12's route, counted as
-    moe_grouped_stack w=f32); the aux loss at least 1 - 1e-5, the router
-    moved."""
+    ("train moe": each expert projection's forward and dx through #12's
+    stack kernel over the f32 stacks, counted as moe_grouped_stack w=f32
+    and dx w=f32, and its dw through moe_grouped_wgrad); the aux loss at
+    least 1 - 1e-5, the router moved."""
     import torch
     from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.models.decoder import LlamaConfig
@@ -4972,9 +5087,12 @@ def run_train_moe(seed: int) -> dict:
     if min(r["aux_loss"] for r in steps) < 1.0 - 1e-5 or not moved > 0:
         raise AssertionError(f"train moe: aux {[r['aux_loss'] for r in steps]}, "
                              f"router moved {moved}")
-    # each step: gate, up and down, forward and dx, each at least one launch
-    if counts["moe_grouped_stack"] < 6 * TRAIN_STEPS:
-        raise AssertionError(f"train moe: {counts['moe_grouped_stack']} grouped launches")
+    # each step: gate, up and down, forward and dx each at least one launch,
+    # dw one
+    if (counts["moe_grouped_stack"] < 6 * TRAIN_STEPS
+            or counts["moe_grouped_wgrad"] != 3 * TRAIN_STEPS):
+        raise AssertionError(f"train moe: {counts['moe_grouped_stack']} grouped launches, "
+                             f"{counts['moe_grouped_wgrad']} dw launches")
     del state, step, router0
     free_card()
     return {"train moe": train_run("train moe", steps, counts, variants,
@@ -5093,10 +5211,14 @@ def main() -> int:
     mark("phase 3")
 
     runs = run_system(args.seed)
-    # phase 9's row: the grouped GEMM over a train step's f32 stacks (the
-    # grouped-rows kernel under #12's route), launched by "train moe"
-    results["moe_grouped_stack w=f32"] = (runs["train moe"].pop("grouped_backward"),
-                                          "ragmeup_tpu_torch/csrc/moe_matmul.cu",
+    # phase 9's rows: the grouped GEMM over a train step's f32 stacks (#12's
+    # stack kernel, forward and dx), and its dw kernel, launched by "train moe"
+    grouped_bwd = runs["train moe"].pop("grouped_backward")
+    results["moe_grouped_wgrad"] = (grouped_bwd.pop("wgrad"),
+                                    "ragmeup_tpu_torch/csrc/moe_wgrad.cu",
+                                    "none: ragmeup_tpu/ops/moe_matmul.py:430 computes dw "
+                                    "in XLA")
+    results["moe_grouped_stack w=f32"] = (grouped_bwd, "ragmeup_tpu_torch/csrc/moe_stack.cu",
                                           "ragmeup_tpu/ops/moe_matmul.py:220")
     for label, run in runs.items():
         log(f"{label}: {run.get('latency_of', '/chat latency per request (s)')}: "

@@ -1,6 +1,7 @@
 // The full-stack grouped expert GEMM for Hopper (sm_90a): bf16 activations
-// against int8 experts with per-expert per-column scales (Mixtral's case)
-// or bf16 experts (with no scale, or with one).
+// against int8 experts with per-expert per-column scales (Mixtral's case),
+// bf16 experts (with no scale, or with one) or f32 experts (a train step's
+// master stacks), and the same product in the other orientation for dx.
 //
 // rk_moe_grouped_stack replaces ragmeup_tpu/ops/moe_matmul.py::_stack_kernel
 // (the prefill route under moe_grouped="on"): rows sorted by expert and
@@ -51,6 +52,27 @@
 //     H100.
 //   - The epilogue scales each column in f32, rounds once to bf16, stages
 //     the tile in shared memory and writes its real rows in 16-byte stores.
+//
+// f32 experts (a train step's master stacks): the same product with
+// each f32 weight pair rounded to bf16 by one cvt.rn.bf16x2.f32 as its A
+// fragment is built (the rounding of #11's grouped-rows kernel<float>, so
+// the function is unchanged). A Mixtral projection at 2,048 rows must read
+// 1.88 GB of f32 stacks, 0.56 ms at 3.35 TB/s. The stage keeps the f32 tile as it lands
+// (cp.async, rows padded so the fragments' 8-byte reads hit distinct
+// banks): 3 stages of 49-52 KB, one block an SM. Converting as the tile
+// lands would halve the stage but put the loads through registers; every
+// weight byte crosses L2 -> SM either way, and that traffic (the weights'
+// 4 bytes against x's tile of 128 rows) is what bounds a block. The blocks
+// walk an expert's tiles fastest within each strip, so the 2-3 tiles of a
+// 256-row group read a weight strip together, from L2 after the first.
+//
+// rk_moe_grouped_stack_t is the other orientation, the grouped GEMM's dx
+// (ops/moe_matmul.py GroupedKernelPath; JAX: moe_grouped_matmul(dy,
+// swapaxes(w, 1, 2)) in _grouped_kp_bwd): out = x w[e]^T with w (E, n, k)
+// as it lies, so no transposed copy of the stacks. out^T = w[e] x^T: each
+// stored row of w[e] is an output column with the reduction contiguous,
+// already the K-major A operand, read by ldmatrix without .trans (bf16) or
+// by 8-byte loads (f32); a stage holds 128 such rows x 64 of the reduction.
 
 #include "common.cuh"
 
@@ -60,21 +82,36 @@ constexpr int kStackTM = 128;        // rows a tile (scatter_layout's tm): wgmma
 constexpr int kStackBN = 128;        // columns a strip: a warpgroup each 64
 constexpr int kStackBK = 64;         // k a stage: one 128-byte swizzled x row
 constexpr int kStackStagesS8 = 4;    // ring depth, int8 experts
-constexpr int kStackStagesBF16 = 3;  // ring depth, bf16 experts
+constexpr int kStackStagesWide = 3;  // ring depth, bf16 and f32 experts
 constexpr int kStackThreads = 2 * kStackBN;  // 128 threads a warpgroup
-constexpr int kStackBlocksPerSM = 2;         // the persistent grid's blocks an SM
 
-template <typename W>
+// W the experts' type; kT: w[e] stored (n, k), out = x w[e]^T (dx);
+// otherwise stored (k, n), out = x w[e].
+template <typename W, bool kT>
 struct StackTile {
-  static constexpr int kStages = sizeof(W) == 1 ? kStackStagesS8 : kStackStagesBF16;
+  static constexpr bool kF32 = sizeof(W) == 4;
+  static constexpr int kStages = sizeof(W) == 1 ? kStackStagesS8 : kStackStagesWide;
+  // the persistent grid's blocks an SM: f32 stages take 147-157 KB
+  static constexpr int kBlocksPerSM = kF32 ? 1 : 2;
   static constexpr int kXBytes = kStackTM * kStackBK * 2;
-  static constexpr int kWLd = kStackBN * (int)sizeof(W) + 16;  // bytes a weight row
-  static constexpr int kStageBytes = kXBytes + kStackBK * kWLd;
+  // the staged weight tile: k rows x the strip's columns, or (kT) the
+  // strip's output rows x 64 of k; rows padded so that ldmatrix phases
+  // and the f32 fragments' 8-byte reads hit distinct banks
+  static constexpr int kWRowsStage = kT ? kStackBN : kStackBK;
+  static constexpr int kWRowBytes = (kT ? kStackBK : kStackBN) * (int)sizeof(W);
+  static constexpr int kWLd = kWRowBytes + (kT && kF32 ? 32 : 16);
+  static constexpr int kStageBytes = kXBytes + kWRowsStage * kWLd;
   static constexpr int kOLd = kStackBN + 8;                   // bf16 a staged output row
   static constexpr int kSmem = (kStages * kStageBytes > kStackTM * kOLd * 2
                                     ? kStages * kStageBytes : kStackTM * kOLd * 2) + 1024;
+  // fragment row g holds column 2g and row g + 8 column 2g + 1 (int8, and
+  // f32 as stored (k, n): two adjacent columns a read), else g and g + 8
+  static constexpr bool kPairCols = !kT && sizeof(W) != 2;
+  // f32: the blocks walk an expert's tiles fastest within a strip
+  static constexpr bool kExpertOrder = kF32;
   static_assert(kStackBK * 2 == 128 && kStageBytes % 1024 == 0, "128-byte swizzle atoms");
   static_assert(kStages >= 2, "the ring refills a stage no wgmma reads");
+  static_assert(!(kT && sizeof(W) == 1), "dx takes float experts");
 };
 
 // One register of ldmatrix.trans over an int8 tile: bytes 0, 1 are k row 2c
@@ -192,13 +229,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[kStackTM / 2], const uint32_
 }
 
 // A fragments of a stage's four 16-deep slices for this warp's 16 columns
-// (col0 ..): fragment row g is column 2g (int8) or g (bf16), row g + 8
-// column 2g + 1 or g + 8.
-template <typename W>
+// (col0 ..), rows as StackTile::kPairCols says. f32 weights round to bf16
+// pair by pair (cvt.rn.bf16x2.f32).
+template <typename W, bool kT>
 __device__ __forceinline__ void stack_a_frags(uint32_t (&a)[4][4], const unsigned char* ws,
                                               int lane, int col0) {
-  using T = StackTile<W>;
-  if constexpr (sizeof(W) == 1) {
+  using T = StackTile<W, kT>;
+  const int g = lane / 4;
+  const int c = lane % 4;
+  if constexpr (kT && sizeof(W) == 2) {
+    // matrices: (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+    // (rows 8-15, k 8-15) of slice j: mma's A as it lies
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      ldmatrix_x4(a[j], ws + (col0 + (lane & 7) + ((lane >> 3) & 1) * 8) * T::kWLd +
+                            (j * 16 + (lane >> 4) * 8) * 2);
+  } else if constexpr (kT) {
+    // f32 rows of 64 k: fragment (row, k 2c, 2c + 1) is one 8-byte read
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            ws + (col0 + g + (i & 1) * 8) * T::kWLd + (j * 16 + 2 * c + (i >> 1) * 8) * 4);
+        a[j][i] = pack_bf16x2(v.x, v.y);
+      }
+  } else if constexpr (sizeof(W) == 4) {
+    // f32 k rows: one 8-byte read holds columns 2g, 2g + 1 of a k row
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned char* r = ws + (j * 16 + 2 * c + h * 8) * T::kWLd + (col0 + 2 * g) * 4;
+        const float2 lo = *reinterpret_cast<const float2*>(r);
+        const float2 hi = *reinterpret_cast<const float2*>(r + T::kWLd);
+        a[j][2 * h] = pack_bf16x2(lo.x, hi.x);
+        a[j][2 * h + 1] = pack_bf16x2(lo.y, hi.y);
+      }
+  } else if constexpr (sizeof(W) == 1) {
     // matrices: k rows 0-7, 8-15, 16-23, 24-31 of two slices
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -221,60 +289,64 @@ __device__ __forceinline__ void stack_a_frags(uint32_t (&a)[4][4], const unsigne
 // This thread's share of each stage's copies, its addresses worked out
 // once an item: x rows xrow + q * kXRows (the rest of the tile's rows
 // zero-filled past `real`), weight rows wrow + q * kWRows.
-template <typename W>
+template <typename W, bool kT>
 struct StackCopies {
-  static constexpr int kWRowChunks = kStackBN * (int)sizeof(W) / 16;
+  using T = StackTile<W, kT>;
+  static constexpr int kWRowChunks = T::kWRowBytes / 16;
   static constexpr int kXRows = kStackThreads / 8;              // 8 chunks an x row
   static constexpr int kWRows = kStackThreads / kWRowChunks;
-  static_assert(kXRows % 8 == 0 && kStackTM % kXRows == 0 && kStackBK % kWRows == 0,
+  static_assert(kXRows % 8 == 0 && kStackTM % kXRows == 0 && T::kWRowsStage % kWRows == 0,
                 "whole rows a pass, the swizzle phase fixed");
   const __nv_bfloat16* x;   // its first x chunk at k 0
   const unsigned char* w;   // its first weight chunk at k 0
+  size_t wld;               // bytes between stored weight rows
+  size_t wstep;             // bytes a k-step moves the weight tile
   int xdst, wdst;           // their offsets in a stage
   int xrow;
 
+  // wbase: the item's expert at its strip (column n0, or row n0 if kT)
   __device__ __forceinline__ StackCopies(const __nv_bfloat16* xp, const W* wbase, int m0,
                                          int k, int n, int tid) {
     xrow = tid / 8;
     const int xc = tid % 8;
     x = xp + (size_t)(m0 + xrow) * k + xc * 8;
     xdst = xrow * 128 + ((xc ^ (xrow & 7)) << 4);               // 128-byte swizzle
+    wld = (size_t)(kT ? k : n) * sizeof(W);
+    wstep = kT ? kStackBK * sizeof(W) : kStackBK * wld;
     const int wr = tid / kWRowChunks;
     const int wc = tid % kWRowChunks;
-    w = reinterpret_cast<const unsigned char*>(wbase + (size_t)wr * n) + wc * 16;
-    wdst = StackTile<W>::kXBytes + wr * StackTile<W>::kWLd + wc * 16;
+    w = reinterpret_cast<const unsigned char*>(wbase) + wr * wld + wc * 16;
+    wdst = T::kXBytes + wr * T::kWLd + wc * 16;
   }
 
   // k-step `step` into its slot of the ring
-  __device__ __forceinline__ void load(unsigned char* smem, int step, int real, int k,
-                                       int n) const {
-    using T = StackTile<W>;
+  __device__ __forceinline__ void load(unsigned char* smem, int step, int real, int k) const {
     unsigned char* st = smem + (step % T::kStages) * T::kStageBytes;
     const int k0 = step * kStackBK;
 #pragma unroll
     for (int q = 0; q < kStackTM / kXRows; ++q)
       cp_async16(st + xdst + q * kXRows * 128, x + (size_t)q * kXRows * k + k0,
                  xrow + q * kXRows < real);
-    const unsigned char* wk = w + (size_t)k0 * n * sizeof(W);
+    const unsigned char* wk = w + step * wstep;
 #pragma unroll
-    for (int q = 0; q < kStackBK / kWRows; ++q)
-      cp_async16(st + wdst + q * kWRows * T::kWLd, wk + (size_t)q * kWRows * n * sizeof(W));
+    for (int q = 0; q < T::kWRowsStage / kWRows; ++q)
+      cp_async16(st + wdst + q * kWRows * T::kWLd, wk + q * kWRows * wld);
   }
 };
 
 // The sums of one (tile, strip) over all of k, the wgmmas' N the tile's live
 // rows (compiled once per N, so no branch sits between them).
-template <typename W, int N>
+template <typename W, bool kT, int N>
 __device__ __forceinline__ void stack_mainloop(float (&acc)[kStackTM / 2], unsigned char* smem,
-                                               const StackCopies<W>& copies, int real, int k,
-                                               int n, int lane, int col0) {
-  using T = StackTile<W>;
+                                               const StackCopies<W, kT>& copies, int real,
+                                               int k, int lane, int col0) {
+  using T = StackTile<W, kT>;
   constexpr int kAhead = T::kStages - 1;   // stages loading ahead
   const int nk = k / kStackBK;
   uint32_t a[4][4];
 #pragma unroll
   for (int s = 0; s < kAhead; ++s) {
-    if (s < nk) copies.load(smem, s, real, k, n);
+    if (s < nk) copies.load(smem, s, real, k);
     cp_async_commit();
   }
   for (int step = 0; step < nk; ++step) {
@@ -284,10 +356,10 @@ __device__ __forceinline__ void stack_mainloop(float (&acc)[kStackTM / 2], unsig
     // every warp's copies of this stage have landed, and no wgmma still
     // reads the stage refilled next (the last ones read the previous stage)
     __syncthreads();
-    if (step + kAhead < nk) copies.load(smem, step + kAhead, real, k, n);
+    if (step + kAhead < nk) copies.load(smem, step + kAhead, real, k);
     cp_async_commit();
     const unsigned char* st = smem + (step % T::kStages) * T::kStageBytes;
-    stack_a_frags<W>(a, st + T::kXBytes, lane, col0);
+    stack_a_frags<W, kT>(a, st + T::kXBytes, lane, col0);
     fence_frags(a);
     fence_acc(acc);
     wgmma_fence();
@@ -301,13 +373,13 @@ __device__ __forceinline__ void stack_mainloop(float (&acc)[kStackTM / 2], unsig
   fence_acc(acc);
 }
 
-template <typename W>
-__global__ void __launch_bounds__(kStackThreads, kStackBlocksPerSM)
+template <typename W, bool kT>
+__global__ void __launch_bounds__(kStackThreads, (StackTile<W, kT>::kBlocksPerSM))
 rk_moe_stack_wgmma_kernel(const __nv_bfloat16* __restrict__ xp, const W* __restrict__ w,
                           const float* __restrict__ scale, const int* __restrict__ texp,
                           const int* __restrict__ rows, const int* __restrict__ used,
                           int k, int n, __nv_bfloat16* __restrict__ out) {
-  using T = StackTile<W>;
+  using T = StackTile<W, kT>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
@@ -317,39 +389,55 @@ rk_moe_stack_wgmma_kernel(const __nv_bfloat16* __restrict__ xp, const W* __restr
   const int c = lane % 4;
   const int col0 = (warp / 4) * 64 + (warp % 4) * 16;   // warpgroup's 64, warp's 16
   const int strips = n / kStackBN;
-  const int items = (*used + kStackTM - 1) / kStackTM * strips;   // (tile, strip)s
+  const int tiles = (*used + kStackTM - 1) / kStackTM;
+  const int items = tiles * strips;                      // (tile, strip)s
 
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int tile = item / strips;          // strips fastest
+    int tile, strip;
+    if constexpr (T::kExpertOrder) {
+      // the expert's tiles t0 .. t1 - 1 hold items t0 * strips ..
+      // t1 * strips - 1, tiles fastest
+      const int t = item / strips;
+      const int ex = __ldg(texp + t);
+      int t0 = t, t1 = t + 1;
+      while (t0 > 0 && __ldg(texp + t0 - 1) == ex) --t0;
+      while (t1 < tiles && __ldg(texp + t1) == ex) ++t1;
+      const int rel = item - t0 * strips;
+      tile = t0 + rel % (t1 - t0);
+      strip = rel / (t1 - t0);
+    } else {
+      tile = item / strips;                  // strips fastest
+      strip = item % strips;
+    }
     const int m0 = tile * kStackTM;
-    const int n0 = (item % strips) * kStackBN;
+    const int n0 = strip * kStackBN;
     const int real = rows[tile];             // 1-128 below *used
     const size_t e = (size_t)texp[tile];
-    const W* wbase = w + e * (size_t)k * n + n0;
+    const W* wbase = w + e * (size_t)k * n + (kT ? (size_t)n0 * k : (size_t)n0);
     const int nlive = min(kStackTM, (real + 31) / 32 * 32);   // x rows the wgmmas read
 
-    const StackCopies<W> copies(xp, wbase, m0, k, n, tid);
+    const StackCopies<W, kT> copies(xp, wbase, m0, k, n, tid);
     float acc[kStackTM / 2];
 #pragma unroll
     for (int i = 0; i < kStackTM / 2; ++i) acc[i] = 0.f;
     if (nlive == 128)
-      stack_mainloop<W, 128>(acc, smem, copies, real, k, n, lane, col0);
+      stack_mainloop<W, kT, 128>(acc, smem, copies, real, k, lane, col0);
     else if (nlive == 96)
-      stack_mainloop<W, 96>(acc, smem, copies, real, k, n, lane, col0);
+      stack_mainloop<W, kT, 96>(acc, smem, copies, real, k, lane, col0);
     else if (nlive == 64)
-      stack_mainloop<W, 64>(acc, smem, copies, real, k, n, lane, col0);
+      stack_mainloop<W, kT, 64>(acc, smem, copies, real, k, lane, col0);
     else
-      stack_mainloop<W, 32>(acc, smem, copies, real, k, n, lane, col0);
+      stack_mainloop<W, kT, 32>(acc, smem, copies, real, k, lane, col0);
     cp_async_wait<0>();
     __syncthreads();
 
     // epilogue: acc[4j + q] is row 8j + 2c + q % 2 of the tile, column col0
-    // + (int8: 2g + q / 2; bf16: g + 8 (q / 2)) of the strip
+    // + (pair columns: 2g + q / 2; else g + 8 (q / 2)) of the strip
     __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(smem);
     float sc[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = col0 + (sizeof(W) == 1 ? 2 * g + h : g + 8 * h);
+      const int col = col0 + (T::kPairCols ? 2 * g + h : g + 8 * h);
       sc[h] = scale != nullptr ? __ldg(scale + e * n + n0 + col) : 1.f;
     }
 #pragma unroll
@@ -358,7 +446,7 @@ rk_moe_stack_wgmma_kernel(const __nv_bfloat16* __restrict__ xp, const W* __restr
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int h = q >> 1;
-          const int col = col0 + (sizeof(W) == 1 ? 2 * g + h : g + 8 * h);
+          const int col = col0 + (T::kPairCols ? 2 * g + h : g + 8 * h);
           const float v = scale != nullptr ? acc[4 * j + q] * sc[h] : acc[4 * j + q];
           os[(8 * j + 2 * c + (q & 1)) * T::kOLd + col] = __float2bfloat16_rn(v);
         }
@@ -379,16 +467,16 @@ rk_moe_stack_wgmma_kernel(const __nv_bfloat16* __restrict__ xp, const W* __restr
   }
 }
 
-template <typename W>
+template <typename W, bool kT>
 int launch_stack(const void* xp, const void* w, const float* scale, const int* texp,
                  const int* rows, const int* used, int k, int n, int grid, void* out,
                  cudaStream_t s) {
-  using T = StackTile<W>;
-  cudaError_t err = cudaFuncSetAttribute(rk_moe_stack_wgmma_kernel<W>,
+  using T = StackTile<W, kT>;
+  cudaError_t err = cudaFuncSetAttribute(rk_moe_stack_wgmma_kernel<W, kT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          T::kSmem);
   if (err != cudaSuccess) return (int)err;
-  rk_moe_stack_wgmma_kernel<W><<<grid, kStackThreads, T::kSmem, s>>>(
+  rk_moe_stack_wgmma_kernel<W, kT><<<grid, kStackThreads, T::kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(xp), static_cast<const W*>(w), scale, texp, rows,
       used, k, n, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
@@ -399,24 +487,44 @@ int launch_stack(const void* xp, const void* w, const float* scale, const int* t
 extern "C" {
 
 // xp (mp, k) bf16, rows sorted by expert and padded to 128-row tiles; w (E,
-// k, n) int8 (wtype 2) or bf16 (wtype 1); scale (E, n) f32 or null; texp
-// (mp / 128,) int32, tile i's expert; rows (mp / 128,) int32, tile i's real
-// rows (0-128; its other rows are padding); used (1,) int32, the rows the
-// groups fill. out (mp, n) bf16: only the real rows of tiles below *used
-// are written; padding rows and later tiles are left as they were and must
-// not be read. The wgmmas read x's rows up to the real ones rounded up to
-// 32 and no further. grid: the persistent blocks (2 an SM times the SMs),
-// which walk the (tile, strip) pairs strips fastest. k % 64 == 0, n % 128
-// == 0. Returns a cudaError_t.
+// k, n) int8 (wtype 2), bf16 (wtype 1) or f32 (wtype 0); scale (E, n) f32 or
+// null; texp (mp / 128,) int32, tile i's expert; rows (mp / 128,) int32,
+// tile i's real rows (0-128; its other rows are padding); used (1,) int32,
+// the rows the groups fill. out (mp, n) bf16: only the real rows of tiles
+// below *used are written; padding rows and later tiles are left as they
+// were and must not be read. The wgmmas read x's rows up to the real ones
+// rounded up to 32 and no further. grid: the persistent blocks (2 an SM
+// times the SMs; f32 experts 1 an SM), which walk the (tile, strip) pairs
+// strips fastest (f32: an expert's tiles fastest within a strip). k % 64
+// == 0, n % 128 == 0. Returns a cudaError_t.
 int rk_moe_grouped_stack(const void* xp, const void* w, const float* scale,
                          const int* texp, const int* rows, const int* used, int k, int n,
                          int wtype, int grid, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k % kStackBK || n % kStackBN || grid < 1) return (int)cudaErrorInvalidValue;
   if (wtype == 2)
-    return launch_stack<int8_t>(xp, w, scale, texp, rows, used, k, n, grid, out, s);
+    return launch_stack<int8_t, false>(xp, w, scale, texp, rows, used, k, n, grid, out, s);
   if (wtype == 1)
-    return launch_stack<__nv_bfloat16>(xp, w, scale, texp, rows, used, k, n, grid, out, s);
+    return launch_stack<__nv_bfloat16, false>(xp, w, scale, texp, rows, used, k, n, grid,
+                                              out, s);
+  if (wtype == 0)
+    return launch_stack<float, false>(xp, w, scale, texp, rows, used, k, n, grid, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The dx orientation: out (mp, n) = xp (mp, k) w[e]^T per tile, w (E, n, k)
+// bf16 (wtype 1) or f32 (wtype 0) as it lies, no scale; the other
+// arguments as rk_moe_grouped_stack's.
+int rk_moe_grouped_stack_t(const void* xp, const void* w, const int* texp, const int* rows,
+                           const int* used, int k, int n, int wtype, int grid, void* out,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k % kStackBK || n % kStackBN || grid < 1) return (int)cudaErrorInvalidValue;
+  if (wtype == 1)
+    return launch_stack<__nv_bfloat16, true>(xp, w, nullptr, texp, rows, used, k, n, grid,
+                                             out, s);
+  if (wtype == 0)
+    return launch_stack<float, true>(xp, w, nullptr, texp, rows, used, k, n, grid, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

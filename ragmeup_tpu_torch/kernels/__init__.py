@@ -34,14 +34,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ragmeup_tpu_torch")
 SOURCES = ("topk.cu", "quant_matmul.cu", "quant_matmul_int4.cu",
            "flash_attention.cu", "paged_attention.cu", "moe_matmul.cu",
-           "moe_stack.cu", "moe_matmul_int4.cu", "fused_mlp_int4.cu")
+           "moe_stack.cu", "moe_wgrad.cu", "moe_matmul_int4.cu", "fused_mlp_int4.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 KERNELS = ("topk", "int8_matmul", "flash_gqa", "topk_int8", "int4_matmul",
            "int4_matmul_a8", "paged_attention", "paged_attention_chunk",
            "moe_gather", "moe_grouped", "moe_grouped_stack", "moe_gather_int4",
-           "moe_grouped_int4", "fused_mlp_int4")
+           "moe_grouped_int4", "fused_mlp_int4", "moe_grouped_wgrad")
 
 _lock = threading.Lock()
 _tickets_lock = threading.Lock()
@@ -203,6 +203,12 @@ def lib() -> ctypes.CDLL:
             so.rk_moe_grouped_stack.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                                 i32, vp, vp]
             so.rk_moe_grouped_stack.restype = i32
+            so.rk_moe_grouped_stack_t.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                                  vp, vp]
+            so.rk_moe_grouped_stack_t.restype = i32
+            so.rk_moe_grouped_wgrad.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                                vp, vp]
+            so.rk_moe_grouped_wgrad.restype = i32
             so.rk_moe_gather_int4.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                               i32, i32, i32, vp, vp, vp]
             so.rk_moe_gather_int4.restype = i32

@@ -27,7 +27,7 @@ multiplies the sum, and the result rounds once to x's dtype.
   on the device and no padded copy: one block a (strip, k slice, expert)
   walks its group's rows, k cut by ``grouped_rows_plan``, the slices added
   in slice order by the last block of each strip. #12 with bf16 rows in
-  128-row tiles over int8 or bf16 experts runs its own kernel
+  128-row tiles over int8, bf16 or f32 experts runs its own kernel
   (csrc/moe_stack.cu), and f32 rows run csrc/moe_matmul.cu's f32 kernel;
   both take the padded layout of ``tm``-row tiles (``scatter_layout``), #12
   each tile's real rows (``tile_rows``). ``grouped_kernel_call`` says which
@@ -67,11 +67,14 @@ on the host.
 With float experts and a gradient asked for, the kernel route of
 ``moe_grouped_matmul`` is an autograd Function (the JAX package's
 ``_grouped_kernel_path`` custom VJP): the forward is the route above; dx
-is the same route run on the transposed stacks (a contiguous copy of each
-stack a backward), and dw the one-hot product ``"me,mk,mn->ekn"`` summed in
-f32 and cast to w's dtype (``grouped_weight_grad``, a plain product outside
-the kernels, as JAX computes it in XLA). Every other CUDA route has no
-backward: ``kernels.require_cuda`` refuses a launch that autograd would
+is the same route run on the stacks' transposed view, which the stack
+kernel reads as the stacks lie (its dx orientation; the other kernels take
+a contiguous copy); dw, each expert's rows of x against the same rows of
+dy summed in f32 and cast to w's dtype, runs csrc/moe_wgrad.cu over the
+routed rows only (``grouped_weight_grad``, counted as
+``moe_grouped_wgrad``; JAX computes it in XLA as a one-hot product, the
+plain version ``grouped_weight_grad_plain``). Every other CUDA route has
+no backward: ``kernels.require_cuda`` refuses a launch that autograd would
 have to go through.
 """
 
@@ -99,6 +102,8 @@ _STACK_TM = 128            # csrc/moe_stack.cu: rows a tile
 _STACK_BN = 128            # csrc/moe_stack.cu: columns a strip
 _STACK_BK = 64             # csrc/moe_stack.cu: k a ring stage
 _STACK_BLOCKS_PER_SM = 2   # csrc/moe_stack.cu: blocks an SM holds (its persistent grid)
+_STACK_BLOCKS_PER_SM_F32 = 1  # csrc/moe_stack.cu: f32 experts' stages fill an SM
+_WGRAD_TILE = 128          # csrc/moe_wgrad.cu: dw rows and columns a block
 _W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ESIZE = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
 # blocks an SM that the bf16 gather's and the grouped-rows kernel's split-K
@@ -404,19 +409,27 @@ def tile_rows(gsz: torch.Tensor, texp: torch.Tensor, tm: int) -> torch.Tensor:
 def stack_kernel_takes(tm: int, k: int, n: int, x_dtype: torch.dtype,
                        w_dtype: torch.dtype) -> bool:
     """True when #12's call runs csrc/moe_stack.cu's kernel: bf16 rows in
-    128-row tiles, int8 or bf16 experts, k in 64-deep steps, n in 128-column
-    strips. Other bf16 calls run the grouped-rows kernel, f32 rows
-    csrc/moe_matmul.cu's f32 kernel on the padded layout."""
+    128-row tiles, int8, bf16 or f32 experts, k in 64-deep steps, n in
+    128-column strips. Other bf16 calls run the grouped-rows kernel, f32
+    rows csrc/moe_matmul.cu's f32 kernel on the padded layout."""
     return (tm == _STACK_TM and x_dtype == torch.bfloat16
-            and w_dtype in (torch.int8, torch.bfloat16)
+            and w_dtype in (torch.int8, torch.bfloat16, torch.float32)
             and k % _STACK_BK == 0 and n % _STACK_BN == 0)
 
 
-def stack_grid(mp: int, n: int, sm_count: int) -> int:
-    """The stack kernel's persistent blocks: as many as the card holds, and
-    no more than the padded layout has (tile, strip) pairs."""
-    return max(1, min((mp // _STACK_TM) * (n // _STACK_BN),
-                      _STACK_BLOCKS_PER_SM * sm_count))
+def stack_grid(mp: int, n: int, sm_count: int, w_dtype: torch.dtype = torch.int8) -> int:
+    """The stack kernel's persistent blocks: as many as the card holds (2 an
+    SM, f32 experts 1), and no more than the padded layout has (tile,
+    strip) pairs."""
+    per_sm = _STACK_BLOCKS_PER_SM_F32 if w_dtype == torch.float32 else _STACK_BLOCKS_PER_SM
+    return max(1, min((mp // _STACK_TM) * (n // _STACK_BN), per_sm * sm_count))
+
+
+def stacks_transposed(w: torch.Tensor) -> bool:
+    """True when w (E, k, n) is the transposed view of stacks stored (E, n,
+    k), as ``GroupedKernelPath``'s dx passes them: the stack kernel's dx
+    orientation reads them as they lie."""
+    return not w.is_contiguous() and w.transpose(1, 2).is_contiguous()
 
 
 def _stack_cuda(xp, w, scale, texp, rows, used):
@@ -425,22 +438,38 @@ def _stack_cuda(xp, w, scale, texp, rows, used):
     if rows.shape != texp.shape:
         raise ValueError(f"moe_grouped_stack kernel: one count of real rows a tile "
                          f"(got {tuple(rows.shape)} for {texp.shape[0]} tiles)")
+    dx = stacks_transposed(w)
+    if dx and (scale is not None or w.dtype == torch.int8):
+        raise ValueError("moe_grouped_stack kernel: transposed stacks (dx) take float "
+                         "experts with no scale")
     texp = texp.to(torch.int32).contiguous()
     rows = rows.to(torch.int32).contiguous()
     used = used.to(torch.int32).contiguous()
-    tensors = [xp, w, texp, rows, used]
+    stored = w.transpose(1, 2) if dx else w
+    tensors = [xp, stored, texp, rows, used]
     if scale is not None:
         scale = scale.float().contiguous()
         tensors.append(scale)
     kernels.require_cuda("moe_grouped_stack", *tensors)
     out = torch.empty((mp, n), dtype=xp.dtype, device=xp.device)
-    err = kernels.lib().rk_moe_grouped_stack(
-        xp.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
-        texp.data_ptr(), rows.data_ptr(), used.data_ptr(), k, n, _W_CODES[w.dtype],
-        stack_grid(mp, n, kernels.sm_count(xp.device.index)), out.data_ptr(),
-        kernels.stream_handle(xp.device))
+    grid = stack_grid(mp, n, kernels.sm_count(xp.device.index), w.dtype)
+    if dx:
+        err = kernels.lib().rk_moe_grouped_stack_t(
+            xp.data_ptr(), stored.data_ptr(), texp.data_ptr(), rows.data_ptr(),
+            used.data_ptr(), k, n, _W_CODES[w.dtype], grid, out.data_ptr(),
+            kernels.stream_handle(xp.device))
+    else:
+        err = kernels.lib().rk_moe_grouped_stack(
+            xp.data_ptr(), w.data_ptr(), scale.data_ptr() if scale is not None else None,
+            texp.data_ptr(), rows.data_ptr(), used.data_ptr(), k, n, _W_CODES[w.dtype],
+            grid, out.data_ptr(), kernels.stream_handle(xp.device))
     kernels.check(err, "moe_grouped_stack")
-    kernels.count("moe_grouped_stack")
+    # f32 stacks (a train step's master weights) and the dx orientation
+    # count apart
+    variant = "w=f32" if w.dtype == torch.float32 else None
+    if dx:
+        variant = "dx w=f32" if w.dtype == torch.float32 else "dx w=bf16"
+    kernels.count("moe_grouped_stack", variant)
     return out
 
 
@@ -450,6 +479,7 @@ def _grouped_cuda(xp, w, scale, texp, used, tm, stack: bool, rows):
     if stack and stack_kernel_takes(tm, k, n, xp.dtype, w.dtype):
         return _stack_cuda(xp, w, scale, texp, rows, used)
     name = "moe_grouped_stack" if stack else "moe_grouped"
+    w = w.contiguous()  # dx's transposed stacks: csrc/moe_matmul.cu reads (E, k, n)
     if xp.dtype != torch.float32:
         raise ValueError(f"{name}: the padded layout's csrc/moe_matmul.cu kernel takes f32 "
                          f"rows (bf16 rows run grouped_rows), got {xp.dtype}")
@@ -593,7 +623,9 @@ def grouped_kernel_call(xs: torch.Tensor, w: torch.Tensor, scale: Optional[torch
     (``tile_rows``)."""
     e, k, n = w.shape
     if rows_kernel_takes(tm, k, n, xs.dtype, w.dtype, stack):
-        return grouped_rows(xs, w, scale, gsz, "moe_grouped_stack" if stack else "moe_grouped")
+        # dx's transposed stacks: the grouped-rows kernel reads (E, k, n)
+        return grouped_rows(xs, w.contiguous(), scale, gsz,
+                            "moe_grouped_stack" if stack else "moe_grouped")
     xp, dst, texp, used = scatter_layout(xs, gsz, tm, e)
     rows = tile_rows(gsz, texp, tm) if stack else None
     return grouped_padded(xp, w, scale, texp, used, tm, stack=stack,
@@ -626,21 +658,68 @@ def _grouped_forward(xs, w, scale, gsz, tm, mp_cap, no_stack):
     return torch.cat(outs, dim=0)
 
 
-def grouped_weight_grad(xs: torch.Tensor, dy: torch.Tensor, gsz: torch.Tensor,
-                        e: int) -> torch.Tensor:
-    """dw of the grouped GEMM: ``"me,mk,mn->ekn"`` over each row's one-hot
-    group (rows past the groups in none), f32 products and sums → (E, k, n)
-    f32. Every expert multiplies every row: E times the routed FLOPs."""
+def grouped_weight_grad_plain(xs: torch.Tensor, dy: torch.Tensor, gsz: torch.Tensor,
+                              e: int) -> torch.Tensor:
+    """Plain PyTorch version of dw (the JAX package's XLA einsum):
+    ``"me,mk,mn->ekn"`` over each row's one-hot group (rows past the groups
+    in none), f32 products and sums → (E, k, n) f32. Every expert
+    multiplies every row: E times the routed FLOPs."""
     csum = torch.cumsum(gsz.to(device=xs.device, dtype=torch.int64), 0)
     eid = torch.searchsorted(csum, torch.arange(xs.shape[0], device=xs.device), right=True)
     mask = (eid[:, None] == torch.arange(e, device=xs.device)).float()
     return torch.einsum("me,mk,mn->ekn", mask, xs.float(), dy.float())
 
 
+def wgrad_kernel_takes(k: int, n: int, x_dtype: torch.dtype) -> bool:
+    """True when csrc/moe_wgrad.cu takes dw: bf16 rows and gradients, k and
+    n in 128-wide tiles."""
+    return x_dtype == torch.bfloat16 and k % _WGRAD_TILE == 0 and n % _WGRAD_TILE == 0
+
+
+def wgrad_grid(e: int, k: int, n: int) -> Tuple[int, int, int]:
+    """The dw kernel's blocks: (n tiles, k tiles, experts), one (128 x 128)
+    output tile of one expert each, n tiles fastest."""
+    return (n // _WGRAD_TILE, k // _WGRAD_TILE, e)
+
+
+def _wgrad_cuda(xs, dy, gsz, e):
+    m, k = xs.shape
+    n = dy.shape[1]
+    if not wgrad_kernel_takes(k, n, xs.dtype) or dy.dtype != xs.dtype:
+        raise ValueError(f"moe_grouped_wgrad kernel: bf16 rows and gradients, k % "
+                         f"{_WGRAD_TILE} and n % {_WGRAD_TILE} == 0 (got {xs.dtype} / "
+                         f"{dy.dtype}, k={k}, n={n})")
+    xs = xs.contiguous()
+    dy = dy.contiguous()
+    gsz = gsz.to(device=xs.device, dtype=torch.int32).contiguous()
+    kernels.require_cuda("moe_grouped_wgrad", xs, dy, gsz)
+    dw = torch.empty((e, k, n), dtype=torch.float32, device=xs.device)
+    err = kernels.lib().rk_moe_grouped_wgrad(xs.data_ptr(), dy.data_ptr(), gsz.data_ptr(),
+                                              e, k, n, *wgrad_grid(e, k, n), dw.data_ptr(),
+                                              kernels.stream_handle(xs.device))
+    kernels.check(err, "moe_grouped_wgrad")
+    kernels.count("moe_grouped_wgrad")
+    return dw
+
+
+def grouped_weight_grad(xs: torch.Tensor, dy: torch.Tensor, gsz: torch.Tensor,
+                        e: int) -> torch.Tensor:
+    """dw of the grouped GEMM, (E, k, n) f32: each expert's rows of xs
+    against the same rows of dy, f32 sums; rows past the groups in none.
+    CUDA tensors launch csrc/moe_wgrad.cu (counted as
+    ``moe_grouped_wgrad``: the routed products only, the group sizes read on
+    the device), CPU tensors take ``grouped_weight_grad_plain``."""
+    if xs.is_cuda:
+        return _wgrad_cuda(xs, dy, gsz, e)
+    return grouped_weight_grad_plain(xs, dy, gsz, e)
+
+
 class GroupedKernelPath(torch.autograd.Function):
     """The kernel route of ``moe_grouped_matmul`` over float experts, with
-    the JAX package's custom VJP: dx through the same route on the
-    transposed stacks, dw from ``grouped_weight_grad`` in w's dtype."""
+    the JAX package's custom VJP: dx through the same route on the stacks'
+    transposed view (the stack kernel's dx orientation reads them as they
+    lie; other kernels take a contiguous copy), dw from
+    ``grouped_weight_grad`` in w's dtype."""
 
     @staticmethod
     def forward(ctx, xs, w, gsz, tm: int, mp_cap: int, no_stack: bool):
@@ -653,7 +732,7 @@ class GroupedKernelPath(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = moe_grouped_matmul(dy, w.transpose(1, 2).contiguous(), gsz).to(xs.dtype)
+            dx = moe_grouped_matmul(dy, w.transpose(1, 2), gsz).to(xs.dtype)
         if ctx.needs_input_grad[1]:
             dw = grouped_weight_grad(xs, dy, gsz, w.shape[0]).to(w.dtype)
         return dx, dw, None, None, None, None

@@ -1,7 +1,8 @@
-"""The int8 expert matmuls #10 and #11 timed on one card, and stream-only
-copies of the load loops they had before their redesign.
+"""The int8 expert matmuls #10 and #11 timed on one card, stream-only
+copies of the load loops they had before their redesign, and the grouped
+GEMM's training route over f32 master stacks.
 
-    python3 ragmeup_tpu_torch/tools/moe_times.py [--tree DIR] [--stream]
+    python3 ragmeup_tpu_torch/tools/moe_times.py [--tree DIR] [--stream] [--train]
 
 Imports ``ragmeup_tpu_torch`` from the checkout at DIR (by default the one
 that holds this file), draws int8 experts with per-column scales (seed 0)
@@ -27,7 +28,24 @@ exceeds the kernels' device time):
   blocks, one 4-byte load a row and lane over its k slice; #11's 256-thread
   blocks, each 64-deep step's x tile and 64 x 128 weight tile as 16-byte
   loads, one block per (16-row tile, 128-column strip). The source is
-  compiled with nvcc into ``build/`` beside the kernel library.
+  compiled with nvcc into ``build/`` beside the kernel library;
+- with ``--train`` (``train_graph_ms``, and only that): the grouped GEMM's
+  training route at one Mixtral layer, 2,048 bf16 rows (groups drawn as
+  chip_smoke.py's phase 9 draws them, seed 44) over 8 f32 stacks, up
+  4096 -> 14336 and down 14336 -> 4096: ``forward`` (``moe_grouped_matmul``
+  with no gradient), ``dx`` and ``dw`` as the tree's
+  ``GroupedKernelPath.backward`` computes them (a tree without
+  ``stacks_transposed`` makes a contiguous transposed copy of the stacks in
+  the call, as its backward did; dw is the tree's ``grouped_weight_grad``),
+  ``backward`` (dx and dw), ``fwd_bwd_eager`` (forward and backward through
+  autograd, eager: CUDA events around the calls); where the tree has the
+  stack kernel's dx orientation, ``forward_kernel_one_call`` and
+  ``dx_kernel_one_call`` (the stack kernel over all 2,048 rows' padded
+  layout in one call, where the route cuts them into two chunks); and the
+  yardsticks ``cast`` (the stacks cast to bf16 as they lie),
+  ``cast_grouped_mm`` (one copy casts the stacks to bf16 in the (n, k)
+  layout ``torch._grouped_mm`` takes, then that call: the same function
+  over the rounded stacks) and ``grouped_mm_precast`` (the call alone).
 
 Medians of five rounds after warm-up rounds until two agree within 5 %. To
 compare a parent commit on one card, unpack ``git archive <parent>`` into
@@ -210,11 +228,88 @@ def stream_times(tree, mm, gen, mixtral, qwen, xs16) -> dict:
     return out
 
 
+def eager_ms(fn, reps: int = 3, rounds: int = 5) -> float:
+    """Mean time of ``reps`` eager calls (CUDA events), the median of
+    ``rounds`` after one warm-up round."""
+    import torch
+
+    def one_round() -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    one_round()
+    return statistics.median(one_round() for _ in range(rounds))
+
+
+def train_times(mm) -> dict:
+    """The --train readings (see the module's docstring)."""
+    import torch
+    e, m = 8, 2048
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    ids = torch.randint(0, e, (m,), generator=gen, device="cuda")
+    gsz = torch.bincount(ids, minlength=e)
+    offs = torch.cumsum(gsz, 0).to(torch.int32)
+    out = {"groups": gsz.tolist()}
+    for proj, (k, n) in (("up", (4096, 14336)), ("down", (14336, 4096))):
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        w = torch.randn(e, k, n, generator=gen, device="cuda") * 0.02
+        dy = (torch.randn(m, n, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+        no_copy = hasattr(mm, "stacks_transposed")
+
+        def dx():
+            wt = w.transpose(1, 2)
+            return mm.moe_grouped_matmul(dy, wt if no_copy else wt.contiguous(), gsz)
+
+        def dw():
+            return mm.grouped_weight_grad(x, dy, gsz, e)
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        r = {"forward": graph_ms(lambda: mm.moe_grouped_matmul(x, w, gsz), reps=3),
+             "dx": graph_ms(dx, reps=3), "dw": graph_ms(dw, reps=3),
+             "backward": graph_ms(lambda: (dx(), dw()), reps=3),
+             "fwd_bwd_eager": eager_ms(lambda: torch.autograd.grad(
+                 mm.moe_grouped_matmul(xg, wg, gsz), (xg, wg), dy))}
+        if no_copy:
+            # the stack kernel alone over all 2,048 rows in one call (no
+            # chunking), forward and dx, on the padded layout
+            xp, _, texp, used = mm.scatter_layout(x, gsz, 128, e)
+            dyp = mm.scatter_layout(dy, gsz, 128, e)[0]
+            rows = mm.tile_rows(gsz, texp, 128)
+            r["forward_kernel_one_call"] = graph_ms(
+                lambda: mm.grouped_padded(xp, w, None, texp, used, 128, True, rows), reps=3)
+            r["dx_kernel_one_call"] = graph_ms(
+                lambda: mm.grouped_padded(dyp, w.transpose(1, 2), None, texp, used, 128, True,
+                                          rows), reps=3)
+            del xp, dyp
+        if hasattr(torch, "_grouped_mm"):
+            r["cast"] = graph_ms(lambda: w.to(torch.bfloat16), reps=3)
+            wb = torch.empty((e, n, k), dtype=torch.bfloat16, device="cuda")
+
+            def cast_grouped_mm():
+                # one pass casts the stacks to bf16 in the (n, k) layout
+                # _grouped_mm takes its stacks in
+                wb.copy_(w.transpose(1, 2))
+                return torch._grouped_mm(x, wb.transpose(1, 2), offs=offs)
+            r["cast_grouped_mm"] = graph_ms(cast_grouped_mm, reps=3)
+            r["grouped_mm_precast"] = graph_ms(
+                lambda: torch._grouped_mm(x, wb.transpose(1, 2), offs=offs), reps=3)
+            del wb
+        out[proj] = r
+        del x, w, dy, xg, wg
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -231,6 +326,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
+    if args.train:
+        print(json.dumps({"tree": tree, "train_graph_ms": train_times(mm)}), flush=True)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     mixtral = experts(gen, 8, MIXTRAL)
     qwen = experts(gen, 128, QWEN3)

@@ -194,6 +194,8 @@ def decode_kernel_counts(library: str) -> list:
             continue    # the int8 expert kernels' bf16-x, int8-w instantiations only
         integer = any(kernel in name for kernel in INTEGER_KERNELS)
         stack = any(kernel in name for kernel in STACK_KERNELS)
+        if stack and "signed char" not in pretty:
+            continue    # #12's int8 instantiation only (bf16 and f32 weights convert no pair)
         marker = (_expert_marker(expert[0]) if expert else _is_imma if integer
                   else _is_hgmma if stack else _is_nibble_pair)
         loop = main_loop(functions[name], marker, innermost=stack)

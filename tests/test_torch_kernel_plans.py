@@ -32,7 +32,11 @@ under its plan (plain torch, f32 or bf16) is held to the port's plain
 version and to the JAX package (``paged_attention_ref`` / the Pallas
 kernels in interpret mode): f32 to 1e-5 absolute (#9, as
 tests/test_torch_paged.py) or 2e-5 of the largest output (#3, #4), bf16
-within one bf16 ulp of the largest output.
+within one bf16 ulp of the largest output. The grouped GEMM's dw kernel
+(csrc/moe_wgrad.cu, no Pallas counterpart): its grid names each output
+tile once, a model of its sums equals the plain one-hot product and the
+JAX package's XLA einsum within 1e-5 of the largest value, and its
+wrapper hands the group sizes to the kernel on the device.
 """
 import functools
 
@@ -1627,3 +1631,102 @@ def test_grouped_rows_model_matches_plain_and_jax(groups, kind, sms):
                                    tm=16, tile_k=1024, tile_n=512, no_stack=True)
     _close(got, plain.float().numpy(), "bfloat16")
     _close(got, np.asarray(want.astype(jnp.float32)), "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# the grouped GEMM's dw kernel (csrc/moe_wgrad.cu)
+# ---------------------------------------------------------------------------
+
+WGRAD_SHAPES = {"mixtral up": (8, 4096, 14336), "mixtral down": (8, 14336, 4096),
+                "tiny": (4, 512, 256)}
+
+
+@pytest.mark.parametrize("shape", list(WGRAD_SHAPES))
+def test_wgrad_grid_covers_each_output_tile_once(shape):
+    """wgrad_grid's blocks (n tiles fastest, k tiles, experts) name each
+    128 x 128 tile of every expert's dw once: (112, 32, 8) blocks at
+    Mixtral's up, (32, 112, 8) at down."""
+    e, k, n = WGRAD_SHAPES[shape]
+    gx, gy, gz = moe.wgrad_grid(e, k, n)
+    tiles = sorted((z, y * 128, x * 128) for z in range(gz) for y in range(gy)
+                   for x in range(gx))
+    assert tiles == [(ex, k0, n0) for ex in range(e) for k0 in range(0, k, 128)
+                     for n0 in range(0, n, 128)]
+    if shape == "mixtral up":
+        assert (gx, gy, gz) == (112, 32, 8)
+    assert moe.wgrad_kernel_takes(k, n, torch.bfloat16)
+    assert not moe.wgrad_kernel_takes(k, n, torch.float32)
+    assert not moe.wgrad_kernel_takes(k + 64, n, torch.bfloat16)
+
+
+def _wgrad_model(xs, dy, gsz, e):
+    """csrc/moe_wgrad.cu's sums: each expert's rows from its first row (the
+    earlier groups' sizes summed), 32 a stage with the rows past the group
+    zero-filled, each stage two 16-row mma steps added to f32 sums in
+    order; an expert with no rows keeps zeros."""
+    k, n = xs.shape[1], dy.shape[1]
+    out = torch.zeros(e, k, n)
+    start = 0
+    for ex, count in enumerate(gsz):
+        for r0 in range(0, -(-count // 32) * 32, 16):
+            a = torch.zeros(16, k)
+            b = torch.zeros(16, n)
+            live = max(0, min(16, count - r0))
+            a[:live] = xs[start + r0:start + r0 + live].float()
+            b[:live] = dy[start + r0:start + r0 + live].float()
+            out[ex] += a.T @ b
+        start += count
+    return out
+
+
+@pytest.mark.parametrize("gsz", [[70, 30, 0, 28], [1, 0, 0, 33], [0, 0, 0, 0], [64, 64, 64, 64]])
+def test_wgrad_model_matches_plain_and_jax(gsz):
+    """The dw kernel's model on bf16 rows against grouped_weight_grad_plain
+    (the one-hot einsum) and the JAX package's XLA einsum of
+    _grouped_kp_bwd (one-hot, f32 sums), with more rows than the groups
+    hold (the rest in no group): within 1e-5 of the largest value (f32
+    sums of the same bf16 products in other orders); empty experts zero."""
+    import jax
+    rng = np.random.default_rng(9)
+    e, k, n = 4, 256, 128
+    m = sum(gsz) + 5
+    xs = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(torch.bfloat16)
+    got = _wgrad_model(xs, dy, gsz, e)
+    plain = moe.grouped_weight_grad_plain(xs, dy, torch.tensor(gsz), e)
+    assert torch.equal(moe.grouped_weight_grad(xs, dy, torch.tensor(gsz), e), plain)
+    csum = np.cumsum(gsz)
+    eid = np.searchsorted(csum, np.arange(m), side="right")
+    mask = jax.nn.one_hot(jnp.asarray(eid), e, dtype=jnp.bfloat16)
+    want = np.asarray(jnp.einsum("me,mk,mn->ekn", mask, jnp.asarray(xs.float().numpy(),
+                                                                      jnp.bfloat16),
+                                 jnp.asarray(dy.float().numpy(), jnp.bfloat16),
+                                 preferred_element_type=jnp.float32))
+    big = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * big)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=1e-5 * big)
+    for ex, count in enumerate(gsz):
+        if count == 0:
+            assert not got[ex].any() and not plain[ex].any()
+
+
+def test_wgrad_wrapper_launches_with_group_sizes_on_the_device(monkeypatch):
+    """A CUDA-route call (stand-in library) passes rk_moe_grouped_wgrad the
+    rows, the gradients and int32 group sizes (no host read), E, k, n,
+    wgrad_grid's blocks and an f32 (E, k, n) output, and counts one
+    moe_grouped_wgrad launch; f32 rows raise."""
+    rec = _EntryRecorder()
+    monkeypatch.setattr(kernels, "lib", lambda: rec)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 0)
+    kernels.reset_counts()
+    xs = torch.zeros(100, 256, dtype=torch.bfloat16)
+    dy = torch.zeros(100, 128, dtype=torch.bfloat16)
+    dw = moe._wgrad_cuda(xs, dy, torch.tensor([60, 0, 40]), 3)
+    (name, args), = rec.calls
+    assert name == "rk_moe_grouped_wgrad" and args[3:9] == (3, 256, 128, 1, 2, 3)
+    assert dw.shape == (3, 256, 128) and dw.dtype == torch.float32
+    assert kernels.launch_counts()["moe_grouped_wgrad"] == 1
+    with pytest.raises(ValueError, match="bf16"):
+        moe._wgrad_cuda(xs.float(), dy.float(), torch.tensor([60, 0, 40]), 3)
+    kernels.reset_counts()

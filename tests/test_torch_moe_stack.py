@@ -56,7 +56,7 @@ ROUTES = {
     "int8 stack, k tail": (torch.bfloat16, torch.int8, 128, True, 1152, 256,
                            "rk_moe_grouped_stack", "moe_grouped_stack"),
     "f32 experts stack": (torch.bfloat16, torch.float32, 128, True, 1024, 512,
-                          "rk_moe_grouped_rows", "moe_grouped_stack"),
+                          "rk_moe_grouped_stack", "moe_grouped_stack"),
     "f32 rows stack": (torch.float32, torch.int8, 128, True, 1024, 512,
                        "rk_moe_grouped", "moe_grouped_stack"),
     "stack at tm 64": (torch.bfloat16, torch.int8, 64, True, 1024, 512,
@@ -84,10 +84,10 @@ def library(monkeypatch):
 
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_grouped_wrapper_routes_by_shape_and_dtype(case, library):
-    """stack with bf16 rows in 128-row tiles over int8 or bf16 experts
+    """stack with bf16 rows in 128-row tiles over int8, bf16 or f32 experts
     reaches rk_moe_grouped_stack (texp, the tiles' real rows, used, k, n,
-    the experts' type, the persistent grid); other bf16 calls (f32
-    experts, other tiles, the dedup route) reach rk_moe_grouped_rows on the
+    the experts' type, the persistent grid); other bf16 calls (other
+    tiles, the dedup route) reach rk_moe_grouped_rows on the
     sorted rows (m, E, k, n, the plan's steps a slice, the experts' type);
     f32 rows reach rk_moe_grouped on the padded layout. Each call counts
     one launch under its route's counter."""
@@ -114,8 +114,8 @@ def test_grouped_wrapper_routes_by_shape_and_dtype(case, library):
     args = library.calls[0][1]
     if entry == "rk_moe_grouped_stack":
         mp = xp.shape[0]
-        assert args[6:10] == (k, n, 2 if wdtype == torch.int8 else 1,
-                              moe.stack_grid(mp, n, H100_SMS))
+        assert args[6:10] == (k, n, moe._W_CODES[wdtype],
+                              moe.stack_grid(mp, n, H100_SMS, wdtype))
         assert (args[2] is None) == (scale is None)
     elif entry == "rk_moe_grouped_rows":
         per = moe.grouped_rows_plan(x.shape[0], 4, k, n, wdtype, H100_SMS)
@@ -123,6 +123,41 @@ def test_grouped_wrapper_routes_by_shape_and_dtype(case, library):
         assert (args[2] is None) == (scale is None)
     else:
         assert args[5:9] == (xp.shape[0], k, n, tm)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_transposed_stacks_reach_the_dx_entry_as_they_lie(wdtype, library):
+    """dx's stacks, the transposed view of (E, n, k) as they lie, reach
+    rk_moe_grouped_stack_t with the stored tensor's pointer and no copy
+    (k the reduction, n the output; the experts' type; the grid), counted
+    as moe_grouped_stack "dx w=..."; f32 rows take csrc/moe_matmul.cu's
+    kernel on a contiguous copy; int8 or a scale refuse the orientation."""
+    gsz = torch.tensor([130, 0, 37, 89])
+    k, n = 512, 1024
+    stored = torch.zeros(4, n, k, dtype=wdtype)
+    w = stored.transpose(1, 2)
+    assert moe.stacks_transposed(w) and not moe.stacks_transposed(stored)
+    x = torch.zeros(int(gsz.sum()), k, dtype=torch.bfloat16)
+    xp, _, texp, used = moe.scatter_layout(x, gsz, TM, 4)
+    rows = moe.tile_rows(gsz, texp, TM)
+    out = moe._grouped_cuda(xp, w, None, texp, used, TM, True, rows)
+    assert out.shape == (xp.shape[0], n)
+    (name, args), = library.calls
+    assert name == "rk_moe_grouped_stack_t" and args[1] == stored.data_ptr()
+    assert args[5:9] == (k, n, moe._W_CODES[wdtype], moe.stack_grid(xp.shape[0], n, H100_SMS,
+                                                                     wdtype))
+    tag = "f32" if wdtype == torch.float32 else "bf16"
+    assert kernels.variant_counts() == {f"moe_grouped_stack dx w={tag}": 1}
+    library.calls.clear()
+    xf, _, texp, used = moe.scatter_layout(x.float(), gsz, TM, 4)
+    moe._grouped_cuda(xf, w, None, texp, used, TM, True, rows)
+    (name, args), = library.calls
+    assert name == "rk_moe_grouped" and args[1] != stored.data_ptr()
+    with pytest.raises(ValueError, match="transposed"):
+        moe._grouped_cuda(xp, w, torch.ones(4, n), texp, used, TM, True, rows)
+    with pytest.raises(ValueError, match="transposed"):
+        moe._grouped_cuda(xp, torch.zeros(4, n, k, dtype=torch.int8).transpose(1, 2), None,
+                          texp, used, TM, True, rows)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -217,6 +252,56 @@ def test_stack_grid_on_an_h100():
     assert moe.stack_grid(2048, 4096, H100_SMS) == 264
     assert moe.stack_grid(768, 256, H100_SMS) == 12
     assert moe.stack_grid(128, 128, H100_SMS) == 1
+
+
+def test_stack_grid_f32_stacks_one_block_an_sm():
+    """f32 experts' three 49-52 KB stages fill an SM: 132 blocks on an
+    H100, bf16 and int8 keep two."""
+    assert moe.stack_grid(2048, 14336, H100_SMS, torch.float32) == 132
+    assert moe.stack_grid(2048, 4096, H100_SMS, torch.float32) == 132
+    assert moe.stack_grid(768, 256, H100_SMS, torch.float32) == 12
+    assert moe.stack_grid(2048, 4096, H100_SMS, torch.bfloat16) == 264
+
+
+def _walk_by_expert(grid: int, texp, tiles: int, strips: int) -> list:
+    """The f32 instantiation's walk: item i lies in its expert's run of
+    tiles t0 .. t1 - 1 (texp[i // strips]'s), which holds items t0 * strips
+    .. t1 * strips - 1 with the expert's tiles fastest."""
+    seen = []
+    for block in range(grid):
+        for item in range(block, tiles * strips, grid):
+            t = item // strips
+            t0, t1 = t, t + 1
+            while t0 > 0 and texp[t0 - 1] == texp[t]:
+                t0 -= 1
+            while t1 < tiles and texp[t1] == texp[t]:
+                t1 += 1
+            rel = item - t0 * strips
+            seen.append((item, t0 + rel % (t1 - t0), rel // (t1 - t0)))
+    return seen
+
+
+@pytest.mark.parametrize("groups", list(GROUPS))
+def test_f32_walk_takes_an_experts_tiles_together(groups):
+    """On each group-size set of GROUPS (scatter_layout's texp at 128-row
+    tiles, 3 and 112 strips, grids of 1, 7 and 132): every (tile, strip)
+    pair below the used rows once, and the items of one strip of one expert
+    consecutive, so its tiles read a weight strip together."""
+    gsz = torch.tensor(GROUPS[groups])
+    _, _, texp, used = moe.scatter_layout(torch.zeros(int(gsz.sum()), 8), gsz, TM, 8)
+    tiles = -(-int(used) // TM)
+    texp = texp.tolist()
+    for strips in (3, 112):
+        for grid in (1, 7, H100_SMS):
+            seen = _walk_by_expert(grid, texp, tiles, strips)
+            assert sorted((t, s) for _, t, s in seen) == [
+                (t, s) for t in range(tiles) for s in range(strips)]
+            by_item = sorted(seen)
+            runs = {}
+            for item, t, s in by_item:
+                runs.setdefault((texp[t], s), []).append(item)
+            for items in runs.values():
+                assert items == list(range(items[0], items[0] + len(items)))
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +421,85 @@ def test_a_fragments_hold_the_columns_the_epilogue_writes(int8):
                 frag[row], w[16 * j:16 * j + 16, col0 + _row_col(row, int8)])
 
 
+def _ldmatrix(tile_bytes: np.ndarray, addrs) -> np.ndarray:
+    """ldmatrix.x4 (no .trans): lane 4g + c receives, of each matrix, b16
+    columns 2c and 2c + 1 of row g, as one register."""
+    rows16 = [tile_bytes[a:a + 16].view("<u2") for a in addrs]
+    regs = np.zeros((32, 4), np.uint32)
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        for mi in range(4):
+            row = rows16[8 * mi + g]
+            regs[lane, mi] = int(row[2 * c]) | (int(row[2 * c + 1]) << 16)
+    return regs
+
+
+def _f32_pair(lo: float, hi: float) -> int:
+    """pack_bf16x2 (cvt.rn.bf16x2.f32): lo in bits 0-15, hi in 16-31."""
+    bits = _bf16_bits(np.array([lo, hi], np.float32))
+    return int(bits[0]) | (int(bits[1]) << 16)
+
+
+@pytest.mark.parametrize("kind", ["float32", "dx bfloat16", "dx float32"])
+def test_f32_and_dx_fragments_hold_the_columns_the_epilogue_writes(kind):
+    """stack_a_frags for f32 stacks as stored (k, n) (one 8-byte read a k row
+    holds columns 2g, 2g + 1; rows padded 16 bytes) and for dx's stored
+    (n, k) tile, 128 output rows x 64 of k (bf16: ldmatrix without .trans,
+    rows padded 16 bytes; f32: 8-byte reads of a row's k pair, rows padded
+    32 bytes): in each 16-deep slice, fragment row r holds the weights of
+    the column the epilogue writes it to (f32 as stored: col0 + 2 (r % 8) +
+    r // 8; dx: col0 + r), in k order, f32 rounded to nearest even bf16."""
+    rng = np.random.default_rng(6)
+    col0 = 64 + 32                                    # warpgroup 1, its warp 2
+    dx, f32 = kind.startswith("dx"), kind.endswith("float32")
+    esize = 4 if f32 else 2
+    rows_, cols = (BN, BK) if dx else (BK, BN)        # the staged tile as stored
+    ld = cols * esize + (32 if dx and f32 else 16)
+    w = rng.standard_normal((rows_, cols)).astype(np.float32)
+    raw = (w.view(np.uint8) if f32 else
+           torch.from_numpy(w).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint8))
+    smem = np.zeros((rows_, ld), np.uint8)
+    smem[:, :cols * esize] = raw.reshape(rows_, cols * esize)
+    smem = smem.reshape(-1)
+
+    def f32_at(row, col):
+        return float(smem[row * ld + col * 4:row * ld + col * 4 + 4].view("<f4")[0])
+    a = np.zeros((32, 4, 4), np.uint32)               # lane, slice, register
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        for j in range(4):
+            if dx and f32:
+                for i in range(4):
+                    r, kk = col0 + g + (i & 1) * 8, j * 16 + 2 * c + (i >> 1) * 8
+                    a[lane, j, i] = _f32_pair(f32_at(r, kk), f32_at(r, kk + 1))
+            elif f32:
+                for h in range(2):
+                    kk = j * 16 + 2 * c + h * 8
+                    lo = (f32_at(kk, col0 + 2 * g), f32_at(kk, col0 + 2 * g + 1))
+                    hi = (f32_at(kk + 1, col0 + 2 * g), f32_at(kk + 1, col0 + 2 * g + 1))
+                    a[lane, j, 2 * h] = _f32_pair(lo[0], hi[0])
+                    a[lane, j, 2 * h + 1] = _f32_pair(lo[1], hi[1])
+    if not f32:
+        for j in range(4):
+            a[:, j] = _ldmatrix(smem, [(col0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld
+                                       + (j * 16 + (lane >> 4) * 8) * 2 for lane in range(32)])
+    want_w = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+    for j in range(4):
+        frag = np.zeros((16, 16), np.float32)         # fragment row, k
+        for lane in range(32):
+            g, c = lane // 4, lane % 4
+            for reg, (row, k0) in enumerate(((g, 2 * c), (g + 8, 2 * c), (g, 2 * c + 8),
+                                             (g + 8, 2 * c + 8))):
+                frag[row, k0] = _half(a[lane, j, reg], False)
+                frag[row, k0 + 1] = _half(a[lane, j, reg], True)
+        for row in range(16):
+            if dx:
+                want = want_w[col0 + row, 16 * j:16 * j + 16]
+            else:
+                want = want_w[16 * j:16 * j + 16, col0 + _row_col(row, True)]
+            np.testing.assert_array_equal(frag[row], want)
+
+
 def _sw128(row: int, chunk: int) -> int:
     """x's 16-byte chunk `chunk` of row `row` in a stage (csrc/moe_stack.cu
     StackCopies: 128-byte rows, chunks XOR-swizzled by row % 8)."""
@@ -400,7 +564,8 @@ def _stack_model(xp, w, scale, texp, rows, used):
         for wg in range(2):
             cols = slice(strip * BN + 64 * wg, strip * BN + 64 * wg + 64)
             wt = w[e, :, cols]
-            wt = (table[wt.long() + 128] if w.dtype == torch.int8 else wt).float()
+            wt = (table[wt.long() + 128] if w.dtype == torch.int8
+                  else wt.to(torch.bfloat16)).float()
             acc = torch.zeros(64, nlive)                 # out^T
             for k0 in range(0, k, BK):
                 for kk in range(k0, k0 + BK, 16):
@@ -412,12 +577,14 @@ def _stack_model(xp, w, scale, texp, rows, used):
 
 
 @pytest.mark.parametrize("groups", [[130, 0, 1, 60], [128, 256, 0, 5]])
-@pytest.mark.parametrize("kind", ["int8", "bfloat16"])
+@pytest.mark.parametrize("kind", ["int8", "bfloat16", "float32", "dx float32", "dx bfloat16"])
 def test_stack_model_matches_plain_and_jax(kind, groups):
     """E 4, k 384 (six 64-deep steps: the 4-stage ring wraps mid-k), n 256
     (two strips): the model on every real row against grouped_padded_plain
     and JAX's _grouped_stack_call (interpret mode) on the same padded
-    layout; padding rows are never written."""
+    layout; padding rows are never written. f32 stacks round each weight
+    to bf16; dx's stacks are the transposed view of (E, n, k) as they lie
+    (JAX: swapaxes)."""
     rng = np.random.default_rng(7)
     e, k, n = 4, 384, 256
     gsz = np.asarray(groups, np.int32)
@@ -427,10 +594,18 @@ def test_stack_model_matches_plain_and_jax(kind, groups):
         s = ((rng.random((e, n)) + 0.1) * 0.01).astype(np.float32)
         tw, ts = torch.from_numpy(w), torch.from_numpy(s)
         jw, js = jnp.asarray(w), jnp.asarray(s)
+    elif kind.startswith("dx"):
+        stored = (rng.standard_normal((e, n, k)) * 0.05).astype(np.float32)
+        wdt = torch.float32 if kind.endswith("float32") else torch.bfloat16
+        tw, ts = torch.from_numpy(stored).to(wdt).transpose(1, 2), None
+        jw, js = jnp.swapaxes(jnp.asarray(stored, jnp.float32 if wdt == torch.float32
+                                          else jnp.bfloat16), 1, 2), None
+        assert moe.stacks_transposed(tw)
     else:
         w = (rng.standard_normal((e, k, n)) * 0.05).astype(np.float32)
-        tw, ts = torch.from_numpy(w).to(torch.bfloat16), None
-        jw, js = jnp.asarray(w, jnp.bfloat16), None
+        wdt = torch.float32 if kind == "float32" else torch.bfloat16
+        tw, ts = torch.from_numpy(w).to(wdt), None
+        jw, js = jnp.asarray(w, jnp.float32 if kind == "float32" else jnp.bfloat16), None
     tx = torch.from_numpy(x).to(torch.bfloat16)
     xp, dst, texp, used = moe.scatter_layout(tx, torch.from_numpy(gsz), TM, e)
     assert moe.stack_kernel_takes(TM, k, n, tx.dtype, tw.dtype)

@@ -7,7 +7,13 @@ The grouped Function's dx and dw are held to JAX's custom VJP
 tests/test_moe.py's gradient test, bf16 rows 2e-2 for their one rounding)
 and to autograd through the port's differentiable fallback (f32, 1e-5). A
 spy on ``grouped_kernel_call`` records that the forward and dx both take
-the kernel route (the card launches #11/#12 there). The MoE step at 512-wide
+the kernel route (the card launches #11/#12 there). dx on the stacks'
+transposed view as they lie equals the transposed copy's route bit for bit;
+at the full-stack route over f32 stacks (an empty group, a group cut by
+a chunk boundary) dx and dw equal ``jax.vjp`` of the JAX function; with the
+tensors marked CUDA (a stand-in library) the backward makes no transposed
+copy of the stacks and no one-hot product: the stack kernel's dx entry and
+the dw kernel's. The MoE step at 512-wide
 experts (so "on" reaches the kernel route) under "auto" and "on": loss,
 grad norm and aux loss equal to JAX's (rtol 1e-5 at step 1, 1e-4 at step
 3), the router moved, and under SGD at lr 1 the parameters after a step
@@ -111,6 +117,134 @@ def test_grouped_forward_and_dx_take_the_kernel_route(monkeypatch):
     with torch.no_grad():
         mm.moe_grouped_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.tensor(GSZ))
     assert applied == [1] and len(calls) == 1
+
+
+# (rows dtype, stacks dtype, group sizes): the full-stack route (bf16
+# rows: the stack kernel's dx orientation on the card), f32 rows (the
+# padded layout's f32 kernel, which takes a contiguous copy), bf16 stacks
+DX_CASES = {
+    "bf16 rows, f32 stacks": ("bfloat16", torch.float32, GSZ),
+    "bf16 rows, bf16 stacks": ("bfloat16", torch.bfloat16, GSZ),
+    "f32 rows, f32 stacks": ("float32", torch.float32, GSZ),
+    "chunk-cut group": ("bfloat16", torch.float32, [900, 0, 700, 60]),
+}
+
+
+@pytest.mark.parametrize("case", list(DX_CASES))
+def test_dx_on_stacks_as_they_lie_equals_the_transposed_copy(case):
+    """moe_grouped_matmul(dy, w.transpose(1, 2), gsz) on the view, as
+    GroupedKernelPath's backward now calls it, equals the call on the
+    contiguous transposed copy bit for bit, on each route; the view takes
+    the full-stack route's padded layout where the copy does."""
+    xdt, wdt, gsz = DX_CASES[case]
+    rng = np.random.default_rng(4)
+    e, k, n, m = 4, 512, 1024, sum(gsz)
+    dy = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(
+        decoder._DTYPES[xdt])
+    w = torch.from_numpy((rng.standard_normal((e, k, n)) * 0.05).astype(np.float32)).to(wdt)
+    view = w.transpose(1, 2)
+    assert mm.stacks_transposed(view)
+    got = mm.moe_grouped_matmul(dy, view, torch.tensor(gsz))
+    want = mm.moe_grouped_matmul(dy, view.contiguous(), torch.tensor(gsz))
+    assert got.shape == (m, k) and torch.equal(got, want)
+
+
+def test_stack_kernel_takes_f32_stacks():
+    """bf16 rows in 128-row tiles over f32 stacks (a train step's master
+    weights) now run #12's stack kernel, not the grouped-rows kernel."""
+    for wdt in (torch.int8, torch.bfloat16, torch.float32):
+        assert mm.stack_kernel_takes(128, 4096, 14336, torch.bfloat16, wdt)
+        assert not mm.rows_kernel_takes(128, 4096, 14336, torch.bfloat16, wdt, True)
+    assert not mm.stack_kernel_takes(128, 4096, 14336, torch.float32, torch.float32)
+    assert not mm.stack_kernel_takes(64, 4096, 14336, torch.bfloat16, torch.float32)
+
+
+def test_stack_route_backward_matches_jax_vjp():
+    """bf16 rows over f32 stacks on the full-stack route (tm 128), groups
+    [900, 0, 700, 60]: group 2 is cut by the chunk boundary at row 1,540
+    (2,048 - 4 x 127) and group 1 is empty. dx and dw of the port's
+    Function against jax.vjp of the JAX package's moe_grouped_matmul
+    (Pallas in interpret mode, the same numpy-seeded inputs): dx within one
+    bf16 ulp of its largest value (each side sums in f32 in its own order
+    and rounds once to bf16), dw within 1e-5 of its largest value (f32 sums
+    of the same bf16 products); the empty expert's dw is zero."""
+    gsz = [900, 0, 700, 60]
+    rng = np.random.default_rng(3)
+    e, k, n, m = 4, 512, 512, sum(gsz)
+    x = (rng.standard_normal((m, k)) * 0.1).astype(np.float32)
+    w = (rng.standard_normal((e, k, n)) * 0.05).astype(np.float32)
+    dy = (rng.standard_normal((m, n)) * 0.1).astype(np.float32)
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    dy = np.array(jnp.asarray(dy, jnp.bfloat16).astype(jnp.float32))
+    g = jnp.asarray(gsz, jnp.int32)
+    _, vjp = jax.vjp(lambda a, b: jmm.moe_grouped_matmul(a, b, g),
+                     jnp.asarray(x, jnp.bfloat16), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy, jnp.bfloat16))
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    out = mm.moe_grouped_matmul(xt, wt, torch.tensor(gsz))
+    assert "GroupedKernelPath" in type(out.grad_fn).__name__
+    out.backward(torch.from_numpy(dy).to(torch.bfloat16))
+    jdx = np.asarray(jdx.astype(jnp.float32))
+    np.testing.assert_allclose(xt.grad.float().numpy(), jdx, rtol=0,
+                               atol=2.0 ** -7 * np.abs(jdx).max())
+    jdw = np.asarray(jdw)
+    np.testing.assert_allclose(wt.grad.numpy(), jdw, rtol=0, atol=1e-5 * np.abs(jdw).max())
+    assert not wt.grad[1].any()
+
+
+class _Entries:
+    """Stands in for the kernel library: records each C entry called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+def test_backward_on_the_card_takes_no_copy_and_no_one_hot(monkeypatch):
+    """With every tensor marked CUDA and a stand-in library, a forward and
+    backward of the Function (bf16 rows over f32 stacks, the full-stack
+    route) calls the stack kernel's forward entry, its dx entry on the
+    stored stacks and the dw kernel: no contiguous copy of the transposed
+    stacks, no einsum. Launches count as moe_grouped_stack "w=f32" and "dx
+    w=f32" and moe_grouped_wgrad."""
+    lib = _Entries()
+    monkeypatch.setattr(kernels, "lib", lambda: lib)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda index: 132)
+    x, w, r = _operands("bfloat16")
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    copies, einsums = [], []
+    contiguous = torch.Tensor.contiguous
+
+    def spy_contiguous(t, *a, **kw):
+        if t.dim() == 3 and not t.is_contiguous():
+            copies.append(tuple(t.shape))
+        return contiguous(t, *a, **kw)
+    real_einsum = torch.einsum
+    monkeypatch.setattr(torch.Tensor, "contiguous", spy_contiguous)
+    monkeypatch.setattr(torch, "einsum", lambda *a: einsums.append(a[0]) or real_einsum(*a))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    kernels.reset_counts()
+    try:
+        out = mm.moe_grouped_matmul(xt, wt, torch.tensor(GSZ))
+        out.backward(torch.ones_like(out))
+    finally:
+        monkeypatch.undo()
+    assert lib.calls == ["rk_moe_grouped_stack", "rk_moe_grouped_stack_t",
+                         "rk_moe_grouped_wgrad"]
+    assert copies == [] and einsums == []
+    assert kernels.variant_counts() == {"moe_grouped_stack w=f32": 1,
+                                        "moe_grouped_stack dx w=f32": 1}
+    assert kernels.launch_counts()["moe_grouped_wgrad"] == 1
+    kernels.reset_counts()
 
 
 def test_kernel_launch_refuses_a_gradient():
