@@ -33,9 +33,16 @@ Phases (any failure raises and exits non-zero):
    a MiniLM-L-6-shaped BERT cross-encoder and Llama-3.1-8B (32 layers, 16
    GB in four shards; if the temp disk, probed first, cannot hold it with
    DISK_SPARE to spare, as many whole layers as fit, at least
-   CKPT_MIN_LAYERS, which is logged). Each write and each load is logged
+   CKPT_MIN_LAYERS, which is logged), each with its family's
+   tokenizer.json (tools/synthetic_tokenizer.py: BERT's WordPiece,
+   Llama-3's byte-level BPE). Each write and each load is logged
    with its seconds, GB and GB/s (a load also with the card's GiB
-   allocated after it); the directories are deleted at the end.
+   allocated after it); the directories are deleted at the end. Before
+   them, the tokenizer goldens: each family structure's file built again
+   at GOLDEN_SEED and read by the port's reader (models/tokenizer_json.py)
+   must give tools/tokenizer_goldens.py's ids for GOLDEN_STRINGS (the
+   Llama-3 chat template with its special tokens, emoji, CJK, combining
+   marks, U+001C, U+0085, U+00A0, digit runs, 'S / 'll, \r\n).
 4. system, default path: RagSystem loads all three models from those
    directories itself (cfg.model.llm_checkpoint with the default int8
    quantization, embedding_checkpoint, cross_encoder_checkpoint); the
@@ -43,6 +50,12 @@ Phases (any failure raises and exits non-zero):
    layers 0, 15 and the last, the embedding, the final norm and the head
    torch.equal to the generic path's quantization of the same checkpoint
    tensors on the card (check_loaded_decoder); decode against prefill.
+   Every model RagSystem or a loader takes from a checkpoint here and in
+   phases 5-5d must tokenize through the reader (HFTokenizer, never the
+   hashing SimpleTokenizer); its kind and vocabulary are logged. After the
+   default requests, the host times to tokenize the corpus (a fresh
+   tokenizer, cold cache), one rerank wave of pairs and each of the 8B's
+   prompts are printed with the card's name and power limit.
    Then a generated corpus of N_DOCS short documents (16 top-k tiles of
    1024), RagSystem ingest → embed → index, and three chat() requests on
    the default config (hybrid 0.5/0.5, MMR, bf16 index, rerank, rewrite
@@ -2401,6 +2414,7 @@ def open_system(cfg, encoder=None, cross=None, llm=None, devices=None):
 # ---------------------------------------------------------------------------
 
 DISK_SPARE = 2e9        # bytes the 8B checkpoint leaves free on the temp disk
+RERANK_WAVE = 64        # pairs in one rerank wave: the cross-encoder's batch
 CKPT_MIN_LAYERS = 2
 LOADERS = ("load_sentence_encoder", "load_cross_encoder", "load_local_llm")
 CHECKPOINTS = []        # every write and load: seconds, GB, GB/s, GiB allocated after
@@ -2418,7 +2432,9 @@ def write_checkpoint(root: str, model: str, seed: int, layers=None) -> str:
     path = os.path.join(root, model)
     r = synthetic_checkpoint.write_checkpoint(path, model, layers=layers, seed=seed)
     row = {"write": model, "layers": layers, "GB": round(r["bytes"] / 1e9, 3),
-           "s": round(r["seconds"], 2), "GBps": round(r["bytes"] / 1e9 / r["seconds"], 3)}
+           "s": round(r["seconds"], 2), "GBps": round(r["bytes"] / 1e9 / r["seconds"], 3),
+           "tokenizer_tokens": int(r["tokenizer_tokens"]),
+           "tokenizer_s": round(r["tokenizer_seconds"], 2)}
     CHECKPOINTS.append(row)
     log(f"checkpoint written: {json.dumps(row)}")
     return path
@@ -2502,6 +2518,81 @@ def timed_loaders():
             setattr(system_mod, name, fn)
 
 
+TOKENIZERS = {"models": {}}   # each loaded model's tokenizer, the goldens, host times
+
+
+def check_tokenizers(models: dict) -> None:
+    """Each model loaded from a checkpoint must tokenize through the
+    port's tokenizer.json reader (HFTokenizer), not SimpleTokenizer's
+    hashes; logs each one's kind and vocabulary."""
+    from ragmeup_tpu_torch.models.tokenizer import HFTokenizer
+    for label, tok in models.items():
+        if not isinstance(tok, HFTokenizer):
+            raise AssertionError(f"{label}: tokenizer {type(tok).__name__}, not the "
+                                 "tokenizer.json reader")
+        TOKENIZERS["models"][label] = {"kind": type(tok).__name__, "vocab": tok.vocab_size}
+        log(f"tokenizer of {label}: {json.dumps(TOKENIZERS['models'][label])}")
+
+
+def check_tokenizer_goldens() -> None:
+    """Each structure's golden tokenizer.json, built again on this host and
+    read by the reader, must give the goldens' ids (tests hold them against
+    the `tokenizers` wheel on the CPU)."""
+    from ragmeup_tpu_torch.tools import synthetic_tokenizer
+    t0 = time.perf_counter()
+    res = synthetic_tokenizer.check_goldens()
+    TOKENIZERS["goldens"] = {k: {"ids": v["ids"], "s": round(v["s"], 2)} for k, v in res.items()}
+    differ = {k: v["differ"] for k, v in res.items() if v["differ"]}
+    log(f"tokenizer goldens ({len(synthetic_tokenizer.GOLDEN_STRINGS)} strings a structure, "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(TOKENIZERS['goldens'])}")
+    if differ:
+        raise AssertionError(f"tokenizer ids differ from the goldens: {differ}")
+
+
+@contextlib.contextmanager
+def timed_encodes(tok, calls: list):
+    """Inside: each ``tok.encode`` appends (characters, ids, ms) to calls."""
+    encode = tok.encode
+
+    def timed(text, *args, **kwargs):
+        t0 = time.perf_counter()
+        ids = encode(text, *args, **kwargs)
+        calls.append((len(text), len(ids), (time.perf_counter() - t0) * 1e3))
+        return ids
+    tok.encode = timed
+    try:
+        yield
+    finally:
+        del tok.encode
+
+
+def tokenizer_host_times(ckpts: dict, texts, query: str, prompt_calls: list) -> dict:
+    """Host seconds of the reader on this card's host: the N_DOCS corpus
+    through a fresh embedder tokenizer (cold cache, as at ingest), one
+    rerank wave (the cross-encoder's batch of pairs) through a fresh one,
+    and the 8B's prompts as the default requests encoded them."""
+    from ragmeup_tpu_torch.models.tokenizer import load_tokenizer
+    out = {}
+    for label, key in (("embedder", "embedding"), ("reranker", "cross_encoder"),
+                       ("llm", "llm")):
+        t0 = time.perf_counter()
+        load_tokenizer(ckpts[key])
+        out[f"{label}_load_s"] = time.perf_counter() - t0
+    emb = load_tokenizer(ckpts["embedding"])
+    t0 = time.perf_counter()
+    n = sum(len(emb.encode(t)) for t in texts)
+    out["corpus"] = {"docs": len(texts), "ids": n, "s": time.perf_counter() - t0}
+    cross = load_tokenizer(ckpts["cross_encoder"])
+    wave = [(query, t) for t in texts[:RERANK_WAVE]]
+    t0 = time.perf_counter()
+    n = sum(len(cross.encode_pair(a, b, max_len=512)[0]) for a, b in wave)
+    out["rerank_wave"] = {"pairs": len(wave), "ids": n, "s": time.perf_counter() - t0}
+    out["llm_prompts"] = [{"chars": c, "ids": i, "ms": ms} for c, i, ms in prompt_calls]
+    TOKENIZERS["host_times"] = out
+    log(f"tokenizer host times ({card_line()}): {json.dumps(out)}")
+    return out
+
+
 def check_loaded_decoder(llm, ckpt_dir: str, middle: int = 15) -> int:
     """The streaming loader against the generic path on the card: the
     checkpoint's tensors of the first, middle (``middle`` at full depth) and
@@ -2571,6 +2662,7 @@ def run_moe_checkpoint(root: str, seed: int) -> dict:
         with timed_loaders():
             llm = system_mod.load_local_llm(path, quantization=quantization,
                                             device="cuda")
+        check_tokenizers({f"mixtral_8x7b {quantization}": llm.tokenizer})
         check_loaded_decoder(llm, path)
         kernels.reset_counts()
         torch.cuda.synchronize()
@@ -2622,6 +2714,7 @@ def run_gemma2(seed: int, root: str, data_dir: str, index_dir: str, queries, fir
     cfg.model.llm_checkpoint = path
     system = open_system(cfg, encoder, cross)
     llm = system.llm
+    check_tokenizers({"gemma2_9b": llm.tokenizer})
     c = llm.cfg
     want = {"head_dim": 256, "attn_softcap": 50.0, "final_softcap": 30.0,
             "query_scale": 1 / 16, "post_norms": True, "tie_embeddings": True,
@@ -2635,7 +2728,7 @@ def run_gemma2(seed: int, root: str, data_dir: str, index_dir: str, queries, fir
         f"{c.max_seq_len}, EOS {sorted(llm.eos_ids)}")
     ids = GeneratedIds(llm.tokenizer)
     runs = {"gemma2": drive("gemma2", system, llm, queries)}
-    runs["gemma2"]["generated"] = ids.check("gemma2", llm.tokenizer.n_special)
+    runs["gemma2"]["generated"] = ids.check("gemma2", llm.tokenizer.special_ids)
     if runs["gemma2"]["counts"]["flash_gqa"]:
         raise AssertionError("gemma2: the softcapped prefill launched the flash kernel")
     del system
@@ -2645,7 +2738,7 @@ def run_gemma2(seed: int, root: str, data_dir: str, index_dir: str, queries, fir
     batched = open_system(cfg, encoder, cross, llm)
     runs["gemma2 batched"] = drive_batched(batched, first_turns, label="gemma2 batched")
     runs["gemma2 batched"]["generated"] = ids.check("gemma2 batched",
-                                                    llm.tokenizer.n_special)
+                                                    llm.tokenizer.special_ids)
     ids.tokenizer.decode = ids.decode
     del batched, llm
     free_card()
@@ -2727,6 +2820,7 @@ def run_family_checkpoints(root: str, seed: int) -> dict:
             with timed_loaders():
                 llm = system_mod.load_local_llm(path, quantization=quantization,
                                                 device="cuda")
+            check_tokenizers({f"{model} {quantization}": llm.tokenizer})
             check_loaded_decoder(llm, path)
             extra = {}
             if family == "qwen2":
@@ -2812,9 +2906,9 @@ def drive(label: str, system, llm, queries) -> dict:
 # Runs on a random decoder with a tied head and an embedding scaled by
 # sqrt(hidden) (Gemma-2-9B's checkpoint): the last input token's embedding
 # dominates the head's logits (9.6 against 5.1 for the next token, read on
-# an H100), so the decoder repeats the prompt's closing SimpleTokenizer
-# special id 3, which decodes to no text. run_gemma2 holds instead that each
-# generation returned its tokens (GeneratedIds).
+# an H100), so the decoder repeats the prompt's closing token, whose text
+# may be blank or none (with SimpleTokenizer it was special id 3). run_gemma2
+# holds instead that each generation returned its tokens (GeneratedIds).
 EMPTY_TEXT_RUNS = ("gemma2", "gemma2 batched")
 
 
@@ -2831,14 +2925,14 @@ class GeneratedIds:
         self.calls.append([int(t) for t in ids])
         return self.decode(ids)
 
-    def check(self, label: str, n_special: int) -> dict:
+    def check(self, label: str, special_ids) -> dict:
         """Every generation returned tokens; the share of special ids."""
         if not self.calls or not all(self.calls):
             raise AssertionError(f"{label}: a generation returned no token: "
                                  f"{[len(c) for c in self.calls]}")
         toks = [t for c in self.calls for t in c]
         res = {"generations": len(self.calls), "tokens": len(toks),
-               "special": sum(t < n_special for t in toks)}
+               "special": sum(t in special_ids for t in toks)}
         log(f"{label}: generated ids {json.dumps(res)}")
         self.calls = []
         return res
@@ -4504,13 +4598,20 @@ def run_system(seed: int) -> dict:
                    f"Which notes mention {' '.join(texts[4242].split()[:2])}?",
                    "Tell me more about that."]
         ckpt_root = os.path.join(tmp, "checkpoints")
+        check_tokenizer_goldens()
         ckpts = write_checkpoints(ckpt_root, seed)
 
         system = open_system(with_checkpoints(
             rag_config(data_dir, os.path.join(tmp, "index")), ckpts))
         llm, encoder, cross = system.llm, system.encoder, system.cross_encoder
+        check_tokenizers({"gist_small embedder": encoder.tokenizer,
+                          "minilm_l6_cross reranker": cross.tokenizer,
+                          "llama31_8b": llm.tokenizer})
         check_8b_checkpoint(llm, ckpts["llm"])
-        runs["default"] = drive("default", system, llm, queries)
+        prompt_calls = []
+        with timed_encodes(llm.tokenizer, prompt_calls):
+            runs["default"] = drive("default", system, llm, queries)
+        tokenizer_host_times(ckpts, texts, queries[0], prompt_calls)
         random_llm = build_llm(seed, LlamaConfig.llama31_8b())
         system = open_system(rag_config(data_dir, os.path.join(tmp, "index")), encoder, cross,
                              random_llm)
@@ -4547,6 +4648,7 @@ def run_system(seed: int) -> dict:
         cfg = with_checkpoints(rag_config(data_dir, index_q, quantization="int4"), ckpts)
         system = open_system(cfg, encoder, cross)
         llm = system.llm
+        check_tokenizers({"llama31_8b int4": llm.tokenizer})
         check_8b_checkpoint(llm, ckpts["llm"])
         runs["int4 W4A16"] = drive("int4 W4A16", system, llm, queries)
         codes = system.dense._corpus_t[:, :N_DOCS].clone()
@@ -4558,6 +4660,7 @@ def run_system(seed: int) -> dict:
                                           int4_w4a8=True), ckpts)
         system = open_system(cfg, encoder, cross)
         llm = system.llm
+        check_tokenizers({"llama31_8b W4A8": llm.tokenizer})
         check_8b_checkpoint(llm, ckpts["llm"])
         if not (torch.equal(system.dense._corpus_t[:, :N_DOCS], codes)
                 and torch.equal(system.dense._scales[:, :N_DOCS], scales)):
@@ -4867,8 +4970,14 @@ def check_grouped_backward(gen) -> dict:
     cast into the layout that call takes plus the call in a graph, and
     ``_grouped_mm``'s wgrad (x^T dy over the groups, bf16 output: not the
     same function). Last, #11's grouped-rows kernel over f32 stacks at 16
-    rows (the dedup route still reaches it) against its plain version."""
+    rows (the dedup route still reaches it) against its plain version; one
+    call must count one launch, and a trace that names any rk_ kernel must
+    name rk_moe_grouped_mma_kernel (csrc/moe_matmul.cu's rk_moe_grouped_rows
+    launches that kernel alone, and its wrapper counts "moe_grouped w=f32"
+    once the launch returned; traces of this call have named no rk_ kernel
+    at all in some runs, six traces in a row)."""
     import torch
+    from ragmeup_tpu_torch import kernels
     from ragmeup_tpu_torch.ops import moe_matmul as mm
     e, h, f = MOE_E, 4096, 14336
     m = 2 * TRAIN_B * TRAIN_S
@@ -4996,12 +5105,19 @@ def check_grouped_backward(gen) -> dict:
     def rows_f32():
         return mm.grouped_rows(xs16, w, None, g16)
     a, rr = rel_err(rows_f32(), mm.moe_grouped_matmul_plain(xs16, w, g16))
+    before = kernels.variant_counts().get("moe_grouped w=f32", 0)
+    rows_f32()
+    counted = kernels.variant_counts().get("moe_grouped w=f32", 0) - before
+    found = kernels_of_retraced(rows_f32)
     shapes["grouped_rows_f32"] = {"rows": 16, "k": h, "n": f, "max_abs_err": a,
-                                  "max_rel_err": rr, "kernels": kernels_of_retraced(rows_f32),
+                                  "max_rel_err": rr, "kernels": found,
+                                  "launches_a_call": counted,
                                   "graph_ms": graph_ms_or_none("grouped rows f32", rows_f32,
                                                                reps=2)}
-    log(f"  grouped rows over f32 stacks: {json.dumps(shapes['grouped_rows_f32'])}")
-    if rr > BWD_TOL or "rk_moe_grouped_mma_kernel" not in shapes["grouped_rows_f32"]["kernels"]:
+    log(f"  grouped rows over f32 stacks: {json.dumps(shapes['grouped_rows_f32'])}"
+        + ("" if found else "; the traces named no rk_ kernel, the count stands"))
+    if (rr > BWD_TOL or counted != 1
+            or found and "rk_moe_grouped_mma_kernel" not in found):
         raise AssertionError(f"grouped rows over f32 stacks: {shapes['grouped_rows_f32']}")
     worst = max(worst, (a, rr))
     del w, xs16
@@ -5234,6 +5350,7 @@ def main() -> int:
         "clocks_sm_mem": {"before_kernel_checks": clock_before,
                           "after_kernel_checks": clock_after},
         "checkpoints": CHECKPOINTS,
+        "tokenizers": TOKENIZERS,
         "retrieval_at_scale": runs["corpus sharded"]["readings"],
         "model_axis": runs["tp4"]["readings"],
         "training": {label: runs[label]["readings"] for label in ("train 8b", "train moe")}}),

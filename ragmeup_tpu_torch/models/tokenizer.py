@@ -8,8 +8,9 @@ every tokenizer; ``SimpleTokenizer`` uses the same native fast path
 
 Three tiers:
 
-- ``HFTokenizer``: wraps a ``tokenizer.json`` via the `tokenizers` Rust
-  library when a real checkpoint directory is supplied.
+- ``HFTokenizer``: a checkpoint's ``tokenizer.json`` through the port's own
+  reader (``models/tokenizer_json.py``), with the ids of the `tokenizers`
+  Rust library the JAX package wraps; the port does not need that wheel.
 - ``WordPieceTokenizer``: self-contained BERT-style WordPiece (basic
   tokenization: lowercase, punctuation split, CJK char split; greedy
   longest-match subwords) — works with any BERT ``vocab.txt``.
@@ -25,6 +26,8 @@ from __future__ import annotations
 import os
 import unicodedata
 from typing import List, Optional, Tuple
+
+from ragmeup_tpu_torch.models.tokenizer_json import Tokenizer as TokenizerJson
 
 
 def _is_punct(ch: str) -> bool:
@@ -234,26 +237,28 @@ class SimpleTokenizer:
 
 
 class HFTokenizer:
-    """tokenizer.json via the Rust `tokenizers` library (when available)."""
+    """A ``tokenizer.json`` read by the port's reader (models/tokenizer_json.py):
+    the interface and the ids of the JAX package's ``HFTokenizer`` on the
+    `tokenizers` wheel."""
 
     def __init__(self, path: str):
-        from tokenizers import Tokenizer  # rust wheel, baked in
-        self._tok = Tokenizer.from_file(path)
+        self._tok = TokenizerJson.from_file(path)
         self.pad_id = self._tok.token_to_id("[PAD]") or 0
+        # the ids decode() skips: the file's special added tokens
+        self.special_ids = frozenset(self._tok.token_to_id(t) for t in self._tok.special)
 
     def encode(self, text: str, max_len: Optional[int] = None) -> List[int]:
-        ids = self._tok.encode(text).ids
+        ids = self._tok.encode(text)[0]
         return ids[:max_len] if max_len else ids
 
     def encode_pair(self, a: str, b: str, max_len: Optional[int] = None):
-        enc = self._tok.encode(a, b)
-        ids, types = enc.ids, enc.type_ids
+        ids, types = self._tok.encode(a, b)
         if max_len:
             ids, types = ids[:max_len], types[:max_len]
         return ids, types
 
     def tokenize_ids(self, text: str) -> List[int]:
-        return self._tok.encode(text, add_special_tokens=False).ids
+        return self._tok.encode(text, add_special_tokens=False)[0]
 
     def decode(self, ids: List[int]) -> str:
         return self._tok.decode(list(ids))
@@ -266,14 +271,13 @@ class HFTokenizer:
 def load_tokenizer(checkpoint_dir: Optional[str] = None,
                    vocab_size: int = 30522):
     """Tokenizer resolution: checkpoint tokenizer.json → vocab.txt →
-    deterministic SimpleTokenizer."""
+    deterministic SimpleTokenizer. A ``tokenizer.json`` that the reader
+    cannot take raises (``NotImplementedError`` names the component): it
+    never falls through to the next tier."""
     if checkpoint_dir:
         tj = os.path.join(checkpoint_dir, "tokenizer.json")
         if os.path.exists(tj):
-            try:
-                return HFTokenizer(tj)
-            except Exception:
-                pass
+            return HFTokenizer(tj)
         vt = os.path.join(checkpoint_dir, "vocab.txt")
         if os.path.exists(vt):
             return WordPieceTokenizer.from_vocab_file(vt)

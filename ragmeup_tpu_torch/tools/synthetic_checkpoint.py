@@ -46,8 +46,17 @@ Weights and biases are drawn N(0, 0.02) in bf16 tensor by tensor on
 ``--seed``; norms are ones (zeros for Gemma, whose norms scale by one plus
 the weight, as HF initializes them) and norm biases zeros; each tensor is written as soon as it is
 drawn, so host and device hold one tensor at a time. ``--layers`` writes
-a model at full width and reduced depth. No tokenizer is written: the
-loaders then use the port's SimpleTokenizer over the config's vocabulary.
+a model at full width and reduced depth.
+
+Beside the weights goes a ``tokenizer.json`` of the model's family
+(``tools/synthetic_tokenizer.py``, built in plain Python from ``--seed``):
+Llama-3's byte-level BPE with its 256 specials at 128000-128255 (EOS
+128001 and 128009 are ``<|end_of_text|>`` and ``<|eot_id|>``), Qwen2's,
+the SentencePiece-style BPE with byte fallback of Mixtral and Phi-3,
+Gemma's, and BERT's WordPiece for the two encoders, each at its published
+vocabulary, cut where needed so that its ids stay below the config's
+vocab_size.
+The loaders read it with the port's reader (``models/tokenizer_json.py``).
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ragmeup_tpu_torch.models.safetensors import Lazy, save_safetensors
+from ragmeup_tpu_torch.tools.synthetic_tokenizer import write_tokenizer
 
 STD = 0.02
 GB = 1e9
@@ -281,11 +291,14 @@ def shards(specs: List[Spec], shard_bytes: float) -> List[List[Spec]]:
 def write_checkpoint(out_dir: str, model: str, layers: Optional[int] = None,
                      seed: int = 0, device="cuda", shard_gb: float = 5.0) -> Dict[str, float]:
     """Write ``model``'s directory (``MODELS``) with ``layers`` layers (None:
-    all); returns the bytes written and the seconds it took."""
+    all) and its tokenizer.json, its ids below the config's vocab_size;
+    returns the weight bytes written and the seconds they took, and the
+    tokenizer's tokens, bytes and seconds."""
     config, generation = MODELS[model]
     config = dict(config)
     if layers is not None:
         config["num_hidden_layers"] = int(layers)
+    tok = write_tokenizer(out_dir, model, seed=seed, vocab_size=config["vocab_size"])
     t0 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
@@ -319,7 +332,8 @@ def write_checkpoint(out_dir: str, model: str, layers: Optional[int] = None,
         with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
             json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f,
                       indent=2)
-    return {"bytes": float(total), "seconds": time.perf_counter() - t0}
+    return {"bytes": float(total), "seconds": time.perf_counter() - t0,
+            **{f"tokenizer_{k}": v for k, v in tok.items()}}
 
 
 def checkpoint_bytes(model: str, layers: Optional[int] = None) -> float:
@@ -344,7 +358,8 @@ def main() -> int:
     r = write_checkpoint(args.out, args.model, args.layers, args.seed, args.device,
                          args.shard_gb)
     print(json.dumps({"out": args.out, "model": args.model, "GB": r["bytes"] / GB,
-                      "seconds": r["seconds"], "GBps": r["bytes"] / GB / r["seconds"]}))
+                      "seconds": r["seconds"], "GBps": r["bytes"] / GB / r["seconds"],
+                      "tokenizer_seconds": r["tokenizer_seconds"]}))
     return 0
 
 

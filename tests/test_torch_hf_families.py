@@ -445,9 +445,10 @@ def test_synthetic_family_checkpoints_load_in_both_packages(tmp_path, monkeypatc
     """The synthetic-checkpoint tool's five family layouts at tiny widths
     (same code, other numbers), two layers: both packages' configs and
     generic parameters equal, Gemma's norms written as zeros, and the
-    port's int8 load generates."""
+    port's int8 load generates; each tokenizer.json is cut to the config's
+    vocabulary."""
     from ragmeup_tpu_torch.tools import synthetic_checkpoint as sc
-    tiny = dict(vocab_size=96, hidden_size=64, intermediate_size=128)
+    tiny = dict(vocab_size=800, hidden_size=64, intermediate_size=128)
     models = {"gemma2_9b": (dict(sc.GEMMA2_9B, **tiny, head_dim=32, num_attention_heads=4,
                                  num_key_value_heads=2, sliding_window=8), {"eos_token_id": 1}),
               "gemma_7b": (dict(sc.GEMMA_7B, **tiny, head_dim=32, num_attention_heads=2,

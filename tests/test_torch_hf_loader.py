@@ -595,8 +595,9 @@ def test_greedy_streams_match_jax(ckpts, name, quantization):
 def test_synthetic_checkpoint_loads_in_both_packages(tmp_path, monkeypatch):
     """The tool's layouts at tiny widths (same code, other numbers): a
     Llama-3.1 config, a Mixtral one and the two BERTs, written in several
-    shards, read by both packages' loaders with equal results."""
-    tiny = dict(vocab_size=96, hidden_size=64, intermediate_size=128,
+    shards with a tokenizer.json cut to the config's vocabulary, read by
+    both packages' loaders with equal results."""
+    tiny = dict(vocab_size=640, hidden_size=64, intermediate_size=128,
                 num_attention_heads=4, num_key_value_heads=2)
     bert = dict(vocab_size=256, hidden_size=32, intermediate_size=64, num_attention_heads=2)
     models = {"llama31_8b": (dict(synthetic_checkpoint.LLAMA31_8B, **tiny), {"eos_token_id": [3, 4]}),
@@ -620,9 +621,12 @@ def test_synthetic_checkpoint_loads_in_both_packages(tmp_path, monkeypatch):
             assert torch.equal(got[k], convert.to_tensor(want[k])), k
         if model in ("llama31_8b", "mixtral_8x7b"):
             cfg = hf_loader.llama_config_from_hf(d)
-            assert cfg.num_layers == 2 and cfg.vocab_size == 96
+            assert cfg.num_layers == 2 and cfg.vocab_size == 640
             llm = hf_loader.load_local_llm(d, device="cpu", quantization="int8")
-            assert llm.eos_ids == jloader.load_local_llm(d, quantization="int8").eos_ids
+            jllm = jloader.load_local_llm(d, quantization="int8")
+            assert llm.eos_ids == jllm.eos_ids
+            text = "What do the notes say about kalomi?"
+            assert llm.tokenizer.encode(text) == jllm.tokenizer.encode(text)
             assert llm.generate([5, 6, 7], max_new_tokens=3, temperature=0.0,
                                 speculative="off")
             if model == "llama31_8b":

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``ragmeup_tpu_torch`` (nor
 ``chip_smoke.py``) imports jax, flax, the JAX package, or the packages the
 card does not have (safetensors, ml_dtypes, transformers, werkzeug,
-requests), its copies of the
+requests, and the tokenizer libraries tokenizers, regex and sentencepiece),
+its copies of the
 JAX package's host modules (config, data loaders and splitters, pipeline)
 behave as the originals, and its entry points run on the card unless they
 are given ``device="cpu"``.
@@ -27,7 +28,7 @@ import torch_cpu  # noqa: F401  (torch on one thread: tests/torch_cpu.py)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "ragmeup_tpu", "safetensors", "ml_dtypes",
-             "transformers", "werkzeug", "requests")
+             "transformers", "werkzeug", "requests", "tokenizers", "regex", "sentencepiece")
 
 
 def _port_sources():
@@ -56,7 +57,8 @@ def test_port_never_imports_jax_or_the_jax_package():
                 "server/app.py", "server/wsgi.py", "server/ui.py", "graph/sidecar.py",
                 "graph/client.py", "eval/generative.py", "train/__init__.py",
                 "train/train.py", "train/checkpoint.py", "parallel/dcn.py",
-                "tools/dcn_dryrun.py"):
+                "tools/dcn_dryrun.py", "models/tokenizer_json.py",
+                "tools/synthetic_tokenizer.py", "tools/tokenizer_goldens.py"):
         assert os.path.join(REPO, "ragmeup_tpu_torch", new) in paths
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
