@@ -390,6 +390,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def ptxas_of(build_log: str, kernel: str) -> str:
+    """nvcc's -Xptxas -v report of the kernel whose mangled name holds
+    `kernel`: its registers and spills, or "not built here" when the library
+    was loaded from an earlier build."""
+    fn, found = "?", {}
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif kernel in fn and ("registers" in line or "spill" in line):
+            found.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+    return "; ".join(sorted({part for parts in found.values() for part in parts})) \
+        or "not built here"
+
+
 def log_ptxas(build_log: str) -> None:
     """Each kernel's registers and shared memory from nvcc's -Xptxas -v
     report, and any spill: a line per kernel, named."""
@@ -1138,21 +1152,25 @@ def flash_held(what, q, k, v, sm_scale=None) -> float:
 
 
 def flash_timed(q, k, v) -> dict:
-    """#8's eager and graph ms, its plain version's and SDPA's, and the bound.
-    Causal: the function reads keys 0..s-1 only; 4 flops per (query, key)
-    pair and head dim (two products)."""
+    """#8's eager and graph ms, its plain version's and SDPA's (eager, and in
+    a CUDA graph: library_graph_ms), and the bound. Causal: the function
+    reads keys 0..s-1 only; 4 flops per (query, key) pair and head dim (two
+    products)."""
     import torch
     from ragmeup_tpu_torch.ops import attention
     bkv, g, s, hd = q.shape
     pairs = bkv * g * s * (s + 1) // 2
     kq, vq = k[:, None, :s], v[:, None, :s]
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, kq, vq, is_causal=True,
+                                                                enable_gqa=True)
     return {"ms": median_ms(lambda: attention.flash_attention_gqa(q, k, v), reps=5),
             "graph_ms": graph_ms_or_none("flash_gqa", lambda: attention.flash_attention_gqa(
                 q, k, v), reps=5),
             "plain_ms": median_ms(lambda: attention.flash_attention_gqa_plain(q, k, v),
                                   reps=5),
-            "library_ms": median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, kq, vq, is_causal=True, enable_gqa=True), reps=5),
+            "library_ms": median_ms(sdpa, reps=5),
+            "library_graph_ms": graph_ms_or_none("scaled_dot_product_attention", sdpa, reps=5),
             **bound(2 * nbytes(q) + nbytes(kq, vq), 4 * pairs * hd, "bf16")}
 
 
@@ -1197,7 +1215,8 @@ def check_flash_families(gen) -> dict:
     positions of 7 heads a block, 63 of its 64 rows); each also ragged (s
     200, kv_len 256) and in f32 at a small shape; Gemma-2's scale
     (query_pre_attn_scalar 256: 1/16). Tolerance as check_flash. Rows: hd
-    256 (timed at Gemma-7B's shape, Gemma-2-9B's beside it) and g 7."""
+    256 (timed at Gemma-7B's shape, Gemma-2-9B's beside it, with the wgmma
+    kernel's ptxas report) and g 7."""
     import torch
     rows = {}
     for row, labels in (("hd=256", ("Gemma-7B", "Gemma-2-9B")), ("g=7", ("Qwen2.5-7B",))):
@@ -1218,6 +1237,8 @@ def check_flash_families(gen) -> dict:
         first = timed[labels[0]]
         rows[row] = dict(first, max_abs_err=err, f32_err=f32_err,
                          **{label: timed[label] for label in labels[1:]})
+    from ragmeup_tpu_torch import kernels
+    rows["hd=256"]["ptxas"] = ptxas_of(kernels.build_log, "rk_flash_gqa_wgmma_kernel")
     return rows
 
 
@@ -1290,7 +1311,7 @@ def paged_case(gen, label, b, lengths, q_len, nh=32, nkv=8, hd=128, ps=128, mp=1
         raise AssertionError(f"{name}: the kernel did not launch")
     err = paged_compare(name, out, plain(q, k, v, idx, lens, **kw))
     splits = pa.paged_splits(mp, ps, pa.kernel_split(b, q_len, nh, nkv, ps, mp,
-                                                     torch.bfloat16, sms))
+                                                     torch.bfloat16, sms, hd))
     res = {"max_abs_err": err, "splits": splits}
     if timed:
         # K/V rows read once per kv head; 4 flops per (query row, key, dim)
@@ -1377,6 +1398,26 @@ def check_paged(gen) -> dict:
     return {"decode": decode, "chunk": chunk_entry}
 
 
+def replays_equal(gen, b: int, lengths, nh: int, nkv: int, hd: int) -> bool:
+    """One decode call of #9 captured in a CUDA graph and replayed twice: the
+    two outputs equal bit for bit (the splits merge in split order)."""
+    import torch
+    from ragmeup_tpu_torch.ops import paged_attention as pa
+    q, k, v, idx, lens = paged_inputs(gen, b, lengths, 1, nh=nh, nkv=nkv, hd=hd)
+    q = q[:, 0].contiguous()
+    out = torch.empty_like(q)
+    pa.paged_attention(q, k, v, idx, lens)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out.copy_(pa.paged_attention(q, k, v, idx, lens))
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(first, out))
+
+
 def check_paged_families(gen) -> dict:
     """#9 at the families' head dims and groups (FAMILY_SHAPES): hd 64
     (Qwen2.5-0.5B, 14/2 heads), hd 96 (Phi-3-mini, 32/32), hd 256
@@ -1385,8 +1426,11 @@ def check_paged_families(gen) -> dict:
     chunk for 4 sequences after 0 to 1920 tokens), timed, and each again
     with a window below the context (512 over 2048 tokens), softcap 50 and
     sm_scale 1/16 together; Gemma-2-9B also over 16-token pages. Tolerance
-    as check_paged. Returns {"paged_attention hd=64": ..., ...}, one entry a
-    kernel mode and shape."""
+    as check_paged. The hd-256 decode row also reads two replays of one
+    captured call (`replays_equal`, bit for bit) and its kernel's ptxas
+    report. Returns {"paged_attention hd=64": ..., ...}, one entry a kernel
+    mode and shape."""
+    from ragmeup_tpu_torch import kernels
     lengths = [1, 2048, 777, 128, 129, 1500, 64, 1024]
     chunk_lengths = [p + 128 for p in (0, 640, 1333, 1920)]
     gemma2 = {"window": 512, "softcap": 50.0, "sm_scale": 1 / 16}
@@ -1405,6 +1449,9 @@ def check_paged_families(gen) -> dict:
             if hd == 256:
                 extra["ps=16"] = paged_case(gen, f"{tag} ps=16", b, lens, q_len, ps=16,
                                             mp=128, **shape, **gemma2)[0]
+                if q_len == 1:
+                    res.update(replays_equal=replays_equal(gen, b, lens, **shape),
+                               ptxas=ptxas_of(kernels.build_log, "rk_paged_decode_mma_kernel"))
             rows[f"{mode} {row}"] = dict(
                 res, max_abs_err=max([res["max_abs_err"]]
                                      + [r["max_abs_err"] for r in extra.values()]),

@@ -5,8 +5,10 @@
 // a time, or two at once as exact bf16 integers without the conversion
 // unit), the 16-byte read-only weight load, the sm_80+ instructions the
 // tensor-core kernels are built from (16-byte cp.async into shared memory,
-// ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8), and the atomic ticket
-// that elects the last block of a split-K strip.
+// ldmatrix, mma.sync m16n8k16 bf16 and m16n8k32 s8), the sm_90a pieces
+// of the wgmma kernels (the 128-byte-swizzled shared-memory descriptor, the
+// wgmma fence, commit and wait, the async-proxy fence, the register pin),
+// and the atomic ticket that elects the last block of a split-K strip.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -148,6 +150,51 @@ __device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
 // or 256 where b's sign bit is set, so their difference is b.
 __device__ __forceinline__ uint32_t s8x2_bf16x2(uint32_t t) {
   return bf16x2_sub((t & 0x007F007Fu) | 0x43004300u, (t & 0x00800080u) | 0x43004300u);
+}
+
+// wgmma's shared-memory matrix descriptor over 128-byte-swizzled 8-row
+// atoms (each row 128 bytes, an atom 1024 bytes, 1024-byte aligned).
+// K-major (sw128_desc): the reduction runs along a row, the atoms of 8 rows
+// (of M or N) sit 1024 bytes apart, the leading offset is unused (1).
+// MN-major (sw128_desc_mn, a transposed operand): a row holds 64 elements
+// of M or N and the reduction runs down the rows; lbo is the byte offset
+// between 64-element chunks of M or N, sbo between 8-row groups of the
+// reduction.
+__device__ __forceinline__ uint64_t sw128_desc_mn(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return sw128_desc_mn(saddr, 16, 1024);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of this warpgroup's committed wgmma groups run
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async's writes to shared memory, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pin the sums (or fragments) in registers at this point, so the compiler
+// moves no access to them across the wgmma fence and waits.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int M>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
 }
 
 // Whether this block is the last of the `arrivals` blocks of its strip to

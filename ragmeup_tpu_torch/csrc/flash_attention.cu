@@ -7,31 +7,29 @@
 //   k, v (B, kv_len, HD)
 //   out (B, g, s, HD): softmax(q k^T * sm_scale, causal) v per head
 //
-// HD is a template parameter, instantiated at 128 (Llama, Mistral, Qwen) and
-// 256 (Gemma). Query row at position p attends keys 0..p; keys past s (the
-// unused tail of a KV cache, kv_len >= s) are never read. Prefill is bound by
-// the two products (4 flops per (query, key) pair and head dim), not by
-// memory: the score tile never leaves the SM.
+// HD is 128 (Llama, Mistral, Qwen) or 256 (Gemma). Query row at position p
+// attends keys 0..p; keys past s (the unused tail of a KV cache, kv_len >=
+// s) are never read. Prefill is bound by the two products (4 flops per
+// (query, key) pair and head dim), not by memory: the score tile never
+// leaves the SM.
 //
-// A block takes 64 query rows of one kv head: all g heads at bq = 64 / g
+// A block takes the query rows of one kv head: all g heads at bq = rows / g
 // positions (rounded down), so each K/V tile is read once for the g heads
 // that share it. Row r is head r / bq at position q0 + r % bq; where g does
-// not divide 64 (Qwen2.5-7B's g = 7: 9 positions, 63 rows) the rows from
-// g * bq on are idle: they load zeros and are never written.
+// not divide the rows (Qwen2.5-7B's g = 7: 9 positions, 63 of 64 rows) the
+// rows from g * bq on are idle: they load zeros and are never written.
+// Blocks are issued with the most key tiles first.
 //
-// bf16 (rk_flash_gqa_mma_kernel): the products run on the tensor cores.
-// - Four warps own 16 rows each.
-// - At HD 128 each warp keeps its 16 x 128 slice of q in registers (mma A
-//   fragments) for the whole key walk. At HD 256 that slice and the 16 x 256
-//   f32 output accumulators would need more than the 255 registers a thread
-//   may have, so q stays in shared memory and is read by ldmatrix at each
-//   k-step, and the key tile halves to 32 keys (half the score registers).
-// - K and V stay bf16 in shared memory (64 keys a tile at HD 128, 32 at HD
-//   256), filled by a two-stage ring of 16-byte cp.async copies: tile t + 1
-//   is in flight while tile t multiplies. Rows are padded by 16 bytes (272 or
-//   528 bytes), so ldmatrix reads them without bank conflicts (V through
-//   ldmatrix.trans as the B operand of P V). Two blocks fit an SM at both
-//   head dims (85 KB and 99 KB of shared memory).
+// bf16 at HD 128 (rk_flash_gqa_mma_kernel<128>): 64-row blocks of four
+// warps on mma.sync, the tensor cores.
+// - Each warp keeps its 16 x 128 slice of q in registers (mma A fragments)
+//   for the whole key walk. (The template's HD-256 branches, q read from
+//   shared memory at each k-step and 32-key tiles, are no longer built.)
+// - K and V stay bf16 in shared memory, 64 keys a tile, filled by a
+//   two-stage ring of 16-byte cp.async copies: tile t + 1 is in flight
+//   while tile t multiplies. Rows are padded by 16 bytes (272 bytes), so
+//   ldmatrix reads them without bank conflicts (V through ldmatrix.trans as
+//   the B operand of P V). Two blocks fit an SM (85 KB of shared memory).
 // - S = q k^T accumulates in registers (mma.sync m16n8k16, f32); the online
 //   softmax runs on those registers (row max and sum over the four lanes
 //   that share a row, by shuffles), with sm_scale * log2(e) folded into
@@ -39,11 +37,55 @@
 //   repacked, register to register, as the A operand of P V (the JAX
 //   kernel's p.astype(v.dtype)), so P never touches shared memory.
 // - Only tiles that reach past the block's first position are masked; tiles
-//   past its last position are not visited. Blocks are issued with the most
-//   key tiles first, so the short causal tail fills the last wave.
+//   past its last position are not visited.
 // - The output is divided by l at the end (l == 0 -> 1, as the TPU kernel).
+//
+// bf16 at HD 256 (rk_flash_gqa_wgmma_kernel; Gemma-7B's g 1, Gemma-2-9B's
+// g 2): bound by the products too (Gemma-7B's prefill, s 1024: 8.6 GFLOP,
+// 8.7 us at 989 TFLOP/s, beside 10.0 us for its 33.6 MB). What held the
+// mma.sync form back at this head dim: q and the 16 x 256 f32 accumulators
+// did not fit a warp's registers, so q was re-read from shared memory
+// every k-step and the key tile halved to 32. This kernel is built on the
+// warpgroup products instead:
+// - A block takes 128 rows (bq = 128 / g positions): two consumer
+//   warpgroups of 64 rows and a producer warpgroup, which gives its
+//   registers to the consumers (setmaxnreg: 40 and 2 x 232).
+// - q (64 KB) and two stages each of K and V tiles (64 keys x 256, 32 KB)
+//   sit in shared memory in 128-byte-swizzled panels of 64 columns: 192
+//   KB, one block an SM. The producer copies q with cp.async and each K or
+//   V tile with four TMA tensor copies (one thread; the descriptors map
+//   keys past s to zeros), whose bytes complete the stage's "full"
+//   mbarrier. Each consumer warp releases a stage on its "empty" mbarrier,
+//   and the producer refills it after all eight have. K and V have rings
+//   of their own, and no barrier of the whole block runs in the loop. (A
+//   producer issuing 16-byte cp.async copies instead measured slower than
+//   the block-synchronous ring this kernel replaced: the loads, not the
+//   products, set its pace.)
+// - S = q k^T is 16 wgmma m64n64k16 with both operands in shared memory (K
+//   as it lies is K-major); the 64 x 64 f32 tile stays in the warpgroup's
+//   registers, where the online softmax runs. P, rounded to bf16 (the JAX
+//   kernel's p.astype(v.dtype)), is the register A operand of o += P V: 4
+//   wgmma m64n256k16 with V, as it lies (keys x head dim), the transposed
+//   (MN-major) B operand. o is 64 x 256 f32, 128 registers a thread.
+// - Step t issues S of tile t + 1 and then P V of tile t; the softmax of
+//   t + 1 runs while P V of t is on the tensor cores. The two warpgroups
+//   take turns to issue their products (named barriers 1 and 2), so one's
+//   softmax runs beside the other's products. o is rescaled only where a
+//   row's maximum moved (alpha != 1 in the warp).
+// - The causal tail: blocks of 128 rows issued longest-first; where the
+//   card has SMs to spare in the one wave the blocks fill, the longest
+//   q-blocks' keys are split over two blocks (ops/attention.py
+//   wgmma_split_from). The first of the two to finish stores its partial
+//   (o, m, l in f32) and marks it ready; the second merges it with its
+//   own, each product and the sum rounded one by one, so the bits do not
+//   depend on which is second, and writes the rows. At Gemma's prefill
+//   shapes the 128 blocks leave 4 SMs, so nothing splits: the longest
+//   block's 16 tiles set the time, against an average of 9.
+
 // f32 inputs (rk_flash_gqa_f32_kernel) keep scalar f32 FMAs on f32 copies of
 // the tiles in shared memory, since a tensor-core product would round them.
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -259,6 +301,556 @@ __global__ void __launch_bounds__(kMmaThreads, 2) rk_flash_gqa_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at HD 256: wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWgHD = 256;
+constexpr int kWgRows = 128;                          // query rows a block, 64 a warpgroup
+constexpr int kWgKeys = 64;                           // keys a tile
+constexpr int kWgConsumers = 256;                     // two warpgroups of 64 rows
+constexpr int kWgConsumerWarps = kWgConsumers / 32;
+constexpr int kWgProducers = 128;                     // and the producer warpgroup
+constexpr int kWgThreads = kWgConsumers + kWgProducers;
+// registers a thread: 168 at launch (65,536 over 384 threads); the producer
+// gives its share to the consumers (2 x 232 + 40 = 3 x 168)
+constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
+constexpr int kWgQBytes = kWgRows * kWgHD * 2;        // q: four 128-row panels
+constexpr int kWgTileBytes = kWgKeys * kWgHD * 2;     // one K or V tile: four 64-row panels
+constexpr int kWgStages = 2;                          // the K ring's and the V ring's
+constexpr int kWgBars = 1 + 4 * kWgStages;            // q; full and empty of K and V
+constexpr int kWgSmem = kWgQBytes + 2 * kWgStages * kWgTileBytes + 8 * kWgBars + 16 +
+                        1024;                         // + the ticket's word, 1024-byte alignment
+constexpr int kWgPartLd = kWgHD + 2;                  // floats a row of a split's partial: o, m, l
+// V as wgmma's transposed B operand: 64-column chunks of hd one panel
+// apart, groups of 8 keys one swizzle atom apart
+constexpr uint32_t kVChunkBytes = kWgKeys * 128, kVGroupBytes = 1024;
+
+// Named barrier `id` over `count` threads: wait for it, or only arrive.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// A warpgroup's registers a thread, moved between warpgroups of one block.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// mbarriers in shared memory. A "full" barrier completes when its data has
+// landed: q's cp.async copies arrive on it as they complete (noinc: the
+// count is the producer's threads); a K or V tile's TMA copies count their
+// bytes against the one arrival that announced them (expect_tx). Each
+// consumer warp arrives on an "empty" barrier once its wgmmas have read the
+// stage. Waits spin on the phase parity.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar)) : "memory");
+}
+// Byte offset of 16-byte chunk c (0..31) of row r in a tile of `rows` rows of
+// 256 bf16: four panels of 64 columns, each row 128 bytes, 128-byte swizzle.
+__device__ __forceinline__ int panel_off(int r, int c, int rows) {
+  return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// d (64 x 64 f32: lane 4g + c of warp w of the warpgroup holds rows 16w + g,
+// + 8 x columns 8j + 2c, + 1 as d[4j .. 4j + 3]) += a (64 x 16, K-major at
+// da) * b (16 x 64, K-major at db): both operands from shared memory
+__device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 256 f32, the layout of wgmma_ss_64x64 over 32 column groups) +=
+// a (64 x 16 bf16 in registers, mma.sync's A layout a warp) * b (16 x 256,
+// MN-major at db: the operand transposed)
+__device__ __forceinline__ void wgmma_rs_64x256_t(float (&d)[128], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) rk_flash_gqa_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tmap_k,
+    const __grid_constant__ CUtensorMap tmap_v, int g, int s, int kv_len, float scale_log2,
+    int split_from, float* __restrict__ ws, unsigned* __restrict__ tickets,
+    __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = qs + kWgQBytes;                  // [stage] K tiles
+  unsigned char* vs = ks + kWgStages * kWgTileBytes;   // [stage] V tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kWgStages * kWgTileBytes);
+  uint64_t* full_q = bars;                             // the producer's copies landed
+  uint64_t* full_k = bars + 1;                         // [stage]
+  uint64_t* full_v = full_k + kWgStages;
+  uint64_t* empty_k = full_v + kWgStages;              // [stage]: every consumer warp is done
+  uint64_t* empty_v = empty_k + kWgStages;
+
+  const int bq = kWgRows / g;                      // positions per block
+  const int used = g * bq;                         // rows that hold a (head, position)
+  const int bkv = blockIdx.x;
+  const int tid = threadIdx.x;
+  // blockIdx.y: both pieces of each split q-block, longest first, then the
+  // whole q-blocks below split_from, longest first
+  const int nq = (s + bq - 1) / bq, n_split = nq - split_from;
+  const int y = blockIdx.y;
+  const int qb = y < 2 * n_split ? nq - 1 - y / 2 : split_from - 1 - (y - 2 * n_split);
+  const int part = y < 2 * n_split ? y % 2 : -1;   // the keys' first or second half, or all
+  const int q0 = qb * bq;
+  const int last_key = min(min(q0 + bq, s), kv_len);  // exclusive
+  const int all_tiles = (last_key + kWgKeys - 1) / kWgKeys;
+  const int half = (all_tiles + 1) / 2;
+  const int t_begin = part == 1 ? half : 0;
+  const int tiles = (part == 0 ? half : all_tiles) - t_begin;   // this block's, from t_begin
+
+  if (tid == 0) {
+    mbar_init(full_q, kWgProducers);
+#pragma unroll
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty_k + st, kWgConsumerWarps);
+      mbar_init(empty_v + st, kWgConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kWgConsumers) {
+    // the producer warpgroup: q once, then K and V tile by tile into their
+    // rings, a stage refilled once every consumer warp has released it
+    setmaxnreg_dec<kWgProducerRegs>();
+    const int lane = tid - kWgConsumers;
+    for (int i = lane; i < kWgRows * 32; i += kWgProducers) {
+      // row r of the block: head r / bq at position q0 + r % bq
+      const int r = i / 32, c = i % 32;
+      const int pos = q0 + r % bq;
+      const bool ok = r < used && pos < s;
+      cp_async16(qs + panel_off(r, c, kWgRows),
+                 q + (((size_t)bkv * g + (ok ? r / bq : 0)) * s + (ok ? pos : 0)) * kWgHD + c * 8,
+                 ok);
+    }
+    cp_async_mbar_arrive(full_q);
+    if (lane == 0) {
+      for (int j = 0; j < tiles; ++j) {
+        const int st = j % kWgStages, use = j / kWgStages, key0 = (t_begin + j) * kWgKeys;
+        if (use > 0) mbar_wait(empty_k + st, (use - 1) & 1);
+        mbar_expect_tx(full_k + st, kWgTileBytes);
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          tma_load_3d(ks + st * kWgTileBytes + p * kWgKeys * 128, &tmap_k, 64 * p, key0, bkv,
+                      full_k + st);
+        if (use > 0) mbar_wait(empty_v + st, (use - 1) & 1);
+        mbar_expect_tx(full_v + st, kWgTileBytes);
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          tma_load_3d(vs + st * kWgTileBytes + p * kWgKeys * 128, &tmap_v, 64 * p, key0, bkv,
+                      full_v + st);
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  setmaxnreg_inc<kWgConsumerRegs>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int gr = lane / 4, qc = lane % 4;
+  // this warpgroup's rows 64 wg .. r_hi: the key tiles they reach and the
+  // first position (tiles past it need the causal mask)
+  const int r_lo = 64 * wg, r_hi = min(r_lo + 64, used) - 1;
+  const bool one_head = r_lo / bq == r_hi / bq;
+  const int lo_pos = q0 + (one_head ? r_lo % bq : 0);
+  const int hi_key = min(min(q0 + (one_head ? r_hi % bq : bq - 1) + 1, s), kv_len);
+  // the tiles of this block it multiplies: 0 .. my_tiles - 1 from t_begin
+  const int my_tiles = max(0, min((hi_key + kWgKeys - 1) / kWgKeys, t_begin + tiles) - t_begin);
+  // this thread's rows of the accumulators: ra and ra + 8
+  const int ra = r_lo + 16 * warp + gr, rb = ra + 8;
+  const int pos_a = q0 + ra % bq, pos_b = q0 + rb % bq;
+  const uint32_t q_desc = smem_addr(qs) + r_lo * 128;  // the warpgroup's 64 rows of each panel
+
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float al_a = 1.f, al_b = 1.f;                    // the next P V's rescale of o
+  float sc[32];
+  uint32_t pa[4][4];
+
+  // S = q k^T of the block's j-th tile into sc: 64 rows x 64 keys, 16
+  // k-steps over the panels
+  auto issue_s = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_acc(sc);
+    wgmma_fence();
+    const uint32_t kt = smem_addr(ks + (j % kWgStages) * kWgTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < kWgHD / 16; ++kk)
+      wgmma_ss_64x64(sc, sw128_desc(q_desc + (kk >> 2) * (kWgRows * 128) + (kk & 3) * 32),
+                     sw128_desc(kt + (kk >> 2) * (kWgKeys * 128) + (kk & 3) * 32));
+    wgmma_commit();
+  };
+  // the online softmax of key tile t on sc (scaled into the log2 domain,
+  // masked where the tile reaches past lo_pos): p in sc, l updated, alpha kept
+  auto softmax = [&](int t) {
+    const int key0 = t * kWgKeys;
+    const bool diag = key0 + kWgKeys - 1 > lo_pos;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e] * scale_log2;
+        if (diag && key0 + 8 * j + 2 * qc + (e & 1) > (e < 2 ? pos_a : pos_b)) x = -INFINITY;
+        sc[4 * j + e] = x;
+      }
+    // the four lanes of a quad share rows
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh *= 2) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no visible key yet keeps exp2 finite: every p is 0
+    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float mu_b = mn_b == -INFINITY ? 0.f : mn_b;
+    al_a = exp2f(m_a - mu_a);
+    al_b = exp2f(m_b - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j] = exp2f(sc[4 * j] - mu_a);
+      sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mu_a);
+      sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mu_b);
+      sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mu_b);
+      sum_a += sc[4 * j] + sc[4 * j + 1];
+      sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l_a = l_a * al_a + sum_a;   // this lane's share of the row; the quad adds at the end
+    l_b = l_b * al_b + sum_b;
+  };
+  // o *= alpha (skipped once the rows' maxima settle: alpha is 1), then
+  // bf16(P) as P V's A fragments: the S fragments of keys 16 ks.. are P's
+  auto rescale_and_pack = [&]() {
+    if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f)) {
+#pragma unroll
+      for (int d = 0; d < 32; ++d) {
+        o[4 * d] *= al_a;
+        o[4 * d + 1] *= al_a;
+        o[4 * d + 2] *= al_b;
+        o[4 * d + 3] *= al_b;
+      }
+    }
+#pragma unroll
+    for (int ks4 = 0; ks4 < 4; ++ks4) {
+      pa[ks4][0] = pack_bf16x2(sc[8 * ks4], sc[8 * ks4 + 1]);
+      pa[ks4][1] = pack_bf16x2(sc[8 * ks4 + 2], sc[8 * ks4 + 3]);
+      pa[ks4][2] = pack_bf16x2(sc[8 * ks4 + 4], sc[8 * ks4 + 5]);
+      pa[ks4][3] = pack_bf16x2(sc[8 * ks4 + 6], sc[8 * ks4 + 7]);
+    }
+  };
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // The two warpgroups take turns to issue their wgmmas (named barriers 1
+  // and 2), so that one's softmax runs while the other's products do.
+  // Warpgroup 0 goes first; each step of either ends with the other's turn.
+  auto turn_wait = [&]() { named_bar_sync(1 + wg, kWgConsumers); };
+  auto turn_pass = [&]() { named_bar_arrive(2 - wg, kWgConsumers); };
+  if (wg == 1) turn_pass();
+
+  // Each warpgroup walks every tile of the block, so that the two take the
+  // same turns and their releases keep the rings' phases; it multiplies the
+  // first my_tiles. Step j issues S of the block's tile j + 1 and P V of
+  // tile j, and the softmax of j + 1 runs while P V of j does.
+  mbar_wait(full_q, 0);
+  mbar_wait(full_k, 0);
+  fence_proxy_async();
+  turn_wait();
+  if (my_tiles > 0) issue_s(0);
+  turn_pass();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  release(empty_k);
+  if (my_tiles > 0) {
+    softmax(t_begin);
+    rescale_and_pack();
+  }
+  auto issue_pv = [&](int st) {
+    fence_frags(pa);
+    fence_acc(o);
+    wgmma_fence();
+    const uint32_t vt = smem_addr(vs + st * kWgTileBytes);
+#pragma unroll
+    for (int ks4 = 0; ks4 < kWgKeys / 16; ++ks4)
+      wgmma_rs_64x256_t(o, pa[ks4], sw128_desc_mn(vt + ks4 * 2 * kVGroupBytes, kVChunkBytes,
+                                                  kVGroupBytes));
+    wgmma_commit();
+  };
+  for (int j = 0; j < tiles; ++j) {
+    const bool more = j + 1 < tiles;
+    const int st = j % kWgStages, sn = (j + 1) % kWgStages;
+    if (more) {
+      mbar_wait(full_k + sn, ((j + 1) / kWgStages) & 1);
+      fence_proxy_async();
+    }
+    turn_wait();
+    if (j + 1 < my_tiles) {                        // S of j + 1, then P V of j
+      issue_s(j + 1);
+      mbar_wait(full_v + st, (j / kWgStages) & 1);
+      fence_proxy_async();
+      issue_pv(st);
+      turn_pass();
+      wgmma_wait<1>();                             // S of j + 1; P V of j runs on
+      fence_acc(sc);
+      release(empty_k + sn);
+      softmax(t_begin + j + 1);
+      wgmma_wait<0>();
+      fence_acc(o);
+      release(empty_v + st);
+      rescale_and_pack();
+    } else if (j < my_tiles) {                     // P V of this warpgroup's last tile
+      mbar_wait(full_v + st, (j / kWgStages) & 1);
+      fence_proxy_async();
+      issue_pv(st);
+      if (wg == 0 || more) turn_pass();
+      wgmma_wait<0>();
+      fence_acc(o);
+      if (more) release(empty_k + sn);
+      release(empty_v + st);
+    } else {                                       // a tile past this warpgroup's rows
+      mbar_wait(full_v + st, (j / kWgStages) & 1);
+      if (wg == 0 || more) turn_pass();
+      if (more) release(empty_k + sn);
+      release(empty_v + st);
+    }
+  }
+
+#pragma unroll
+  for (int sh = 1; sh < 4; sh *= 2) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
+  }
+  if (part >= 0) {
+    // A split q-block: the first of its two pieces to finish stores its
+    // partial (o, m, l in f32) and marks it ready; the second merges it
+    // with its own, o = o_1 f_1 + o_2 f_2 with f_i = exp2(m_i - max m),
+    // products and sum rounded one by one, so the bits are the same
+    // whichever piece comes second. The second resets both ticket words.
+    unsigned* ticket = tickets + 2 * ((size_t)bkv * n_split + (nq - 1 - qb));
+    float* part_o = ws + ((size_t)bkv * n_split + (nq - 1 - qb)) * kWgRows * kWgPartLd;
+    unsigned* first = reinterpret_cast<unsigned*>(bars + kWgBars);
+    named_bar_sync(3, kWgConsumers);
+    if (tid == 0) *first = atomicAdd(ticket, 1u) == 0;
+    named_bar_sync(3, kWgConsumers);
+    if (*first) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* row = part_o + (size_t)(h ? rb : ra) * kWgPartLd;
+#pragma unroll
+        for (int d = 0; d < 32; ++d)
+          *reinterpret_cast<float2*>(row + 8 * d + 2 * qc) =
+              make_float2(o[4 * d + 2 * h], o[4 * d + 2 * h + 1]);
+        if (qc == 0)
+          *reinterpret_cast<float2*>(row + kWgHD) = make_float2(h ? m_b : m_a, h ? l_b : l_a);
+      }
+      __threadfence();
+      named_bar_sync(3, kWgConsumers);
+      if (tid == 0) atomicExch(ticket + 1, 1u);
+      return;
+    }
+    if (tid == 0)
+      while (atomicAdd(ticket + 1, 0u) == 0) __nanosleep(64);
+    named_bar_sync(3, kWgConsumers);
+    __threadfence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* row = part_o + (size_t)(h ? rb : ra) * kWgPartLd;
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(row + kWgHD));
+      float& m = h ? m_b : m_a;
+      float& l = h ? l_b : l_a;
+      const float mx = fmaxf(m, ml.x);
+      const float mu = mx == -INFINITY ? 0.f : mx;
+      const float f_mine = exp2f(m - mu), f_other = exp2f(ml.x - mu);
+      l = __fadd_rn(__fmul_rn(l, f_mine), __fmul_rn(ml.y, f_other));
+      m = mx;
+#pragma unroll
+      for (int d = 0; d < 32; ++d) {
+        const float2 other = __ldcg(reinterpret_cast<const float2*>(row + 8 * d + 2 * qc));
+        o[4 * d + 2 * h] = __fadd_rn(__fmul_rn(o[4 * d + 2 * h], f_mine),
+                                     __fmul_rn(other.x, f_other));
+        o[4 * d + 2 * h + 1] = __fadd_rn(__fmul_rn(o[4 * d + 2 * h + 1], f_mine),
+                                         __fmul_rn(other.y, f_other));
+      }
+    }
+    if (tid == 0) {
+      atomicExch(ticket, 0u);
+      atomicExch(ticket + 1, 0u);
+    }
+  }
+  const float inv_a = l_a == 0.f ? 1.f : 1.f / l_a;
+  const float inv_b = l_b == 0.f ? 1.f : 1.f / l_b;
+  if (ra < used && pos_a < s) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(
+        out + (((size_t)bkv * g + ra / bq) * s + pos_a) * kWgHD + 2 * qc);
+#pragma unroll
+    for (int d = 0; d < 32; ++d) dst[4 * d] = pack_bf16x2(o[4 * d] * inv_a, o[4 * d + 1] * inv_a);
+  }
+  if (rb < used && pos_b < s) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(
+        out + (((size_t)bkv * g + rb / bq) * s + pos_b) * kWgHD + 2 * qc);
+#pragma unroll
+    for (int d = 0; d < 32; ++d) dst[4 * d] = pack_bf16x2(o[4 * d + 2] * inv_b, o[4 * d + 3] * inv_b);
+  }
+}
+
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
+// libcuda): the TMA descriptors of K and V.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (bkv, rows, 256) bf16 with rows kv_len apart: boxes of 64 keys x 64
+// columns (one swizzled panel), keys from `rows` on read as zeros
+cudaError_t kv_map(CUtensorMap* map, const void* base, int bkv, int rows, int kv_len) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)kWgHD, (cuuint64_t)rows, (cuuint64_t)bkv};
+  const cuuint64_t strides[2] = {(cuuint64_t)kWgHD * 2, (cuuint64_t)kv_len * kWgHD * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)kWgKeys, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, int bkv, int g, int s,
+                 int kv_len, float sm_scale, int split_from, float* ws, unsigned* tickets,
+                 void* out, cudaStream_t st) {
+  const int bq = kWgRows / g, nq = (s + bq - 1) / bq;
+  if (split_from < 0 || split_from > nq) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_k, map_v;
+  const int rows = min(s, kv_len);                 // keys past s are never needed
+  cudaError_t err = kv_map(&map_k, k, bkv, rows, kv_len);
+  if (err == cudaSuccess) err = kv_map(&map_v, v, bkv, rows, kv_len);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rk_flash_gqa_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (err != cudaSuccess) return (int)err;
+  rk_flash_gqa_wgmma_kernel<<<dim3(bkv, nq + (nq - split_from)), kWgThreads, kWgSmem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), map_k, map_v, g, s, kv_len,
+      sm_scale * 1.4426950408889634f, split_from, ws, tickets,
+      static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+// ---------------------------------------------------------------------------
 // f32: scalar FMAs on f32 tiles in shared memory
 // ---------------------------------------------------------------------------
 
@@ -434,10 +1026,15 @@ __global__ void __launch_bounds__(kF32Threads) rk_flash_gqa_f32_kernel(
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, int bkv, int g, int s, int kv_len,
-           float sm_scale, int dtype, void* out, cudaStream_t st) {
+           float sm_scale, int dtype, int split_from, float* ws, unsigned* tickets, void* out,
+           cudaStream_t st) {
   const int bq = kRows / g;
   const int qblocks = (s + bq - 1) / bq;
-  if (dtype == 1) {
+  if constexpr (HD == kWgHD) {
+    if (dtype == 1)
+      return launch_wgmma(q, k, v, bkv, g, s, kv_len, sm_scale, split_from, ws, tickets, out,
+                          st);
+  } else if (dtype == 1) {
     constexpr size_t bytes = MmaShape<HD>::kSmemBytes;
     cudaError_t err = cudaFuncSetAttribute(rk_flash_gqa_mma_kernel<HD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -466,14 +1063,22 @@ extern "C" {
 
 // q (bkv, g, s, hd), k/v (bkv, kv_len, hd), out like q; hd 128 or 256;
 // 1 <= g <= 64; dtype 0 = float32 (scalar kernel), 1 = bfloat16
-// (tensor-core kernel). Returns a cudaError_t.
+// (tensor-core kernel). bf16 at hd 256 only: the 128-row q-blocks from
+// split_from on (of ceil(s / (128 / g))) are split in two pieces over their
+// keys, with ws holding bkv * (q-blocks - split_from) * 128 * 258 floats and
+// tickets twice as many zeroed words (left zero); split_from = the q-blocks
+// splits none. Returns a cudaError_t.
 int rk_flash_gqa(const void* q, const void* k, const void* v, int bkv, int g,
-                 int s, int kv_len, int hd, float sm_scale, int dtype, void* out,
-                 void* stream) {
+                 int s, int kv_len, int hd, float sm_scale, int dtype, int split_from,
+                 void* ws, void* tickets, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  unsigned* t = static_cast<unsigned*>(tickets);
   if (g < 1 || g > kRows) return (int)cudaErrorInvalidValue;
-  if (hd == 128) return launch<128>(q, k, v, bkv, g, s, kv_len, sm_scale, dtype, out, st);
-  if (hd == 256) return launch<256>(q, k, v, bkv, g, s, kv_len, sm_scale, dtype, out, st);
+  if (hd == 128)
+    return launch<128>(q, k, v, bkv, g, s, kv_len, sm_scale, dtype, split_from, w, t, out, st);
+  if (hd == 256)
+    return launch<256>(q, k, v, bkv, g, s, kv_len, sm_scale, dtype, split_from, w, t, out, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -122,40 +122,6 @@ __device__ __forceinline__ void s8x4_bf16x2(uint32_t r, uint32_t& even, uint32_t
   odd = s8x2_bf16x2(r >> 8);
 }
 
-// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row atoms
-// 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N of this warpgroup's committed wgmma groups run
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// cp.async's writes to shared memory, visible to the tensor cores' reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Pin the sums (and the A fragments) in registers at this point, so the
-// compiler moves no access to them across the wgmma fence and waits.
-__device__ __forceinline__ void fence_acc(float (&d)[kStackTM / 2]) {
-#pragma unroll
-  for (int i = 0; i < kStackTM / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[j][i])::"memory");
-}
-
 // d (64 x N, f32; lane 4g + c of warp w holds rows 16w + g, + 8 x columns
 // 8j + 2c, + 1 as d[4j .. 4j + 3]) += a (64 x 16 bf16, mma.sync's A layout
 // a warp) * b (16 x N bf16, K-major at desc)

@@ -26,7 +26,8 @@
 // the g query heads that use it.
 //
 // Split-KV: the keys [0, mp * ps) are cut into splits of keys_per_split (a
-// whole number of 64-key tiles; ops/paged_attention.py::paged_split_plan
+// whole number of the kernel's key tiles, 64 keys or 32 for decode at HD
+// 256; ops/paged_attention.py::paged_split_plan
 // picks it from the shapes and the SM count, never from lengths, which stay
 // on the device). With one split a block writes its rows' output; with more,
 // each block writes its rows' partial (running max m in the log2 domain, sum
@@ -34,16 +35,43 @@
 // (m, l) = (-inf, 0), and rk_paged_combine_kernel merges each row's splits in
 // split order (no atomics: a greedy stream repeats bit for bit).
 //
-// bf16 decode (rk_paged_decode_kernel; q_len = 1, g <= 8): bound by bytes
-// (4 flops per K/V byte pair). Grid (split, kv head, sequence); one block of
-// 4 warps computes the g query heads of one kv head over one split. K/V
-// tiles (64 keys x 2 HD bytes each) come through a two-stage cp.async ring,
-// 16 bytes a thread, into shared rows padded by 16 bytes; where ps % 64 == 0
-// (the engine's 128-token pages) a tile is one contiguous run of the pool
-// with one page-table lookup, else each key is looked up. Scores, the online
-// softmax (warp shuffles) and P V are f32 on the CUDA cores; in P V a thread
-// owns column pairs tid % 64 (+ 64) over half the keys, so at HD 64 and 96
-// some threads idle there. At HD 256 the ring takes 132 KB: one block an SM.
+// bf16 decode (rk_paged_decode_kernel; q_len = 1, g <= 8, HD 64-128): bound
+// by bytes (4 flops per K/V byte pair). Grid (split, kv head, sequence); one
+// block of 4 warps computes the g query heads of one kv head over one
+// split. K/V tiles (64 keys x 2 HD bytes each) come through a two-stage
+// cp.async ring, 16 bytes a thread, into shared rows padded by 16 bytes;
+// where ps % 64 == 0 (the engine's 128-token pages) a tile is one
+// contiguous run of the pool with one page-table lookup, else each key is
+// looked up. Scores, the online softmax (warp shuffles) and P V are f32 on
+// the CUDA cores; in P V a thread owns column pairs tid % 64 (+ 64) over
+// half the keys, so at HD 64 and 96 some threads idle there.
+//
+// bf16 decode at HD 256 (rk_paged_decode_mma_kernel; Gemma's 16/8 and 16/16
+// heads): bound by bytes as well, 1 KB of K and V a key and kv head. The
+// HD-64-128 kernel's 132 KB ring at this head dim left one block of 4
+// warps an SM, and its scalar products spent several instructions a K/V
+// byte. This kernel keeps the bytes in flight instead:
+//   - 32-key tiles (16.5 KB each of K and V, rows padded 16 bytes) in a
+//     three-stage cp.async ring of 99 KB, one barrier a tile: two blocks of
+//     4 warps are resident on an SM, with two tiles of each in flight while
+//     one multiplies (ptxas: 167 registers, 2 x 128 x 167 fits).
+//   - The split unit is the 32-key tile (ops/paged_attention.py
+//     split_unit); the plan aims at 4 blocks an SM, as at the other head
+//     dims (a sweep of 2-16 on the H100 found 4 best here too): 8 splits
+//     of 256 keys at 8 sequences of 8 kv heads on 132 SMs.
+//   - The products run on mma.sync m16n8k16 (bf16, f32 sums). Warp w takes
+//     the 16 keys 16 (w % 2) of each tile for columns 128 (w / 2) of o:
+//     S = q K^T with q's g <= 8 rows padded to 16 (K by ldmatrix), then
+//     o^T += V^T P^T (V by ldmatrix.trans), whose B operand, P's row r at
+//     keys 2c, 2c + 1 and + 8, is the S accumulator layout as it lies: no
+//     shuffle, no shared memory, and o^T's 8 query columns hold all g rows.
+//     P enters as a bf16 high part and the bf16 of the rest (the chunk
+//     kernel's split), so p is carried to about 2^-16 as the TPU kernel
+//     carries it in f32; the softmax runs on the registers.
+//   - The two key halves keep their own running max, sum and o; at the
+//     split's end the odd warps hand theirs to the even ones through shared
+//     memory, which merge them (fixed order) and write the split's output
+//     or partial; the combine kernel then merges the splits in split order.
 //
 // bf16 chunk-append (rk_paged_chunk_kernel; q_len > 1, or g > 8): bound by
 // the products. One block takes 64 query rows of one (sequence, kv head),
@@ -604,6 +632,218 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 decode at HD 256: mma.sync, two blocks an SM
+// ---------------------------------------------------------------------------
+
+constexpr int kDecKeys256 = 32;                        // keys a tile, and the split unit
+constexpr int kDecStages256 = 3;
+constexpr int kDecLd256 = Rows<256>::kLd;
+constexpr int kDecTile256 = kDecKeys256 * kDecLd256;   // bf16 of one K or V tile
+constexpr size_t kDecSmem256 = (size_t)kDecStages256 * 2 * kDecTile256 * sizeof(__nv_bfloat16);
+
+__global__ void __launch_bounds__(kThreads, 2) rk_paged_decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_idx,
+    const int* __restrict__ lengths, int nh, int nkv, int P, int ps, int mp,
+    int keys_per_split, float sm_scale, int window, float softcap,
+    float* __restrict__ ws_ml, float* __restrict__ ws_o,
+    __nv_bfloat16* __restrict__ out) {
+  constexpr int HD = 256, KT = kDecKeys256, kLd = kDecLd256;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [stage][k | v][KT][kLd]
+
+  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
+  const int splits = gridDim.x;
+  const int g = nh / nkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, qc = lane % 4;
+  const int mat = lane / 8, mrow = lane % 8;       // ldmatrix: matrix, row
+  const int kh = warp & 1, dh = warp >> 1;         // key half of a tile, column half of o
+  const int length = lengths[bi];
+  const int* table = page_idx + (size_t)bi * mp;
+
+  // keys of this split the row sees: [a, e)
+  const int kcap = mp * ps;
+  const int lo = window > 0 ? max(0, length - window) : 0;
+  const int k0 = split * keys_per_split;
+  const int a = max(k0, lo);
+  const int e = min(min(k0 + keys_per_split, kcap), length);
+  if (a >= e) {
+    if (tid < g) {
+      if (splits == 1) {
+        for (int d = 0; d < HD; ++d)
+          out[out_row(bi, kvh, tid, g, 1, nh) * HD + d] = __float2bfloat16_rn(0.f);
+      } else {
+        const size_t w = ws_row(bi, kvh, tid, split, nkv, g, splits);
+        ws_ml[2 * w] = -INFINITY;
+        ws_ml[2 * w + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const size_t plane = (size_t)kvh * P * ps * HD;
+  const __nv_bfloat16* kplane = k_pages + plane;
+  const __nv_bfloat16* vplane = v_pages + plane;
+  const int t0 = a / KT, t1 = (e + KT - 1) / KT;
+  auto stage = [&](int t) { return ring + ((t - t0) % kDecStages256) * 2 * kDecTile256; };
+  auto load = [&](int t) {
+    if (t < t1)
+      load_kv_tile<HD, KT>(stage(t), stage(t) + kDecTile256, kplane, vplane, table, ps, t * KT,
+                           a, e, tid);
+    else
+      cp_async_commit();                           // an empty group keeps the count
+  };
+#pragma unroll
+  for (int i = 0; i < kDecStages256 - 1; ++i) load(t0 + i);
+
+  // q as the A operand of S = q K^T: rows gr < g in a0 and a2, rows 8-15 zero
+  uint32_t qa[HD / 16][2];
+  {
+    const uint32_t* qrow =
+        reinterpret_cast<const uint32_t*>(q + out_row(bi, kvh, gr < g ? gr : 0, g, 1, nh) * HD);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = gr < g ? qrow[8 * kk + qc] : 0u;
+      qa[kk][1] = gr < g ? qrow[8 * kk + 4 + qc] : 0u;
+    }
+  }
+  const float scale_log2 = sm_scale * kLog2e;
+  const float cap_scale = softcap > 0.f ? sm_scale / softcap : 0.f;
+  // o^T: columns dh * 128 + 16 i + gr (+ 8: o[i][2..3]) x query rows 2 qc, 2 qc + 1
+  float o[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_r = -INFINITY, l_r = 0.f;               // row gr over this warp's key halves
+
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<kDecStages256 - 2>();
+    // every thread's copies of tile t have landed, and every warp is done
+    // with tile t - 1, whose stage refills next
+    __syncthreads();
+    load(t + kDecStages256 - 1);
+    const __nv_bfloat16* kt = stage(t);
+    const __nv_bfloat16* vt = kt + kDecTile256;
+
+    // S = q k^T over this warp's 16 keys: rows gr, keys 8 j + 2 qc (+ 1)
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t bb[4];
+      ldmatrix_x4(bb, kt + (16 * kh + 8 * (mat / 2) + mrow) * kLd + 16 * kk + 8 * (mat % 2));
+      const uint32_t qf[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+      mma_bf16(sc[0], qf, bb[0], bb[1]);
+      mma_bf16(sc[1], qf, bb[2], bb[3]);
+    }
+
+    // scale (softcap) into the log2 domain; keys outside [a, e) masked
+    const int key0 = t * KT + 16 * kh + 2 * qc;
+    float x[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int el = 0; el < 2; ++el) {
+        const float y = softcap > 0.f ? tanhf(sc[j][el] * cap_scale) * softcap * kLog2e
+                                      : sc[j][el] * scale_log2;
+        const int key = key0 + 8 * j + el;
+        x[j][el] = key >= a && key < e ? y : -INFINITY;
+      }
+
+    // online softmax on the registers; the four lanes of a quad share a row
+    float mx = fmaxf(fmaxf(x[0][0], x[0][1]), fmaxf(x[1][0], x[1][1]));
+#pragma unroll
+    for (int sh = 1; sh < 4; sh *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+    const float m_new = fmaxf(m_r, mx);
+    // a row with no visible key yet keeps exp2 finite: every p is 0
+    const float mu = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2f(m_r - mu);
+    m_r = m_new;
+    float p[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int el = 0; el < 2; ++el) p[j][el] = exp2f(x[j][el] - mu);
+    l_r = l_r * alpha + (p[0][0] + p[0][1] + p[1][0] + p[1][1]);  // the quad adds at the end
+    // o^T's rows 2 qc and 2 qc + 1 take their alpha from those rows' quads
+    const float al0 = __shfl_sync(0xffffffffu, alpha, 8 * qc);
+    const float al1 = __shfl_sync(0xffffffffu, alpha, 8 * qc + 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[i][0] *= al0;
+      o[i][1] *= al1;
+      o[i][2] *= al0;
+      o[i][3] *= al1;
+    }
+
+    // o^T += V^T P^T: P^T's B fragment is S's accumulator layout (row gr,
+    // keys 2 qc.. and 8 + 2 qc..), P as a bf16 high part and a low part
+    uint32_t ph0, pl0, ph1, pl1;
+    split_bf16x2(p[0][0], p[0][1], ph0, pl0);
+    split_bf16x2(p[1][0], p[1][1], ph1, pl1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint32_t va[4];
+      ldmatrix_x4_trans(va, vt + (16 * kh + 8 * (mat / 2) + mrow) * kLd + 128 * dh + 16 * i +
+                                8 * (mat % 2));
+      mma_bf16(o[i], va, ph0, ph1);
+      mma_bf16(o[i], va, pl0, pl1);
+    }
+  }
+
+  // the two key halves: half 1 hands m, l and o to half 0 through the ring
+#pragma unroll
+  for (int sh = 1; sh < 4; sh *= 2) l_r += __shfl_xor_sync(0xffffffffu, l_r, sh);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* mo = reinterpret_cast<float*>(smem_raw);  // [dh][8 rows][128 columns]
+  float* mml = mo + 2 * 8 * 128;                   // [dh][8 rows][m, l]
+  if (kh == 1) {
+    if (qc == 0) {
+      mml[2 * (dh * 8 + gr)] = m_r;
+      mml[2 * (dh * 8 + gr) + 1] = l_r;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int el = 0; el < 4; ++el)
+        mo[(dh * 8 + 2 * qc + (el & 1)) * 128 + 16 * i + gr + 8 * (el >> 1)] = o[i][el];
+  }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 2 * qc + h;                      // the query row of o[.][h], o[.][h + 2]
+    const float m0 = __shfl_sync(0xffffffffu, m_r, 4 * r);
+    const float l0 = __shfl_sync(0xffffffffu, l_r, 4 * r);
+    const float m1 = mml[2 * (dh * 8 + r)], l1 = mml[2 * (dh * 8 + r) + 1];
+    const float m = fmaxf(m0, m1);
+    const float mu = m == -INFINITY ? 0.f : m;
+    const float f0 = exp2f(m0 - mu), f1 = exp2f(m1 - mu);
+    const float l = l0 * f0 + l1 * f1;
+    if (r >= g) continue;
+    const size_t w = ws_row(bi, kvh, r, split, nkv, g, splits);
+    const float inv = l == 0.f ? 1.f : 1.f / l;   // no visible key: o == 0
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = 16 * i + gr + 8 * half;
+        const float v = o[i][h + 2 * half] * f0 + mo[(dh * 8 + r) * 128 + col] * f1;
+        if (splits == 1)
+          out[out_row(bi, kvh, r, g, 1, nh) * HD + 128 * dh + col] = __float2bfloat16_rn(v * inv);
+        else
+          ws_o[w * HD + 128 * dh + col] = v;
+      }
+    if (splits > 1 && dh == 0 && gr == 0) {
+      ws_ml[2 * w] = m;
+      ws_ml[2 * w + 1] = l;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the merge of the splits, in split order
 // ---------------------------------------------------------------------------
 
@@ -860,13 +1100,22 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k_pages,
   float* ws_o = splits > 1 ? workspace + (size_t)2 * b * nkv * rows * splits : nullptr;
   cudaError_t err;
   if (q_len == 1 && g <= kMaxG) {
-    constexpr size_t bytes = dec_smem_bytes<HD>();
-    err = cudaFuncSetAttribute(rk_paged_decode_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    rk_paged_decode_kernel<HD><<<dim3(splits, nkv, b), kThreads, bytes, stream>>>(
-        q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
-        sm_scale, window, softcap, ws_ml, ws_o, out);
+    if constexpr (HD == 256) {
+      err = cudaFuncSetAttribute(rk_paged_decode_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDecSmem256);
+      if (err != cudaSuccess) return (int)err;
+      rk_paged_decode_mma_kernel<<<dim3(splits, nkv, b), kThreads, kDecSmem256, stream>>>(
+          q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
+          sm_scale, window, softcap, ws_ml, ws_o, out);
+    } else {
+      constexpr size_t bytes = dec_smem_bytes<HD>();
+      err = cudaFuncSetAttribute(rk_paged_decode_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      rk_paged_decode_kernel<HD><<<dim3(splits, nkv, b), kThreads, bytes, stream>>>(
+          q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
+          sm_scale, window, softcap, ws_ml, ws_o, out);
+    }
   } else {
     constexpr size_t bytes = ChunkShape<HD>::kSmemBytes;
     err = cudaFuncSetAttribute(rk_paged_chunk_kernel<HD>,
@@ -890,7 +1139,10 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const int* i
            float sm_scale, int window, float softcap, int dtype, int keys_per_split,
            void* workspace, void* out, cudaStream_t st) {
   if (dtype == 1) {
-    if (keys_per_split <= 0 || keys_per_split % kKeys) return (int)cudaErrorInvalidValue;
+    // splits are whole tiles of the kernel the shapes take: 32 keys for
+    // decode at HD 256, else 64
+    const int unit = HD == 256 && q_len == 1 && nh / nkv <= kMaxG ? kDecKeys256 : kKeys;
+    if (keys_per_split <= 0 || keys_per_split % unit) return (int)cudaErrorInvalidValue;
     return launch_bf16<HD>(static_cast<const __nv_bfloat16*>(q),
                            static_cast<const __nv_bfloat16*>(k_pages),
                            static_cast<const __nv_bfloat16*>(v_pages), idx, lens, b, q_len,
@@ -916,7 +1168,8 @@ extern "C" {
 // q/out (b, q_len, nh, hd); k_pages/v_pages (nkv, P, ps, hd), hd 64, 96, 128
 // or 256; page_idx (b, mp) int32; lengths (b,) int32; dtype 0 = float32 (one
 // split), 1 = bfloat16; window 0 = off, softcap 0 = off. bf16:
-// keys_per_split a multiple of 64, splits = ceil(mp * ps / keys_per_split);
+// keys_per_split a multiple of 64 (of 32 for decode at hd 256), splits =
+// ceil(mp * ps / keys_per_split);
 // with more than one split the workspace holds b * nkv * q_len * (nh / nkv)
 // * splits * (2 + hd) floats. Returns a cudaError_t.
 int rk_paged_attention(const void* q, const void* k_pages, const void* v_pages,

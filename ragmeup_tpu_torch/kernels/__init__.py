@@ -185,7 +185,7 @@ def lib() -> ctypes.CDLL:
             so.rk_quantize_rows.argtypes = [vp, i32, i32, i32, vp, vp, vp]
             so.rk_quantize_rows.restype = i32
             so.rk_flash_gqa.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
-                                        f32, i32, vp, vp]
+                                        f32, i32, i32, vp, vp, vp, vp]
             so.rk_flash_gqa.restype = i32
             so.rk_paged_attention.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                               i32, i32, i32, i32, i32, f32, i32, f32,

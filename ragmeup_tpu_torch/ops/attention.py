@@ -25,6 +25,28 @@ from ragmeup_tpu_torch import kernels
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)  # the ring's causal mask
 KERNEL_HEAD_DIMS = (128, 256)  # the head dims csrc/flash_attention.cu is built for
 MAX_GROUP = 64                 # query heads per kv head: one block's 64 rows
+WGMMA_ROWS = 128               # query rows a block of the bf16 kernel at hd 256
+WGMMA_KEYS = 64                # keys a tile of it
+WGMMA_PART_LD = 258            # floats a row of a split q-block's partial: o, m, l
+# (device index, stream) -> zeroed ticket words of the split q-blocks
+_SPLIT_TICKETS: dict = {}
+
+
+def wgmma_split_from(bkv: int, g: int, s: int, kv_len: int, sm_count: int) -> int:
+    """The first 128-row q-block of csrc/flash_attention.cu's hd-256 kernel
+    whose keys two blocks share (the causal tail's longest walks, halved);
+    the number of q-blocks when none is split. A block of bq = 128 // g
+    positions from q0 reaches ceil(min(q0 + bq, s, kv_len) / 64) key tiles.
+    Of the q-blocks with more than half the longest's tiles, the longest
+    are split as far as the blocks still fit one wave of the card (one
+    block an SM): a second wave of pieces costs more than the walk it
+    halves."""
+    bq = WGMMA_ROWS // g
+    nq = -(-s // bq)
+    spare = sm_count - bkv * nq
+    tiles = [-(-min((qb + 1) * bq, s, kv_len) // WGMMA_KEYS) for qb in range(nq)]
+    longer = sum(t >= 2 and t > tiles[-1] // 2 for t in tiles)
+    return nq - min(longer, max(spare, 0) // bkv)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,9 +94,21 @@ def _flash_gqa_cuda(q, k, v, sm_scale):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kernels.require_cuda("flash_attention_gqa", q, k, v)
     out = torch.empty_like(q)
+    nq = split_from = 0
+    ws = tickets = None
+    if d == 256 and q.dtype == torch.bfloat16:
+        nq = -(-s // (WGMMA_ROWS // g))
+        split_from = wgmma_split_from(bkv, g, s, kv_len, kernels.sm_count(q.device.index))
+    if split_from < nq:
+        slots = bkv * (nq - split_from)
+        ws = torch.empty(slots * WGMMA_ROWS * WGMMA_PART_LD, dtype=torch.float32,
+                         device=q.device)
+        tickets = kernels.ticket_words(_SPLIT_TICKETS, q.device, 2 * slots)
     err = kernels.lib().rk_flash_gqa(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bkv, g, s, kv_len, d,
-        float(sm_scale), kernels.dtype_code(q.dtype), out.data_ptr(),
+        float(sm_scale), kernels.dtype_code(q.dtype), split_from,
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
         kernels.stream_handle(q.device))
     kernels.check(err, "flash_attention_gqa")
     kernels.count("flash_gqa", f"hd={d} g={g}")

@@ -49,13 +49,22 @@ from ragmeup_tpu_torch import kernels
 from ragmeup_tpu_torch.devices import resolve_device
 
 KERNEL_HEAD_DIMS = (64, 96, 128, 256)  # the head dims csrc/paged_attention.cu is built for
-SPLIT_KEYS = 64            # csrc/paged_attention.cu: keys per tile
+SPLIT_KEYS = 64            # csrc/paged_attention.cu: keys per tile, the split unit
 DECODE_MAX_G = 8           # query heads per kv head the decode kernel takes
 CHUNK_ROWS = 64            # query rows per block of the chunk kernel
+# the decode kernel at hd 256 (rk_paged_decode_mma_kernel) walks 32-key tiles
+_DECODE_SPLIT_KEYS = {256: 32}
 # blocks an SM the split plan aims at: decode blocks are light (three fit an
-# SM) and end early on short sequences; a chunk block fills half an SM
+# SM at hd 64-128, two at 256) and end early on short sequences; a chunk
+# block fills half an SM. At hd 256 a sweep of 2-16 (tools/attention_times.py
+# --sweep, Gemma-2-9B's and Gemma-7B's decode on an H100) found 4 best too.
 _DECODE_BLOCKS_PER_SM = 4
 _CHUNK_BLOCKS_PER_SM = 1
+
+
+def split_unit(hd: int, decode: bool = True) -> int:
+    """Keys per tile of the kernel a plan cuts for: a split is whole tiles."""
+    return _DECODE_SPLIT_KEYS.get(hd, SPLIT_KEYS) if decode else SPLIT_KEYS
 
 
 class PagedKVCache:
@@ -340,21 +349,25 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def paged_split_plan(mp: int, ps: int, b: int, nkv: int, sm_count: int,
-                     row_tiles: Optional[int] = None) -> int:
-    """Keys per split of the bf16 kernels: a whole number of 64-key tiles.
+                     row_tiles: Optional[int] = None, hd: int = 128) -> int:
+    """Keys per split of the bf16 kernels: a whole number of the kernel's
+    key tiles (``split_unit``: 64 keys, 32 for decode at hd 256).
 
     ``row_tiles`` None plans the decode kernel (one block per sequence, kv
     head and split); a number plans the chunk kernel with that many 64-row
-    tiles per (sequence, kv head). Reads the page table's width, never the
-    lengths: the splits cover every key below ``mp * ps``, and a split past
-    a sequence's length ends at once. As few splits as give the blocks the
-    kernel aims at on every SM, at most one per tile, cut evenly into whole
-    tiles (which may round to fewer splits)."""
-    tiles = -(-(mp * ps) // SPLIT_KEYS)
-    per_sm = _DECODE_BLOCKS_PER_SM if row_tiles is None else _CHUNK_BLOCKS_PER_SM
+    tiles per (sequence, kv head). Reads the page table's width and the
+    head dim, never the lengths: the splits cover every key below
+    ``mp * ps``, and a split past a sequence's length ends at once. As few
+    splits as give the blocks the kernel aims at on every SM, at most one
+    per tile, cut evenly into whole tiles (which may round to fewer
+    splits)."""
+    decode = row_tiles is None
+    unit = split_unit(hd, decode)
+    tiles = -(-(mp * ps) // unit)
+    per_sm = _DECODE_BLOCKS_PER_SM if decode else _CHUNK_BLOCKS_PER_SM
     base = b * nkv * (row_tiles or 1)
     splits = min(tiles, max(1, -(-per_sm * sm_count // base)))
-    return -(-tiles // splits) * SPLIT_KEYS
+    return -(-tiles // splits) * unit
 
 
 def paged_splits(mp: int, ps: int, keys_per_split: int) -> int:
@@ -362,7 +375,7 @@ def paged_splits(mp: int, ps: int, keys_per_split: int) -> int:
 
 
 def kernel_split(b: int, q_len: int, nh: int, nkv: int, ps: int, mp: int,
-                 dtype: torch.dtype, sm_count: int) -> int:
+                 dtype: torch.dtype, sm_count: int, hd: int = 128) -> int:
     """Keys per split of the launch the wrappers make for these shapes: the
     plan on bf16 (decode kernel for q_len 1 and at most ``DECODE_MAX_G``
     heads per kv head, else the chunk kernel), one split on f32."""
@@ -370,8 +383,8 @@ def kernel_split(b: int, q_len: int, nh: int, nkv: int, ps: int, mp: int,
         return -(-(mp * ps) // SPLIT_KEYS) * SPLIT_KEYS
     g = nh // nkv
     if q_len == 1 and g <= DECODE_MAX_G:
-        return paged_split_plan(mp, ps, b, nkv, sm_count)
-    return paged_split_plan(mp, ps, b, nkv, sm_count, -(-(q_len * g) // CHUNK_ROWS))
+        return paged_split_plan(mp, ps, b, nkv, sm_count, hd=hd)
+    return paged_split_plan(mp, ps, b, nkv, sm_count, -(-(q_len * g) // CHUNK_ROWS), hd=hd)
 
 
 def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -402,7 +415,7 @@ def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         raise ValueError(f"{name}: page tables and lengths must be on {q.device}")
     mp = idx.shape[1]
     kps = kernel_split(b, q_len, nh, nkv, ps, mp, q.dtype,
-                       kernels.sm_count(q.device.index))
+                       kernels.sm_count(q.device.index), hd)
     splits = paged_splits(mp, ps, kps)
     # per (sequence, kv head, row, split): m and l, then the hd sums of o
     ws = torch.empty(b * q_len * nh * splits * (2 + hd) if splits > 1 else 0,

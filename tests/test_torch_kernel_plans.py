@@ -50,6 +50,7 @@ from ragmeup_tpu.ops import paged_attention as jpa
 from ragmeup_tpu.ops import quant_matmul as jqm
 from ragmeup_tpu.ops import topk as jtopk
 from ragmeup_tpu_torch import kernels
+from ragmeup_tpu_torch.ops import attention as tattn
 from ragmeup_tpu_torch.ops import moe_matmul as moe
 from ragmeup_tpu_torch.ops import paged_attention as tpa
 from ragmeup_tpu_torch.ops import quant_matmul as qm
@@ -177,24 +178,34 @@ def test_split_k_plain_matches_plain_and_jax(group, dtype, sms, slices):
 # #9: paged attention's split-KV plan and the merge of its splits
 # ---------------------------------------------------------------------------
 
-# (mp, ps, b, nkv, row tiles or None for the decode kernel): the engine's
-# 8B serving shapes (16 pages of 128 tokens, decode at 1-8 rows, the
-# 128-token chunk at 1 and 4: 8 row tiles of 64) and tiny ones
-PAGED_PLANS = {**{f"8B decode b={b}": (16, 128, b, 8, None) for b in (1, 4, 8)},
-               **{f"8B chunk b={b}": (16, 128, b, 8, 8) for b in (1, 4)},
-               "16-token pages": (128, 16, 8, 8, None),
-               "tiny decode": (3, 16, 2, 2, None),
-               "tiny chunk": (5, 16, 3, 2, 1),
-               "one page": (1, 16, 1, 1, None)}
+# (mp, ps, b, nkv, row tiles or None for the decode kernel, head dim): the
+# engine's 8B serving shapes (16 pages of 128 tokens, decode at 1-8 rows,
+# the 128-token chunk at 1 and 4: 8 row tiles of 64), tiny ones, and hd 256
+# (Gemma-2-9B's 8 kv heads, Gemma-7B's 16; decode walks 32-key tiles there,
+# the chunk kernel 64-key splits)
+PAGED_PLANS = {**{f"8B decode b={b}": (16, 128, b, 8, None, 128) for b in (1, 4, 8)},
+               **{f"8B chunk b={b}": (16, 128, b, 8, 8, 128) for b in (1, 4)},
+               "16-token pages": (128, 16, 8, 8, None, 128),
+               "tiny decode": (3, 16, 2, 2, None, 128),
+               "tiny chunk": (5, 16, 3, 2, 1, 128),
+               "one page": (1, 16, 1, 1, None, 128),
+               **{f"hd=256 decode b={b} nkv={nkv}": (16, 128, b, nkv, None, 256)
+                  for b in (1, 8) for nkv in (8, 16)},
+               "hd=256 16-token pages": (128, 16, 8, 8, None, 256),
+               "hd=256 tiny decode": (3, 16, 2, 2, None, 256),
+               "hd=256 one page": (1, 16, 1, 1, None, 256),
+               "hd=256 chunk b=4": (16, 128, 4, 8, 2, 256)}
 
 
 @pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
 @pytest.mark.parametrize("case", list(PAGED_PLANS))
 def test_paged_split_plan_covers_every_key_once(case, sms):
-    mp, ps, b, nkv, row_tiles = PAGED_PLANS[case]
-    kps = tpa.paged_split_plan(mp, ps, b, nkv, sms, row_tiles)
-    keys, tiles = mp * ps, -(-(mp * ps) // 64)
-    assert kps >= 64 and kps % 64 == 0
+    mp, ps, b, nkv, row_tiles, hd = PAGED_PLANS[case]
+    kps = tpa.paged_split_plan(mp, ps, b, nkv, sms, row_tiles, hd=hd)
+    unit = 32 if hd == 256 and row_tiles is None else 64   # the kernel's key tile
+    assert tpa.split_unit(hd, row_tiles is None) == unit
+    keys, tiles = mp * ps, -(-(mp * ps) // unit)
+    assert kps >= unit and kps % unit == 0
     splits = tpa.paged_splits(mp, ps, kps)
     ranges = [(s * kps, min(keys, (s + 1) * kps)) for s in range(splits)]
     assert 1 <= splits <= tiles
@@ -207,7 +218,7 @@ def test_paged_split_plan_covers_every_key_once(case, sms):
     per_sm = tpa._DECODE_BLOCKS_PER_SM if row_tiles is None else tpa._CHUNK_BLOCKS_PER_SM
     base = b * nkv * (row_tiles or 1)
     wanted = next(w for w in range(1, tiles + 1) if base * w >= per_sm * sms or w == tiles)
-    assert kps // 64 == -(-tiles // wanted) and splits <= wanted
+    assert kps // unit == -(-tiles // wanted) and splits <= wanted
 
 
 def test_paged_split_plan_on_an_h100():
@@ -350,7 +361,7 @@ def test_paged_split_merge_at_the_families_shapes(case, mode):
     k, v, idx, lens = _paged_pool(rng, b, nkv, hd, ps, b * mp + 3, lengths, mp)
     q = rng.standard_normal((b, q_len, nkv * g, hd)).astype(np.float32)
     row_tiles = None if q_len == 1 and g <= tpa.DECODE_MAX_G else -(-(q_len * g) // 64)
-    kps = tpa.paged_split_plan(mp, ps, b, nkv, 3 if q_len == 1 else 64, row_tiles)
+    kps = tpa.paged_split_plan(mp, ps, b, nkv, 3 if q_len == 1 else 64, row_tiles, hd=hd)
     assert tpa.paged_splits(mp, ps, kps) > 1
     tq, tk, tv, ti, tl = (torch.from_numpy(a) for a in (q, k, v, idx, lens))
     got = _split_merge_plain(tq, tk, tv, ti, tl, kps, **kw)
@@ -366,21 +377,204 @@ def test_paged_split_merge_at_the_families_shapes(case, mode):
     np.testing.assert_allclose(got.numpy(), np.asarray(kern).reshape(got.shape), atol=1e-5)
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _decode_hd256_model(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0.0,
+                        sm_scale=None):
+    """csrc/paged_attention.cu's hd-256 decode kernel (rk_paged_decode_mma_kernel)
+    in f32: each split walks its 32-key tiles from the one holding its first
+    visible key; a tile's two 16-key halves keep their own running max m
+    (log2 domain), sum l and o over the split, p entering P V as a bf16 high
+    part plus the bf16 of the rest; the halves merge at the split's end
+    (m = max, each scaled by exp2(m_h - m)), then the combine kernel merges
+    the splits in split order. q (b, nh, hd) -> (b, nh, hd)."""
+    b, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    g = nh // nkv
+    keys = idx.shape[1] * ps
+    kk = k_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
+    vv = v_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
+    sc = torch.einsum("bngd,nbtd->bngt", q.reshape(b, nkv, g, hd).float(), kk)
+    sc = sc * (sm_scale if sm_scale is not None else 1 / np.sqrt(hd))
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    sc = sc * np.log2(np.e)
+    lo = (lens.long() - window).clamp(min=0) if window else torch.zeros(b, dtype=torch.long)
+    pos = torch.arange(keys)
+    parts = []
+    for k0 in range(0, keys, kps):
+        a = torch.maximum(torch.full((b,), k0), lo)
+        e = torch.minimum(torch.full((b,), min(k0 + kps, keys)), lens.long())
+        halves = []
+        for kh in (0, 1):
+            m = torch.full((b, nkv, g), -torch.inf)
+            l = torch.zeros(b, nkv, g)
+            o = torch.zeros(b, nkv, g, hd)
+            for t in range(k0 // 32, -(-min(k0 + kps, keys) // 32)):
+                cols = pos[32 * t + 16 * kh:32 * t + 16 * kh + 16]
+                seen = (cols[None] >= a[:, None]) & (cols[None] < e[:, None])   # (b, 16)
+                x = torch.where(seen[:, None, None], sc[..., cols], -torch.inf)
+                mn = torch.maximum(m, x.amax(-1))
+                mu = torch.where(mn == -torch.inf, 0.0, mn)
+                alpha = torch.exp2(m - mu)
+                m = mn
+                p = torch.exp2(x - mu[..., None])
+                l = l * alpha + p.sum(-1)
+                hi = _bf16(p)
+                o = o * alpha[..., None] + torch.einsum(
+                    "bngt,nbtd->bngd", hi + _bf16(p - hi), vv[:, :, cols])
+            halves.append((m, l, o))
+        (m0, l0, o0), (m1, l1, o1) = halves
+        m = torch.maximum(m0, m1)
+        mu = torch.where(m == -torch.inf, 0.0, m)
+        f0, f1 = torch.exp2(m0 - mu), torch.exp2(m1 - mu)
+        parts.append((torch.where((a < e)[:, None, None], m, -torch.inf), l0 * f0 + l1 * f1,
+                      o0 * f0[..., None] + o1 * f1[..., None]))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum = torch.zeros_like(parts[0][1])
+    osum = torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        f = torch.where(m == -torch.inf, 0.0, torch.exp2(m - torch.where(mx == -torch.inf, 0.0,
+                                                                         mx)))
+        lsum = lsum + l * f
+        osum = osum + o * f[..., None]
+    out = torch.where(lsum[..., None] == 0, 0.0,
+                      osum / torch.where(lsum == 0, 1.0, lsum)[..., None])
+    return out.reshape(b, nh, hd)
+
+
+# (kv heads, group, page size): Gemma-2-9B's 16/8 and Gemma-7B's 16/16 at
+# hd 256, over the engine's 128-token pages and 16-token ones
+DECODE_HD256 = {"g=2 ps=128": (1, 2, 128), "g=1 ps=128": (2, 1, 128),
+                "g=2 ps=16": (1, 2, 16), "g=1 ps=16": (2, 1, 16)}
+
+
+@pytest.mark.parametrize("case", list(DECODE_HD256))
+def test_decode_hd256_model_under_its_plan_matches_plain_and_jax(case):
+    """#9's hd-256 decode under the hd-256 plan (32-key splits; 3 SMs, so
+    the keys split) with window 20, softcap 2.5 and scale 1/16: the kernel's
+    model (_decode_hd256_model) and the split emulation (_split_merge_plain)
+    against the plain version and the JAX kernel (interpret mode). Inputs
+    are bf16 values, as the kernel's pool holds. The emulation keeps p in
+    f32 (1e-5); the model carries it as two bf16 parts, each p to 2^-17 of
+    itself, so within 2^-16 of the largest |v|."""
+    nkv, g, ps = DECODE_HD256[case]
+    lengths = (37, 128, 1, 90) if ps == 16 else (37, 384, 1, 300)
+    b, mp, hd = len(lengths), 128 * 3 // ps if ps == 128 else 8, 256
+    kw = dict(window=20, softcap=2.5, sm_scale=1 / 16)
+    rng = np.random.default_rng(g + ps)
+    k, v, idx, lens = _paged_pool(rng, b, nkv, hd, ps, b * mp + 3, lengths, mp)
+    q = rng.standard_normal((b, 1, nkv * g, hd)).astype(np.float32)
+    q, k, v = (_bf16(torch.from_numpy(a)).numpy() for a in (q, k, v))
+    kps = tpa.paged_split_plan(mp, ps, b, nkv, 3, hd=hd)
+    assert kps % 32 == 0 and tpa.paged_splits(mp, ps, kps) > 1
+    tq, tk, tv, ti, tl = (torch.from_numpy(a) for a in (q, k, v, idx, lens))
+    plain = tpa.paged_attention_plain(tq[:, 0], tk, tv, ti, tl, **kw)
+    kern = np.asarray(jpa.paged_attention(*(jnp.asarray(a) for a in (q[:, 0], k, v, idx, lens)),
+                                          interpret=True, **kw))
+    split = _split_merge_plain(tq, tk, tv, ti, tl, kps, **kw)[:, 0]
+    np.testing.assert_allclose(split.numpy(), plain.numpy(), atol=1e-5)
+    np.testing.assert_allclose(split.numpy(), kern, atol=1e-5)
+    model = _decode_hd256_model(tq[:, 0], tk, tv, ti, tl, kps, **kw)
+    tol = 2.0 ** -16 * np.abs(v).max()
+    np.testing.assert_allclose(model.numpy(), plain.numpy(), atol=tol, rtol=0)
+    np.testing.assert_allclose(model.numpy(), kern, atol=tol, rtol=0)
+
+
 def test_paged_split_plan_at_the_families_serving_shapes():
     """The engine's shapes (16 pages of 128 tokens) of the families on 132
     SMs: decode at 8 rows and chunk (128 tokens) at 4; the g = 7 chunk has
-    14 row tiles of 64 (896 rows)."""
+    14 row tiles of 64 (896 rows). Gemma's hd-256 decode cuts 32-key
+    tiles: Gemma-2-9B's 8 splits of 256 keys as before, Gemma-7B's 5 of
+    416 (13 tiles of 32; 448 in 64-key tiles)."""
+    kps = {label: tpa.kernel_split(8, 1, nh, nkv, 128, 16, torch.bfloat16, H100_SMS, 256)
+           for label, nh, nkv in (("Gemma-2-9B", 16, 8), ("Gemma-7B", 16, 16))}
+    assert kps == {"Gemma-2-9B": 256, "Gemma-7B": 416}
     plan = {}
-    for label, nh, nkv in (("Gemma-2-9B", 16, 8), ("Gemma-7B", 16, 16),
-                           ("Phi-3-mini", 32, 32), ("Qwen2.5-7B", 28, 4),
-                           ("Qwen2.5-0.5B", 14, 2)):
+    for label, nh, nkv, hd in (("Gemma-2-9B", 16, 8, 256), ("Gemma-7B", 16, 16, 256),
+                               ("Phi-3-mini", 32, 32, 96), ("Qwen2.5-7B", 28, 4, 128),
+                               ("Qwen2.5-0.5B", 14, 2, 64)):
         for mode, b, q_len in (("decode", 8, 1), ("chunk", 4, 128)):
             plan[f"{label} {mode}"] = tpa.paged_splits(16, 128, tpa.kernel_split(
-                b, q_len, nh, nkv, 128, 16, torch.bfloat16, H100_SMS))
+                b, q_len, nh, nkv, 128, 16, torch.bfloat16, H100_SMS, hd))
     assert plan == {"Gemma-2-9B decode": 8, "Gemma-2-9B chunk": 2, "Gemma-7B decode": 5,
                     "Gemma-7B chunk": 2, "Phi-3-mini decode": 3, "Phi-3-mini chunk": 1,
                     "Qwen2.5-7B decode": 16, "Qwen2.5-7B chunk": 1,
                     "Qwen2.5-0.5B decode": 32, "Qwen2.5-0.5B chunk": 2}
+
+
+# (bkv, g, s, kv_len): Gemma-7B's and Gemma-2-9B's prefill, one Gemma-7B
+# sequence, a long prompt of two kv heads, ragged and odd-group shapes
+WGMMA_SPLITS = {"Gemma-7B": (16, 1, 1024, 2048), "Gemma-2-9B": (8, 2, 1024, 2048),
+                "Gemma-7B b=1": (1, 1, 1024, 2048), "long": (2, 1, 4096, 4096),
+                "ragged": (8, 1, 200, 256), "g=3": (4, 3, 136, 192), "g=64": (2, 64, 8, 16)}
+
+
+@pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
+@pytest.mark.parametrize("case", list(WGMMA_SPLITS))
+def test_wgmma_split_plan_halves_the_longest_within_one_wave(case, sms):
+    """#8's hd-256 kernel splits the keys of its longest 128-row q-blocks
+    over two blocks only where the blocks still fit one wave (one a SM):
+    the split q-blocks are a suffix (q-blocks reach more key tiles with
+    their positions), each of at least 2 tiles and more than half the
+    longest's; fewer blocks than SMs never leave a candidate unsplit."""
+    bkv, g, s, kv_len = WGMMA_SPLITS[case]
+    bq = 128 // g
+    nq = -(-s // bq)
+    tiles = [-(-min((qb + 1) * bq, s, kv_len) // 64) for qb in range(nq)]
+    split_from = tattn.wgmma_split_from(bkv, g, s, kv_len, sms)
+    assert 0 <= split_from <= nq
+    split = tiles[split_from:]
+    assert all(t >= 2 and t > tiles[-1] // 2 for t in split)
+    assert bkv * (nq + len(split)) <= max(sms, bkv * nq)
+    candidates = sum(t >= 2 and t > tiles[-1] // 2 for t in tiles)
+    assert len(split) == min(candidates, max(0, sms - bkv * nq) // bkv)
+
+
+def test_wgmma_split_plan_on_an_h100():
+    """On 132 SMs Gemma's prefill (128 blocks) splits nothing; one
+    Gemma-7B sequence splits its 4 longest q-blocks (12 blocks), two kv
+    heads over 4,096 tokens their 16 longest (96 blocks)."""
+    plan = {case: -(-shape[2] // (128 // shape[1])) - tattn.wgmma_split_from(*shape, H100_SMS)
+            for case, shape in WGMMA_SPLITS.items()}
+    assert plan == {"Gemma-7B": 0, "Gemma-2-9B": 0, "Gemma-7B b=1": 4, "long": 16,
+                    "ragged": 1, "g=3": 3, "g=64": 0}
+
+
+@pytest.mark.parametrize("hd,dtype,sms", [(256, torch.bfloat16, H100_SMS),
+                                          (256, torch.bfloat16, 1),
+                                          (256, torch.float32, H100_SMS),
+                                          (128, torch.bfloat16, H100_SMS)])
+def test_flash_wrapper_passes_the_split(hd, dtype, sms, monkeypatch):
+    """A CUDA-route call of #8 (stand-in library) passes rk_flash_gqa the
+    plan's first split q-block, an f32 workspace of 128 x 258 floats a
+    split q-block and twice as many zeroed ticket words, for bf16 at hd
+    256 (on 1 SM nothing splits: split_from is the q-block count, 8, and
+    no buffer goes); f32 and hd 128 pass 0 and no buffer. One flash_gqa
+    launch a call."""
+    rec = _EntryRecorder()
+    monkeypatch.setattr(kernels, "lib", lambda: rec)
+    monkeypatch.setattr(kernels, "require_cuda", lambda *args: None)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda index: sms)
+    kernels.reset_counts()
+    bkv, g, s, kv_len = 1, 1, 1024, 2048
+    q = torch.zeros(bkv, g, s, hd, dtype=dtype)
+    k = torch.zeros(bkv, kv_len, hd, dtype=dtype)
+    tattn._flash_gqa_cuda(q, k, k, 1 / 16)
+    (name, args), = rec.calls
+    assert name == "rk_flash_gqa" and args[3:8] == (bkv, g, s, kv_len, hd)
+    split_from, ws, tickets = args[10:13]
+    if hd == 256 and dtype == torch.bfloat16 and sms > 1:
+        assert split_from == tattn.wgmma_split_from(bkv, g, s, kv_len, sms) == 4
+        assert ws is not None and tickets is not None
+    else:
+        assert split_from == (8 if hd == 256 and dtype == torch.bfloat16 else 0)
+        assert ws is None and tickets is None
+    assert kernels.launch_counts()["flash_gqa"] == 1
+    kernels.reset_counts()
 
 
 def test_paged_split_merge_skips_whole_splits_outside_the_window():

@@ -310,6 +310,118 @@ def test_flash_attention_gqa_family_shapes_match_jax(d, g, s, kv_len, no_kernel_
     np.testing.assert_allclose(to.reshape(2 * g, s, d), ref, rtol=1e-5, atol=1e-5)
 
 
+def _flash_wgmma_model(q, k, v, sm_scale, round_p=True, sm_count=132):
+    """csrc/flash_attention.cu's hd-256 bf16 kernel (rk_flash_gqa_wgmma_kernel)
+    in f32: 128-row blocks (row r is head r // bq at position q0 + r % bq,
+    bq = 128 // g; the rows from g * bq on and positions past s idle), two
+    warpgroups of 64 rows, each walking the 64-key tiles below its rows'
+    last key (zero past the block's last key) and masking only the tiles
+    that reach past its first position; the online softmax in the log2
+    domain, p rounded to bf16 before P V where ``round_p``. The q-blocks
+    from ``attention.wgmma_split_from`` on (on ``sm_count`` SMs) walk their
+    tiles in two pieces, [0, ceil(tiles / 2)) and the rest, merged as o_1 f_1
+    + o_2 f_2 with f_i = exp2(m_i - max m); o / l at the end (l == 0 -> o).
+    Every (head, position) is written once."""
+    bkv, g, s, d = q.shape
+    kv_len = k.shape[1]
+    bq = 128 // g
+    used = g * bq
+    scale_log2 = sm_scale * np.log2(np.e)
+    split_from = attention.wgmma_split_from(bkv, g, s, kv_len, sm_count)
+    out = torch.zeros_like(q)
+    written = torch.zeros(q.shape[:3], dtype=torch.int64)
+    for b in range(bkv):
+        for qb, q0 in enumerate(range(0, s, bq)):
+            last_key = min(q0 + bq, s, kv_len)
+            tiles = -(-last_key // 64)
+            half = -(-tiles // 2)
+            pieces = [(0, half), (half, tiles)] if qb >= split_from else [(0, tiles)]
+            keys_all = torch.arange(tiles * 64)
+            live = keys_all < last_key
+            kt_all = torch.where(live[:, None], k[b, keys_all.clamp(max=kv_len - 1)], 0.0)
+            vt_all = torch.where(live[:, None], v[b, keys_all.clamp(max=kv_len - 1)], 0.0)
+            for wg in (0, 1):
+                r_lo, r_hi = 64 * wg, min(64 * wg + 64, used) - 1
+                one_head = r_lo // bq == r_hi // bq
+                lo_pos = q0 + (r_lo % bq if one_head else 0)
+                hi_key = min(q0 + (r_hi % bq if one_head else bq - 1) + 1, s, kv_len)
+                rows = torch.arange(r_lo, r_lo + 64)
+                pos = q0 + rows % bq
+                real = (rows < used) & (pos < s)
+                heads = (rows // bq).clamp(max=g - 1)
+                qr = torch.where(real[:, None], q[b, heads, pos.clamp(max=s - 1)], 0.0)
+                parts = []
+                for t_begin, t_end in pieces:
+                    m = torch.full((64,), -torch.inf)
+                    l = torch.zeros(64)
+                    o = torch.zeros(64, d)
+                    for t in range(t_begin, min(t_end, -(-hi_key // 64))):
+                        keys = keys_all[64 * t:64 * t + 64]
+                        x = (qr @ kt_all[64 * t:64 * t + 64].T) * scale_log2
+                        if 64 * t + 63 > lo_pos:
+                            x = torch.where(keys[None, :] > pos[:, None], -torch.inf, x)
+                        mn = torch.maximum(m, x.amax(1))
+                        mu = torch.where(mn == -torch.inf, 0.0, mn)
+                        alpha = torch.exp2(m - mu)
+                        m = mn
+                        p = torch.exp2(x - mu[:, None])
+                        l = l * alpha + p.sum(1)
+                        pv = p.to(torch.bfloat16).float() if round_p else p
+                        o = o * alpha[:, None] + pv @ vt_all[64 * t:64 * t + 64]
+                    parts.append((m, l, o))
+                m, l, o = parts[0]
+                if len(parts) == 2:
+                    m2, l2, o2 = parts[1]
+                    mx = torch.maximum(m, m2)
+                    mu = torch.where(mx == -torch.inf, 0.0, mx)
+                    f1, f2 = torch.exp2(m - mu), torch.exp2(m2 - mu)
+                    l, o = l * f1 + l2 * f2, o * f1[:, None] + o2 * f2[:, None]
+                res = o * torch.where(l == 0, 1.0, 1.0 / l)[:, None]
+                for i in torch.nonzero(real).flatten().tolist():
+                    out[b, rows[i] // bq, pos[i]] = res[i]
+                    written[b, rows[i] // bq, pos[i]] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("g,s,kv_len,scale", [(1, 200, 256, None), (2, 200, 256, 0.1),
+                                              (3, 136, 192, None), (64, 8, 16, None)])
+@pytest.mark.parametrize("sm_count", [1, 132])
+def test_flash_hd256_kernel_model_matches_jax(g, s, kv_len, scale, sm_count):
+    """The hd-256 kernel's tile walk (_flash_wgmma_model) at Gemma's g 1
+    and Gemma-2's g 2 (at another scale than 1/sqrt(256)), ragged (s 200 over 200 = 128 + 72
+    positions: the second block's warpgroups see 64 and 8 real rows), a
+    group that does not divide 128 (g 3: 42 positions, rows 126-127 idle)
+    and g 64 (2 positions a block): with p kept in f32 it equals JAX's
+    flash_attention_gqa (interpret mode), its reference and the port's plain
+    version within 1e-5; with p rounded to bf16 (the kernel's
+    p.astype(v.dtype)) within 2^-8 of the largest |v|, the rounding's
+    bound. On 132 SMs the longest q-blocks split (g 1-3 here; g 64's
+    one-tile blocks cannot), on 1 none does."""
+    q, k, v = _attn_inputs(g + s, bkv=2, g=g, s=s, kv_len=kv_len, d=256)
+    sm_scale = scale if scale is not None else 1 / 16
+    nq = -(-s // (128 // g))
+    split = attention.wgmma_split_from(2, g, s, kv_len, sm_count) < nq
+    assert split == (sm_count > 1 and g < 64)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    exact = _flash_wgmma_model(tq, tk, tv, sm_scale, round_p=False, sm_count=sm_count).numpy()
+    plain = attention.flash_attention_gqa_plain(tq, tk, tv, sm_scale=sm_scale).numpy()
+    np.testing.assert_allclose(exact, plain, rtol=1e-5, atol=1e-5)
+    block = 8 if s % 40 else 40
+    jo = np.asarray(jattn.flash_attention_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              causal=True, sm_scale=sm_scale, block_q=block,
+                                              block_k=8 if kv_len % 64 else 64, interpret=True))
+    np.testing.assert_allclose(exact, jo, rtol=1e-5, atol=1e-5)
+    kr = np.repeat(k[:, None], g, axis=1).reshape(2 * g, kv_len, 256)[:, :s]
+    vr = np.repeat(v[:, None], g, axis=1).reshape(2 * g, kv_len, 256)[:, :s]
+    ref = np.asarray(jattn.attention_reference(jnp.asarray(q.reshape(2 * g, s, 256)),
+                                               jnp.asarray(kr), jnp.asarray(vr),
+                                               sm_scale=sm_scale)).reshape(exact.shape)
+    np.testing.assert_allclose(exact, ref, rtol=1e-5, atol=1e-5)
+    rounded = _flash_wgmma_model(tq, tk, tv, sm_scale, sm_count=sm_count).numpy()
+    np.testing.assert_allclose(rounded, jo, rtol=0, atol=2.0 ** -8 * np.abs(v).max())
+
+
 def test_flash_attention_matches_jax(no_kernel_library):
     q, k, v = _attn_inputs(7, bkv=3, g=1)
     q = q[:, 0]
