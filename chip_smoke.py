@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero):
    at hd 128 with g 7, #9 in both modes at hd 64, 96 and 256 and at g 7,
    each also with a window of 512 over 2,048 tokens, softcap 50 and
    sm_scale 1/16, each a row of the kernels line, its launches counted by
-   head dim and group);
+   head dim and group; #9's hd-256 chunk also at the spec waves' q_len 8,
+   its hd-64/96 decode at g 1, 2, 7 and 8, each row's kernels traced and
+   held to the kernel its mode and head dim take, PAGED_ROUTES);
    median times of
    both, and of one PyTorch library call computing the same function where
    there is one, from CUDA events, each after warm-up rounds until two
@@ -1398,24 +1400,42 @@ def check_paged(gen) -> dict:
     return {"decode": decode, "chunk": chunk_entry}
 
 
-def replays_equal(gen, b: int, lengths, nh: int, nkv: int, hd: int) -> bool:
-    """One decode call of #9 captured in a CUDA graph and replayed twice: the
-    two outputs equal bit for bit (the splits merge in split order)."""
+def replays_equal(gen, b: int, lengths, nh: int, nkv: int, hd: int, q_len: int = 1,
+                  **kw) -> bool:
+    """One call of #9 (decode, or chunk-append where q_len > 1) captured in a
+    CUDA graph and replayed twice: the two outputs equal bit for bit (the
+    splits merge in split order)."""
     import torch
     from ragmeup_tpu_torch.ops import paged_attention as pa
-    q, k, v, idx, lens = paged_inputs(gen, b, lengths, 1, nh=nh, nkv=nkv, hd=hd)
-    q = q[:, 0].contiguous()
+    q, k, v, idx, lens = paged_inputs(gen, b, lengths, q_len, nh=nh, nkv=nkv, hd=hd)
+    fn = pa.paged_attention if q_len == 1 else pa.paged_attention_chunk
+    if q_len == 1:
+        q = q[:, 0].contiguous()
     out = torch.empty_like(q)
-    pa.paged_attention(q, k, v, idx, lens)
+    fn(q, k, v, idx, lens, **kw)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        out.copy_(pa.paged_attention(q, k, v, idx, lens))
+        out.copy_(fn(q, k, v, idx, lens, **kw))
     graph.replay()
     first = out.clone()
     graph.replay()
     torch.cuda.synchronize()
     return bool(torch.equal(first, out))
+
+
+# the kernel of #9 each mode takes at each head dim (csrc/paged_attention.cu)
+PAGED_ROUTES = {("paged_attention", 64): "rk_paged_decode_narrow_kernel",
+                ("paged_attention", 96): "rk_paged_decode_narrow_kernel",
+                ("paged_attention", 128): "rk_paged_decode_kernel",
+                ("paged_attention", 256): "rk_paged_decode_mma_kernel",
+                ("paged_attention_chunk", 64): "rk_paged_chunk_kernel",
+                ("paged_attention_chunk", 96): "rk_paged_chunk_kernel",
+                ("paged_attention_chunk", 128): "rk_paged_chunk_kernel",
+                ("paged_attention_chunk", 256): "rk_paged_chunk_wgmma_kernel"}
+# the query heads and kv heads at which the hd-64/96 decode kernel is also
+# held, so that it is checked at g 1, 2, 7 and 8 at both head dims
+NARROW_GROUPS = {64: ((14, 14), (14, 7), (16, 2)), 96: ((32, 16), (28, 4), (32, 4))}
 
 
 def check_paged_families(gen) -> dict:
@@ -1425,14 +1445,23 @@ def check_paged_families(gen) -> dict:
     decode (8 sequences of 1 to 2048 tokens) and chunk mode (a 128-token
     chunk for 4 sequences after 0 to 1920 tokens), timed, and each again
     with a window below the context (512 over 2048 tokens), softcap 50 and
-    sm_scale 1/16 together; Gemma-2-9B also over 16-token pages. Tolerance
-    as check_paged. The hd-256 decode row also reads two replays of one
-    captured call (`replays_equal`, bit for bit) and its kernel's ptxas
-    report. Returns {"paged_attention hd=64": ..., ...}, one entry a kernel
-    mode and shape."""
+    sm_scale 1/16 together; Gemma-2-9B also over 16-token pages, its chunk
+    over 24-token pages (no TMA box fits: the kernel's cp.async route), and
+    its chunk also at the spec waves' q_len 8 (4 sequences after 300 to 2,040
+    tokens, timed; 8 rows of which 4 are pad rows of length 8 on a shared
+    trash page), both over 16-token pages with the window, softcap and
+    scale. The hd-64/96 decode kernel is also held at the other groups of
+    g 1, 2, 7 and 8 (NARROW_GROUPS). Tolerance as check_paged. The hd-256
+    rows also read two replays of one captured call (`replays_equal`, bit
+    for bit), and the hd-256 and hd-64/96 rows their kernel's ptxas report.
+    Each row names the kernels its call launched (torch.profiler), which
+    must hold the kernel PAGED_ROUTES gives its mode and head dim. Returns
+    {"paged_attention hd=64": ..., ...}, one entry a kernel mode and shape."""
     from ragmeup_tpu_torch import kernels
+    from ragmeup_tpu_torch.ops import paged_attention as pa
     lengths = [1, 2048, 777, 128, 129, 1500, 64, 1024]
     chunk_lengths = [p + 128 for p in (0, 640, 1333, 1920)]
+    spec = [300, 777, 1500, 2040]
     gemma2 = {"window": 512, "softcap": 50.0, "sm_scale": 1 / 16}
     rows = {}
     for row, label in (("hd=64", "Qwen2.5-0.5B"), ("hd=96", "Phi-3-mini"),
@@ -1442,21 +1471,48 @@ def check_paged_families(gen) -> dict:
         for mode, b, lens, q_len in (("paged_attention", 8, lengths, 1),
                                      ("paged_attention_chunk", 4, chunk_lengths, 128)):
             tag = f"{label} hd={hd} g={nh // nkv} b={b}"
-            res = paged_case(gen, tag, b, lens, q_len, timed=True, **shape)[0]
+            res, (q, k, v, idx, lens_t) = paged_case(gen, tag, b, lens, q_len, timed=True,
+                                                     **shape)
+            fn = getattr(pa, mode)
+            want = PAGED_ROUTES[(mode, hd)]
+            res["kernels"] = kernels_of_retraced(lambda: fn(q, k, v, idx, lens_t))
+            if want not in res["kernels"]:
+                raise AssertionError(f"{mode} {tag} launched {res['kernels']}, not {want}")
             extra = {"window+softcap+scale": paged_case(
                 gen, f"{tag} window=512 softcap=50 sm_scale=1/16", b, lens, q_len,
                 **shape, **gemma2)[0]}
             if hd == 256:
                 extra["ps=16"] = paged_case(gen, f"{tag} ps=16", b, lens, q_len, ps=16,
                                             mp=128, **shape, **gemma2)[0]
-                if q_len == 1:
-                    res.update(replays_equal=replays_equal(gen, b, lens, **shape),
-                               ptxas=ptxas_of(kernels.build_log, "rk_paged_decode_mma_kernel"))
+                res.update(replays_equal=replays_equal(gen, b, lens, q_len=q_len, **shape),
+                           ptxas=ptxas_of(kernels.build_log, want))
+                if not res["replays_equal"]:
+                    raise AssertionError(f"{mode} {tag}: two replays of one call differ")
+            if hd == 256 and q_len > 1:
+                # a page size no TMA box fits: the producer's cp.async route
+                extra["ps=24"] = paged_case(gen, f"{tag} ps=24", b, lens, q_len, ps=24, mp=86,
+                                            **shape, **gemma2)[0]
+                res["q8"] = paged_case(gen, f"{label} q_len=8 b=4 ps=16", 4,
+                                       [p + 8 for p in spec], 8, ps=16, mp=128, timed=True,
+                                       **shape, **gemma2)[0]
+                res["q8"]["prefixes"] = spec
+                extra["q8 pads"] = paged_case(gen, f"{label} q_len=8 b=8, 4 pad rows, ps=16", 8,
+                                              [p + 8 for p in spec] + [8] * 4, 8, ps=16, mp=128,
+                                              pads=4, **shape, **gemma2)[0]
+            if hd in (64, 96) and q_len == 1:
+                res["ptxas"] = ptxas_of(kernels.build_log, want)
+                for gnh, gnkv in NARROW_GROUPS[hd]:
+                    extra[f"g={gnh // gnkv}"] = paged_case(
+                        gen, f"{label}-shaped hd={hd} {gnh}/{gnkv} heads", b, lens, q_len,
+                        nh=gnh, nkv=gnkv, hd=hd, **gemma2)[0]
             rows[f"{mode} {row}"] = dict(
                 res, max_abs_err=max([res["max_abs_err"]]
-                                     + [r["max_abs_err"] for r in extra.values()]),
+                                     + [r["max_abs_err"] for r in extra.values()]
+                                     + ([res["q8"]["max_abs_err"]] if "q8" in res else [])),
                 library_ms=None, variants=extra,
                 shape=f"{label}: b={b} q_len={q_len} nh={nh} nkv={nkv} hd={hd} ps=128 bf16")
+            log(f"  {mode} {row}: kernels {res['kernels']}, variants (error, splits) "
+                + json.dumps({key: [r["max_abs_err"], r["splits"]] for key, r in extra.items()}))
     return rows
 
 

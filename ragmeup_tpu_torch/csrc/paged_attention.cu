@@ -10,10 +10,10 @@
 //   page_idx (b, mp) int32                 each sequence's page table
 //   lengths (b,) int32                     tokens per sequence, chunk included
 //
-// Every kernel is a template on the head dim HD, instantiated at 64
-// (Qwen2.5-0.5B), 96 (Phi-3-mini), 128 (Llama, Mistral, Qwen) and 256
-// (Gemma). hd 96 is instantiated as it is: 6 mma k-steps and 12 16-byte
-// segments a row. The TPU kernel pads it to 128 columns for its 128-lane
+// The entry takes the head dims 64 (Qwen2.5-0.5B), 96 (Phi-3-mini), 128
+// (Llama, Mistral, Qwen) and 256 (Gemma); each mode and head dim has the
+// kernel below that suits it. hd 96 is taken as it is: 6 mma k-steps and
+// 12 16-byte segments a row. The TPU kernel pads it to 128 columns for its 128-lane
 // tiling (and packs hd 64 two tokens a row); no such rule holds here, and
 // padding would read and store a third more bytes in a kernel bound by them.
 //
@@ -35,7 +35,7 @@
 // (m, l) = (-inf, 0), and rk_paged_combine_kernel merges each row's splits in
 // split order (no atomics: a greedy stream repeats bit for bit).
 //
-// bf16 decode (rk_paged_decode_kernel; q_len = 1, g <= 8, HD 64-128): bound
+// bf16 decode at HD 128 (rk_paged_decode_kernel; q_len = 1, g <= 8): bound
 // by bytes (4 flops per K/V byte pair). Grid (split, kv head, sequence); one
 // block of 4 warps computes the g query heads of one kv head over one
 // split. K/V tiles (64 keys x 2 HD bytes each) come through a two-stage
@@ -43,8 +43,34 @@
 // where ps % 64 == 0 (the engine's 128-token pages) a tile is one
 // contiguous run of the pool with one page-table lookup, else each key is
 // looked up. Scores, the online softmax (warp shuffles) and P V are f32 on
-// the CUDA cores; in P V a thread owns column pairs tid % 64 (+ 64) over
-// half the keys, so at HD 64 and 96 some threads idle there.
+// the CUDA cores; in P V a thread owns column pairs tid % 64 over half the
+// keys. (The template's HD-64 and HD-96 instantiations are no longer built.)
+//
+// bf16 decode at HD 64 and 96 (rk_paged_decode_narrow_kernel; Qwen2.5-0.5B's
+// 14/2 heads, Phi-3-mini's 32/32): bound by bytes as well. The HD-128
+// kernel left threads idle at these head dims: half the block computed no
+// score at g 1, three warps of four waited in the softmax, 16 (HD 96) or 32
+// (HD 64) of the 64 column pairs had no column in P V, and each 64-key tile
+// took four block barriers. Here every warp stays on the byte stream at
+// every g from 1 to 8:
+//   - 64-key tiles (rows padded 16 bytes: 144 or 208 bytes, conflict-free
+//     for ldmatrix) in a three-stage cp.async ring, one barrier a tile, two
+//     tiles in flight while one multiplies (54 KB at HD 64, 78 KB at 96).
+//   - Warp w takes the 16 keys 16 w of each tile for all HD columns of o,
+//     on mma.sync m16n8k16 as the HD-256 kernel below does: S = q K^T with
+//     q's g <= 8 rows padded to 16, then o^T += V^T P^T with the S
+//     accumulators as P^T's B fragments (P as a bf16 high part and the bf16
+//     of the rest); the four warps' key quarters keep their own m, l and o.
+//   - At the split's end the quarters merge through shared memory in warp
+//     order (m = max, each scaled by exp2(m_w - m)), every thread taking
+//     some of the g x HD outputs; the combine kernel then merges the splits
+//     in split order. The split unit stays the 64-key tile.
+//   - Why this form: a stream-only copy of the HD-128 kernel's loads
+//     (tools/attention_times.py --stream) ran Phi-3-mini's b-8 decode in
+//     0.028-0.029 ms on an H100 at 700 W, where the HD-128 form took 0.063,
+//     so the bytes were not its limit; this form runs it in 0.035. The
+//     blocks-an-SM target of the split plan is per head dim
+//     (ops/paged_attention.py: 6 at HD 96, 3 at HD 64, from sweeps).
 //
 // bf16 decode at HD 256 (rk_paged_decode_mma_kernel; Gemma's 16/8 and 16/16
 // heads): bound by bytes as well, 1 KB of K and V a key and kv head. The
@@ -73,19 +99,63 @@
 //     memory, which merge them (fixed order) and write the split's output
 //     or partial; the combine kernel then merges the splits in split order.
 //
-// bf16 chunk-append (rk_paged_chunk_kernel; q_len > 1, or g > 8): bound by
-// the products. One block takes 64 query rows of one (sequence, kv head),
-// four warps of 16 rows; q stays in registers as mma A fragments (at HD 256,
-// where they and the 16 x 256 f32 accumulators would pass 255 registers, q
-// stays in shared memory, is read by ldmatrix at each k-step, and the key
-// tile halves to 32 keys); K/V come through the page table into the same
-// cp.async ring, read by ldmatrix (V by ldmatrix.trans); Q K^T runs on
-// mma.sync m16n8k16 bf16 with f32 accumulation. The TPU kernel keeps p in f32 for P V, so P is split into a
-// bf16 high part and a bf16 low part (p - high) and P V is two mmas into the
-// same f32 accumulators: p is carried to about 2^-16 relative, not rounded
-// to bf16 once. Only tiles that reach a row's limit, the pool's end or a
-// window's start are masked; the row tiles with the most keys are issued
-// first.
+// bf16 chunk-append at HD 64-128 (rk_paged_chunk_kernel; q_len > 1, or g >
+// 8): bound by the products. One block takes 64 query rows of one
+// (sequence, kv head), four warps of 16 rows; q stays in registers as mma A
+// fragments; K/V come through the page table into the same cp.async ring,
+// read by ldmatrix (V by ldmatrix.trans); Q K^T runs on mma.sync m16n8k16
+// bf16 with f32 accumulation. The TPU kernel keeps p in f32 for P V, so P is
+// split into a bf16 high part and a bf16 low part (p - high) and P V is two
+// mmas into the same f32 accumulators: p is carried to about 2^-16
+// relative, not rounded to bf16 once. Only tiles that reach a row's limit,
+// the pool's end or a window's start are masked; the row tiles with the
+// most keys are issued first.
+//
+// bf16 chunk-append at HD 256 (rk_paged_chunk_wgmma_kernel; Gemma-2-9B's
+// prefill chunks and speculative verify chunks): bound by the products
+// (a 128-token chunk of 16 heads after 2,048 tokens: about 13 GFLOP with
+// P's two parts). At this head dim q's mma fragments and the 16 x 256 f32
+// accumulators do not fit a warp's registers, so the mma.sync form re-read q
+// at every k-step and walked 32-key tiles. This kernel is built on #8's
+// wgmma kernel (csrc/flash_attention.cu, rk_flash_gqa_wgmma_kernel):
+//   - A block takes 128 rows of one (sequence, kv head), ordered (position,
+//     head in group): two consumer warpgroups of 64 rows and a producer
+//     warpgroup that gives its registers to them (setmaxnreg: 24 and 2 x 240,
+//     64 bytes of spill; 40 and 2 x 232, as #8 takes, spilled 88 and ran
+//     the chunk 5 % slower).
+//     q (64 KB) and two stages each of K and V tiles (64 keys x 256, 32 KB)
+//     sit in 128-byte-swizzled panels of 64 columns: 192 KB, one block an SM.
+//   - K/V through the page table: where a 64-key tile is whole pages or a
+//     run of one page (ps % 64 == 0, the engine's 128-token pages: one box
+//     of 64 rows a panel; 64 % ps == 0 with ps >= 8, such as 16-token pages:
+//     64 / ps boxes of ps rows a panel), the producer's one thread looks up
+//     each run's page and copies it by TMA from the pool viewed as (nkv,
+//     P * ps, 256), the bytes completing the stage's "full" mbarrier; keys
+//     past the page table read as zeros. Other page sizes take cp.async
+//     copies by the whole producer warpgroup, each key looked up and keys
+//     outside the split's [a, e) zero-filled. Either way a pool row past a
+//     row's limit (another sequence's finite data) is masked out of S, so
+//     its p, and P V's term, is exactly 0.
+//   - S = q K^T is 16 wgmma m64n64k16 from shared memory; the online softmax
+//     (scale, softcap, mask) runs on the 64 x 64 f32 tile in registers, the
+//     softcap as softcap (1 - 2 / (e^(2 s / softcap) + 1)) on two MUFU
+//     operations (tanhf took a fifth of Gemma-2's chunk; this form is within
+//     a few ulps of 1 of tanh, about 1e-5 of a logit at softcap 50). P's
+//     bf16 high and low parts are the register A operands of two wgmma
+//     m64n256k16 a 16-key step over V as it lies (MN-major B), into the
+//     same 64 x 256 f32 o: 8 wgmmas a tile, p carried to about 2^-16 as in
+//     the other paged kernels (the TPU kernel keeps it in f32).
+//   - Step t issues S of tile t + 1 and then P V of tile t; the two
+//     warpgroups take turns to issue (named barriers), so one's softmax
+//     runs beside the other's products. Tiles are masked only where they
+//     reach a row's limit, the pool's end or a window's start; a warpgroup
+//     stops multiplying at its last row's limit. Row blocks with the most
+//     keys are issued first; the splits merge in the combine kernel.
+//   - The spec waves' verify chunk (q_len 8 at g 2: 16 rows a (sequence, kv
+//     head)) fills part of one warpgroup's 64-row slice and leaves the
+//     other idle; that shape is bound by its K/V bytes, which the producer
+//     streams at the block's pace, and the split plan gives it more splits
+//     (one block a (sequence, kv head, split), aiming at an SM each).
 //
 // f32 pools (rk_paged_kernel) keep the scalar kernel: a block of 16 or 64
 // rows walks 64-key tiles held as f32 in shared memory with scalar FMAs, in
@@ -392,8 +462,7 @@ constexpr int kRows = 64;                 // query rows per block, 16 a warp
 
 template <int HD>
 struct ChunkShape {
-  static constexpr int kKeys = HD == 256 ? 32 : 64;   // keys per tile
-  static constexpr bool kQRegs = HD <= 128;           // q fragments held in registers
+  static constexpr int kKeys = 64;                    // keys per tile
   static constexpr int kLd = Rows<HD>::kLd;
   static constexpr int kTile = kKeys * kLd;
   static constexpr size_t kSmemBytes = (kRows * kLd + 4 * kTile) * sizeof(__nv_bfloat16);
@@ -475,7 +544,7 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
     const float scale_log2 = sm_scale * kLog2e;
     const float cap_scale = softcap > 0.f ? sm_scale / softcap : 0.f;
     const __nv_bfloat16* qrow = qs + (warp * 16 + mrow + 8 * (mat % 2)) * kLd + 8 * (mat / 2);
-    uint32_t qf[S::kQRegs ? HD / 16 : 1][4];
+    uint32_t qf[HD / 16][4];                      // q's A fragments, held in registers
 
     for (int t = t0; t < t1; ++t) {
       const int stage = (t - t0) & 1;
@@ -487,11 +556,9 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
         cp_async_wait<0>();
       }
       __syncthreads();
-      if constexpr (S::kQRegs) {
-        if (t == t0) {
+      if (t == t0) {
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qrow + 16 * kk);
-        }
+        for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qrow + 16 * kk);
       }
       const __nv_bfloat16* kt = ks + stage * kTile;
       const __nv_bfloat16* vt = vs + stage * kTile;
@@ -503,12 +570,8 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_chunk_kernel(
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t qa[4];
-        if constexpr (S::kQRegs) {
 #pragma unroll
-          for (int el = 0; el < 4; ++el) qa[el] = qf[kk][el];
-        } else {
-          ldmatrix_x4(qa, qrow + 16 * kk);
-        }
+        for (int el = 0; el < 4; ++el) qa[el] = qf[kk][el];
 #pragma unroll
         for (int jp = 0; jp < KT / 16; ++jp) {
           uint32_t bb[4];
@@ -844,6 +907,616 @@ __global__ void __launch_bounds__(kThreads, 2) rk_paged_decode_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 decode at HD 64 and 96: mma.sync, a warp a 16-key quarter of each tile
+// ---------------------------------------------------------------------------
+
+constexpr int kNarrowStages = 3;
+
+template <int HD>
+constexpr size_t narrow_smem_bytes() {
+  return (size_t)kNarrowStages * 2 * kKeys * Rows<HD>::kLd * sizeof(__nv_bfloat16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 4) rk_paged_decode_narrow_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_idx,
+    const int* __restrict__ lengths, int nh, int nkv, int P, int ps, int mp,
+    int keys_per_split, float sm_scale, int window, float softcap,
+    float* __restrict__ ws_ml, float* __restrict__ ws_o,
+    __nv_bfloat16* __restrict__ out) {
+  constexpr int KT = kKeys, kLd = Rows<HD>::kLd, kTile = KT * kLd;
+  constexpr int kCols = HD / 16;                   // 16-column blocks of o^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [stage][k | v][KT][kLd]
+
+  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
+  const int splits = gridDim.x;
+  const int g = nh / nkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, qc = lane % 4;
+  const int mat = lane / 8, mrow = lane % 8;       // ldmatrix: matrix, row
+  const int length = lengths[bi];
+  const int* table = page_idx + (size_t)bi * mp;
+
+  // keys of this split the row sees: [a, e)
+  const int kcap = mp * ps;
+  const int lo = window > 0 ? max(0, length - window) : 0;
+  const int k0 = split * keys_per_split;
+  const int a = max(k0, lo);
+  const int e = min(min(k0 + keys_per_split, kcap), length);
+  if (a >= e) {
+    if (tid < g) {
+      if (splits == 1) {
+        for (int d = 0; d < HD; ++d)
+          out[out_row(bi, kvh, tid, g, 1, nh) * HD + d] = __float2bfloat16_rn(0.f);
+      } else {
+        const size_t w = ws_row(bi, kvh, tid, split, nkv, g, splits);
+        ws_ml[2 * w] = -INFINITY;
+        ws_ml[2 * w + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  const size_t plane = (size_t)kvh * P * ps * HD;
+  const __nv_bfloat16* kplane = k_pages + plane;
+  const __nv_bfloat16* vplane = v_pages + plane;
+  const int t0 = a / KT, t1 = (e + KT - 1) / KT;
+  auto stage = [&](int t) { return ring + ((t - t0) % kNarrowStages) * 2 * kTile; };
+  auto load = [&](int t) {
+    if (t < t1)
+      load_kv_tile<HD, KT>(stage(t), stage(t) + kTile, kplane, vplane, table, ps, t * KT, a, e,
+                           tid);
+    else
+      cp_async_commit();                           // an empty group keeps the count
+  };
+#pragma unroll
+  for (int i = 0; i < kNarrowStages - 1; ++i) load(t0 + i);
+
+  // q as the A operand of S = q K^T: rows gr < g in a0 and a2, rows 8-15 zero
+  uint32_t qa[HD / 16][2];
+  {
+    const uint32_t* qrow =
+        reinterpret_cast<const uint32_t*>(q + out_row(bi, kvh, gr < g ? gr : 0, g, 1, nh) * HD);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = gr < g ? qrow[8 * kk + qc] : 0u;
+      qa[kk][1] = gr < g ? qrow[8 * kk + 4 + qc] : 0u;
+    }
+  }
+  const float scale_log2 = sm_scale * kLog2e;
+  const float cap_scale = softcap > 0.f ? sm_scale / softcap : 0.f;
+  // o^T: columns 16 i + gr (+ 8: o[i][2..3]) x query rows 2 qc, 2 qc + 1
+  float o[kCols][4];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_r = -INFINITY, l_r = 0.f;               // row gr over this warp's key quarters
+
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<kNarrowStages - 2>();
+    // every thread's copies of tile t have landed, and every warp is done
+    // with tile t - 1, whose stage refills next
+    __syncthreads();
+    load(t + kNarrowStages - 1);
+    const __nv_bfloat16* kt = stage(t);
+    const __nv_bfloat16* vt = kt + kTile;
+
+    // S = q k^T over this warp's 16 keys: rows gr, keys 8 j + 2 qc (+ 1)
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t bb[4];
+      ldmatrix_x4(bb, kt + (16 * warp + 8 * (mat / 2) + mrow) * kLd + 16 * kk + 8 * (mat % 2));
+      const uint32_t qf[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+      mma_bf16(sc[0], qf, bb[0], bb[1]);
+      mma_bf16(sc[1], qf, bb[2], bb[3]);
+    }
+
+    // scale (softcap) into the log2 domain; keys outside [a, e) masked
+    const int key0 = t * KT + 16 * warp + 2 * qc;
+    float x[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int el = 0; el < 2; ++el) {
+        const float y = softcap > 0.f ? tanhf(sc[j][el] * cap_scale) * softcap * kLog2e
+                                      : sc[j][el] * scale_log2;
+        const int key = key0 + 8 * j + el;
+        x[j][el] = key >= a && key < e ? y : -INFINITY;
+      }
+
+    // online softmax on the registers; the four lanes of a quad share a row
+    float mx = fmaxf(fmaxf(x[0][0], x[0][1]), fmaxf(x[1][0], x[1][1]));
+#pragma unroll
+    for (int sh = 1; sh < 4; sh *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+    const float m_new = fmaxf(m_r, mx);
+    // a row with no visible key yet keeps exp2 finite: every p is 0
+    const float mu = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = exp2f(m_r - mu);
+    m_r = m_new;
+    float p[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int el = 0; el < 2; ++el) p[j][el] = exp2f(x[j][el] - mu);
+    l_r = l_r * alpha + (p[0][0] + p[0][1] + p[1][0] + p[1][1]);  // the quad adds at the end
+    // o^T's rows 2 qc and 2 qc + 1 take their alpha from those rows' quads
+    const float al0 = __shfl_sync(0xffffffffu, alpha, 8 * qc);
+    const float al1 = __shfl_sync(0xffffffffu, alpha, 8 * qc + 4);
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      o[i][0] *= al0;
+      o[i][1] *= al1;
+      o[i][2] *= al0;
+      o[i][3] *= al1;
+    }
+
+    // o^T += V^T P^T: P^T's B fragment is S's accumulator layout (row gr,
+    // keys 2 qc.. and 8 + 2 qc..), P as a bf16 high part and a low part
+    uint32_t ph0, pl0, ph1, pl1;
+    split_bf16x2(p[0][0], p[0][1], ph0, pl0);
+    split_bf16x2(p[1][0], p[1][1], ph1, pl1);
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      uint32_t va[4];
+      ldmatrix_x4_trans(va, vt + (16 * warp + 8 * (mat / 2) + mrow) * kLd + 16 * i + 8 * (mat % 2));
+      mma_bf16(o[i], va, ph0, ph1);
+      mma_bf16(o[i], va, pl0, pl1);
+    }
+  }
+
+  // the four key quarters: every warp's m, l and o through the ring, merged
+  // in warp order
+#pragma unroll
+  for (int sh = 1; sh < 4; sh *= 2) l_r += __shfl_xor_sync(0xffffffffu, l_r, sh);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* mo = reinterpret_cast<float*>(smem_raw);  // [warp][8 rows][HD]
+  float* mml = mo + 4 * 8 * HD;                    // [warp][8 rows][m, l]
+  if (qc == 0) {
+    mml[2 * (warp * 8 + gr)] = m_r;
+    mml[2 * (warp * 8 + gr) + 1] = l_r;
+  }
+#pragma unroll
+  for (int i = 0; i < kCols; ++i)
+#pragma unroll
+    for (int el = 0; el < 4; ++el)
+      mo[(warp * 8 + 2 * qc + (el & 1)) * HD + 16 * i + gr + 8 * (el >> 1)] = o[i][el];
+  __syncthreads();
+  for (int i = tid; i < g * HD; i += kThreads) {
+    const int r = i / HD, d = i % HD;
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) m = fmaxf(m, mml[2 * (w * 8 + r)]);
+    const float mu = m == -INFINITY ? 0.f : m;
+    float l = 0.f, v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float f = exp2f(mml[2 * (w * 8 + r)] - mu);
+      l += mml[2 * (w * 8 + r) + 1] * f;
+      v += mo[(w * 8 + r) * HD + d] * f;
+    }
+    if (splits == 1) {
+      const float inv = l == 0.f ? 1.f : 1.f / l;   // no visible key: o == 0
+      out[out_row(bi, kvh, r, g, 1, nh) * HD + d] = __float2bfloat16_rn(v * inv);
+    } else {
+      const size_t w = ws_row(bi, kvh, r, split, nkv, g, splits);
+      ws_o[w * HD + d] = v;
+      if (d == 0) {
+        ws_ml[2 * w] = m;
+        ws_ml[2 * w + 1] = l;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 chunk-append at HD 256: wgmma, a producer warpgroup and two consumers
+// ---------------------------------------------------------------------------
+
+constexpr int kPcHD = 256;
+constexpr int kPcRows = 128;                       // query rows a block, 64 a consumer warpgroup
+constexpr int kPcKeys = 64;                        // keys a tile
+constexpr int kPcConsumers = 256;                  // two warpgroups of 64 rows
+constexpr int kPcConsumerWarps = kPcConsumers / 32;
+constexpr int kPcProducers = 128;                  // and the producer warpgroup
+constexpr int kPcThreads = kPcConsumers + kPcProducers;
+// registers a thread: 168 at launch (65,536 over 384 threads); the producer
+// gives its share to the consumers (2 x 240 + 24 = 3 x 168)
+constexpr int kPcProducerRegs = 24, kPcConsumerRegs = 240;
+constexpr int kPcQBytes = kPcRows * kPcHD * 2;     // q: four 128-row panels
+constexpr int kPcTileBytes = kPcKeys * kPcHD * 2;  // one K or V tile: four 64-row panels
+constexpr int kPcStages = 2;                       // the K ring's and the V ring's
+constexpr int kPcBars = 1 + 4 * kPcStages;         // q; full and empty of K and V
+constexpr int kPcSmem = kPcQBytes + 2 * kPcStages * kPcTileBytes + 8 * kPcBars +
+                        1024;                      // + 1024-byte alignment
+// V as wgmma's transposed B operand: 64-column chunks of hd one panel
+// apart, groups of 8 keys one swizzle atom apart
+constexpr uint32_t kPcVChunkBytes = kPcKeys * 128, kPcVGroupBytes = 1024;
+
+// The TMA box of a page size: a tile of 64 keys is 64 / box runs of whole
+// pages (or one run of a page) at 1024-byte-aligned rows of each panel;
+// 0: no box fits, the producer copies keys with cp.async.
+__host__ __device__ __forceinline__ int chunk_box_rows(int ps) {
+  return ps % kPcKeys == 0 ? kPcKeys : (kPcKeys % ps == 0 && ps % 8 == 0) ? ps : 0;
+}
+
+__global__ void __launch_bounds__(kPcThreads, 1) rk_paged_chunk_wgmma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tmap_k,
+    const __grid_constant__ CUtensorMap tmap_v, const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ page_idx,
+    const int* __restrict__ lengths, int q_len, int nh, int nkv, int P, int ps, int mp,
+    int keys_per_split, float sm_scale, int window, float softcap,
+    float* __restrict__ ws_ml, float* __restrict__ ws_o,
+    __nv_bfloat16* __restrict__ out) {
+  constexpr int HD = kPcHD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = qs + kPcQBytes;                  // [stage] K tiles
+  unsigned char* vs = ks + kPcStages * kPcTileBytes;   // [stage] V tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + kPcStages * kPcTileBytes);
+  uint64_t* full_q = bars;                             // the producer's copies landed
+  uint64_t* full_k = bars + 1;                         // [stage]
+  uint64_t* full_v = full_k + kPcStages;
+  uint64_t* empty_k = full_v + kPcStages;              // [stage]: every consumer warp is done
+  uint64_t* empty_v = empty_k + kPcStages;
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int kvh = blockIdx.y % nkv, bi = blockIdx.y / nkv;
+  const int rt = gridDim.z - 1 - blockIdx.z;           // most key tiles first
+  const int g = nh / nkv;
+  const int nrows = q_len * g;
+  const int row0 = rt * kPcRows;
+  const int tid = threadIdx.x;
+  const int length = lengths[bi];
+  const int* table = page_idx + (size_t)bi * mp;
+  const int kcap = mp * ps;
+  const int box = chunk_box_rows(ps);
+  // row R (position R / g, head R % g) sees keys below its limit; a row past
+  // the chunk sees nothing and is never written
+  auto lim_of = [&](int R) { return R < nrows ? length - q_len + R / g + 1 : 0; };
+
+  // the block's rows see keys from lo; this split holds [a, e) of them
+  const int last = min(row0 + kPcRows, nrows) - 1;
+  const int lo = window > 0 ? max(0, lim_of(row0) - window) : 0;
+  const int k0 = split * keys_per_split;
+  const int a = max(k0, lo);
+  const int e = min(min(k0 + keys_per_split, kcap), lim_of(last));
+  const int t_begin = a / kPcKeys;
+  const int tiles = a < e ? (e + kPcKeys - 1) / kPcKeys - t_begin : 0;
+
+  if (tiles == 0) {
+    // no key of this split: each row's output 0, or its partial (-inf, 0)
+    for (int i = tid; i < kPcRows * (HD / 8); i += kPcThreads) {
+      const int R = row0 + i / (HD / 8), c = i % (HD / 8);
+      if (R >= nrows) continue;
+      if (splits == 1) {
+        *reinterpret_cast<uint4*>(out + out_row(bi, kvh, R, g, q_len, nh) * HD + 8 * c) =
+            make_uint4(0u, 0u, 0u, 0u);
+      } else if (c == 0) {
+        const size_t w = ws_row(bi, kvh, R, split, nkv, nrows, splits);
+        ws_ml[2 * w] = -INFINITY;
+        ws_ml[2 * w + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  if (tid == 0) {
+    mbar_init(full_q, kPcProducers);
+#pragma unroll
+    for (int st = 0; st < kPcStages; ++st) {
+      // TMA: one arrival announces the tile's bytes; cp.async: every producer thread's
+      mbar_init(full_k + st, box > 0 ? 1 : kPcProducers);
+      mbar_init(full_v + st, box > 0 ? 1 : kPcProducers);
+      mbar_init(empty_k + st, kPcConsumerWarps);
+      mbar_init(empty_v + st, kPcConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kPcConsumers) {
+    // the producer warpgroup: q once, then K and V tile by tile into their
+    // rings through the page table, a stage refilled once every consumer
+    // warp has released it
+    setmaxnreg_dec<kPcProducerRegs>();
+    const int lane = tid - kPcConsumers;
+    for (int i = lane; i < kPcRows * 32; i += kPcProducers) {
+      const int r = i / 32, c = i % 32;
+      const int R = row0 + r;
+      const bool ok = R < nrows;
+      cp_async16(qs + panel_off(r, c, kPcRows),
+                 q + out_row(bi, kvh, ok ? R : 0, g, q_len, nh) * HD + c * 8, ok);
+    }
+    cp_async_mbar_arrive(full_q);
+    if (box > 0) {
+      // TMA over the pool viewed as (nkv, P * ps, 256): a box of `box` keys is
+      // one run of pool rows; keys past the table (ps < 64) read as zeros
+      if (lane == 0) {
+        for (int j = 0; j < tiles; ++j) {
+          const int st = j % kPcStages, use = j / kPcStages, key0 = (t_begin + j) * kPcKeys;
+          // the pool row of the box at key c of the tile
+          auto row_at = [&](int c) {
+            const int key = key0 + c;
+            return key < kcap ? table[key / ps] * ps + key % ps : P * ps;
+          };
+          if (use > 0) mbar_wait(empty_k + st, (use - 1) & 1);
+          mbar_expect_tx(full_k + st, kPcTileBytes);
+          for (int c0 = 0; c0 < kPcKeys; c0 += box) {
+            const int row = row_at(c0);
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+              tma_load_3d(ks + st * kPcTileBytes + p * kPcKeys * 128 + c0 * 128, &tmap_k, 64 * p,
+                          row, kvh, full_k + st);
+          }
+          if (use > 0) mbar_wait(empty_v + st, (use - 1) & 1);
+          mbar_expect_tx(full_v + st, kPcTileBytes);
+          for (int c0 = 0; c0 < kPcKeys; c0 += box) {
+            const int row = row_at(c0);
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+              tma_load_3d(vs + st * kPcTileBytes + p * kPcKeys * 128 + c0 * 128, &tmap_v, 64 * p,
+                          row, kvh, full_v + st);
+          }
+        }
+      }
+    } else {
+      // cp.async, each key looked up; keys outside [a, e) zero-filled
+      const size_t plane = (size_t)kvh * P * ps * HD;
+      for (int j = 0; j < tiles; ++j) {
+        const int st = j % kPcStages, use = j / kPcStages, key0 = (t_begin + j) * kPcKeys;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          if (use > 0) mbar_wait((kv ? empty_v : empty_k) + st, (use - 1) & 1);
+          unsigned char* dst = (kv ? vs : ks) + st * kPcTileBytes;
+          const __nv_bfloat16* src = (kv ? v_pages : k_pages) + plane;
+          for (int i = lane; i < kPcKeys * 32; i += kPcProducers) {
+            const int c = i / 32, seg = i % 32;
+            const int key = key0 + c;
+            const bool ok = key >= a && key < e;
+            const int row = ok ? table[key / ps] * ps + key % ps : 0;
+            cp_async16(dst + panel_off(c, seg, kPcKeys), src + (size_t)row * HD + seg * 8, ok);
+          }
+          cp_async_mbar_arrive((kv ? full_v : full_k) + st);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  setmaxnreg_inc<kPcConsumerRegs>();
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int gr = lane / 4, qc = lane % 4;
+  // this warpgroup's rows r_lo .. r_hi: the tiles they reach, and the limits
+  // that decide which tiles need the mask
+  const int r_lo = row0 + 64 * wg, r_hi = min(r_lo + 64, nrows) - 1;
+  const int lim_lo = lim_of(r_lo), lim_hi = lim_of(r_hi);
+  const int my_tiles =
+      r_hi < r_lo ? 0 : max(0, min((min(e, lim_hi) + kPcKeys - 1) / kPcKeys, t_begin + tiles) - t_begin);
+  // this thread's rows of the accumulators: ra and ra + 8
+  const int ra = r_lo + 16 * warp + gr, rb = ra + 8;
+  const int lim_a = lim_of(ra), lim_b = lim_of(rb);
+  const uint32_t q_desc = smem_addr(qs) + 64 * wg * 128;  // the warpgroup's 64 rows of each panel
+  const float scale_log2 = sm_scale * kLog2e;
+  const float cap_log2 = softcap * kLog2e;                                  // softcap in log2 units
+  const float cap_exp2 = softcap > 0.f ? 2.f * kLog2e * sm_scale / softcap : 0.f;
+
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float al_a = 1.f, al_b = 1.f;                    // the next P V's rescale of o
+  float sc[32];
+  uint32_t ph[4][4], pl[4][4];                     // P's bf16 high and low parts
+
+  // S = q k^T of the block's j-th tile into sc: 64 rows x 64 keys, 16
+  // k-steps over the panels
+  auto issue_s = [&](int j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_acc(sc);
+    wgmma_fence();
+    const uint32_t kt = smem_addr(ks + (j % kPcStages) * kPcTileBytes);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_64x64(sc, sw128_desc(q_desc + (kk >> 2) * (kPcRows * 128) + (kk & 3) * 32),
+                     sw128_desc(kt + (kk >> 2) * (kPcKeys * 128) + (kk & 3) * 32));
+    wgmma_commit();
+  };
+  // the online softmax of key tile t on sc (scaled, softcapped, into the log2
+  // domain; masked where the tile reaches a row's limit, the pool's end or a
+  // window's start): p in sc, l updated, alpha kept
+  auto softmax = [&](int t) {
+    const int key0 = t * kPcKeys;
+    const bool diag = key0 + kPcKeys > min(lim_lo, kcap) ||
+                      (window > 0 && key0 < lim_hi - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int el = 0; el < 4; ++el) {
+        // softcap tanh(s / softcap) = softcap (1 - 2 / (e^(2 s / softcap) + 1))
+        const float x0 = sc[4 * j + el];
+        float x = softcap > 0.f ? cap_log2 - __fdividef(2.f * cap_log2, exp2f(x0 * cap_exp2) + 1.f)
+                                : x0 * scale_log2;
+        if (diag) {
+          const int key = key0 + 8 * j + 2 * qc + (el & 1);
+          const int lim = el < 2 ? lim_a : lim_b;
+          if (!(key < min(lim, kcap) && (window <= 0 || key >= lim - window))) x = -INFINITY;
+        }
+        sc[4 * j + el] = x;
+      }
+    // the four lanes of a quad share rows
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int sh = 1; sh < 4; sh *= 2) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, sh));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, sh));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no visible key yet keeps exp2 finite: every p is 0
+    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float mu_b = mn_b == -INFINITY ? 0.f : mn_b;
+    al_a = exp2f(m_a - mu_a);
+    al_b = exp2f(m_b - mu_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j] = exp2f(sc[4 * j] - mu_a);
+      sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mu_a);
+      sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mu_b);
+      sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mu_b);
+      sum_a += sc[4 * j] + sc[4 * j + 1];
+      sum_b += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l_a = l_a * al_a + sum_a;   // this lane's share of the row; the quad adds at the end
+    l_b = l_b * al_b + sum_b;
+  };
+  // o *= alpha (skipped once the rows' maxima settle: alpha is 1), then P's
+  // high and low bf16 parts as P V's A fragments: the S fragments of keys
+  // 16 ks.. are P's
+  auto rescale_and_pack = [&]() {
+    if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f)) {
+#pragma unroll
+      for (int d = 0; d < 32; ++d) {
+        o[4 * d] *= al_a;
+        o[4 * d + 1] *= al_a;
+        o[4 * d + 2] *= al_b;
+        o[4 * d + 3] *= al_b;
+      }
+    }
+#pragma unroll
+    for (int ks4 = 0; ks4 < 4; ++ks4)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_bf16x2(sc[8 * ks4 + 2 * f], sc[8 * ks4 + 2 * f + 1], ph[ks4][f], pl[ks4][f]);
+  };
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // The two warpgroups take turns to issue their wgmmas (named barriers 1
+  // and 2), so that one's softmax runs while the other's products do.
+  // Warpgroup 0 goes first; each step of either ends with the other's turn.
+  auto turn_wait = [&]() { named_bar_sync(1 + wg, kPcConsumers); };
+  auto turn_pass = [&]() { named_bar_arrive(2 - wg, kPcConsumers); };
+  if (wg == 1) turn_pass();
+
+  // Each warpgroup walks every tile of the block, so that the two take the
+  // same turns and their releases keep the rings' phases; it multiplies the
+  // first my_tiles. Step j issues S of the block's tile j + 1 and P V of
+  // tile j, and the softmax of j + 1 runs while P V of j does.
+  mbar_wait(full_q, 0);
+  mbar_wait(full_k, 0);
+  fence_proxy_async();
+  turn_wait();
+  if (my_tiles > 0) issue_s(0);
+  turn_pass();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  release(empty_k);
+  if (my_tiles > 0) {
+    softmax(t_begin);
+    rescale_and_pack();
+  }
+  auto issue_pv = [&](int st) {
+    fence_frags(ph);
+    fence_frags(pl);
+    fence_acc(o);
+    wgmma_fence();
+    const uint32_t vt = smem_addr(vs + st * kPcTileBytes);
+#pragma unroll
+    for (int ks4 = 0; ks4 < kPcKeys / 16; ++ks4) {
+      const uint64_t vd = sw128_desc_mn(vt + ks4 * 2 * kPcVGroupBytes, kPcVChunkBytes,
+                                        kPcVGroupBytes);
+      wgmma_rs_64x256_t(o, ph[ks4], vd);
+      wgmma_rs_64x256_t(o, pl[ks4], vd);
+    }
+    wgmma_commit();
+  };
+  for (int j = 0; j < tiles; ++j) {
+    const bool more = j + 1 < tiles;
+    const int st = j % kPcStages, sn = (j + 1) % kPcStages;
+    if (more) {
+      mbar_wait(full_k + sn, ((j + 1) / kPcStages) & 1);
+      fence_proxy_async();
+    }
+    turn_wait();
+    if (j + 1 < my_tiles) {                        // S of j + 1, then P V of j
+      issue_s(j + 1);
+      mbar_wait(full_v + st, (j / kPcStages) & 1);
+      fence_proxy_async();
+      issue_pv(st);
+      turn_pass();
+      wgmma_wait<1>();                             // S of j + 1; P V of j runs on
+      fence_acc(sc);
+      release(empty_k + sn);
+      softmax(t_begin + j + 1);
+      wgmma_wait<0>();
+      fence_acc(o);
+      release(empty_v + st);
+      rescale_and_pack();
+    } else if (j < my_tiles) {                     // P V of this warpgroup's last tile
+      mbar_wait(full_v + st, (j / kPcStages) & 1);
+      fence_proxy_async();
+      issue_pv(st);
+      if (wg == 0 || more) turn_pass();
+      wgmma_wait<0>();
+      fence_acc(o);
+      if (more) release(empty_k + sn);
+      release(empty_v + st);
+    } else {                                       // a tile past this warpgroup's rows
+      mbar_wait(full_v + st, (j / kPcStages) & 1);
+      if (wg == 0 || more) turn_pass();
+      if (more) release(empty_k + sn);
+      release(empty_v + st);
+    }
+  }
+
+#pragma unroll
+  for (int sh = 1; sh < 4; sh *= 2) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, sh);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, sh);
+  }
+  // rows ra (o[4 d], o[4 d + 1]) and rb (o[4 d + 2], o[4 d + 3]): output, or
+  // this split's partial
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = h ? rb : ra;
+    if (R >= nrows) continue;
+    const float m = h ? m_b : m_a, l = h ? l_b : l_a;
+    if (splits == 1) {
+      const float inv = l == 0.f ? 1.f : 1.f / l;   // no visible key: o == 0
+      uint32_t* dst = reinterpret_cast<uint32_t*>(
+          out + out_row(bi, kvh, R, g, q_len, nh) * HD + 2 * qc);
+#pragma unroll
+      for (int d = 0; d < 32; ++d)
+        dst[4 * d] = pack_bf16x2(o[4 * d + 2 * h] * inv, o[4 * d + 2 * h + 1] * inv);
+    } else {
+      const size_t w = ws_row(bi, kvh, R, split, nkv, nrows, splits);
+      float2* dst = reinterpret_cast<float2*>(ws_o + w * HD + 2 * qc);
+#pragma unroll
+      for (int d = 0; d < 32; ++d) dst[4 * d] = make_float2(o[4 * d + 2 * h], o[4 * d + 2 * h + 1]);
+      if (qc == 0) {
+        ws_ml[2 * w] = m;
+        ws_ml[2 * w + 1] = l;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the merge of the splits, in split order
 // ---------------------------------------------------------------------------
 
@@ -1107,7 +1780,7 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k_pages,
       rk_paged_decode_mma_kernel<<<dim3(splits, nkv, b), kThreads, kDecSmem256, stream>>>(
           q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
           sm_scale, window, softcap, ws_ml, ws_o, out);
-    } else {
+    } else if constexpr (HD == 128) {
       constexpr size_t bytes = dec_smem_bytes<HD>();
       err = cudaFuncSetAttribute(rk_paged_decode_kernel<HD>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1115,7 +1788,32 @@ int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k_pages,
       rk_paged_decode_kernel<HD><<<dim3(splits, nkv, b), kThreads, bytes, stream>>>(
           q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
           sm_scale, window, softcap, ws_ml, ws_o, out);
+    } else {
+      constexpr size_t bytes = narrow_smem_bytes<HD>();
+      err = cudaFuncSetAttribute(rk_paged_decode_narrow_kernel<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      rk_paged_decode_narrow_kernel<HD><<<dim3(splits, nkv, b), kThreads, bytes, stream>>>(
+          q, k_pages, v_pages, page_idx, lengths, nh, nkv, P, ps, mp, keys_per_split,
+          sm_scale, window, softcap, ws_ml, ws_o, out);
     }
+  } else if constexpr (HD == 256) {
+    const int box = chunk_box_rows(ps);
+    CUtensorMap map_k = {}, map_v = {};            // unread where no box fits
+    if (box > 0) {
+      err = bf16_panel_map(&map_k, k_pages, nkv, (long long)P * ps, (long long)P * ps, box);
+      if (err == cudaSuccess)
+        err = bf16_panel_map(&map_v, v_pages, nkv, (long long)P * ps, (long long)P * ps, box);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaFuncSetAttribute(rk_paged_chunk_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kPcSmem);
+    if (err != cudaSuccess) return (int)err;
+    const int row_tiles = (rows + kPcRows - 1) / kPcRows;
+    rk_paged_chunk_wgmma_kernel<<<dim3(splits, nkv * b, row_tiles), kPcThreads, kPcSmem,
+                                  stream>>>(
+        q, map_k, map_v, k_pages, v_pages, page_idx, lengths, q_len, nh, nkv, P, ps, mp,
+        keys_per_split, sm_scale, window, softcap, ws_ml, ws_o, out);
   } else {
     constexpr size_t bytes = ChunkShape<HD>::kSmemBytes;
     err = cudaFuncSetAttribute(rk_paged_chunk_kernel<HD>,

@@ -1,8 +1,9 @@
 """Rank fusion and diversity selection.
 
-Counterpart of ``ragmeup_tpu/ops/fusion.py``. ``rrf_fuse`` and
-``mmr_select`` are the host versions over small candidate lists (copied,
-because the JAX package's ``ops`` cannot be imported without jax);
+Counterpart of ``ragmeup_tpu/ops/fusion.py``. ``rrf_fuse``,
+``weighted_score_fuse`` and ``mmr_select`` are the host versions over
+small candidate lists (copied, because the JAX package's ``ops`` cannot
+be imported without jax);
 ``rrf_fuse_device`` and ``mmr_select_device`` run the same selection on
 tensors, with the same tie rules: RRF ranks by (score, first appearance),
 MMR's argmax takes the lowest index.
@@ -35,6 +36,33 @@ def rrf_fuse(ranked_lists: Sequence[Sequence], weights: Sequence[float],
                 first_seen[doc_id] = seq
                 seq += 1
     order = sorted(scores.items(), key=lambda kv: (-kv[1], first_seen[kv[0]]))
+    return order[:k]
+
+
+def weighted_score_fuse(score_maps: Sequence[Dict[object, float]],
+                        weights: Sequence[float],
+                        k: int = 10) -> List[Tuple[object, float]]:
+    """Alternative fusion: min-max normalize each retriever's scores, then
+    weighted sum. Useful when both retrievers emit calibrated scores.
+
+    Each map is normalized in f64 (a range of 1.0 where all its scores are
+    equal; empty maps are skipped); returns up to k (id, fused_score)
+    pairs, fused desc, ties broken by the order ids first appeared."""
+    fused: Dict[object, float] = {}
+    first_seen: Dict[object, int] = {}
+    seq = 0
+    for smap, w in zip(score_maps, weights):
+        if not smap:
+            continue
+        vals = np.array(list(smap.values()), dtype=np.float64)
+        lo, hi = vals.min(), vals.max()
+        rng = (hi - lo) if hi > lo else 1.0
+        for doc_id, s in smap.items():
+            fused[doc_id] = fused.get(doc_id, 0.0) + w * (s - lo) / rng
+            if doc_id not in first_seen:
+                first_seen[doc_id] = seq
+                seq += 1
+    order = sorted(fused.items(), key=lambda kv: (-kv[1], first_seen[kv[0]]))
     return order[:k]
 
 

@@ -52,19 +52,35 @@ KERNEL_HEAD_DIMS = (64, 96, 128, 256)  # the head dims csrc/paged_attention.cu i
 SPLIT_KEYS = 64            # csrc/paged_attention.cu: keys per tile, the split unit
 DECODE_MAX_G = 8           # query heads per kv head the decode kernel takes
 CHUNK_ROWS = 64            # query rows per block of the chunk kernel
+# the chunk kernel at hd 256 (rk_paged_chunk_wgmma_kernel) takes 128 rows a
+# block, two warpgroups of 64
+_CHUNK_ROWS = {256: 128}
 # the decode kernel at hd 256 (rk_paged_decode_mma_kernel) walks 32-key tiles
 _DECODE_SPLIT_KEYS = {256: 32}
-# blocks an SM the split plan aims at: decode blocks are light (three fit an
-# SM at hd 64-128, two at 256) and end early on short sequences; a chunk
-# block fills half an SM. At hd 256 a sweep of 2-16 (tools/attention_times.py
-# --sweep, Gemma-2-9B's and Gemma-7B's decode on an H100) found 4 best too.
-_DECODE_BLOCKS_PER_SM = 4
+# blocks an SM the split plan aims at: decode blocks are light and end early
+# on short sequences; a chunk block fills an SM at hd 256 (half of one
+# below). Sweeps of 2-16 (tools/attention_times.py --sweep on an H100) found
+# 4 best at hd 128 and 256 (Gemma-2-9B's and Gemma-7B's decode), 6 at hd 96
+# (Phi-3-mini's 32 kv heads) and 3 at hd 64 (Qwen2.5-0.5B's 2); the chunk's
+# sweep of 1-4 found 1 best at hd 256 (each split writes 1 KB of f32 a row
+# for the combine kernel to read).
+_DECODE_BLOCKS_PER_SM = {64: 3, 96: 6}     # per head dim; 4 at the others
 _CHUNK_BLOCKS_PER_SM = 1
 
 
 def split_unit(hd: int, decode: bool = True) -> int:
     """Keys per tile of the kernel a plan cuts for: a split is whole tiles."""
     return _DECODE_SPLIT_KEYS.get(hd, SPLIT_KEYS) if decode else SPLIT_KEYS
+
+
+def decode_blocks_per_sm(hd: int) -> int:
+    """Decode blocks an SM the split plan aims at, at this head dim."""
+    return _DECODE_BLOCKS_PER_SM.get(hd, 4)
+
+
+def chunk_rows(hd: int) -> int:
+    """Query rows a block of the chunk kernel takes at this head dim."""
+    return _CHUNK_ROWS.get(hd, CHUNK_ROWS)
 
 
 class PagedKVCache:
@@ -354,8 +370,8 @@ def paged_split_plan(mp: int, ps: int, b: int, nkv: int, sm_count: int,
     key tiles (``split_unit``: 64 keys, 32 for decode at hd 256).
 
     ``row_tiles`` None plans the decode kernel (one block per sequence, kv
-    head and split); a number plans the chunk kernel with that many 64-row
-    tiles per (sequence, kv head). Reads the page table's width and the
+    head and split); a number plans the chunk kernel with that many row
+    tiles (``chunk_rows``: 64 rows, 128 at hd 256) per (sequence, kv head). Reads the page table's width and the
     head dim, never the lengths: the splits cover every key below
     ``mp * ps``, and a split past a sequence's length ends at once. As few
     splits as give the blocks the kernel aims at on every SM, at most one
@@ -364,7 +380,7 @@ def paged_split_plan(mp: int, ps: int, b: int, nkv: int, sm_count: int,
     decode = row_tiles is None
     unit = split_unit(hd, decode)
     tiles = -(-(mp * ps) // unit)
-    per_sm = _DECODE_BLOCKS_PER_SM if decode else _CHUNK_BLOCKS_PER_SM
+    per_sm = decode_blocks_per_sm(hd) if decode else _CHUNK_BLOCKS_PER_SM
     base = b * nkv * (row_tiles or 1)
     splits = min(tiles, max(1, -(-per_sm * sm_count // base)))
     return -(-tiles // splits) * unit
@@ -384,7 +400,8 @@ def kernel_split(b: int, q_len: int, nh: int, nkv: int, ps: int, mp: int,
     g = nh // nkv
     if q_len == 1 and g <= DECODE_MAX_G:
         return paged_split_plan(mp, ps, b, nkv, sm_count, hd=hd)
-    return paged_split_plan(mp, ps, b, nkv, sm_count, -(-(q_len * g) // CHUNK_ROWS), hd=hd)
+    return paged_split_plan(mp, ps, b, nkv, sm_count, -(-(q_len * g) // chunk_rows(hd)),
+                            hd=hd)
 
 
 def _paged_cuda(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

@@ -21,14 +21,24 @@ rounds after warm-up rounds until two agree within 5 %):
 - ``decode``: ``paged_attention`` (#9, q_len 1) over 128-token pages with
   16-page tables, 8 sequences of [1, 2048, 777, 128, 129, 1500, 64, 1024]
   tokens, at Gemma-2-9B's heads (16/8, hd 256, softcap 50, scale 1/16),
-  Gemma-7B's (16/16, hd 256) and the 8B's (32/8, hd 128): ``graph_ms``,
+  Gemma-7B's (16/16, hd 256), the 8B's (32/8, hd 128), Phi-3-mini's
+  (32/32, hd 96) and Qwen2.5-0.5B's (14/2, hd 64): ``graph_ms``,
   ``splits``, ``bound_ms``, the error against the plain version and
   ``replays_equal`` (one call captured in a graph and replayed twice: the
   outputs equal bit for bit);
 - ``chunk``: ``paged_attention_chunk`` at Gemma-2-9B's heads, a 128-token
-  chunk for 4 sequences after 0 to 1920 tokens;
-- with ``--sweep``: the hd-256 decode rows again for each decode target of
-  blocks an SM the split plan may aim at (``sweep``).
+  chunk for 4 sequences after 0 to 1920 tokens (``Gemma-2-9B``) and the
+  spec waves' 8-token chunk for 4 sequences after 300 to 2040 tokens
+  (``Gemma-2-9B q8``), each with ``replays_equal``;
+- with ``--sweep``: the hd-256, hd-96 and hd-64 decode rows again for each
+  decode target of blocks an SM the split plan may aim at (``sweep``), and
+  the two chunk rows for each chunk target (``chunk_sweep``);
+- with ``--stream``: ``stream_graph_ms``, a stream-only copy of the hd-64-128
+  decode kernel's loads (its grid, split plan, 64-key tiles through a
+  cp.async ring of rows padded by 16 bytes, one barrier a tile, no
+  arithmetic) at the hd-96 and hd-64 decode rows, with two stages (the
+  rk_paged_decode_kernel ring) and three (the rk_paged_decode_narrow_kernel
+  ring): how fast the loads alone run.
 
 To compare a parent commit on one card, unpack ``git archive <parent>`` into
 ``build/parent`` and run the tool in one command in the order parent,
@@ -52,8 +62,113 @@ FLASH = (("Gemma-7B", 256, 16, 16), ("Gemma-2-9B", 256, 16, 8), ("Gemma-2B", 256
          ("8B", 128, 32, 8))
 GEMMA2 = {"softcap": 50.0, "sm_scale": 1 / 16}
 DECODE = (("Gemma-2-9B", 256, 16, 8, GEMMA2), ("Gemma-7B", 256, 16, 16, {}),
-          ("8B", 128, 32, 8, {}))
+          ("8B", 128, 32, 8, {}), ("Phi-3-mini", 96, 32, 32, {}),
+          ("Qwen2.5-0.5B", 64, 14, 2, {}))
+SPEC_PREFIXES = (300, 777, 1500, 2040)
+
+STREAM_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+// The hd-64-128 decode kernel's loads alone: grid (split, kv head,
+// sequence), 128 threads, 64-key K and V tiles of a 128-token-page pool
+// through a STAGES-deep cp.async ring of rows padded by 16 bytes, keys
+// outside the split's [a, e) zero-filled, one barrier a tile.
+template <int HD, int STAGES>
+__global__ void __launch_bounds__(128) stream_decode(const uint16_t* __restrict__ k_pages,
+    const uint16_t* __restrict__ v_pages, const int* __restrict__ page_idx,
+    const int* __restrict__ lengths, int P, int ps, int mp, int kps, int* __restrict__ sink) {
+  constexpr int kLd = HD + 8, kSeg = HD / 8, kTile = 64 * kLd;
+  extern __shared__ __align__(16) uint16_t ring[];
+  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const int length = lengths[bi];
+  const int* table = page_idx + (size_t)bi * mp;
+  const int a = split * kps, e = min(min(a + kps, mp * ps), length);
+  if (a >= e) return;
+  const size_t plane = (size_t)kvh * P * ps * HD;
+  const int t0 = a / 64, t1 = (e + 63) / 64;
+  auto load = [&](int t) {
+    if (t < t1) {
+      uint16_t* kd = ring + ((t - t0) % STAGES) * 2 * kTile;
+      const int key0 = t * 64, base = table[key0 / ps] * ps + key0 % ps;
+      for (int i = tid; i < 64 * kSeg; i += 128) {
+        const int c = i / kSeg, seg = i % kSeg, key = key0 + c;
+        const bool ok = key >= a && key < e;
+        const size_t off = plane + (size_t)(ok ? base + c : 0) * HD + seg * 8;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                     "r"((uint32_t)__cvta_generic_to_shared(kd + c * kLd + seg * 8)),
+                     "l"(k_pages + off), "r"(ok ? 16 : 0) : "memory");
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                     "r"((uint32_t)__cvta_generic_to_shared(kd + kTile + c * kLd + seg * 8)),
+                     "l"(v_pages + off), "r"(ok ? 16 : 0) : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int i = 0; i < STAGES - 1; ++i) load(t0 + i);
+  int acc = 0;
+  for (int t = t0; t < t1; ++t) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
+    __syncthreads();
+    load(t + STAGES - 1);
+    acc ^= ring[((t - t0) % STAGES) * 2 * kTile + tid];
+  }
+  if (acc == 0x7fffffff) sink[tid] = acc;
+}
+template <int HD, int STAGES>
+int launch(const void* k, const void* v, const int* idx, const int* lens, int b, int nkv, int P,
+           int ps, int mp, int kps, int* sink, void* stream) {
+  const int smem = STAGES * 2 * 64 * (HD + 8) * 2;
+  cudaFuncSetAttribute(stream_decode<HD, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  const int splits = (mp * ps + kps - 1) / kps;
+  stream_decode<HD, STAGES><<<dim3(splits, nkv, b), 128, smem, (cudaStream_t)stream>>>(
+      (const uint16_t*)k, (const uint16_t*)v, idx, lens, P, ps, mp, kps, sink);
+  return (int)cudaGetLastError();
+}
+extern "C" int stream_decode_launch(const void* k, const void* v, const int* idx,
+                                    const int* lens, int b, int nkv, int P, int ps, int mp,
+                                    int hd, int stages, int kps, int* sink, void* stream) {
+  if (hd == 96) return stages == 2 ? launch<96, 2>(k, v, idx, lens, b, nkv, P, ps, mp, kps, sink, stream)
+                                   : launch<96, 3>(k, v, idx, lens, b, nkv, P, ps, mp, kps, sink, stream);
+  return stages == 2 ? launch<64, 2>(k, v, idx, lens, b, nkv, P, ps, mp, kps, sink, stream)
+                     : launch<64, 3>(k, v, idx, lens, b, nkv, P, ps, mp, kps, sink, stream);
+}
+"""
 SWEEP = (2, 3, 4, 6, 8, 12, 16)
+CHUNK_SWEEP = (1, 2, 3, 4)
+
+
+def stream_times(pa, decode_inputs) -> dict:
+    """The decode loads alone (STREAM_SOURCE) at the hd-96 and hd-64 decode
+    rows, under the split plan of the tree timed, two and three stages."""
+    import ctypes
+    import torch
+    from ragmeup_tpu_torch import kernels
+    out_dir = os.path.join(os.path.dirname(kernels.library_path()), "paged_stream")
+    os.makedirs(out_dir, exist_ok=True)
+    src, so = os.path.join(out_dir, "paged_stream.cu"), os.path.join(out_dir, "libstream.so")
+    with open(src, "w") as f:
+        f.write(STREAM_SOURCE)
+    subprocess.run([kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", so, src], check=True)
+    lib = ctypes.CDLL(so)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.stream_decode_launch.argtypes = [vp, vp, vp, vp] + [i32] * 8 + [vp, vp]
+    sink = torch.zeros(128, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, hd, nh, nkv, _ in DECODE:
+        if hd not in (64, 96):
+            continue
+        _, k, v, idx, lens = decode_inputs[label]
+        b, mp = idx.shape
+        P, ps = k.shape[1], k.shape[2]
+        kps = pa.kernel_split(b, 1, nh, nkv, ps, mp, torch.bfloat16, sms, hd)
+        for stages in (2, 3):
+            out[f"{label} stages={stages}"] = graph_ms(lambda: lib.stream_decode_launch(
+                k.data_ptr(), v.data_ptr(), idx.data_ptr(), lens.data_ptr(), b, nkv, P, ps, mp,
+                hd, stages, kps, sink.data_ptr(), torch.cuda.current_stream().cuda_stream))
+    return out
 
 
 def graph_ms(fn, reps: int = 10, rounds: int = 5, warm_rounds: int = 10) -> float:
@@ -149,18 +264,17 @@ def paged_row(pa, inputs, hd, nh, nkv, kw, chunk=False) -> dict:
            "bound_ms": bound_ms(2 * sum(lengths) * nkv * hd * 2 + 2 * 2 * q.numel()
                                 + 4 * (idx.numel() + lens.numel()), 4 * pairs * nh * hd),
            "max_abs_err": err}
-    if not chunk:
-        out = torch.empty_like(q)
-        graph = torch.cuda.CUDAGraph()
-        fn(q, k, v, idx, lens, **kw)
-        torch.cuda.synchronize()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            out.copy_(fn(q, k, v, idx, lens, **kw))
-        graph.replay()
-        first = out.clone()
-        graph.replay()
-        torch.cuda.synchronize()
-        row["replays_equal"] = bool(torch.equal(first, out))
+    out = torch.empty_like(q)
+    graph = torch.cuda.CUDAGraph()
+    fn(q, k, v, idx, lens, **kw)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out.copy_(fn(q, k, v, idx, lens, **kw))
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    row["replays_equal"] = bool(torch.equal(first, out))
     return row
 
 
@@ -169,7 +283,9 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), help="checkout whose ragmeup_tpu_torch is timed")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time hd-256 decode at each plan target")
+                    help="also time hd-256, hd-96 and hd-64 decode at each plan target")
+    ap.add_argument("--stream", action="store_true",
+                    help="also time the hd-96 and hd-64 decode loads alone")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -198,18 +314,34 @@ def main() -> int:
         decode_inputs[label] = paged_inputs(gen, 8, LENGTHS, 1, nh, nkv, hd)
         result["decode"][label] = paged_row(pa, decode_inputs[label], hd, nh, nkv, kw)
     chunk_in = paged_inputs(gen, 4, [p + 128 for p in (0, 640, 1333, 1920)], 128, 16, 8, 256)
-    result["chunk"] = {"Gemma-2-9B": paged_row(pa, chunk_in, 256, 16, 8, GEMMA2, chunk=True)}
+    spec_in = paged_inputs(gen, 4, [p + 8 for p in SPEC_PREFIXES], 8, 16, 8, 256)
+    result["chunk"] = {"Gemma-2-9B": paged_row(pa, chunk_in, 256, 16, 8, GEMMA2, chunk=True),
+                       "Gemma-2-9B q8": paged_row(pa, spec_in, 256, 16, 8, GEMMA2, chunk=True)}
     if args.sweep:
         result["sweep"] = {}
         held = pa._DECODE_BLOCKS_PER_SM
         try:
             for target in SWEEP:
-                pa._DECODE_BLOCKS_PER_SM = target
+                # a tree whose target is one number, or one a head dim
+                pa._DECODE_BLOCKS_PER_SM = (target if isinstance(held, int)
+                                            else {hd: target for hd in pa.KERNEL_HEAD_DIMS})
                 result["sweep"][target] = {
                     label: paged_row(pa, decode_inputs[label], hd, nh, nkv, kw)
-                    for label, hd, nh, nkv, kw in DECODE if hd == 256}
+                    for label, hd, nh, nkv, kw in DECODE if hd != 128}
         finally:
             pa._DECODE_BLOCKS_PER_SM = held
+        result["chunk_sweep"] = {}
+        held = pa._CHUNK_BLOCKS_PER_SM
+        try:
+            for target in CHUNK_SWEEP:
+                pa._CHUNK_BLOCKS_PER_SM = target
+                result["chunk_sweep"][target] = {
+                    label: paged_row(pa, inputs, 256, 16, 8, GEMMA2, chunk=True)
+                    for label, inputs in (("Gemma-2-9B", chunk_in), ("Gemma-2-9B q8", spec_in))}
+        finally:
+            pa._CHUNK_BLOCKS_PER_SM = held
+    if args.stream:
+        result["stream_graph_ms"] = stream_times(pa, decode_inputs)
     result["ptxas"] = ptxas
     print(json.dumps(result), flush=True)
     return 0

@@ -300,10 +300,12 @@ def sweep_paged(gen, sms: int) -> dict:
              "chunk b=4": (4, [128, 768, 1461, 2048], 128), "chunk b=1": (1, [2048], 128)}
     inputs = {label: pool(*case) for label, case in cases.items()}
     default = (pa._DECODE_BLOCKS_PER_SM, pa._CHUNK_BLOCKS_PER_SM)
-    out = {"kernel": "paged_attention", "default_targets": default}
+    out = {"kernel": "paged_attention",
+           "default_targets": (pa.decode_blocks_per_sm(128), pa._CHUNK_BLOCKS_PER_SM)}
     try:
         for target in TARGETS:
-            pa._DECODE_BLOCKS_PER_SM = pa._CHUNK_BLOCKS_PER_SM = target
+            pa._DECODE_BLOCKS_PER_SM = {hd: target for hd in pa.KERNEL_HEAD_DIMS}
+            pa._CHUNK_BLOCKS_PER_SM = target
             row = {}
             for label, (q, k, v, idx, lens) in inputs.items():
                 fn = pa.paged_attention if label.startswith("decode") else pa.paged_attention_chunk

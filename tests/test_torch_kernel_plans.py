@@ -194,7 +194,11 @@ PAGED_PLANS = {**{f"8B decode b={b}": (16, 128, b, 8, None, 128) for b in (1, 4,
                "hd=256 16-token pages": (128, 16, 8, 8, None, 256),
                "hd=256 tiny decode": (3, 16, 2, 2, None, 256),
                "hd=256 one page": (1, 16, 1, 1, None, 256),
-               "hd=256 chunk b=4": (16, 128, 4, 8, 2, 256)}
+               "hd=256 chunk b=4": (16, 128, 4, 8, 2, 256),
+               "hd=256 chunk q_len=8 b=4": (16, 128, 4, 8, 1, 256),
+               "hd=96 decode b=8": (16, 128, 8, 32, None, 96),
+               "hd=64 decode b=8": (16, 128, 8, 2, None, 64),
+               "hd=96 16-token pages": (128, 16, 8, 32, None, 96)}
 
 
 @pytest.mark.parametrize("sms", [1, H100_SMS, 10_000])
@@ -215,7 +219,7 @@ def test_paged_split_plan_covers_every_key_once(case, sms):
     assert all(k0 < k1 for k0, k1 in ranges)
     # the fewest splits that give the blocks it aims at on every SM (at most
     # one a tile), cut evenly into whole tiles (which may round to fewer)
-    per_sm = tpa._DECODE_BLOCKS_PER_SM if row_tiles is None else tpa._CHUNK_BLOCKS_PER_SM
+    per_sm = tpa.decode_blocks_per_sm(hd) if row_tiles is None else tpa._CHUNK_BLOCKS_PER_SM
     base = b * nkv * (row_tiles or 1)
     wanted = next(w for w in range(1, tiles + 1) if base * w >= per_sm * sms or w == tiles)
     assert kps // unit == -(-tiles // wanted) and splits <= wanted
@@ -381,19 +385,23 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _decode_hd256_model(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0.0,
-                        sm_scale=None):
-    """csrc/paged_attention.cu's hd-256 decode kernel (rk_paged_decode_mma_kernel)
-    in f32: each split walks its 32-key tiles from the one holding its first
-    visible key; a tile's two 16-key halves keep their own running max m
-    (log2 domain), sum l and o over the split, p entering P V as a bf16 high
-    part plus the bf16 of the rest; the halves merge at the split's end
-    (m = max, each scaled by exp2(m_h - m)), then the combine kernel merges
-    the splits in split order. q (b, nh, hd) -> (b, nh, hd)."""
+def _decode_mma_model(q, k_pages, v_pages, idx, lens, kps, tile, parts, window=0,
+                      softcap=0.0, sm_scale=None):
+    """csrc/paged_attention.cu's tensor-core decode kernels in f32: each split
+    walks its `tile`-key tiles from the one holding its first visible key;
+    the `parts` key slices of a tile (one a warp, or a warp pair) keep their
+    own running max m (log2 domain), sum l and o over the split, p entering
+    P V as a bf16 high part plus the bf16 of the rest; the slices merge at
+    the split's end in order (m = max, each scaled by exp2(m_w - m)), then
+    the combine kernel merges the splits in split order. The hd-256 kernel
+    (rk_paged_decode_mma_kernel) is tile 32, parts 2; the hd-64/96 kernel
+    (rk_paged_decode_narrow_kernel) tile 64, parts 4. q (b, nh, hd) ->
+    (b, nh, hd)."""
     b, nh, hd = q.shape
     nkv, _, ps, _ = k_pages.shape
     g = nh // nkv
     keys = idx.shape[1] * ps
+    width = tile // parts
     kk = k_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
     vv = v_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
     sc = torch.einsum("bngd,nbtd->bngt", q.reshape(b, nkv, g, hd).float(), kk)
@@ -403,18 +411,18 @@ def _decode_hd256_model(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0
     sc = sc * np.log2(np.e)
     lo = (lens.long() - window).clamp(min=0) if window else torch.zeros(b, dtype=torch.long)
     pos = torch.arange(keys)
-    parts = []
+    out_parts = []
     for k0 in range(0, keys, kps):
         a = torch.maximum(torch.full((b,), k0), lo)
         e = torch.minimum(torch.full((b,), min(k0 + kps, keys)), lens.long())
-        halves = []
-        for kh in (0, 1):
+        slices = []
+        for w in range(parts):
             m = torch.full((b, nkv, g), -torch.inf)
             l = torch.zeros(b, nkv, g)
             o = torch.zeros(b, nkv, g, hd)
-            for t in range(k0 // 32, -(-min(k0 + kps, keys) // 32)):
-                cols = pos[32 * t + 16 * kh:32 * t + 16 * kh + 16]
-                seen = (cols[None] >= a[:, None]) & (cols[None] < e[:, None])   # (b, 16)
+            for t in range(k0 // tile, -(-min(k0 + kps, keys) // tile)):
+                cols = pos[tile * t + width * w:tile * t + width * (w + 1)]
+                seen = (cols[None] >= a[:, None]) & (cols[None] < e[:, None])   # (b, width)
                 x = torch.where(seen[:, None, None], sc[..., cols], -torch.inf)
                 mn = torch.maximum(m, x.amax(-1))
                 mu = torch.where(mn == -torch.inf, 0.0, mn)
@@ -425,13 +433,72 @@ def _decode_hd256_model(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0
                 hi = _bf16(p)
                 o = o * alpha[..., None] + torch.einsum(
                     "bngt,nbtd->bngd", hi + _bf16(p - hi), vv[:, :, cols])
-            halves.append((m, l, o))
-        (m0, l0, o0), (m1, l1, o1) = halves
-        m = torch.maximum(m0, m1)
+            slices.append((m, l, o))
+        m = torch.stack([m for m, _, _ in slices]).amax(0)
         mu = torch.where(m == -torch.inf, 0.0, m)
-        f0, f1 = torch.exp2(m0 - mu), torch.exp2(m1 - mu)
-        parts.append((torch.where((a < e)[:, None, None], m, -torch.inf), l0 * f0 + l1 * f1,
-                      o0 * f0[..., None] + o1 * f1[..., None]))
+        l = torch.zeros_like(slices[0][1])
+        o = torch.zeros_like(slices[0][2])
+        for m_w, l_w, o_w in slices:
+            f = torch.exp2(m_w - mu)
+            l = l + l_w * f
+            o = o + o_w * f[..., None]
+        out_parts.append((torch.where((a < e)[:, None, None], m, -torch.inf), l, o))
+    mx = torch.stack([m for m, _, _ in out_parts]).amax(0)
+    lsum = torch.zeros_like(out_parts[0][1])
+    osum = torch.zeros_like(out_parts[0][2])
+    for m, l, o in out_parts:
+        f = torch.where(m == -torch.inf, 0.0, torch.exp2(m - torch.where(mx == -torch.inf, 0.0,
+                                                                         mx)))
+        lsum = lsum + l * f
+        osum = osum + o * f[..., None]
+    out = torch.where(lsum[..., None] == 0, 0.0,
+                      osum / torch.where(lsum == 0, 1.0, lsum)[..., None])
+    return out.reshape(b, nh, hd)
+
+
+def _chunk_wgmma_model(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0.0,
+                       sm_scale=None):
+    """csrc/paged_attention.cu's hd-256 chunk kernel (rk_paged_chunk_wgmma_kernel)
+    in f32: each split walks its 64-key tiles; every row keeps its running
+    max m (log2 domain), sum l and o over the split, masked to its own keys
+    (a tile wholly masked for a row leaves it as it was: alpha 1, p 0), p
+    entering P V as a bf16 high part plus the bf16 of the rest; the combine
+    kernel merges the splits in split order. q (b, s, nh, hd)."""
+    b, s, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    g = nh // nkv
+    keys = idx.shape[1] * ps
+    kk = k_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
+    vv = v_pages[:, idx.long()].reshape(nkv, b, keys, hd).float()
+    sc = torch.einsum("bsngd,nbtd->bngst", q.reshape(b, s, nkv, g, hd).float(), kk)
+    sc = sc * (sm_scale if sm_scale is not None else 1 / np.sqrt(hd))
+    if softcap:
+        sc = torch.tanh(sc / softcap) * softcap
+    sc = sc * np.log2(np.e)
+    lim = lens.long()[:, None] - s + 1 + torch.arange(s)[None]            # (b, s)
+    pos = torch.arange(keys)
+    seen = pos[None, None] < lim[:, :, None]
+    if window:
+        seen = seen & (pos[None, None] >= lim[:, :, None] - window)
+    seen = seen[:, None, None]                                            # (b,1,1,s,T)
+    parts = []
+    for k0 in range(0, keys, kps):
+        m = torch.full((b, nkv, g, s), -torch.inf)
+        l = torch.zeros(b, nkv, g, s)
+        o = torch.zeros(b, nkv, g, s, hd)
+        for t0 in range(k0, min(k0 + kps, keys), 64):
+            cols = pos[t0:min(t0 + 64, keys)]
+            x = torch.where(seen[..., cols], sc[..., cols], -torch.inf)
+            mn = torch.maximum(m, x.amax(-1))
+            mu = torch.where(mn == -torch.inf, 0.0, mn)
+            alpha = torch.exp2(m - mu)
+            m = mn
+            p = torch.exp2(x - mu[..., None])
+            l = l * alpha + p.sum(-1)
+            hi = _bf16(p)
+            o = o * alpha[..., None] + torch.einsum("bngst,nbtd->bngsd", hi + _bf16(p - hi),
+                                                    vv[:, :, cols])
+        parts.append((m, l, o))
     mx = torch.stack([m for m, _, _ in parts]).amax(0)
     lsum = torch.zeros_like(parts[0][1])
     osum = torch.zeros_like(parts[0][2])
@@ -442,7 +509,7 @@ def _decode_hd256_model(q, k_pages, v_pages, idx, lens, kps, window=0, softcap=0
         osum = osum + o * f[..., None]
     out = torch.where(lsum[..., None] == 0, 0.0,
                       osum / torch.where(lsum == 0, 1.0, lsum)[..., None])
-    return out.reshape(b, nh, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, nh, hd)
 
 
 # (kv heads, group, page size): Gemma-2-9B's 16/8 and Gemma-7B's 16/16 at
@@ -455,7 +522,7 @@ DECODE_HD256 = {"g=2 ps=128": (1, 2, 128), "g=1 ps=128": (2, 1, 128),
 def test_decode_hd256_model_under_its_plan_matches_plain_and_jax(case):
     """#9's hd-256 decode under the hd-256 plan (32-key splits; 3 SMs, so
     the keys split) with window 20, softcap 2.5 and scale 1/16: the kernel's
-    model (_decode_hd256_model) and the split emulation (_split_merge_plain)
+    model (_decode_mma_model, 32-key tiles in two halves) and the split emulation (_split_merge_plain)
     against the plain version and the JAX kernel (interpret mode). Inputs
     are bf16 values, as the kernel's pool holds. The emulation keeps p in
     f32 (1e-5); the model carries it as two bf16 parts, each p to 2^-17 of
@@ -477,10 +544,94 @@ def test_decode_hd256_model_under_its_plan_matches_plain_and_jax(case):
     split = _split_merge_plain(tq, tk, tv, ti, tl, kps, **kw)[:, 0]
     np.testing.assert_allclose(split.numpy(), plain.numpy(), atol=1e-5)
     np.testing.assert_allclose(split.numpy(), kern, atol=1e-5)
-    model = _decode_hd256_model(tq[:, 0], tk, tv, ti, tl, kps, **kw)
+    model = _decode_mma_model(tq[:, 0], tk, tv, ti, tl, kps, 32, 2, **kw)
     tol = 2.0 ** -16 * np.abs(v).max()
     np.testing.assert_allclose(model.numpy(), plain.numpy(), atol=tol, rtol=0)
     np.testing.assert_allclose(model.numpy(), kern, atol=tol, rtol=0)
+
+
+# (hd, kv heads, group): the hd-64/96 decode kernel at g 1 (Phi-3-mini), 2
+# and 7 (Qwen2.5-0.5B)
+DECODE_NARROW = {f"hd={hd} g={g}": (hd, nkv, g) for hd in (64, 96)
+                 for g, nkv in ((1, 2), (2, 2), (7, 1))}
+
+
+@pytest.mark.parametrize("case", list(DECODE_NARROW))
+def test_decode_narrow_model_under_its_plan_matches_plain_and_jax(case):
+    """#9's hd-64/96 decode (rk_paged_decode_narrow_kernel) under its plan
+    (64-key splits; 3 SMs, so the keys split) with window 20, softcap 2.5
+    and scale 1/16: the kernel's model (_decode_mma_model, 64-key tiles in
+    four 16-key quarters) against the plain version, the JAX kernel
+    (interpret mode) and paged_attention_ref, within 2^-16 of the largest
+    |v| (p as two bf16 parts). Inputs are bf16 values."""
+    hd, nkv, g = DECODE_NARROW[case]
+    lengths, b, ps, mp = (37, 128, 1, 90), 4, 16, 8
+    kw = dict(window=20, softcap=2.5, sm_scale=1 / 16)
+    rng = np.random.default_rng(hd + g)
+    k, v, idx, lens = _paged_pool(rng, b, nkv, hd, ps, b * mp + 3, lengths, mp)
+    q = rng.standard_normal((b, nkv * g, hd)).astype(np.float32)
+    q, k, v = (_bf16(torch.from_numpy(a)).numpy() for a in (q, k, v))
+    kps = tpa.kernel_split(b, 1, nkv * g, nkv, ps, mp, torch.bfloat16, 3, hd)
+    assert tpa.split_unit(hd) == 64 and kps % 64 == 0 and tpa.paged_splits(mp, ps, kps) > 1
+    tq, tk, tv, ti, tl = (torch.from_numpy(a) for a in (q, k, v, idx, lens))
+    model = _decode_mma_model(tq, tk, tv, ti, tl, kps, 64, 4, **kw)
+    args = [jnp.asarray(a) for a in (q, k, v, idx, lens)]
+    tol = 2.0 ** -16 * np.abs(v).max()
+    for want in (tpa.paged_attention_plain(tq, tk, tv, ti, tl, **kw).numpy(),
+                 np.asarray(jpa.paged_attention(*args, interpret=True, **kw)),
+                 np.asarray(jpa.paged_attention_ref(*args, **kw))):
+        np.testing.assert_allclose(model.numpy(), want, atol=tol, rtol=0)
+
+
+# (kv heads, group, q_len) at hd 256: 128-row blocks of one or two
+# warpgroups' 64-row slices; the spec waves' 8-token chunk; q_len 1 (at g 16
+# the wrappers send decode rows here)
+CHUNK_WGMMA = {f"g={g} q_len={q_len}": (3 - g, g, q_len) for g in (1, 2)
+               for q_len in (1, 8, 128 // g)}
+CHUNK_WGMMA["g=16 q_len=1"] = (1, 16, 1)
+
+
+@pytest.mark.parametrize("case", list(CHUNK_WGMMA))
+def test_chunk_wgmma_model_under_its_plan_matches_plain_and_jax(case):
+    """#9's hd-256 chunk kernel (rk_paged_chunk_wgmma_kernel) under the
+    chunk plan (128-row blocks, 64-key splits; 64 SMs, so the keys split)
+    with window 20, softcap 2.5 and scale 1/16: the kernel's model
+    (_chunk_wgmma_model) against the plain version, paged_attention_chunk_ref
+    and, for chunks of up to 8 tokens, the JAX kernel in interpret mode;
+    within 2^-16 of the largest |v| (p as two bf16 parts)."""
+    nkv, g, q_len = CHUNK_WGMMA[case]
+    b, ps, mp, hd = 4, 16, 16, 256
+    lengths = [q_len + extra for extra in (0, 72, 256 - q_len, 3)]
+    kw = dict(window=20, softcap=2.5, sm_scale=1 / 16)
+    rng = np.random.default_rng(g + q_len)
+    k, v, idx, lens = _paged_pool(rng, b, nkv, hd, ps, b * mp + 3, lengths, mp)
+    q = rng.standard_normal((b, q_len, nkv * g, hd)).astype(np.float32)
+    q, k, v = (_bf16(torch.from_numpy(a)).numpy() for a in (q, k, v))
+    rows = -(-(q_len * g) // tpa.chunk_rows(hd))
+    kps = tpa.paged_split_plan(mp, ps, b, nkv, 64, rows, hd=hd)
+    assert tpa.chunk_rows(hd) == 128 and kps % 64 == 0 and tpa.paged_splits(mp, ps, kps) > 1
+    tq, tk, tv, ti, tl = (torch.from_numpy(a) for a in (q, k, v, idx, lens))
+    model = _chunk_wgmma_model(tq, tk, tv, ti, tl, kps, **kw)
+    args = [jnp.asarray(a) for a in (q, k, v, idx, lens)]
+    wants = [tpa.paged_attention_chunk_plain(tq, tk, tv, ti, tl, **kw).numpy(),
+             np.asarray(jpa.paged_attention_chunk_ref(*args, **kw))]
+    if q_len <= 8:
+        wants.append(np.asarray(jpa.paged_attention_chunk(*args, interpret=True, **kw)))
+    tol = 2.0 ** -16 * np.abs(v).max()
+    for want in wants:
+        np.testing.assert_allclose(model.numpy(), want.reshape(model.shape), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_chunk_plan_counts_the_kernels_row_blocks(hd):
+    """kernel_split plans the chunk kernel with the blocks it launches: 64
+    rows a block, 128 at hd 256 (two warpgroups), for chunks and for decode
+    rows past DECODE_MAX_G."""
+    for b, q_len, nh, nkv in ((4, 128, 16, 8), (4, 8, 16, 8), (8, 1, 16, 1), (1, 100, 28, 4)):
+        rows = -(-(q_len * (nh // nkv)) // (128 if hd == 256 else 64))
+        for sms in (1, H100_SMS):
+            assert tpa.kernel_split(b, q_len, nh, nkv, 128, 16, torch.bfloat16, sms, hd) == \
+                tpa.paged_split_plan(16, 128, b, nkv, sms, rows, hd=hd)
 
 
 def test_paged_split_plan_at_the_families_serving_shapes():
@@ -488,7 +639,11 @@ def test_paged_split_plan_at_the_families_serving_shapes():
     SMs: decode at 8 rows and chunk (128 tokens) at 4; the g = 7 chunk has
     14 row tiles of 64 (896 rows). Gemma's hd-256 decode cuts 32-key
     tiles: Gemma-2-9B's 8 splits of 256 keys as before, Gemma-7B's 5 of
-    416 (13 tiles of 32; 448 in 64-key tiles)."""
+    416 (13 tiles of 32; 448 in 64-key tiles). Gemma's hd-256 chunk counts
+    128-row blocks (2 at g 2 and 1 at g 1 a sequence and kv head: 64
+    blocks), so it cuts 3 splits of 704 keys. The hd-64/96 decode kernel's
+    targets: Phi-3-mini's 256 blocks at 6 an SM cut 4 splits of 512 keys,
+    Qwen2.5-0.5B's 16 at 3 an SM 16 of 128."""
     kps = {label: tpa.kernel_split(8, 1, nh, nkv, 128, 16, torch.bfloat16, H100_SMS, 256)
            for label, nh, nkv in (("Gemma-2-9B", 16, 8), ("Gemma-7B", 16, 16))}
     assert kps == {"Gemma-2-9B": 256, "Gemma-7B": 416}
@@ -499,10 +654,10 @@ def test_paged_split_plan_at_the_families_serving_shapes():
         for mode, b, q_len in (("decode", 8, 1), ("chunk", 4, 128)):
             plan[f"{label} {mode}"] = tpa.paged_splits(16, 128, tpa.kernel_split(
                 b, q_len, nh, nkv, 128, 16, torch.bfloat16, H100_SMS, hd))
-    assert plan == {"Gemma-2-9B decode": 8, "Gemma-2-9B chunk": 2, "Gemma-7B decode": 5,
-                    "Gemma-7B chunk": 2, "Phi-3-mini decode": 3, "Phi-3-mini chunk": 1,
+    assert plan == {"Gemma-2-9B decode": 8, "Gemma-2-9B chunk": 3, "Gemma-7B decode": 5,
+                    "Gemma-7B chunk": 3, "Phi-3-mini decode": 4, "Phi-3-mini chunk": 1,
                     "Qwen2.5-7B decode": 16, "Qwen2.5-7B chunk": 1,
-                    "Qwen2.5-0.5B decode": 32, "Qwen2.5-0.5B chunk": 2}
+                    "Qwen2.5-0.5B decode": 16, "Qwen2.5-0.5B chunk": 2}
 
 
 # (bkv, g, s, kv_len): Gemma-7B's and Gemma-2-9B's prefill, one Gemma-7B
